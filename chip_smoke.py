@@ -7,10 +7,13 @@
    ``event_utils_tpu_torch/csrc`` and prints the build time.
 2. Holds each kernel against its plain PyTorch version at the main path's
    shapes (voxel: 2^21 time-sorted events, B=5, 180x240, also masked and
-   with a t1 override; bilinear: K=1 and K=4 at 181x241 on 200k events,
-   plus autograd gradients; flat: the D=2 derivative stack), and times the
-   kernel, the plain version and one PyTorch library call on the device
-   (CUDA events around CUDA-graph replays; see ``time_ms``).
+   with a t1 override; per-tile voxel: the same stream at 720p bucketed
+   into 80 (96, 128) tiles, the same three cases; bilinear: K=1 and K=4 at
+   181x241 on 200k events, plus autograd gradients, and the patch atlas
+   of one batched ``grid_cmax_batched`` loss evaluation, 5.5M warped
+   events; flat: the D=2 derivative stack), and times the kernel, the
+   plain version and one PyTorch library call on the device (CUDA events
+   around CUDA-graph replays; see ``time_ms``).
 3. Drives the main path through the public entry points with every launch
    count set to 0 first: ``events_to_voxel(impl="matmul")``,
    ``events_to_image(impl="matmul")``, the analytic
@@ -18,7 +21,14 @@
    ``optimize_contrast_jit(grid_search_init=True)`` and
    ``optimize_contrast(grid_search_init=True)`` on a 200k-event DAVIS240
    scene with a planted velocity, which both must recover within 4 px/s.
-   Every kernel must have launched during this phase.
+   Then the ROI-bucketed path: ``events_to_voxel(impl="tiled")`` and
+   ``events_to_voxel_tiled`` at VGA and 720p on 2^21 events (each against
+   the exact route), ``grid_cmax_batched`` on the rotating bench scene
+   (all-ROI median flow error at most 4.5 px/s; again with
+   ``pyramid="auto"``), and the host loop ``grid_cmax`` on one 40x60
+   corner of it. Every kernel must have launched during this phase.
+4. Times the tiled route and its host bucketing alone, warm, and prints
+   the bucketing's share of the route's wall.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -44,16 +54,30 @@ REPS = 20                    # timed graph replays (median)
 CALLS = 10                   # calls captured in each graph
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 F32_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
+TILED_SENSORS = {"VGA": (480, 640), "720p": (720, 1280)}
+TILE = (96, 128)
+ROT_SENSOR = (180, 240)      # the rotating bench scene
+ROT_ROI = (20, 20)
+ROT_EVENTS = 200_000
+ROT_OMEGA = 1.2              # rad/s about the sensor centre
+ROT_CAPACITY = 2048
+ROT_MAXITER = 30
+FLOW_ERR_LIMIT = 4.5         # px/s, all-ROI median against the field
+TILED_REPS = 5               # warm calls timed per route for the share
 SRC = "event_utils_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
     "voxel_scatter": "event_utils_tpu/ops/pallas_scatter.py:113",
+    "voxel_tiles_scatter": "event_utils_tpu/ops/pallas_scatter.py:455",
     "flat_scatter": "event_utils_tpu/ops/pallas_scatter.py:496",
     "bilinear_scatter": "event_utils_tpu/ops/pallas_scatter.py:576",
 }
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    print(f"[{time.perf_counter() - T_START:6.1f} s]", *a, flush=True)
 
 
 def card_line() -> str:
@@ -97,6 +121,16 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bilinear_bound(x, y, K: int, H: int, W: int):
+    """Bound of one (K, H, W) bilinear splat on this run's coordinates: x
+    and y are read for every event, the K weights (and their taps) only
+    for events with a tap inside the image; the kernel drops the others
+    before it reads their weights."""
+    x0, y0 = x.floor(), y.floor()
+    live = int(((x0 >= -1) & (x0 < W) & (y0 >= -1) & (y0 < H)).sum())
+    return bound(len(x) * 8 + live * 4 * K + K * H * W * 4, live * K * 20)
+
+
 def check_close(name, got, ref, rel=1e-5):
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
@@ -107,8 +141,9 @@ def check_close(name, got, ref, rel=1e-5):
     return err
 
 
-def voxel_events(rng):
-    H, W = SENSOR
+def voxel_events(rng, sensor=SENSOR):
+    """N_VOXEL uniform, time-sorted events over ``sensor``."""
+    H, W = sensor
     xs = rng.integers(0, W, N_VOXEL).astype(np.int16)
     ys = rng.integers(0, H, N_VOXEL).astype(np.int16)
     ts = np.sort(rng.uniform(0.0, 0.5, N_VOXEL))
@@ -131,6 +166,166 @@ def planted_scene(rng):
     xs = px[idx] + vx * ts + rng.normal(0, 0.2, N_SCENE)
     ys = py[idx] + vy * ts + rng.normal(0, 0.2, N_SCENE)
     return xs, ys, ts, pol[idx]
+
+
+def rotating_scene(seed=0):
+    """The bench's rotating scene (180x240, 400 points turning at
+    ROT_OMEGA about the centre for 0.2 s, 200k events): the flow varies
+    across the sensor and is ~constant within each 20x20 ROI."""
+    rng = np.random.default_rng(seed)
+    H, W = ROT_SENSOR
+    n_pts = 400
+    px = rng.uniform(10, W - 10, n_pts)
+    py = rng.uniform(10, H - 10, n_pts)
+    pol = rng.choice([-1.0, 1.0], n_pts)
+    cx, cy = W / 2, H / 2
+    idx = rng.integers(0, n_pts, ROT_EVENTS)
+    ts = np.sort(rng.uniform(0, 0.2, ROT_EVENTS))
+    ang = ROT_OMEGA * ts
+    rx = px[idx] - cx
+    ry = py[idx] - cy
+    xs = (cx + np.cos(ang) * rx - np.sin(ang) * ry
+          + rng.normal(0, 0.2, ROT_EVENTS))
+    ys = (cy + np.sin(ang) * rx + np.cos(ang) * ry
+          + rng.normal(0, 0.2, ROT_EVENTS))
+    keep = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+    return xs[keep], ys[keep], ts[keep], pol[idx][keep]
+
+
+def flow_error(params, rois, valid):
+    """All-valid-ROI median |v - v_true| (px/s) against the rotation field
+    at each ROI centre."""
+    p, r, v = (a.cpu().numpy() for a in (params, rois, valid))
+    cx, cy = ROT_SENSOR[1] / 2, ROT_SENSOR[0] / 2
+    gt = np.stack([-ROT_OMEGA * (r[:, 0] + ROT_ROI[0] / 2 - cy),
+                   ROT_OMEGA * (r[:, 1] + ROT_ROI[1] / 2 - cx)], 1)
+    return float(np.median(np.linalg.norm(p - gt, axis=1)[v])), int(v.sum())
+
+
+def tiles_phase(torch, cs, rng, records):
+    """The per-tile voxel kernel at 720p: 2^21 events bucketed into
+    80 (96, 128) tiles by the port's bucket_events_by_roi."""
+    from event_utils_tpu_torch.contrast_max import bucket_events_by_roi
+    dev = torch.device("cuda")
+    H, W = TILED_SENSORS["720p"]
+    th, tw = TILE
+    ny, nx = -(-H // th), -(-W // tw)
+    xs, ys, ts, ps = voxel_events(rng, (H, W))
+    bx, by, bt, bp, bmask, org, _ = bucket_events_by_roi(
+        xs, ys, ts, ps, (ny * th, nx * tw), TILE, capacity_cap=None,
+        device=dev)
+    T, cap = bx.shape
+    log(f"per-tile voxel: T={T} tiles, capacity {cap}, {N_VOXEL} events")
+    lx = bx.int() - org[:, 1:2].int()
+    ly = by.int() - org[:, 0:1].int()
+    keep = torch.as_tensor(rng.random((T, cap)) > 0.2, device=dev).float()
+    errs = []
+    for label, mask, t1 in (("plain window", bmask, ts[-1]),
+                            ("masked", bmask * keep, ts[-1]),
+                            ("t1 override", bmask, ts[N_VOXEL // 2])):
+        args = cs.voxel_tiles_inputs(lx, ly, bt, bp, B, TILE, ts[0], t1,
+                                     mask=mask)
+        errs.append(check_close(
+            f"voxel_tiles_scatter ({label})",
+            cs.voxel_tiles_scatter(*args, B, th, tw),
+            cs.voxel_tiles_scatter_plain(*args, B, th, tw)))
+    args = cs.voxel_tiles_inputs(lx, ly, bt, bp, B, TILE, ts[0], ts[-1],
+                                 mask=bmask)
+    t_norm, pv = args[2], args[3]
+    b0 = torch.floor(t_norm)
+    base = (torch.arange(T, device=dev)[:, None] * B * th * tw
+            + args[1].long() * tw + args[0].long())
+    ids, vals = [], []
+    for b, wt in ((b0, pv * (1 - (t_norm - b0))), (b0 + 1, pv * (t_norm - b0))):
+        # dead taps are left out, as for the bilinear library call
+        ok = (b >= 0) & (b < B) & (pv != 0)
+        ids.append((base + b.long() * th * tw)[ok])
+        vals.append(wt[ok])
+    ids, vals = torch.cat(ids), torch.cat(vals)
+    # the kernel reads bp (4 B) of every slot, and bx, by, t_norm (12 B)
+    # only of the live ones; dead slots hold the pad sentinel bp = 0
+    live = int((pv != 0).sum())
+    log(f"  {live} live slots of {T * cap}")
+    records["voxel_tiles_scatter"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: cs.voxel_tiles_scatter(*args, B, th, tw), torch),
+        plain_ms=time_ms(lambda: cs.voxel_tiles_scatter_plain(*args, B, th,
+                                                              tw), torch),
+        library_ms=time_ms(lambda: torch.zeros(T * B * th * tw, device=dev)
+                           .index_put_((ids,), vals, accumulate=True), torch),
+        bound=bound(T * cap * 4 + live * 12 + T * B * th * tw * 4, live * 8))
+
+
+def bilinear_times(torch, cs, x, y, w1, H, W):
+    """Kernel, plain and ``index_put_`` times and the bound of one K=1
+    bilinear splat of ``w1`` (1, N) at (x, y) into (H, W); the kernel is
+    also held against its plain version on these inputs."""
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    taps_i, taps_v = [], []
+    for oy, wy in ((0, 1 - (y - y0)), (1, y - y0)):
+        for ox, wx in ((0, 1 - (x - x0)), (1, x - x0)):
+            ok = ((x0 + ox >= 0) & (x0 + ox < W) & (y0 + oy >= 0)
+                  & (y0 + oy < H))
+            # taps outside the image are left out: sent to one id with
+            # weight 0 they would serialise index_put_'s duplicate runs
+            taps_i.append(((y0 + oy) * W + x0 + ox)[ok].long())
+            taps_v.append((w1[0] * wx * wy)[ok])
+    bi, bv = torch.cat(taps_i), torch.cat(taps_v)
+    shape = f"K=1, {len(x)} events into {H}x{W}"
+    rec = dict(
+        shape=shape,
+        max_abs_err=check_close(f"bilinear_scatter ({shape})",
+                                cs.bilinear_scatter(x, y, w1, H, W),
+                                cs.bilinear_scatter_plain(x, y, w1, H, W)),
+        ms=time_ms(lambda: cs.bilinear_scatter(x, y, w1, H, W), torch),
+        plain_ms=time_ms(lambda: cs.bilinear_scatter_plain(x, y, w1, H, W),
+                         torch),
+        library_ms=time_ms(lambda: torch.zeros(H * W, device=x.device)
+                           .index_put_((bi,), bv, accumulate=True), torch),
+        bound=bilinear_bound(x, y, 1, H, W))
+    log(f"  timed: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+        f"ms, index_put_ {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound'][0]:.5f} ms")
+    return rec
+
+
+def patch_atlas_inputs(torch):
+    """The bilinear kernel's inputs in one evaluation of the batched patch
+    loss of ``grid_cmax_batched``'s first grid-search step: the rotating
+    scene bucketed into 108 ROIs at capacity 2048, 25 velocity samples per
+    ROI, every patch splatted into one atlas. Returns (x, y, w, H, W),
+    captured at the loss's call of ``bilinear_matmul``."""
+    from event_utils_tpu_torch.contrast_max import events_cmax as ec
+    from event_utils_tpu_torch.contrast_max import linvel_warp
+    dev = torch.device("cuda")
+    H, W = ROT_SENSOR
+    bx, by, bt, bp, bm, org, _ = ec.bucket_events_by_roi(
+        *rotating_scene(), ROT_SENSOR, ROT_ROI, ROT_CAPACITY, device=dev)
+    R = bx.shape[0]
+    loss = ec.make_patch_loss(linvel_warp(), ROT_ROI, "variance",
+                              full_pixels=(H + 1) * (W + 1))
+    g = torch.linspace(-150.0, 150.0, 5, device=dev)
+    params = torch.stack(torch.meshgrid(g, g, indexing="ij"), -1)
+    params = params.reshape(1, 25, 2).expand(R, 25, 2)
+    seen = []
+    splat = ec.bilinear_matmul
+
+    def capture(x, y, w, shape, **kw):
+        seen.append((x, y, w, shape))
+        return splat(x, y, w, shape, **kw)
+
+    ec.bilinear_matmul = capture
+    try:
+        with torch.no_grad():
+            loss(params, bx, by, bt, bp, bm, org.float())
+    finally:
+        ec.bilinear_matmul = splat
+    x, y, w, (AH, AW) = seen[0]
+    log(f"patch atlas: {R} ROIs x 25 samples, {x.numel()} warped events "
+        f"into {AH}x{AW}")
+    return (x.float().contiguous(), y.float().contiguous(),
+            w.float().contiguous(), AH, AW)
 
 
 def kernel_phase(torch, cs, rng, records):
@@ -169,6 +364,8 @@ def kernel_phase(torch, cs, rng, records):
         library_ms=time_ms(lib, torch),
         bound=bound(N_VOXEL * 16 + B * H * W * 4, N_VOXEL * 8))
 
+    tiles_phase(torch, cs, rng, records)
+
     # ---- bilinear ----------------------------------------------------------
     HP, WP = H + 1, W + 1
     n = N_SCENE
@@ -197,42 +394,33 @@ def kernel_phase(torch, cs, rng, records):
         grads.append(torch.autograd.grad(loss, (xg, yg, wg)))
     for name, gk, gp in zip("xyw", *grads):
         errs.append(check_close(f"bilinear grad d{name}", gk, gp, rel=1e-4))
-    w1 = w4[:1].contiguous()
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    taps_i, taps_v = [], []
-    for oy, wy in ((0, 1 - (y - y0)), (1, y - y0)):
-        for ox, wx in ((0, 1 - (x - x0)), (1, x - x0)):
-            ok = ((x0 + ox >= 0) & (x0 + ox < WP) & (y0 + oy >= 0)
-                  & (y0 + oy < HP))
-            taps_i.append(torch.where(ok, (y0 + oy) * WP + x0 + ox, 0).long())
-            taps_v.append(torch.where(ok, w1[0] * wx * wy, 0.0))
-    bi, bv = torch.cat(taps_i), torch.cat(taps_v)
-    records["bilinear_scatter"] = dict(
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: cs.bilinear_scatter(x, y, w1, HP, WP), torch),
-        plain_ms=time_ms(lambda: cs.bilinear_scatter_plain(x, y, w1, HP, WP),
-                         torch),
-        library_ms=time_ms(lambda: torch.zeros(HP * WP, device=dev)
-                           .index_put_((bi,), bv, accumulate=True), torch),
-        bound=bound(n * 12 + HP * WP * 4, n * 20))
+    rec = bilinear_times(torch, cs, x, y, w4[:1].contiguous(), HP, WP)
+    # the patch atlas of grid_cmax_batched's loss, the path's largest launch
+    atlas = bilinear_times(torch, cs, *patch_atlas_inputs(torch))
+    rec["cases"] = [
+        dict({k: c[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                "max_abs_err")}, bound_ms=c["bound"][0])
+        for c in (rec, atlas)]
+    rec["max_abs_err"] = max(errs + [rec["max_abs_err"],
+                                     atlas["max_abs_err"]])
+    records["bilinear_scatter"] = rec
 
     # ---- flat: the D=2 derivative stack of bilinear_scatter_derivative ----
     jx = torch.stack([-(torch.rand(n, device=dev) * 0.25),
                       torch.zeros(n, device=dev)])
     jy = jx.flip(0).contiguous()
     from event_utils_tpu_torch.ops.scatter import derivative_taps
-    fi, fw = derivative_taps(x, y, jx, jy, w1[0], (HP, WP))
+    fi, fw = derivative_taps(x, y, jx, jy, w4[0], (HP, WP))
     fi = fi.to(torch.int32).contiguous()
     fw = fw.contiguous()
     nb = HP * WP
     D, m = fw.shape
     err = check_close("flat_scatter (D=2)", cs.flat_scatter(fi, fw, nb),
                       cs.flat_scatter_plain(fi, fw, nb))
-    ok = (fi >= 0) & (fi < nb)
-    lid = (torch.arange(D, device=dev)[:, None] * nb
-           + torch.where(ok, fi, 0).long()[None, :]).reshape(-1)
-    lv = torch.where(ok[None, :], fw, 0.0).reshape(-1)
+    # dropped ids are left out, as for the bilinear library call
+    ok = ((fi >= 0) & (fi < nb))[None, :].expand(D, m)
+    lid = (torch.arange(D, device=dev)[:, None] * nb + fi.long()[None, :])[ok]
+    lv = fw[ok]
     records["flat_scatter"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: cs.flat_scatter(fi, fw, nb), torch),
@@ -292,6 +480,94 @@ def main_path(torch, P, rng):
         log(f"  {label}: v={v.tolist()} |err|max={err:.3f} px/s")
         if not err <= 4.0:
             raise AssertionError(f"{label} missed the planted velocity")
+    roi_path(torch, P, rng, timed)
+
+
+def roi_path(torch, P, rng, timed):
+    """The ROI-bucketed path: tiled voxel grids at VGA and 720p, then the
+    per-ROI flow solvers on the rotating bench scene."""
+    from event_utils_tpu_torch.contrast_max import grid_cmax, grid_cmax_batched
+    from event_utils_tpu_torch.representations import (events_to_voxel,
+                                                       events_to_voxel_tiled)
+    for name, (H, W) in TILED_SENSORS.items():
+        xs, ys, ts, ps = voxel_events(rng, (H, W))
+        exact = events_to_voxel(xs, ys, ts, ps, B, sensor_size=(H, W),
+                                impl="xla")
+        grids = {
+            "impl='tiled'": timed(
+                f"events_to_voxel(impl='tiled') {name} {(H, W)}",
+                lambda: events_to_voxel(xs, ys, ts, ps, B, sensor_size=(H, W),
+                                        impl="tiled")),
+            "events_to_voxel_tiled": timed(
+                f"events_to_voxel_tiled {name}",
+                lambda: events_to_voxel_tiled(xs, ys, ts, ps, B, (H, W)))}
+        for label, grid in grids.items():
+            check_close(f"{label} {name} vs the exact 'xla' route", grid,
+                        exact)
+
+    sx, sy, st, sp = rotating_scene()
+    log(f"  rotating scene: {len(sx)} events, omega={ROT_OMEGA} rad/s, "
+        f"ROI {ROT_ROI}, capacity {ROT_CAPACITY}, maxiter {ROT_MAXITER}")
+    kw = dict(roi_size=ROT_ROI, img_size=ROT_SENSOR, maxiter=ROT_MAXITER,
+              capacity=ROT_CAPACITY)
+    for label, extra in (("grid_cmax_batched", {}),
+                         ("grid_cmax_batched(pyramid='auto')",
+                          {"pyramid": "auto"})):
+        params, rois, f_evals, valid = timed(
+            label, lambda: grid_cmax_batched(sx, sy, st, sp, **kw, **extra))
+        if not bool(torch.isfinite(params).all()):
+            raise AssertionError(f"{label}: non-finite params")
+        err, n_valid = flow_error(params, rois, valid)
+        log(f"  {label}: all-ROI median flow error {err:.3f} px/s over "
+            f"{n_valid} valid ROIs (limit {FLOW_ERR_LIMIT} for the plain "
+            f"solve)")
+        if not extra and not err <= FLOW_ERR_LIMIT:
+            raise AssertionError(f"{label}: median flow error {err} px/s")
+
+    corner = (sx < 60) & (sy < 40)
+    params, rois, _ = timed("grid_cmax (host loop, one 40x60 corner)",
+                            lambda: grid_cmax(sx[corner], sy[corner],
+                                              st[corner], sp[corner],
+                                              roi_size=ROT_ROI,
+                                              img_size=ROT_SENSOR))
+    log(f"  grid_cmax: {len(params)} ROIs, params "
+        f"{np.round(np.array(params), 3).tolist()}")
+    if len(params) != 6 or not all(np.isfinite(p).all() for p in params):
+        raise AssertionError(f"grid_cmax: {params} over {rois}")
+
+
+def bucketing_share(torch, rng):
+    """Share of the tiled voxel route's wall that the host bucketing takes:
+    warm medians over TILED_REPS calls of each, alternated, at VGA and
+    720p (run after the launch counts are read)."""
+    from event_utils_tpu_torch.contrast_max import bucket_events_by_roi
+    from event_utils_tpu_torch.representations import events_to_voxel_tiled
+    dev = torch.device("cuda")
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for name, (H, W) in TILED_SENSORS.items():
+        xs, ys, ts, ps = voxel_events(rng, (H, W))
+        ny, nx = -(-H // TILE[0]), -(-W // TILE[1])
+        route = lambda: events_to_voxel_tiled(xs, ys, ts, ps, B, (H, W),
+                                              device=dev)
+        bucket = lambda: bucket_events_by_roi(
+            xs, ys, ts, ps, (ny * TILE[0], nx * TILE[1]), TILE,
+            capacity_cap=None, device=dev)
+        route(), bucket()
+        walls, buckets = [], []
+        for _ in range(TILED_REPS):
+            walls.append(wall(route))
+            buckets.append(wall(bucket))
+        w, b = float(np.median(walls)), float(np.median(buckets))
+        log(f"  tiled route {name}: wall {w:.4f} s, host bucketing (with "
+            f"its copies to the card) {b:.4f} s, share {b / w:.3f} "
+            f"(medians of {TILED_REPS}, warm)")
 
 
 def main() -> int:
@@ -326,6 +602,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    bucketing_share(torch, rng)
 
     kernels = []
     for name, rec in records.items():
@@ -335,7 +612,8 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": rec["library_ms"]})
+            "bound_by": bound_by, "library_ms": rec["library_ms"],
+            **({"cases": rec["cases"]} if "cases" in rec else {})})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

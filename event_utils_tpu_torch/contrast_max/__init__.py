@@ -1,4 +1,4 @@
-"""Contrast maximisation: optimizers and grid search.
+"""Contrast maximisation: optimizers, grid search and the ROI-tiled solvers.
 
 Warp models and objectives live in ``event_utils_tpu_torch.models`` and are
 re-exported here, as in the JAX package.
@@ -29,14 +29,30 @@ from ..models.warps import (  # noqa: F401
 )
 from .bfgs import minimize_bfgs  # noqa: F401
 from .events_cmax import (  # noqa: F401
+    AUTO_MAG_FLOOR,
+    AUTO_REL_COH_TAU,
+    AUTO_SCENE_FRAC,
+    OVERFLOW_CAP_MAX,
+    PATCH_DEFAULT,
+    bucket_events_by_roi,
     find_new_range,
+    fit_global_motion,
+    get_hsv_shifted,
+    grid_cmax,
+    grid_cmax_batched,
     grid_search_initial,
     grid_search_optimisation,
     grid_search_refine,
+    grid_search_refine_batched,
     make_objective_loss,
+    make_patch_loss,
+    make_patch_variance_loss,
+    make_roi_solve_one,
     optimize,
     optimize_contrast,
     optimize_contrast_jit,
     optimize_r2,
     recursive_search,
+    segmentation_mask_from_d_iwe,
+    xyztheta_velocity_at,
 )

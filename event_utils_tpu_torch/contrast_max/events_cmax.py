@@ -1,16 +1,21 @@
-"""Contrast-maximisation drivers: gradient optimizers and grid search
-(port of ``event_utils_tpu.contrast_max.events_cmax``, its lines 40-505).
+"""Contrast maximisation: gradient optimizers, grid search and the
+ROI-tiled solvers (port of ``event_utils_tpu.contrast_max.events_cmax``).
 
-Two paths, as in the JAX package:
+Three paths, as in the JAX package:
 
 * **Host-driven parity path** — ``optimize_contrast`` / ``optimize`` /
   ``optimize_r2`` keep the reference's scipy-BFGS driver semantics
   (reference events_cmax.py:313-389), including the per-iteration
   adaptive-lifespan callback. ``fprime`` is torch autograd through the
-  scatter kernels.
+  scatter kernels. ``grid_cmax`` loops it over ROIs.
 * **Whole-solve path** — ``optimize_contrast_jit`` runs the coarse-to-fine
   grid search and a BFGS (``contrast_max.bfgs``, a port of
   ``jax.scipy.optimize.minimize``) with every evaluation on the device.
+* **ROI-bucketed path** — ``bucket_events_by_roi`` packs the events into
+  (R, capacity) batches on the host; ``grid_cmax_batched`` solves every
+  ROI at once, each evaluation one batched ``make_patch_loss`` (one launch
+  of the CUDA bilinear kernel for all ROIs and grid samples), where JAX
+  vmaps a per-ROI solver. ``fit_global_motion`` seeds its pyramid.
 
 Divergence from the JAX package: the scipy driver and the SOFAS grid search
 form the IWE with the 'matmul' route (``DEFAULT_IWE_IMPL``), the
@@ -19,25 +24,31 @@ does by default. (The JAX host path used the exact XLA scatter; on the card
 that would be ``index_add_``, which computes the same f32 sums.) On CPU
 tensors 'matmul' is the kernel's plain f32 version.
 
-Not yet ported: ``make_patch_loss``, ``grid_cmax_batched``, ``grid_cmax``
-and the rest of the module.
+Not ported: the JAX package's ``native.bucket_fill`` shortcut of the
+bucketing (the numpy fill computes the same arrays) and
+``draw_objective_function`` (a matplotlib plot).
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import scipy.optimize as sciopt
 import torch
+import torch.nn.functional as F
 
-from .._device import as_f32, as_tensor, pick_device, to_numpy
+from .._device import as_f32, as_tensor, no_tf32, pick_device, to_numpy
 from ..errors import ConfigurationError
-from ..models.objectives import get_iwe, objective_function, soe_objective
-from ..models.warps import linvel_warp, warp_function
-from ..ops.blur import gaussian_filter
-from ..utils.event_util import lifespan_mask
+from ..models.objectives import (OBJECTIVE_REGISTRY, get_iwe,
+                                 objective_function, soe_objective,
+                                 variance_objective)
+from ..models.warps import linvel_warp, warp_function, xyztheta_warp
+from ..ops.blur import gaussian_filter, gaussian_kernel1d
+from ..ops.cuda_scatter import bilinear_matmul
+from ..utils.event_util import infer_resolution, lifespan_mask
 from .bfgs import minimize_bfgs
 
 DEFAULT_IWE_IMPL = "matmul"
@@ -378,34 +389,909 @@ def grid_search_refine(loss_fn: Callable, dims: int, init_range=150.0,
     """
     del th0
     dev = pick_device(init_range, device=device)
+    r0 = torch.as_tensor(init_range, dtype=torch.float32, device=dev)
+
+    def batched_loss(coords):  # (1, S, dims) -> (1, S)
+        return torch.stack([loss_fn(c) for c in coords[0]])[None]
+
+    best_p, best_e = grid_search_refine_batched(
+        batched_loss, dims, r0.reshape(1), num_samples_per_param, log_scale,
+        iters)
+    return best_p[0], best_e[0]
+
+
+def grid_search_refine_batched(loss_fn: Callable, dims: int, init_range,
+                               num_samples_per_param: int = 5,
+                               log_scale: bool = False, iters: int = 8):
+    """``grid_search_refine`` for R independent problems at once (the JAX
+    package's ``vmap`` over ROIs, ``events_cmax.py:423-468``).
+
+    ``init_range`` is an (R,) tensor of per-problem half-ranges;
+    ``loss_fn(coords)`` maps (R, S, dims) parameter samples to (R, S)
+    losses in one evaluation. Returns ``(best_params (R, dims),
+    best_eval (R,))``; nothing is read back to the host.
+    """
+    r0 = torch.as_tensor(init_range, dtype=torch.float32)
+    dev = r0.device
+    R = r0.shape[0]
     scale = torch.as_tensor(_sample_scale(num_samples_per_param, log_scale),
                             dtype=torch.float32, device=dev)
-
-    def sample_axis(lo, hi):
-        rng = hi - lo
-        mid = lo + rng / 2.0
-        pos = mid + scale * (rng / 2.0)
-        neg = torch.flip(mid - scale * (rng / 2.0), dims=(0,))
-        return torch.cat([neg, mid[None], pos])
-
-    r0 = torch.as_tensor(init_range, dtype=torch.float32, device=dev)
-    ranges = torch.stack([-r0, r0])[None, :].repeat(dims, 1)
-    best_p = torch.zeros((dims,), dtype=torch.float32, device=dev)
-    best_e = torch.tensor(torch.inf, dtype=torch.float32, device=dev)
+    n_axis = 2 * scale.shape[0] + 1
+    # meshgrid(indexing='ij') order of the samples, as (S, dims) indices
+    grid_idx = np.stack(np.meshgrid(*[np.arange(n_axis)] * dims,
+                                    indexing="ij"), -1).reshape(-1, dims)
+    grid_idx = torch.as_tensor(grid_idx, device=dev)
+    dim_idx = torch.arange(dims, device=dev)[None, :]
+    rows = torch.arange(R, device=dev)
+    ranges = torch.stack([-r0, r0], -1)[:, None, :].expand(R, dims, 2)
+    best_p = torch.zeros((R, dims), dtype=torch.float32, device=dev)
+    best_e = torch.full((R,), torch.inf, dtype=torch.float32, device=dev)
     with torch.no_grad():
         for _ in range(iters):
-            axes = torch.stack([sample_axis(ranges[d, 0], ranges[d, 1])
-                                for d in range(dims)])  # (dims, S)
-            mesh = torch.stack(torch.meshgrid(*[axes[d] for d in range(dims)],
-                                              indexing="ij"), dim=-1)
-            coords = mesh.reshape(-1, dims)
-            evals = torch.stack([loss_fn(c) for c in coords])
-            best = torch.argmin(evals)
-            cand_p = coords[best]
-            cand_e = evals[best]
+            lo, hi = ranges[..., 0:1], ranges[..., 1:2]
+            rng = hi - lo
+            mid = lo + rng / 2.0
+            pos = mid + scale * (rng / 2.0)
+            neg = torch.flip(mid - scale * (rng / 2.0), dims=(-1,))
+            axes = torch.cat([neg, mid, pos], -1)            # (R, dims, n)
+            coords = axes[:, dim_idx, grid_idx]              # (R, S, dims)
+            evals = loss_fn(coords)
+            best = torch.argmin(evals, dim=-1)
+            cand_p = coords[rows, best]
+            cand_e = evals[rows, best]
             better = cand_e < best_e
-            best_p = torch.where(better, cand_p, best_p)
+            best_p = torch.where(better[:, None], cand_p, best_p)
             best_e = torch.where(better, cand_e, best_e)
-            step = (axes[:, 1:] - axes[:, :-1]).max(dim=1).values
-            ranges = torch.stack([cand_p - step, cand_p + step], dim=-1)
+            step = (axes[..., 1:] - axes[..., :-1]).amax(-1)
+            ranges = torch.stack([cand_p - step, cand_p + step], -1)
     return best_p, best_e
+
+
+# ---------------------------------------------------------------------------
+# ROI-tiled contrast maximisation (grid_cmax)
+# ---------------------------------------------------------------------------
+
+# Default ROI patch window: 20x20 ROIs centred with generous warp margins.
+# Shared by make_patch_loss and the ROI solver's velocity cap so they can
+# never desync.
+PATCH_DEFAULT = (64, 128)
+
+# pyramid='auto' selector threshold: an ROI whose plain-solve flow field is
+# locally incoherent — 3x3-median deviation-from-neighbour-median above this
+# fraction of the local flow magnitude — takes the pyramid field instead of
+# its own answer. AUTO_MAG_FLOOR (px/s) keeps the normaliser away from zero
+# in near-static regions. The values are the JAX package's (tuned there on
+# its per-ROI oracle study, events_cmax.py:480-503).
+AUTO_REL_COH_TAU = 0.2
+AUTO_MAG_FLOOR = 5.0
+# Scene-level escalation: when more than this fraction of valid ROIs is
+# individually incoherent, 'auto' takes the whole pyramid field (with its
+# median smoothing) instead of mixing per ROI.
+AUTO_SCENE_FRAC = 0.5
+
+# Hard memory bound on the overflow-refine tier's per-ROI capacity: beyond
+# this, tier 2 itself subsamples (and grid_cmax_batched warns).
+OVERFLOW_CAP_MAX = 1 << 17
+
+PATCH_OBJECTIVES = ("variance", "sos", "rms", "soe", "sosa", "isoa", "moa",
+                    "r1", "zhu")
+
+
+def _patch_atlas(P: int, PH: int, PW: int):
+    """(nrow, ncol) of a near-square grid holding P patches of (PH, PW)."""
+    ncol = max(1, int(round(math.sqrt(P * PH / PW))))
+    return -(-P // ncol), ncol
+
+
+def _zero_pad_blur(img, k1d):
+    """Separable 'same' blur with zero padding over the last two axes
+    (the JAX patch loss's ``conv_general_dilated`` pair)."""
+    if k1d is None:
+        return img
+    k = torch.as_tensor(k1d, dtype=torch.float32, device=img.device)
+    r = k.shape[0] // 2
+    lead, (h, w) = img.shape[:-2], img.shape[-2:]
+    x = img.reshape(-1, 1, h, w)
+    with no_tf32():
+        x = F.conv2d(x, k.view(1, 1, -1, 1), padding=(r, 0))
+        x = F.conv2d(x, k.view(1, 1, 1, -1), padding=(0, r))
+    return x.reshape(*lead, h, w)
+
+
+def make_patch_loss(warpfunc, roi_size, objective=None, patch=PATCH_DEFAULT,
+                    blur_sigma: float = 1.0,
+                    full_pixels: Optional[int] = None):
+    """Per-ROI objective loss over patch-local IWEs, batched over ROIs and
+    parameter samples (``make_patch_loss``, JAX ``events_cmax.py:506-662``).
+
+    Each ROI's warped events are splatted bilinearly into a ``patch``
+    window centred on the ROI; the full-frame loss is recovered
+    analytically from patch sums (P = patch pixels, FP = full-frame pixels,
+    pixels outside the patch hold 0):
+
+      variance   -(Q/FP - (S/FP)^2)
+      sos, rms   -Q/FP
+      soe        -(sum exp(iwe) + (FP - P)) / FP
+      sosa       -(sum exp(-p iwe) + (FP - P))
+      r1         -(Q/FP) * (sum exp(-p iwe) + (FP - P))
+      isoa       the objective's sigmoid surrogate ``soft_loss_fn``
+      moa        -max(max iwe, 0)
+      zhu        +(sum T_pos^2 + sum T_neg^2) over patch timestamp images
+
+    Divergences kept from the JAX package: events warped beyond the patch
+    are dropped, and the blur halo outside the patch is ignored.
+
+    The accumulation differs in method, not in function: JAX forms each
+    patch as a bf16 one-hot matmul ``A @ V``; here every patch of one
+    evaluation goes through ONE launch of the CUDA bilinear kernel, into a
+    near-square atlas of patches. An event with a tap outside its patch has
+    weight 0 (as in JAX), so no tap crosses into a neighbouring patch, and
+    the kernel's autograd backward gives the gradient through the bilinear
+    fractions. The atlas offsets ride on the f32 coordinates: at the bench
+    scene's 2700 patches (108 ROIs x 25 samples) they reach ~4.7e3 px,
+    where f32 keeps the bilinear fractions to ~5e-4 px — inside the bf16
+    class (~4e-3 relative) of the JAX product.
+
+    Returns ``loss(params, ex, ey, et, ep, mask, origin_yx)``. Events are
+    (R, C) per-ROI batches with (R, 2) origins; ``params`` (R, dims) gives
+    (R,) losses and (R, S, dims) gives (R, S). One ROI as 1-D (C,) events
+    with (dims,) or (S, dims) params gives a scalar or (S,). Differentiable
+    in ``params``.
+    """
+    if objective is None or isinstance(objective, str):
+        objective = OBJECTIVE_REGISTRY[objective or "variance"]()
+    name = objective.name
+    use_polarity = getattr(objective, "use_polarity", True)
+    p_sup = float(getattr(objective, "p", 3))
+    PH, PW = patch
+    rh, rw = roi_size
+    blur_k = (gaussian_kernel1d(blur_sigma)
+              if blur_sigma and blur_sigma > 0 else None)
+    FP = float(full_pixels if full_pixels is not None else PH * PW)
+    Pp = float(PH * PW)
+
+    def loss(params, ex, ey, et, ep, mask, origin_yx):
+        dev = ex.device
+        single = ex.dim() == 1
+        params = torch.as_tensor(params, dtype=torch.float32, device=dev)
+        origin_yx = torch.as_tensor(origin_yx, dtype=torch.float32,
+                                    device=dev)
+        mask = torch.as_tensor(mask, device=dev).to(torch.float32)
+        if single:
+            ex, ey, et, ep, mask = (a[None] for a in (ex, ey, et, ep, mask))
+            params, origin_yx = params[None], origin_yx[None]
+        no_samples = params.dim() == 2
+        if no_samples:
+            params = params[:, None]
+        R, S, _ = params.shape
+        on = mask != 0
+        any_valid = on.any(-1)
+        # empty ROIs (all-zero mask): pin t0 to 0 for a finite zero-IWE loss
+        t0 = torch.where(any_valid,
+                         torch.where(on, et, -torch.inf).amax(-1), 0.0)
+        # warp_fn indexes params[d]: put the parameter axis first so that
+        # each (R, S, 1) slice broadcasts against the (R, 1, C) events
+        xw, yw = warpfunc.warp_fn(params.movedim(-1, 0)[..., None],
+                                  ex[:, None], ey[:, None], et[:, None],
+                                  t0[:, None, None])
+        px = xw - (origin_yx[:, 1] + rw / 2.0 - PW / 2.0)[:, None, None]
+        py = yw - (origin_yx[:, 0] + rh / 2.0 - PH / 2.0)[:, None, None]
+        w_pol = ep if use_polarity else torch.abs(ep)
+        w = (w_pol * mask)[:, None, :]
+        x0 = torch.floor(px)
+        y0 = torch.floor(py)
+        inpatch = (x0 >= 0) & (x0 + 1 < PW) & (y0 >= 0) & (y0 + 1 < PH)
+        nrow, ncol = _patch_atlas(R * S, PH, PW)
+        q = torch.arange(R * S, device=dev).view(R, S, 1)
+        ax = torch.where(inpatch, px + (q % ncol * PW).float(), -2.0)
+        ay = torch.where(inpatch, py + (q // ncol * PH).float(), -2.0)
+        inw = inpatch.to(torch.float32)
+
+        def accumulate(wk):
+            """(K, R, S, PH, PW) bilinear patches of the weights wk
+            (K, R, 1 or S, C); taps outside their patch get weight 0."""
+            K = wk.shape[0]
+            wk = (wk * inw).reshape(K, -1)
+            img = bilinear_matmul(ax.reshape(-1), ay.reshape(-1), wk,
+                                  (nrow * PH, ncol * PW))
+            img = img.view(K, nrow, PH, ncol, PW).permute(0, 1, 3, 2, 4)
+            return img.reshape(K, nrow * ncol, PH, PW)[:, :R * S].reshape(
+                K, R, S, PH, PW)
+
+        if name == "zhu":
+            t_first = torch.where(
+                any_valid, torch.where(on, et, torch.inf).amin(-1), 0.0)
+            nt = ((et - t_first[:, None])
+                  / (t0 - t_first + 1e-6)[:, None])[:, None, :]
+            posw = (ep > 0).to(torch.float32)[:, None, :] * mask[:, None, :]
+            negw = (ep <= 0).to(torch.float32)[:, None, :] * mask[:, None, :]
+            tpos, cpos, tneg, cneg = accumulate(torch.stack(
+                [nt * posw, posw, nt * negw, negw]))
+            pos = _zero_pad_blur(tpos / (1.0 + cpos), blur_k)
+            neg = _zero_pad_blur(tneg / (1.0 + cneg), blur_k)
+            out = (pos * pos).sum((-2, -1)) + (neg * neg).sum((-2, -1))
+        else:
+            iwe = _zero_pad_blur(accumulate(w[None])[0], blur_k)
+            Q = (iwe * iwe).sum((-2, -1))
+            if name in ("sos", "rms"):
+                out = -Q / FP
+            elif name == "soe":
+                out = -(torch.exp(iwe).sum((-2, -1)) + (FP - Pp)) / FP
+            elif name == "sosa":
+                out = -(torch.exp(-p_sup * iwe).sum((-2, -1)) + (FP - Pp))
+            elif name == "r1":
+                sosa = torch.exp(-p_sup * iwe).sum((-2, -1)) + (FP - Pp)
+                out = -(Q / FP) * sosa
+            elif name == "isoa":
+                # the objective's own surrogate, once per patch; the zero
+                # pixels outside the patch add a params-independent constant
+                out = torch.func.vmap(objective.soft_loss_fn)(
+                    iwe.reshape(-1, PH, PW)).view(R, S)
+            elif name == "moa":
+                out = -torch.clamp(iwe.amax((-2, -1)), min=0.0)
+            else:  # variance
+                out = -(Q / FP - (iwe.sum((-2, -1)) / FP) ** 2)
+        if no_samples:
+            out = out[:, 0]
+        return out[0] if single else out
+
+    return loss
+
+
+def make_patch_variance_loss(warpfunc, roi_size, patch=(64, 128),
+                             blur_sigma: float = 1.0,
+                             full_pixels: Optional[int] = None,
+                             objective: str = "variance"):
+    """Backward-compatible alias of :func:`make_patch_loss`."""
+    return make_patch_loss(warpfunc, roi_size, objective, patch=patch,
+                           blur_sigma=blur_sigma, full_pixels=full_pixels)
+
+
+def grid_cmax(xs, ys, ts, ps, roi_size=(20, 20), step=None, warp=None,
+              obj=None, min_events: int = 10, img_size=None, device=None):
+    """Per-ROI contrast maximisation, host loop (reference
+    events_cmax.py:28-76; JAX ``events_cmax.py:674-719``).
+
+    Each ROI with more than ``min_events`` events runs two
+    ``optimize_contrast`` stages (grid-search init with blur 2, then blur
+    1) and reports its objective over the full-sensor IWE. As in the JAX
+    package the passed ``warp``/``obj`` are honoured, and ``step`` is both
+    the stride and the window extent (reference quirk). For throughput use
+    :func:`grid_cmax_batched`. Returns ``(params, rois, f_evals)`` lists.
+    """
+    step = roi_size if step is None else step
+    dev, (txs, tys, tts, tps) = _events(xs, ys, ts, ps, device)
+    xs, ys, ts, ps = map(to_numpy, (txs, tys, tts, tps))
+    resolution = infer_resolution(xs, ys) if img_size is None else img_size
+    warp = linvel_warp() if warp is None else warp
+
+    results_params, results_rois, results_f_evals = [], [], []
+    for xc in range(0, resolution[1], step[1]):
+        in_x = (xs >= xc) & (xs < xc + step[1])
+        for yc in range(0, resolution[0], step[0]):
+            sel = in_x & (ys >= yc) & (ys < yc + step[0])
+            roi = tuple(a[sel] for a in (xs, ys, ts, ps))
+            if len(roi[0]) > min_events:
+                roi_obj = (variance_objective(adaptive_lifespan=True,
+                                              minimum_events=105)
+                           if obj is None else copy.deepcopy(obj))
+                params = optimize_contrast(*roi, warp, roi_obj,
+                                           numeric_grads=False,
+                                           blur_sigma=2.0,
+                                           img_size=resolution,
+                                           grid_search_init=True, device=dev)
+                params = optimize_contrast(*roi, warp, roi_obj,
+                                           numeric_grads=False,
+                                           blur_sigma=1.0,
+                                           img_size=resolution, x0=params,
+                                           device=dev)
+                iwe, _ = get_iwe(params, txs, tys, tts, tps, warp,
+                                 resolution, use_polarity=True,
+                                 compute_gradient=False,
+                                 impl=DEFAULT_IWE_IMPL)
+                results_params.append(np.asarray(params))
+                results_rois.append([yc, xc, step[0], step[1]])
+                results_f_evals.append(roi_obj.evaluate_function(iwe=iwe))
+    return results_params, results_rois, results_f_evals
+
+
+def _roi_ids(xs, ys, resolution, roi_size):
+    """Row-major ROI id of every event (coordinates clipped to the grid)
+    and the grid's (ny, nx)."""
+    H, W = resolution
+    rh, rw = roi_size
+    ny = (H + rh - 1) // rh
+    nx = (W + rw - 1) // rw
+    rid = (np.clip(ys.astype(np.int64) // rh, 0, ny - 1) * nx
+           + np.clip(xs.astype(np.int64) // rw, 0, nx - 1))
+    return rid, ny, nx
+
+
+def bucket_events_by_roi(xs, ys, ts, ps, resolution, roi_size,
+                         capacity: Optional[int] = None,
+                         capacity_cap: Optional[int] = 2048,
+                         rng: Optional[np.random.Generator] = None,
+                         return_counts: bool = False, device=None):
+    """Bucket events into fixed-capacity per-ROI batches (host numpy, as in
+    JAX ``events_cmax.py:722-814``).
+
+    Returns ``(bx, by, bt, bp, bmask, roi_origins, overflow)``: each ``b*``
+    an (R, capacity) float32 tensor on ``device`` (default: the inputs'
+    device, else the card), ``roi_origins`` (R, 2) = (y0, x0), and
+    ``overflow`` the number of events subsampled away. Time order is kept
+    within each ROI. ROIs holding more than ``capacity`` events are
+    uniformly subsampled with ``rng.choice`` (``np.random.default_rng(0)``
+    unless ``rng`` is given), the same draws as the JAX package. Default
+    capacity: the max ROI count rounded up to a power of two, clipped to
+    ``capacity_cap``. ``return_counts=True`` appends the true per-ROI
+    counts (numpy, (R,)).
+    """
+    dev = pick_device(xs, ys, ts, ps, device=device)
+    xs, ys, ts, ps = map(to_numpy, (xs, ys, ts, ps))
+    rid, ny, nx = _roi_ids(xs, ys, resolution, roi_size)
+    R = ny * nx
+    counts = np.bincount(rid, minlength=R)
+    if capacity is None:
+        capacity = int(counts.max()) if len(counts) else 1
+        capacity = max(1, int(2 ** np.ceil(np.log2(max(capacity, 1)))))
+        if capacity_cap is not None:
+            capacity = min(capacity, capacity_cap)
+    # every ROI, in row-major order: the same fill and the same draws
+    *packed, origins, overflow = _pack_roi_subset(
+        xs, ys, ts, ps, resolution, roi_size, np.arange(R), capacity, R,
+        rng=rng, device=dev)
+    out = (*packed, origins.to(torch.int64), overflow)
+    return out + (counts,) if return_counts else out
+
+
+def _tier2_shapes(max_count: int, n_over: int):
+    """Power-of-two batch shape of the overflow-refine tier (JAX
+    ``events_cmax.py:822-847``, which rounds to keep one compiled
+    executable across drifting windows; kept here so that both packages
+    solve the same padded batch). Returns ``(cap2, R2)``: per-ROI capacity
+    (a power-of-two multiple of 512, clamped to ``OVERFLOW_CAP_MAX``) and
+    the padded row count (a power of two, min 8)."""
+    cap2 = 512
+    while cap2 < max_count:
+        cap2 <<= 1
+    cap2 = min(cap2, OVERFLOW_CAP_MAX)
+    R2 = 8
+    while R2 < n_over:
+        R2 <<= 1
+    return cap2, R2
+
+
+def _pack_roi_subset(xs, ys, ts, ps, resolution, roi_size, roi_ids,
+                     capacity, total_rows,
+                     rng: Optional[np.random.Generator] = None, device=None):
+    """Pack the events of the given ROI ids into a fixed
+    ``(total_rows, capacity)`` batch (rows beyond ``len(roi_ids)`` are
+    zero-mask padding): the overflow-refine tier of ``grid_cmax_batched``
+    (JAX ``events_cmax.py:850-914``). ROIs still above ``capacity`` are
+    uniformly subsampled; ``overflow`` counts those events. Returns
+    ``(bx, by, bt, bp, bmask, origins, overflow)`` as tensors on
+    ``device``.
+    """
+    dev = pick_device(xs, ys, ts, ps, device=device)
+    rh, rw = roi_size
+    roi_ids = np.asarray(roi_ids, np.int64)
+    xs, ys, ts, ps = map(to_numpy, (xs, ys, ts, ps))
+    rid, ny, nx = _roi_ids(xs, ys, resolution, roi_size)
+    local = np.full(ny * nx, -1, np.int64)
+    local[roi_ids] = np.arange(len(roi_ids))
+    keep = np.nonzero(local[rid] >= 0)[0]
+    loc = local[rid[keep]]
+    sort = np.argsort(loc, kind="stable")  # time order preserved per ROI
+    order, loc = keep[sort], loc[sort]
+    counts = np.bincount(loc, minlength=len(roi_ids))
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    overflow = int(np.maximum(counts - capacity, 0).sum())
+    if overflow:
+        rng = np.random.default_rng(0) if rng is None else rng
+        sel = []
+        for r in range(len(roi_ids)):
+            src = order[starts[r]:starts[r] + counts[r]]
+            if len(src) > capacity:
+                src = src[np.sort(rng.choice(len(src), capacity,
+                                             replace=False))]
+            sel.append(src)
+        order = (np.concatenate(sel) if sel
+                 else np.empty(0, order.dtype))
+        counts = np.minimum(counts, capacity)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        loc = np.repeat(np.arange(len(roi_ids)), counts)
+    flat = loc * capacity + (np.arange(len(order)) - starts[loc])
+
+    def pack(arr):
+        out = np.zeros(total_rows * capacity, dtype=np.float32)
+        out[flat] = arr[order]
+        return torch.as_tensor(out.reshape(total_rows, capacity), device=dev)
+
+    bmask = np.zeros(total_rows * capacity, np.float32)
+    bmask[flat] = 1.0
+    oy, ox = np.divmod(roi_ids, nx)
+    origins = np.zeros((total_rows, 2), np.float32)
+    origins[:len(roi_ids), 0] = oy * rh
+    origins[:len(roi_ids), 1] = ox * rw
+    return (pack(xs), pack(ys), pack(ts), pack(ps),
+            torch.as_tensor(bmask.reshape(total_rows, capacity), device=dev),
+            torch.as_tensor(origins, device=dev), overflow)
+
+
+def _normalized_descent(f, x0, maxiter: int, gd_lr: float, clamp=None):
+    """Fixed-``maxiter`` normalised-gradient descent with momentum 0.8,
+    cosine learning rate and best-iterate tracking, batched over rows.
+
+    ``f`` maps (R, dims) parameters to (R,) losses; rows are independent,
+    so the gradient of ``f(p).sum()`` is each row's own gradient.
+    ``clamp(p)`` (optional) projects every iterate. Nothing is read back to
+    the host inside the loop. Returns ``(best_p, best_v)``.
+    """
+    def value_and_grad(p):
+        with torch.enable_grad():
+            p = p.detach().requires_grad_(True)
+            v = f(p)
+            (g,) = torch.autograd.grad(v.sum(), p)
+        return v.detach(), g
+
+    with torch.no_grad():
+        p = x0
+        m = torch.zeros_like(x0)
+        best_p, best_v = x0, f(x0)
+        for i in range(maxiter):
+            v, g = value_and_grad(p)
+            better = v < best_v
+            best_p = torch.where(better[:, None], p, best_p)
+            best_v = torch.where(better, v, best_v)
+            g = g / (torch.linalg.vector_norm(g, dim=-1, keepdim=True)
+                     + 1e-12)
+            m = 0.8 * m + g
+            lr = gd_lr * 0.5 * (1 + math.cos(math.pi * i / maxiter))
+            p = p - lr * m
+            if clamp is not None:
+                p = clamp(p)
+        v_final = f(p)
+        final_better = v_final < best_v
+        best_p = torch.where(final_better[:, None], p, best_p)
+        best_v = torch.where(final_better, v_final, best_v)
+    return best_p, best_v
+
+
+def fit_global_motion(xs, ys, ts, ps, img_size, obj=None,
+                      blur_sigma: float = 1.0, maxiter: int = 80,
+                      gd_lr: float = 4.0, mask=None, device=None):
+    """Full-frame 4-DoF global motion fit under the ``xyztheta`` field
+    ``v(x, y) = (vx + s*x - w*y, vy + s*y + w*x)`` (JAX
+    ``events_cmax.py:920-1001``).
+
+    A 2-D grid search over pure translation, then normalised-gradient
+    descent over all four dims in a scaled space where one unit of s or w
+    moves a point half a sensor diagonal away by ~1 px/s, with the scale
+    change capped at |s|*dt <= 0.4 and the rotation at |w|*dt <= 1 rad over
+    the window. Each loss forms its IWE with the CUDA bilinear kernel
+    (``iwe_impl='matmul'``; the JAX package uses its exact scatter, the
+    same f32 sums). Returns ``(params (4,), loss)`` as tensors.
+    """
+    obj = variance_objective() if obj is None else obj
+    resolution = tuple(int(v) for v in img_size)
+    dev, (exs, eys, ets, eps) = _events(xs, ys, ts, ps, device)
+    emask = (torch.ones_like(eps) if mask is None else as_f32(mask, dev))
+    loss = make_objective_loss(obj, xyztheta_warp(), resolution, blur_sigma,
+                               iwe_impl=DEFAULT_IWE_IMPL)
+    r0 = 0.5 * float(np.hypot(*resolution))
+    scale = torch.tensor([1.0, 1.0, 1.0 / r0, 1.0 / r0], device=dev)
+    zeros2 = torch.zeros(2, device=dev)
+
+    def f_q(q):
+        return loss(q * scale, exs, eys, ets, eps, emask)
+
+    on = emask != 0
+    t_hi = torch.where(on, ets, -torch.inf).max()
+    t_lo = torch.where(on, ets, torch.inf).min()
+    dt_w = torch.where(on.any(), torch.clamp(t_hi - t_lo, min=1e-3), 1.0)
+    inf = torch.tensor(torch.inf, device=dev)
+    qmax = torch.stack([inf, inf, 0.4 / dt_w * r0, 1.0 / dt_w * r0])
+
+    q0_t, _ = grid_search_refine(lambda v2: f_q(torch.cat([v2, zeros2])), 2,
+                                 init_range=150.0, num_samples_per_param=5,
+                                 iters=6, device=dev)
+    q0 = torch.cat([q0_t, zeros2])[None]
+    best_q, best_v = _normalized_descent(
+        lambda q: f_q(q[0])[None], q0, maxiter, gd_lr,
+        clamp=lambda q: torch.minimum(torch.maximum(q, -qmax), qmax))
+    return best_q[0] * scale, best_v[0]
+
+
+def xyztheta_velocity_at(params, x, y):
+    """The velocity field of ``xyztheta`` params at points (x, y):
+    ``(vx + s*x - w*y, vy + s*y + w*x)`` — e.g. to seed per-ROI linvel
+    solves from a global fit. Host numpy."""
+    vx, vy, s, w = (float(v) for v in to_numpy(params)[:4])
+    x = np.asarray(x, np.float32)
+    y = np.asarray(y, np.float32)
+    return np.stack([vx + s * x - w * y, vy + s * y + w * x], axis=-1)
+
+
+def _neighbor_median(params, valid, ny, nx):
+    """Per-ROI 3x3 neighbour median of valid params over the (ny, nx) ROI
+    grid (row-major), NaN-ignoring, with ``jnp.nanmedian``'s midpoint rule
+    (the mean of the two middle values for an even count); ROIs with no
+    valid neighbour keep their own params."""
+    d = params.shape[-1]
+    grid = torch.where(valid[:, None], params, torch.nan).reshape(ny, nx, d)
+    padded = F.pad(grid.permute(2, 0, 1), (1, 1, 1, 1),
+                   value=torch.nan).permute(1, 2, 0)
+    stack = torch.stack([padded[1 + dy:1 + dy + ny, 1 + dx:1 + dx + nx]
+                         for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
+    srt = torch.sort(stack, dim=0).values          # NaN sorts last
+    count = (~torch.isnan(stack)).sum(0)
+    q = 0.5 * (count - 1).to(params.dtype)
+    lo = torch.clamp(torch.floor(q), min=0).long()
+    lo = torch.minimum(lo, torch.clamp(count - 1, min=0))
+    hi = torch.minimum(torch.clamp(torch.ceil(q), min=0).long(),
+                       torch.clamp(count - 1, min=0))
+    med = (torch.gather(srt, 0, lo[None])[0]
+           + torch.gather(srt, 0, hi[None])[0]) * 0.5
+    med = med.reshape(ny * nx, d)
+    return torch.where(torch.isnan(med), params, med)
+
+
+def grid_cmax_batched(xs, ys, ts, ps, roi_size=(20, 20), warp=None,
+                      obj=None, min_events: int = 10, img_size=None,
+                      blur_sigma: float = 1.0, maxiter: int = 50,
+                      capacity: Optional[int] = None,
+                      solver: str = "gd", gd_lr: float = 4.0,
+                      smooth: Optional[str] = None, x0=None,
+                      pyramid=1, trust_radius: Optional[float] = None,
+                      overflow_refine: bool = True, device=None):
+    """All-ROIs-at-once contrast maximisation (JAX
+    ``events_cmax.py:1015-1317``).
+
+    Events are bucketed by ROI into fixed-capacity batches (subsampled
+    above the capacity cap); a velocity-capped coarse-to-fine grid search,
+    the adaptive-lifespan mask and a fixed-step refine run for every ROI at
+    once, each loss evaluation one batched patch loss (one bilinear kernel
+    launch for all ROIs and samples).
+
+    Options, as in JAX:
+
+    - ``x0`` (R, dims): warm start; skips the grid search (and any
+      pyramid), descends from ``x0`` with per-ROI trust radius
+      ``trust_radius`` (None: unconstrained).
+    - ``smooth='median'``: 3x3 neighbour-median of the final field.
+    - ``pyramid=k`` (linvel only): solve at ``roi_size * 2^(k-1)`` first
+      (the base seeded by ``fit_global_motion``), median-smooth, and refine
+      each finer level from its parent ROI inside an adaptive trust ball.
+    - ``pyramid='auto'``: both the plain and the pyramid-2+median fields,
+      selected per ROI by the local coherence of the plain field, with
+      scene-level escalation (``AUTO_*``).
+    - ``overflow_refine``: ROIs above capacity are re-solved on their full
+      event sets in a second, power-of-two-sized batch, warm-started from
+      tier 1.
+    - ``solver``: ``'gd'`` (normalised-gradient descent) or ``'bfgs'``
+      (the port's BFGS, one ROI after another).
+
+    Returns ``(params (R, dims), rois (R, 4), f_evals (R,), valid (R,))``
+    as tensors on ``device`` (default: the inputs' device, else the card).
+    """
+    warp = linvel_warp() if warp is None else warp
+    obj = variance_objective() if obj is None else obj
+    dev = pick_device(xs, ys, ts, ps, x0, device=device)
+    xs, ys, ts, ps = map(to_numpy, (xs, ys, ts, ps))
+    resolution = infer_resolution(xs, ys) if img_size is None else img_size
+    resolution = tuple(int(v) for v in resolution)
+    rh, rw = roi_size
+    ny = (resolution[0] + rh - 1) // rh
+    nx = (resolution[1] + rw - 1) // rw
+    common = dict(roi_size=roi_size, warp=warp, obj=obj,
+                  min_events=min_events, img_size=resolution,
+                  blur_sigma=blur_sigma, maxiter=maxiter, capacity=capacity,
+                  solver=solver, gd_lr=gd_lr,
+                  overflow_refine=overflow_refine, device=dev)
+
+    if pyramid == "auto":
+        if x0 is not None or not isinstance(warp, linvel_warp):
+            pyramid = 1  # warm start / non-linvel: the cascade is suppressed
+        else:
+            p_plain, rois, f_plain, valid = grid_cmax_batched(
+                xs, ys, ts, ps, trust_radius=trust_radius, **common)
+            p_pyr, _, f_pyr, _ = grid_cmax_batched(
+                xs, ys, ts, ps, pyramid=2, smooth="median",
+                trust_radius=trust_radius, **common)
+            med = _neighbor_median(p_plain, valid, ny, nx)
+            dev_ = torch.linalg.vector_norm(p_plain - med, dim=-1)
+            coh = _neighbor_median(dev_[:, None], valid, ny, nx)[:, 0]
+            mag = torch.linalg.vector_norm(p_plain, dim=-1)
+            lmag = _neighbor_median(mag[:, None], valid, ny, nx)[:, 0]
+            sel = coh > AUTO_REL_COH_TAU * torch.clamp(lmag,
+                                                       min=AUTO_MAG_FLOOR)
+            nvalid = torch.clamp(valid.sum(), min=1)
+            global_pyr = (sel & valid).sum() > AUTO_SCENE_FRAC * nvalid
+            sel = sel | global_pyr
+            params = torch.where(sel[:, None], p_pyr, p_plain)
+            f_evals = torch.where(sel, f_pyr, f_plain)
+            if smooth is not None:
+                if smooth != "median":
+                    raise ConfigurationError(f"unknown smooth mode "
+                                             f"{smooth!r}")
+                params = _neighbor_median(params, valid, ny, nx)
+            return params, rois, f_evals, valid
+
+    trust_vec = None  # per-ROI L-inf trust radii for the warm refine
+    if pyramid > 1 and x0 is None and isinstance(warp, linvel_warp):
+        coarse_kw = {}
+        if pyramid == 2:
+            # recursion base: a full-frame 4-DoF fit seeds each coarse ROI
+            # with the induced velocity at its centre
+            g_params, _ = fit_global_motion(xs, ys, ts, ps, resolution,
+                                            obj=obj, blur_sigma=blur_sigma,
+                                            device=dev)
+            g_params = to_numpy(g_params)
+            nyc2 = (resolution[0] + 2 * rh - 1) // (2 * rh)
+            nxc2 = (resolution[1] + 2 * rw - 1) // (2 * rw)
+            oy2, ox2 = np.divmod(np.arange(nyc2 * nxc2), nxc2)
+            coarse_kw["x0"] = torch.as_tensor(xyztheta_velocity_at(
+                g_params, ox2 * 2 * rw + rw, oy2 * 2 * rh + rh), device=dev)
+            coarse_kw["trust_radius"] = 3.0 + float(np.hypot(rh, rw)) * float(
+                np.hypot(g_params[2], g_params[3]))
+        kw = dict(common, roi_size=(rh * 2, rw * 2))
+        c_params = to_numpy(grid_cmax_batched(
+            xs, ys, ts, ps, smooth="median", pyramid=pyramid - 1,
+            **coarse_kw, **kw)[0])
+        nyc = (resolution[0] + 2 * rh - 1) // (2 * rh)
+        nxc = (resolution[1] + 2 * rw - 1) // (2 * rw)
+        iy, ix = np.divmod(np.arange(ny * nx), nx)
+        parent = (np.minimum(iy // 2, nyc - 1) * nxc
+                  + np.minimum(ix // 2, nxc - 1))
+        x0 = torch.as_tensor(c_params[parent], device=dev)
+        if trust_radius is None:
+            # adaptive trust: floor + a quarter of the 3x3 coarse spread
+            cgrid = c_params.reshape(nyc, nxc, -1)
+            pad = np.pad(cgrid, ((1, 1), (1, 1), (0, 0)), mode="edge")
+            neigh = np.stack([pad[1 + dy:1 + dy + nyc, 1 + dx:1 + dx + nxc]
+                              for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
+            spread = (neigh.max(axis=0) - neigh.min(axis=0)).max(axis=-1)
+            trust_c = 3.0 + 0.25 * spread.reshape(-1)
+            trust_vec = torch.as_tensor(trust_c[parent], dtype=torch.float32,
+                                        device=dev)
+        else:
+            trust_vec = torch.full((ny * nx,), float(trust_radius),
+                                   device=dev)
+
+    bx, by, bt, bp, bmask, origins, overflow, counts = bucket_events_by_roi(
+        xs, ys, ts, ps, resolution, roi_size, capacity, return_counts=True,
+        device=dev)
+    origins_f = origins.to(torch.float32)
+    args = (warp, obj, resolution, roi_size, blur_sigma, maxiter, solver,
+            gd_lr)
+    if x0 is not None:
+        if trust_vec is None:
+            trust_vec = torch.full((origins.shape[0],),
+                                   torch.inf if trust_radius is None
+                                   else float(trust_radius), device=dev)
+        params, f_evals = _warm_roi_solver(*args)(
+            bx, by, bt, bp, bmask, origins_f, as_f32(x0, dev), trust_vec)
+    else:
+        params, f_evals = make_roi_solve_one(*args)(bx, by, bt, bp, bmask,
+                                                    origins_f)
+    valid = bmask.sum(1) > min_events
+
+    if overflow and overflow_refine:
+        # tier 2: re-solve the over-capacity ROIs on their full event sets,
+        # warm-started from tier 1 (or replaying tier 1's own warm start)
+        cap_used = int(bx.shape[1])
+        over = np.nonzero(counts > cap_used)[0]
+        cap2, R2 = _tier2_shapes(int(counts[over].max()), len(over))
+        if cap2 >= cap_used:
+            bx2, by2, bt2, bp2, bm2, org2, overflow = _pack_roi_subset(
+                xs, ys, ts, ps, resolution, roi_size, over, cap2, R2,
+                device=dev)
+            dims = params.shape[-1]
+            x0_2 = torch.zeros((R2, dims), device=dev)
+            trust2 = torch.full((R2,), torch.inf, device=dev)
+            over_t = torch.as_tensor(over, device=dev)
+            if x0 is not None:
+                x0_2[:len(over)] = as_f32(x0, dev)[over_t]
+                trust2[:len(over)] = trust_vec[over_t]
+            else:
+                x0_2[:len(over)] = params[over_t]
+            p2, f2 = _warm_roi_solver(*args)(bx2, by2, bt2, bp2, bm2, org2,
+                                             x0_2, trust2)
+            params = params.clone()
+            f_evals = f_evals.clone()
+            params[over_t] = p2[:len(over)]
+            f_evals[over_t] = f2[:len(over)]
+
+    if smooth is not None:
+        if smooth != "median":
+            raise ConfigurationError(f"unknown smooth mode {smooth!r}")
+        params = _neighbor_median(params, valid, ny, nx)
+
+    rois = torch.cat([origins, torch.tensor([[rh, rw]], dtype=origins.dtype,
+                                            device=dev)
+                      .expand(origins.shape[0], 2)], dim=-1)
+    if overflow:
+        import warnings
+
+        warnings.warn(
+            f"grid_cmax_batched: {overflow} events beyond the per-ROI "
+            f"capacity were uniformly subsampled"
+            + (" in the overflow-refine tier (an ROI holds more than "
+               f"OVERFLOW_CAP_MAX={OVERFLOW_CAP_MAX} events)"
+               if overflow_refine else
+               " (raise capacity= or leave overflow_refine on to keep "
+               "them)"), RuntimeWarning, stacklevel=2)
+    return params, rois, f_evals, valid
+
+
+def _warm_roi_solver(warp, obj, resolution, roi_size, blur_sigma, maxiter,
+                     solver, gd_lr):
+    """The warm-start refine solver (``with_x0`` and a per-ROI trust radius),
+    shared by the temporal/pyramid warm path and the tier-2 refine. (JAX
+    compiles and caches its solvers per configuration; building one here
+    only makes closures, so nothing is cached.)"""
+    return make_roi_solve_one(warp, obj, tuple(resolution), roi_size,
+                              blur_sigma, maxiter, solver, gd_lr,
+                              with_x0=True, trust_radius="traced")
+
+
+def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
+                       solver="gd", gd_lr=4.0, with_x0: bool = False,
+                       trust_radius=None):
+    """Batched ROI solve ``(ex, ey, et, ep, emask, origin) -> (params,
+    f_eval)`` over (R, C) event batches and (R, 2) origins (JAX
+    ``make_roi_solve_one``, ``events_cmax.py:1363-1511``, whose per-ROI
+    function JAX vmaps): patch loss (every objective), velocity-capped grid
+    search, adaptive-lifespan mask, fixed-step refine.
+
+    ``with_x0=True`` returns the refine variant ``(..., origin, x0)`` that
+    skips the grid search and descends from ``x0`` (R, dims).
+    ``trust_radius`` clamps the iterate to an L-inf ball of that radius
+    around ``x0``; the string ``'traced'`` takes a per-ROI radius as one
+    more trailing argument ``trust`` (R,).
+
+    ``solver='gd'``: fixed-``maxiter`` normalised-gradient descent, every
+    ROI in each batched step. ``solver='bfgs'``: the port's BFGS
+    (``contrast_max.bfgs``, a port of ``jax.scipy.optimize.minimize``), run
+    for one ROI after another (JAX vmaps it).
+    """
+    if solver not in ("gd", "bfgs"):
+        raise ConfigurationError(f"unknown solver {solver!r}")
+    use_patch = obj.name in PATCH_OBJECTIVES
+    # the patch window must enclose the ROI with warp margin
+    patch = (max(PATCH_DEFAULT[0], -(-(roi_size[0] + 32) // 8) * 8),
+             max(PATCH_DEFAULT[1], -(-(roi_size[1] + 32) // 128) * 128))
+    if use_patch:
+        patch_loss = make_patch_loss(
+            warp, roi_size, obj, patch=patch, blur_sigma=blur_sigma,
+            full_pixels=(resolution[0] + 1) * (resolution[1] + 1))
+    else:  # custom objectives: the full-frame loss, one ROI at a time
+        full_loss = make_objective_loss(obj, warp, resolution, blur_sigma,
+                                        iwe_impl=DEFAULT_IWE_IMPL)
+
+    adaptive = getattr(obj, "adaptive_lifespan", False)
+    pixel_crossings = getattr(obj, "pixel_crossings", 5)
+    min_events = getattr(obj, "minimum_events", 105)
+    # velocity search cap: never search params that empty the patch within
+    # the ROI's window (a spurious minimum for mass-losing objectives)
+    margin = (min(patch[0] - roi_size[0],
+                  patch[1] - roi_size[1]) / 2.0 - 2.0)
+    velocity_cap = (use_patch and isinstance(warp, linvel_warp)
+                    and margin > 2.0)
+
+    def _losses(ex, ey, et, ep, emask, origin):
+        """(f_masked, f, f_row) for a batch of ROIs: ``f_masked(p, m)``
+        over every ROI, ``f(p)`` with the full masks, and ``f_row(p, r, m)``
+        of ROI r alone at (dims,) params — the one definition of the
+        patch-vs-full loss shared by the cold and warm solvers."""
+        def f_row(p, r, m):
+            if use_patch:
+                return patch_loss(p, ex[r], ey[r], et[r], ep[r], m[r],
+                                  origin[r])
+            return full_loss(p, ex[r], ey[r], et[r], ep[r], m[r])
+
+        def f_masked(p, m):
+            if use_patch:
+                return patch_loss(p, ex, ey, et, ep, m, origin)
+            if p.dim() == 2:
+                return torch.stack([f_row(p[r], r, m)
+                                    for r in range(p.shape[0])])
+            return torch.stack([f_masked(p[:, s], m)
+                                for s in range(p.shape[1])], -1)
+
+        return f_masked, lambda p: f_masked(p, emask), f_row
+
+    def _finish(et, emask, x0, losses, trust=None):
+        f_masked, f, f_row = losses
+        refine_mask = emask
+        if adaptive:
+            # trim each ROI's window to pixel_crossings/|v| seconds (a mask
+            # over the valid prefix of its padded batch)
+            refine_mask = lifespan_mask(et, x0, pixel_crossings,
+                                        minimum_events=min_events,
+                                        base_mask=emask, drop_last=False)
+            enough = refine_mask.sum(-1) >= torch.clamp(
+                emask.sum(-1), max=float(min_events))
+            refine_mask = torch.where(enough[:, None], refine_mask, emask)
+
+        if solver == "bfgs":
+            dev = x0.device
+            best = torch.stack([minimize_bfgs(
+                _value_and_grad(lambda p, r=r: f_row(p, r, refine_mask), dev),
+                x0[r], maxiter=maxiter, gtol=1e-6).x_k
+                for r in range(x0.shape[0])]).to(dev)
+            with torch.no_grad():
+                return best, f(best)
+
+        clamp = None
+        if trust is not None:
+            trust = torch.as_tensor(trust, dtype=torch.float32,
+                                    device=x0.device)
+            if trust.dim() == 1:
+                trust = trust[:, None]
+            clamp = lambda p: x0 + torch.minimum(torch.maximum(p - x0,
+                                                               -trust), trust)
+        best_p, _ = _normalized_descent(lambda p: f_masked(p, refine_mask),
+                                        x0, maxiter, gd_lr, clamp=clamp)
+        # report the objective over the FULL window (reference convention)
+        with torch.no_grad():
+            return best_p, f(best_p)
+
+    def solve_one(ex, ey, et, ep, emask, origin):
+        losses = _losses(ex, ey, et, ep, emask, origin)
+        init_range = torch.full((ex.shape[0],), 150.0, device=ex.device)
+        if velocity_cap:
+            on = emask != 0
+            t_last = torch.where(on, et, -torch.inf).amax(-1)
+            t_first = torch.where(on, et, torch.inf).amin(-1)
+            dt_roi = torch.where(on.any(-1), t_last - t_first, 0.0)
+            init_range = torch.clamp(margin / torch.clamp(dt_roi, min=1e-3),
+                                     max=150.0)
+        x0, _ = grid_search_refine_batched(losses[1], warp.dims, init_range,
+                                           num_samples_per_param=5, iters=6)
+        return _finish(et, emask, x0, losses)
+
+    def refine_one(ex, ey, et, ep, emask, origin, x0):
+        return _finish(et, emask, as_f32(x0, ex.device),
+                       _losses(ex, ey, et, ep, emask, origin),
+                       trust=None if trust_radius in (None, "traced")
+                       else trust_radius)
+
+    def refine_one_trust(ex, ey, et, ep, emask, origin, x0, trust):
+        return _finish(et, emask, as_f32(x0, ex.device),
+                       _losses(ex, ey, et, ep, emask, origin), trust=trust)
+
+    if with_x0:
+        return refine_one_trust if trust_radius == "traced" else refine_one
+    return solve_one
+
+
+# ---------------------------------------------------------------------------
+# dIWE segmentation + diagnostics
+# ---------------------------------------------------------------------------
+
+def segmentation_mask_from_d_iwe(d_iwe, th=None):
+    """Motion-segmentation mask by percentile thresholding |dIWE|
+    (reference events_cmax.py:78-101). Host numpy."""
+    d_iwe = to_numpy(d_iwe)
+    th1 = np.percentile(np.abs(d_iwe), 90)
+    validx = d_iwe[0].ravel()[np.abs(d_iwe[0].ravel()) > th1]
+    validy = d_iwe[1].ravel()[np.abs(d_iwe[1].ravel()) > th1]
+    x_c = np.percentile(validx, 95) if validx.size else 0.0
+    y_c = np.percentile(validy, 95) if validy.size else 0.0
+    thx = x_c if th is None else th
+    thy = y_c if th is None else th
+    imgx = (d_iwe[0] > thx).astype(int) + (d_iwe[0] < -thx).astype(int)
+    imgy = (d_iwe[1] > thy).astype(int) + (d_iwe[1] < -thy).astype(int)
+    return np.clip(imgx + imgy, 0, 1)
+
+
+def get_hsv_shifted():
+    """Shifted-HSV colormap (Mitrokhin et al.; reference
+    events_cmax.py:14-26). Imports matplotlib when called."""
+    import matplotlib
+    from matplotlib.colors import LinearSegmentedColormap
+
+    hsv = matplotlib.colormaps["hsv"]
+    colors = [hsv(np.fmod(i + 0.6666, 1.0)) for i in np.arange(0, 0.6666, 0.01)]
+    return LinearSegmentedColormap.from_list("hsv_shifted", colors, N=100)

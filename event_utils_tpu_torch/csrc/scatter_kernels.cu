@@ -1,14 +1,17 @@
 // Hand-written Hopper (sm_90a) kernels for event accumulation.
 //
-// They replace the three Pallas TPU kernels of the JAX package's
-// event_utils_tpu/ops/pallas_scatter.py that the contrast-maximisation path
-// runs. The TPU kernels recast every scatter as a one-hot matmul because a
-// TPU has no fast scatter; an H100 has fast L2 atomics, so each kernel here
-// computes the same function directly:
+// They replace the four Pallas TPU kernels of the JAX package's
+// event_utils_tpu/ops/pallas_scatter.py. The TPU kernels recast every
+// scatter as a one-hot matmul because a TPU has no fast scatter; an H100 has
+// fast L2 atomics, so each kernel here computes the same function directly:
 //
-//   voxel_scatter     <- _voxel_kernel (voxel_matmul / _voxel_core)
-//   flat_scatter      <- _image_kernel (image_matmul, scatter_add_flat_pallas)
-//   bilinear_scatter  <- _bilinear_kernel (bilinear_matmul / _bilinear_core)
+//   voxel_scatter        <- _voxel_kernel (voxel_matmul / _voxel_core)
+//   voxel_tiles_scatter  <- _voxel_kernel on the (tile, chunk) grid
+//                           (voxel_matmul_tiles)
+//   flat_scatter         <- _image_kernel (image_matmul,
+//                           scatter_add_flat_pallas)
+//   bilinear_scatter     <- _bilinear_kernel (bilinear_matmul /
+//                           _bilinear_core)
 //
 // What bounds them on this card: each event is read once from device memory
 // (16 B/event voxel, 8 B per (id, weight) pair flat, 8 + 4K B/event
@@ -74,6 +77,49 @@ __global__ void voxel_scatter_kernel(const int* __restrict__ xs,
     const float b1 = b0 + 1.0f;
     if (b1 >= 0.0f && b1 < static_cast<float>(B))
       atomicAdd(out + static_cast<long long>(b1) * plane + pix, p * fb);
+  }
+}
+
+// (T, B, th, tw) per-tile voxel grids of events bucketed by sensor tile:
+// slot i of the (T, cap) arrays belongs to tile i / cap and carries
+// tile-local coordinates. The wrapper has applied voxel_matmul_tiles'
+// preprocessing: out-of-tile and masked slots carry p = 0 (and the pad
+// sentinel t = -100), coordinates are clipped into the tile, and
+// out-of-window slots are pinned to the edge bin with their surviving tap
+// folded into p. Each slot adds p*(1-fb) to bin floor(t) and p*fb to bin
+// floor(t)+1 of its own tile, where either bin lies in [0, B); at t == B-1
+// the second tap has fb = 0 and bin B, and is dropped.
+//
+// What bounds it: 16 B read per slot and one or two atomics. At 720p with
+// (96, 128) tiles the output is 80 x 5 x 96 x 128 x 4 B = 19.7 MB, inside
+// the 50 MB L2, so the atomics resolve there. Slot indices are 64-bit: T*cap
+// may pass 2^31.
+__global__ void voxel_tiles_scatter_kernel(const int* __restrict__ bx,
+                                           const int* __restrict__ by,
+                                           const float* __restrict__ t_norm,
+                                           const float* __restrict__ bp,
+                                           long long n, long long cap, int B,
+                                           int th, int tw,
+                                           float* __restrict__ out) {
+  const long long plane = static_cast<long long>(th) * tw;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const float p = bp[i];
+    if (p == 0.0f) continue;
+    const int x = bx[i];
+    const int y = by[i];
+    if (x < 0 || x >= tw || y < 0 || y >= th) continue;
+    const float t = t_norm[i];
+    const float b0 = floorf(t);
+    const float fb = t - b0;
+    float* o = out + (i / cap) * B * plane + static_cast<long long>(y) * tw + x;
+    if (b0 >= 0.0f && b0 < static_cast<float>(B))
+      atomicAdd(o + static_cast<long long>(b0) * plane, p * (1.0f - fb));
+    const float b1 = b0 + 1.0f;
+    if (b1 >= 0.0f && b1 < static_cast<float>(B))
+      atomicAdd(o + static_cast<long long>(b1) * plane, p * fb);
   }
 }
 
@@ -157,6 +203,19 @@ int voxel_scatter(const void* xs, const void* ys, const void* t_norm,
         static_cast<const int*>(xs), static_cast<const int*>(ys),
         static_cast<const float*>(t_norm), static_cast<const float*>(ps), n, B,
         H, W, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int voxel_tiles_scatter(const void* bx, const void* by, const void* t_norm,
+                        const void* bp, long long n, long long cap, int B,
+                        int th, int tw, void* out, void* stream) {
+  if (n > 0 && cap > 0) {
+    voxel_tiles_scatter_kernel<<<grid_for(n), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(bx), static_cast<const int*>(by),
+        static_cast<const float*>(t_norm), static_cast<const float*>(bp), n,
+        cap, B, th, tw, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

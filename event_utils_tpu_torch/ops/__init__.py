@@ -18,4 +18,5 @@ from .cuda_scatter import (  # noqa: F401
     reset_launch_counts,
     scatter_add_flat_cuda,
     voxel_matmul,
+    voxel_matmul_tiles,
 )

@@ -41,6 +41,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "scatter_kernels": {
         "voxel_scatter": (_P, _P, _P, _P, _L, _I, _I, _I, _P, _P),
+        "voxel_tiles_scatter": (_P, _P, _P, _P, _L, _L, _I, _I, _I, _P, _P),
         "flat_scatter": (_P, _P, _L, _I, _L, _P, _P),
         "bilinear_scatter": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
     },

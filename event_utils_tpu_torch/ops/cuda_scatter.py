@@ -10,6 +10,8 @@ per event:
 kernel wrapper (this module)      TPU kernel it replaces (pallas_scatter.py)
 ================================  =========================================
 ``voxel_scatter``                 ``_voxel_kernel`` via ``voxel_matmul``
+``voxel_tiles_scatter``           ``_voxel_kernel`` on the (tile, chunk)
+                                  grid via ``voxel_matmul_tiles``
 ``flat_scatter``                  ``_image_kernel`` via ``image_matmul`` and
                                   ``scatter_add_flat_pallas``
 ``bilinear_scatter``              ``_bilinear_kernel`` via
@@ -24,9 +26,9 @@ path calls the plain version when a card is present. There is no fallback:
 on a CUDA tensor a wrapper launches or raises.
 
 The drivers keep the JAX names and preprocessing (``voxel_matmul``,
-``image_matmul``, ``bilinear_matmul``; ``scatter_add_flat_cuda`` stands for
-``scatter_add_flat_pallas``) so that each has one counterpart to be held
-against. ``precision`` is accepted with the JAX values ('hilo', 'bf16',
+``voxel_matmul_tiles``, ``image_matmul``, ``bilinear_matmul``;
+``scatter_add_flat_cuda`` stands for ``scatter_add_flat_pallas``) so that
+each has one counterpart to be held against. ``precision`` is accepted with the JAX values ('hilo', 'bf16',
 'int8') and every kernel computes in f32, which lies inside each of those
 precision classes. The VMEM planning of the TPU drivers (``_fit_chunk``,
 ``SensorLimitError``, the oversized-sensor fallbacks) has no counterpart:
@@ -238,6 +240,113 @@ def voxel_inputs(xs, ys, ts, ps, B: int, sensor_size, mask=None, t0=None,
 
 
 # ---------------------------------------------------------------------------
+# Per-tile voxel grids (replaces _voxel_kernel on the (tile, chunk) grid,
+# voxel_matmul_tiles, pallas_scatter.py:364 / call :455)
+# ---------------------------------------------------------------------------
+
+def voxel_tiles_scatter_plain(bx, by, t_norm, bp, B: int, th: int, tw: int):
+    """Plain version of ``voxel_tiles_scatter``: the two temporal taps of
+    every slot, summed into its own tile with ``index_add_``."""
+    T, cap = bx.shape
+    b0 = torch.floor(t_norm)
+    fb = t_norm - b0
+    ok_ev = (bx >= 0) & (bx < tw) & (by >= 0) & (by < th) & (bp != 0)
+    tile = torch.arange(T, device=bx.device)[:, None] * B
+    pix = by.long() * tw + bx.long()
+    out = torch.zeros(T * B * th * tw, dtype=_F32, device=bx.device)
+    for b, wt in ((b0, bp * (1.0 - fb)), (b0 + 1.0, bp * fb)):
+        ok = ok_ev & (b >= 0) & (b < B)
+        idx = ((tile + torch.where(ok, b, 0.0).long()) * (th * tw)
+               + torch.where(ok, pix, 0))
+        out.index_add_(0, idx.reshape(-1), torch.where(ok, wt, 0.0)
+                       .reshape(-1))
+    return out.view(T, B, th, tw)
+
+
+def voxel_tiles_scatter(bx, by, t_norm, bp, B: int, th: int, tw: int):
+    """(T, B, th, tw) per-tile voxel grids of ``(T, cap)`` slots.
+
+    ``bx``/``by`` int32 tile-local coordinates, ``t_norm`` f32 bin
+    coordinate in [0, B-1] (dead slots -100), ``bp`` f32 weights (0 for
+    dead slots) — what ``voxel_tiles_inputs`` hands over. Launches the CUDA
+    kernel for CUDA tensors; the plain version for CPU tensors.
+    """
+    dev = _check("voxel_tiles_scatter", (bx, by, t_norm, bp),
+                 (_I32, _I32, _F32, _F32))
+    if bx.dim() != 2 or any(a.shape != bx.shape for a in (by, t_norm, bp)):
+        raise ConfigurationError(
+            "voxel_tiles_scatter: inputs must share one (T, cap) shape")
+    if dev.type == "cpu":
+        return voxel_tiles_scatter_plain(bx, by, t_norm, bp, B, th, tw)
+    T, cap = bx.shape
+    out = torch.zeros((T, B, th, tw), dtype=_F32, device=dev)
+    if T == 0 or cap == 0:
+        return out
+    rc = build.library().voxel_tiles_scatter(
+        bx.data_ptr(), by.data_ptr(), t_norm.data_ptr(), bp.data_ptr(),
+        T * cap, cap, B, th, tw, out.data_ptr(), _stream())
+    build.check(rc, "voxel_tiles_scatter")
+    voxel_tiles_scatter.launches += 1
+    return out
+
+
+voxel_tiles_scatter.launches = 0
+
+
+def voxel_tiles_inputs(bx, by, bt, bp, B: int, tile, t0, t1, mask=None):
+    """``voxel_matmul_tiles``' preprocessing (pallas_scatter.py:391-419):
+    the ``(bx, by, t_norm, bp)`` that the per-tile kernel takes.
+
+    Out-of-tile slots are dropped and ``mask`` multiplies the weights;
+    coordinates are clipped into the tile; ``t_norm`` is taken over the
+    shared window ``[t0, t1]``; out-of-window slots are pinned to the edge
+    bin with their surviving tap folded into ``bp``; dead slots (weight 0)
+    get the pad sentinel ``t_norm = -100``.
+    """
+    th, tw = tile
+    dev = bx.device
+    bx = bx.to(_I32)
+    by = by.to(_I32)
+    bt = bt.to(_F32)
+    bp = bp.to(_F32)
+    in_tile = (bx >= 0) & (bx < tw) & (by >= 0) & (by < th)
+    bp = torch.where(in_tile, bp, 0.0)
+    if mask is not None:
+        bp = bp * torch.as_tensor(mask, device=dev).to(_F32)
+    bx = bx.clamp(0, tw - 1).contiguous()
+    by = by.clamp(0, th - 1).contiguous()
+    t0 = torch.as_tensor(t0, dtype=_F32, device=dev)
+    t1 = torch.as_tensor(t1, dtype=_F32, device=dev)
+    dt = t1 - t0
+    t_norm = (bt - t0) / torch.where(dt == 0, 1.0, dt) * (B - 1)
+    below = t_norm < 0.0
+    above = t_norm > (B - 1.0)
+    bp = torch.where(below, bp * torch.clamp(1.0 + t_norm, min=0.0), bp)
+    bp = torch.where(above,
+                     bp * torch.clamp(1.0 - (t_norm - (B - 1.0)), min=0.0), bp)
+    t_norm = torch.where(below, 0.0, t_norm)
+    t_norm = torch.where(above, float(B - 1), t_norm)
+    t_norm = torch.where(bp == 0.0, -100.0, t_norm)
+    return bx, by, t_norm.contiguous(), bp.contiguous()
+
+
+def voxel_matmul_tiles(bx, by, bt, bp, B: int, tile, t0, t1, mask=None,
+                       precision: str = "hilo"):
+    """Per-tile voxel grids of pre-bucketed events, one kernel launch
+    (``voxel_matmul_tiles``, pallas_scatter.py:364).
+
+    Inputs are ``(T, cap)`` tensors of tile-local coordinates with a shared
+    window ``[t0, t1]``. Returns ``(T, B, th, tw)`` float32; the caller
+    stitches the tiles. Forward only, as in JAX. ``precision`` is accepted
+    for parity; the kernel computes in f32.
+    """
+    _check_precision(precision)
+    th, tw = tile
+    args = voxel_tiles_inputs(bx, by, bt, bp, B, tile, t0, t1, mask=mask)
+    return voxel_tiles_scatter(*args, B, th, tw)
+
+
+# ---------------------------------------------------------------------------
 # Flat / image scatter (replaces _image_kernel, pallas_scatter.py:496)
 # ---------------------------------------------------------------------------
 
@@ -444,6 +553,7 @@ def launch_counts() -> dict:
 
 KERNEL_WRAPPERS = {
     "voxel_scatter": voxel_scatter,
+    "voxel_tiles_scatter": voxel_tiles_scatter,
     "flat_scatter": flat_scatter,
     "bilinear_scatter": bilinear_scatter,
 }

@@ -6,13 +6,15 @@ Masking policy as in the JAX package: by default out-of-bounds events are
 reference's coordinate-zeroing trick (image.py:83-85, 94) including its
 quirks (the integer route dumps the unmasked weight onto pixel (0, 0)).
 
-The stateful ``EventImage``/``TimestampImage`` classes are not ported yet.
+The stateful ``EventImage``/``TimestampImage`` accumulators are host numpy,
+as in the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .._device import as_f32, as_tensor, pick_device
@@ -316,3 +318,94 @@ def events_to_timestamp_image(xn, yn, ts, pn, sensor_size=(180, 240),
     img_pos = img_pos / torch.where(img_pos_cnt == 0, 1.0, img_pos_cnt)
     img_neg = img_neg / torch.where(img_neg_cnt == 0, 1.0, img_neg_cnt)
     return img_pos, img_neg
+
+
+def interpolate_to_image(pxs, pys, dxs, dys, weights, img):
+    """Signature-compatible shim for the reference's hot kernel
+    (image.py:102-115): bilinear taps of ``weights`` at ``(pxs + dxs,
+    pys + dys)`` added to ``img``. As in the JAX package the updated image
+    is *returned* (``img`` is not modified); prefer ``ops.bilinear_scatter``
+    in new code."""
+    img = torch.as_tensor(img)
+    dev = img.device
+    x = as_f32(pxs, dev) + as_f32(dxs, dev)
+    y = as_f32(pys, dev) + as_f32(dys, dev)
+    return img + bilinear_scatter(x, y, as_f32(weights, dev),
+                                  tuple(img.shape))
+
+
+def interpolate_to_derivative_img(pxs, pys, dxs, dys, d_img, w1, w2):
+    """Signature-compatible shim for reference image.py:117-136: returns
+    ``d_img`` plus the (2, H, W) derivative images of the Jacobian weights
+    ``w1``, ``w2`` (see ``ops.bilinear_scatter_derivative``)."""
+    d_img = torch.as_tensor(d_img)
+    dev = d_img.device
+    x = as_f32(pxs, dev) + as_f32(dxs, dev)
+    y = as_f32(pys, dev) + as_f32(dys, dev)
+    return d_img + bilinear_scatter_derivative(
+        x, y, as_f32(w1, dev), as_f32(w2, dev), torch.ones_like(x),
+        tuple(d_img.shape[1:]))
+
+
+def events_to_timestamp_image_torch(xs, ys, ts, ps, device=None,
+                                    sensor_size=(180, 240),
+                                    clip_out_of_range=True,
+                                    interpolation="bilinear", padding=True,
+                                    timestamp_reverse=False, **kw):
+    """Signature-compatible alias of the reference's torch entry point
+    (image.py:286-353); ``device`` is where the images are built."""
+    return events_to_timestamp_image(xs, ys, ts, ps, sensor_size=sensor_size,
+                                     clip_out_of_range=clip_out_of_range,
+                                     interpolation=interpolation,
+                                     padding=padding,
+                                     timestamp_reverse=timestamp_reverse,
+                                     device=device, **kw)
+
+
+class TimestampImage:
+    """Online last-timestamp image; ``get_image`` rank-normalises
+    (reference image.py:355-377, vectorised; the last event per pixel
+    wins). Host numpy."""
+
+    def __init__(self, sensor_size):
+        self.sensor_size = tuple(sensor_size)
+        self.num_pixels = sensor_size[0] * sensor_size[1]
+        self.image = np.ones(self.sensor_size)
+
+    def set_init(self, value):
+        self.image = np.ones_like(self.image) * value
+
+    def add_event(self, x, y, t, p):
+        self.image[int(y), int(x)] = t
+
+    def add_events(self, xs, ys, ts, ps):
+        np_xs = np.asarray(xs).astype(int)
+        np_ys = np.asarray(ys).astype(int)
+        self.image[np_ys, np_xs] = np.asarray(ts)  # last write wins
+
+    def get_image(self):
+        # dense ranking (scipy.stats.rankdata(method='dense') - 1)
+        _, inv = np.unique(self.image.ravel(), return_inverse=True)
+        ranks = inv.reshape(self.sensor_size).astype(np.float64)
+        return ranks / max(ranks.max(), 1)
+
+
+class EventImage:
+    """Online polarity-accumulation image (reference image.py:379-396).
+    Host numpy."""
+
+    def __init__(self, sensor_size):
+        self.sensor_size = tuple(sensor_size)
+        self.num_pixels = sensor_size[0] * sensor_size[1]
+        self.image = np.ones(self.sensor_size)
+
+    def add_event(self, x, y, t, p):
+        self.image[int(y), int(x)] += p
+
+    def add_events(self, xs, ys, ts, ps):
+        np.add.at(self.image, (np.asarray(ys).astype(int),
+                               np.asarray(xs).astype(int)), np.asarray(ps))
+
+    def get_image(self):
+        mn, mx = self.image.min(), self.image.max()
+        return (self.image - mn) / max(mx - mn, 1e-12)

@@ -7,24 +7,34 @@ truncates coordinates to integers, as the reference's torch path does;
 ``spatial_interpolation='bilinear'`` splats 4 spatial taps instead.
 
 ``impl='matmul*'`` (with the default temporal-bilinear, integer-coordinate
-route) runs the hand-written CUDA voxel kernel (``ops.cuda_scatter``).
-The ``impl='tiled'`` route and ``events_to_voxel_tiled`` are not ported yet
-and raise ``ConfigurationError``.
+route) runs the hand-written CUDA voxel kernel (``ops.cuda_scatter``) for
+every sensor size. ``impl='tiled'`` and ``events_to_voxel_tiled`` bucket
+the events by sensor tile on the host and run the per-tile CUDA kernel
+(``voxel_matmul_tiles``).
+
+By design the port's ``impl='matmul'`` does not auto-route large sensors to
+the tiled route as the JAX package does (its one-hot kernel runs out of
+VMEM there): the card's voxel kernel has no such limit, and neither has the
+tiled kernel, so no ``SensorLimitError`` is raised for a large tile.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-from .._device import as_f32, as_tensor, pick_device
+from .._device import as_f32, as_tensor, pick_device, to_numpy
 from ..errors import ConfigurationError
-from ..ops.cuda_scatter import voxel_matmul
+from ..ops.cuda_scatter import voxel_matmul, voxel_matmul_tiles
 from ..ops.scatter import bilinear_scatter, scatter_add_2d, scatter_add_flat
 
 _PRECISION = {"matmul": "hilo", "matmul_hilo": "hilo",
               "matmul_bf16": "bf16", "matmul_int8": "int8"}
+
+# Spatial tile of the tiled voxel route (the JAX package's DEFAULT_TILE).
+DEFAULT_TILE = (96, 128)
 
 
 def events_to_voxel(xs, ys, ts, ps, B: int, sensor_size=(180, 240),
@@ -45,6 +55,23 @@ def events_to_voxel(xs, ys, ts, ps, B: int, sensor_size=(180, 240),
     """
     H, W = sensor_size
     dev = pick_device(xs, ys, ts, ps, mask, device=device)
+    if impl == "tiled":
+        # explicit large-sensor route: the events are bucketed on the host
+        # first, so they go to the device once, bucketed (floats in f32 as
+        # on every other route)
+        if not (temporal_bilinear and spatial_interpolation is None
+                and mask is None and t0 is None and t1 is None):
+            raise ConfigurationError(
+                "impl='tiled' supports only the default temporal-bilinear "
+                "integer-coordinate path with no mask/t0/t1 overrides "
+                "(host-side bucketing; call events_to_voxel_tiled directly "
+                "for tile/capacity control)")
+        xs, ys = (a.astype(np.float32)
+                  if np.issubdtype(a.dtype, np.floating) else a
+                  for a in map(to_numpy, (xs, ys)))
+        ts, ps = (to_numpy(a).astype(np.float32) for a in (ts, ps))
+        return events_to_voxel_tiled(xs, ys, ts, ps, B, sensor_size,
+                                     device=dev)
     xs = as_tensor(xs, dev)
     ys = as_tensor(ys, dev)
     ts = as_f32(ts, dev)
@@ -52,10 +79,6 @@ def events_to_voxel(xs, ys, ts, ps, B: int, sensor_size=(180, 240),
     if mask is not None:
         mask = as_tensor(mask, dev)
 
-    if impl == "tiled":
-        raise ConfigurationError(
-            "impl='tiled' (events_to_voxel_tiled, the large-sensor route) is "
-            "not yet ported to event_utils_tpu_torch")
     if impl in _PRECISION and temporal_bilinear \
             and spatial_interpolation is None:
         # CUDA voxel kernel; the callers' events are time-sorted, as every
@@ -143,8 +166,165 @@ def events_to_voxel(xs, ys, ts, ps, B: int, sensor_size=(180, 240),
     return flat.view(B, H, W)
 
 
-def events_to_voxel_tiled(*args, **kwargs):
-    """The spatially-tiled large-sensor voxel builder of the JAX package
-    (``voxel_matmul_tiles``) — not yet ported."""
-    raise ConfigurationError(
-        "events_to_voxel_tiled is not yet ported to event_utils_tpu_torch")
+def events_to_voxel_tiled(xs, ys, ts, ps, B: int, sensor_size,
+                          tile=DEFAULT_TILE, impl: str = "matmul",
+                          capacity=None, device=None) -> torch.Tensor:
+    """Voxel grid through spatial tiles (``events_to_voxel_tiled``, JAX
+    ``voxel_grid.py:187-248``).
+
+    Events are bucketed by sensor tile on the host
+    (``bucket_events_by_roi``, time order kept within each tile), then ONE
+    launch of the per-tile CUDA kernel (``voxel_matmul_tiles``) accumulates
+    every tile over the stream's window ``[ts[0], ts[-1]]`` and the tiles
+    are stitched. Events must be time-sorted, as for every voxel route.
+    Forward only. A ``capacity`` that would drop events in the densest
+    tile raises ``ConfigurationError`` (an accumulating representation
+    never subsamples). Returns ``(B, H, W)``.
+    """
+    from ..contrast_max.events_cmax import bucket_events_by_roi
+
+    dev = pick_device(xs, ys, ts, ps, device=device)
+    H, W = sensor_size
+    th, tw = tile
+    ny = (H + th - 1) // th
+    nx = (W + tw - 1) // tw
+    ts = to_numpy(ts).astype(np.float64)
+    t0 = float(ts[0]) if len(ts) else 0.0
+    t1 = float(ts[-1]) if len(ts) else 1.0
+    bx, by, bt, bp, bmask, origins, overflow = bucket_events_by_roi(
+        xs, ys, ts, ps, (ny * th, nx * tw), tile, capacity=capacity,
+        capacity_cap=None, device=dev)
+    if overflow:
+        raise ConfigurationError(
+            f"events_to_voxel_tiled: capacity={capacity} drops {overflow} "
+            "events in the densest tile; pass capacity=None (auto) or a "
+            "larger value")
+    ox = origins[:, 1:2].to(torch.int32)   # (T, 1) broadcast
+    oy = origins[:, 0:1].to(torch.int32)
+    tiles = voxel_matmul_tiles(
+        bx.to(torch.int32) - ox, by.to(torch.int32) - oy, bt, bp, B, tile,
+        np.float32(t0), np.float32(t1), mask=bmask,
+        precision=_PRECISION.get(impl, "hilo"))
+    # stitch (ny*nx, B, th, tw) -> (B, ny*th, nx*tw) -> crop to (B, H, W)
+    grid = tiles.reshape(ny, nx, B, th, tw).permute(2, 0, 3, 1, 4)
+    return grid.reshape(B, ny * th, nx * tw)[:, :H, :W]
+
+
+def events_to_voxel_torch(xs, ys, ts, ps, B, device=None,
+                          sensor_size=(180, 240), temporal_bilinear=True,
+                          **kw):
+    """Signature-compatible alias of the reference's torch entry point
+    (voxel_grid.py:114: ``events_to_voxel_torch(xs, ys, ts, ps, B, device,
+    ...)``); here ``device`` is where the grid is built."""
+    return events_to_voxel(xs, ys, ts, ps, B, sensor_size=sensor_size,
+                           temporal_bilinear=temporal_bilinear,
+                           device=device, **kw)
+
+
+def events_to_neg_pos_voxel(xs, ys, ts, ps, B: int, sensor_size=(180, 240),
+                            temporal_bilinear: bool = True, mask=None,
+                            impl: Optional[str] = None, device=None):
+    """Polarity-split voxel grids (reference voxel_grid.py:155-182).
+
+    Positive events are ``ps > 0``, negative ``ps <= 0`` (the torch
+    reference's convention). Returns ``(voxel_pos, voxel_neg)``.
+    """
+    dev = pick_device(xs, ys, ts, ps, mask, device=device)
+    ps = as_f32(ps, dev)
+    pos_w = (ps > 0).to(torch.float32)
+    neg_w = (ps <= 0).to(torch.float32)
+    kw = dict(sensor_size=sensor_size, temporal_bilinear=temporal_bilinear,
+              mask=mask, impl=impl, device=dev)
+    return (events_to_voxel(xs, ys, ts, pos_w, B, **kw),
+            events_to_voxel(xs, ys, ts, neg_w, B, **kw))
+
+
+def events_to_neg_pos_voxel_torch(xs, ys, ts, ps, B, device=None, **kw):
+    return events_to_neg_pos_voxel(xs, ys, ts, ps, B, device=device, **kw)
+
+
+def events_to_voxel_timesync(xs, ys, ts, ps, B: int, t0, t1, np_ts=None,
+                             sensor_size=(180, 240),
+                             temporal_bilinear: bool = True,
+                             impl: Optional[str] = None,
+                             device=None) -> torch.Tensor:
+    """Voxel of the events between ``t0`` and ``t1`` (reference
+    voxel_grid.py:82-112): a host-side ``searchsorted`` slice, then one
+    ``events_to_voxel``."""
+    if not t1 > t0:
+        raise ConfigurationError(f"need t1 > t0, got t0={t0}, t1={t1}")
+    np_ts = to_numpy(ts) if np_ts is None else np_ts
+    start = int(np.searchsorted(np_ts, t0))
+    end = int(np.searchsorted(np_ts, t1))
+    if not start < end:
+        raise ConfigurationError(f"no events in [{t0}, {t1})")
+    return events_to_voxel(xs[start:end], ys[start:end], ts[start:end],
+                           ps[start:end], B, sensor_size=sensor_size,
+                           temporal_bilinear=temporal_bilinear, impl=impl,
+                           device=device)
+
+
+events_to_voxel_timesync_torch = events_to_voxel_timesync
+
+
+def voxel_grids_fixed_n(xs, ys, ts, ps, B: int, n: int,
+                        sensor_size=(180, 240), temporal_bilinear: bool = True,
+                        impl: Optional[str] = None, device=None):
+    """Voxel grids over consecutive windows of ``n`` events (reference
+    voxel_grid.py:37-57): one ``events_to_voxel`` per window (the JAX
+    package vmaps them). Returns ``(num_windows, B, H, W)``."""
+    dev = pick_device(xs, ys, ts, ps, device=device)
+    num = (len(xs) - n) // n + 1 if len(xs) >= n else 0
+    if num <= 0:
+        return torch.zeros((0, B) + tuple(sensor_size), device=dev)
+    return torch.stack([events_to_voxel(
+        xs[i:i + n], ys[i:i + n], ts[i:i + n], ps[i:i + n], B,
+        sensor_size=sensor_size, temporal_bilinear=temporal_bilinear,
+        impl=impl, device=dev) for i in range(0, num * n, n)])
+
+
+voxel_grids_fixed_n_torch = voxel_grids_fixed_n
+
+
+def voxel_grids_fixed_t(xs, ys, ts, ps, B: int, t: float,
+                        sensor_size=(180, 240), temporal_bilinear: bool = True,
+                        impl: Optional[str] = None, device=None):
+    """Voxel grids over fixed-duration windows (reference
+    voxel_grid.py:59-80). Returns a list (windows are ragged)."""
+    np_ts = to_numpy(ts)
+    return [events_to_voxel_timesync(
+        xs, ys, ts, ps, B, t_start, t_start + t, np_ts=np_ts,
+        sensor_size=sensor_size, temporal_bilinear=temporal_bilinear,
+        impl=impl, device=device)
+        for t_start in np.arange(np_ts[0], np_ts[-1] - t, t)]
+
+
+voxel_grids_fixed_t_torch = voxel_grids_fixed_t
+
+
+def get_voxel_grid_as_image(voxelgrid, normalize: bool = True):
+    """Bins side by side as one debug image (reference voxel_grid.py:9-24).
+    Host numpy."""
+    vg = to_numpy(voxelgrid)
+    splitter = np.ones((vg.shape[1], 2)) * vg.max()
+    parts = []
+    for image in vg:
+        parts.append(image)
+        parts.append(splitter)
+    parts.pop()
+    sidebyside = np.hstack(parts)
+    if normalize:
+        mn, mx = sidebyside.min(), sidebyside.max()
+        sidebyside = (sidebyside - mn) / max(mx - mn, 1e-12) * 255.0
+    return sidebyside
+
+
+def plot_voxel_grid(voxelgrid, cmap="gray", show: bool = True):
+    """Display a voxel grid as side-by-side bins (reference
+    voxel_grid.py:26-35). Imports matplotlib when called."""
+    import matplotlib.pyplot as plt
+    sidebyside = get_voxel_grid_as_image(voxelgrid)
+    plt.imshow(sidebyside, cmap=cmap)
+    if show:
+        plt.show()
+    return sidebyside

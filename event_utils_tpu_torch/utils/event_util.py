@@ -107,29 +107,34 @@ def lifespan_mask(ts, params, pixel_crossings: float,
     than ``minimum_events``, the newest ``minimum_events`` valid events stay
     on instead. Lifespan = pixel_crossings / |params| (5 s when |params| is
     0). ``drop_last`` excludes the final valid event, as the reference's
-    ``[s_idx:-1]`` does. Returns a float mask of shape (N,).
+    ``[s_idx:-1]`` does. Returns a float mask of the shape of ``ts``.
+
+    Batched: ``ts`` (..., N) with ``params`` (..., dims) cuts each row by
+    its own parameters (the JAX package's ``vmap`` over ROIs).
     """
     dev = pick_device(ts, base_mask, params, device=device)
     ts = as_tensor(ts, dev)
-    n = ts.shape[0]
+    n = ts.shape[-1]
     if base_mask is None:
         base_mask = torch.ones_like(ts)
     base_mask = as_tensor(base_mask, dev)
     valid = base_mask != 0
     params = as_tensor(params, dev).to(torch.float32)
-    magnitude = torch.linalg.vector_norm(torch.atleast_1d(params))
+    magnitude = torch.linalg.vector_norm(torch.atleast_1d(params), dim=-1,
+                                         keepdim=True)
     dt = torch.where(magnitude == 0, 5.0,
                      pixel_crossings / torch.clamp(magnitude, min=1e-30))
-    t_last = torch.where(valid, ts, -torch.inf).max()
+    t_last = torch.where(valid, ts, -torch.inf).amax(-1, keepdim=True)
     keep_time = valid & (ts >= t_last - dt)
-    num_valid = valid.sum()
-    num_kept = keep_time.sum()
-    rank_from_end = num_valid - torch.cumsum(valid, 0)  # 0 = last valid event
+    num_valid = valid.sum(-1, keepdim=True)
+    num_kept = keep_time.sum(-1, keepdim=True)
+    # 0 = last valid event
+    rank_from_end = num_valid - torch.cumsum(valid, -1)
     keep_min = valid & (rank_from_end < minimum_events)
     keep = torch.where(num_kept < minimum_events, keep_min, keep_time)
     if drop_last:
         pos = torch.arange(n, device=dev)
-        last_valid = torch.where(valid, pos, -1).max()
+        last_valid = torch.where(valid, pos, -1).amax(-1, keepdim=True)
         keep = keep & (pos < last_valid)
     return base_mask * keep.to(base_mask.dtype)
 

@@ -3,14 +3,21 @@
 
     python3 scripts/profile_torch_main_path.py
 
-Builds the planted 200k-event DAVIS240 scene of ``chip_smoke.py`` and runs
-``optimize_contrast_jit(grid_search_init=True)`` and
-``optimize_contrast(grid_search_init=True)`` once each to warm up, then once
-each under ``torch.profiler``. For each it prints one JSON line: host wall
-time, device busy time (sum of the card's kernel, memset and memcpy times),
-the device's idle share (1 - busy / wall), the number of device activities,
-the number of loss evaluations, and the activities and host operators that
-take the most time. Needs a CUDA device; fails without one.
+Builds the scenes of ``chip_smoke.py`` and runs each phase once to warm
+up, then once under ``torch.profiler``:
+
+- ``optimize_contrast_jit(grid_search_init=True)`` and
+  ``optimize_contrast(grid_search_init=True)`` on the planted 200k-event
+  DAVIS240 scene;
+- ``grid_cmax_batched`` on the rotating bench scene (the smoke's settings);
+- ``events_to_voxel_tiled`` at 720p on 2^21 events.
+
+For each it prints one JSON line: host wall time, device busy time (sum of
+the card's kernel, memset and memcpy times), the device's idle share
+(1 - busy / wall), the number of device activities, the launches of the
+port's kernels (on the solvers' paths one bilinear launch is one loss
+evaluation), and the activities and host operators that take the most
+time. Needs a CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ def profile(torch, label, fn, n_evals):
         "device_busy_s": busy_us * 1e-6,
         "device_idle_share": 1.0 - busy_us * 1e-6 / wall,
         "device_activities": sum(v[1] for v in dev.values()),
-        "loss_evals": n_evals(),
+        "kernel_launches": n_evals(),
         "top_device_us": [[k, v[0], v[1]] for k, v in top_dev],
         "top_host_self_us": [[k, v] for k, v in top_host],
     }), flush=True)
@@ -71,9 +78,10 @@ def main() -> int:
         return 2
     import chip_smoke
     from event_utils_tpu_torch.contrast_max import (
-        linvel_warp, optimize_contrast, optimize_contrast_jit,
-        variance_objective)
+        grid_cmax_batched, linvel_warp, optimize_contrast,
+        optimize_contrast_jit, variance_objective)
     from event_utils_tpu_torch.ops import cuda_scatter as cs
+    from event_utils_tpu_torch.representations import events_to_voxel_tiled
 
     print(chip_smoke.card_line(), flush=True)
     sx, sy, st, sp = chip_smoke.planted_scene(
@@ -81,10 +89,9 @@ def main() -> int:
     size = chip_smoke.SENSOR
 
     def evals():
-        # one bilinear launch per loss evaluation on this path
-        n = cs.bilinear_scatter.launches
+        n = cs.launch_counts()
         cs.reset_launch_counts()
-        return n
+        return {k: v for k, v in n.items() if v}
 
     jit = lambda: optimize_contrast_jit(sx, sy, st, sp, linvel_warp(),
                                         variance_objective(), img_size=size,
@@ -92,8 +99,21 @@ def main() -> int:
     host = lambda: optimize_contrast(sx, sy, st, sp, linvel_warp(),
                                      variance_objective(), blur_sigma=1.0,
                                      img_size=size, grid_search_init=True)
+    rx, ry, rt, rp = chip_smoke.rotating_scene()
+    roi = lambda: grid_cmax_batched(
+        rx, ry, rt, rp, roi_size=chip_smoke.ROT_ROI,
+        img_size=chip_smoke.ROT_SENSOR, maxiter=chip_smoke.ROT_MAXITER,
+        capacity=chip_smoke.ROT_CAPACITY)
+    rng = np.random.default_rng(chip_smoke.SEED)
+    big = chip_smoke.TILED_SENSORS["720p"]
+    n = chip_smoke.N_VOXEL
+    vx, vy = rng.integers(0, big[1], n), rng.integers(0, big[0], n)
+    vt, vp = np.sort(rng.uniform(0, 0.5, n)), rng.choice([-1.0, 1.0], n)
+    tiled = lambda: events_to_voxel_tiled(vx, vy, vt, vp, chip_smoke.B, big)
     for label, fn in (("optimize_contrast_jit", jit),
-                      ("optimize_contrast", host)):
+                      ("optimize_contrast", host),
+                      ("grid_cmax_batched", roi),
+                      ("events_to_voxel_tiled 720p", tiled)):
         def counted():
             cs.reset_launch_counts()
             fn()

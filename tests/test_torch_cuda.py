@@ -81,6 +81,36 @@ def test_voxel_kernel_matches_plain_with_overrides(cuda, gen):
 
 
 @pytest.mark.cuda
+def test_voxel_tiles_kernel_matches_plain(cuda, gen):
+    """T*cap not a multiple of the 256-thread block, out-of-tile and dead
+    slots, a mask, a window override, and slots at t_norm == B-1 exactly
+    (the second tap must vanish)."""
+    T, cap, B, th, tw = 7, 1001, 5, 96, 128
+    shape = (T, cap)
+    bx = torch.as_tensor(gen.integers(-3, tw + 3, shape), device=cuda)
+    by = torch.as_tensor(gen.integers(-3, th + 3, shape), device=cuda)
+    bt = torch.sort(torch.rand(shape, device=cuda), dim=1).values
+    bt[:, -5:] = 1.0
+    bp = torch.as_tensor(gen.choice([-1.0, 1.0], shape), dtype=torch.float32,
+                         device=cuda)
+    mask = (torch.rand(shape, device=cuda) > 0.2).float()
+    for kw in ({"t0": 0.0, "t1": 1.0}, {"t0": 0.0, "t1": 1.0, "mask": mask},
+               {"t0": 0.2, "t1": 0.7}):
+        args = cs.voxel_tiles_inputs(bx, by, bt, bp, B, (th, tw), **kw)
+        before = cs.voxel_tiles_scatter.launches
+        got = cs.voxel_tiles_scatter(*args, B, th, tw)
+        assert cs.voxel_tiles_scatter.launches == before + 1
+        assert got.shape == (T, B, th, tw)
+        assert_rel(got, cs.voxel_tiles_scatter_plain(*args, B, th, tw))
+    # one slot exactly at the last bin: all of its weight lands in bin B-1
+    one = [torch.tensor([[v]], dtype=dt, device=cuda) for v, dt in
+           ((3, torch.int32), (4, torch.int32), (float(B - 1), torch.float32),
+            (1.0, torch.float32))]
+    out = cs.voxel_tiles_scatter(*one, B, th, tw)
+    assert float(out[0, B - 1, 4, 3]) == 1.0 and float(out.sum()) == 1.0
+
+
+@pytest.mark.cuda
 def test_autograd_through_kernels_matches_plain_route(cuda, gen):
     from event_utils_tpu_torch.ops.scatter import bilinear_scatter
     n = 20_000
@@ -107,3 +137,33 @@ def test_entry_points_default_to_the_card(cuda, gen):
     out = events_to_voxel(xs, xs % 180, np.sort(gen.random(1000)),
                           np.ones(1000), 3, impl="matmul")
     assert out.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_tiled_voxel_and_roi_solver_on_the_card(cuda, gen):
+    """The ROI-bucketed path end to end on the card: the tiled voxel grid
+    against the exact route, and a small grid_cmax_batched whose patch
+    losses go through the bilinear kernel."""
+    from event_utils_tpu_torch.contrast_max import grid_cmax_batched
+    from event_utils_tpu_torch.representations import events_to_voxel
+    n, H, W = 50_000, 200, 300
+    xs = gen.integers(0, W, n)
+    ys = gen.integers(0, H, n)
+    ts = np.sort(gen.random(n))
+    ps = gen.choice([-1.0, 1.0], n)
+    cs.reset_launch_counts()
+    tiled = events_to_voxel(xs, ys, ts, ps, 5, (H, W), impl="tiled")
+    assert cs.voxel_tiles_scatter.launches == 1
+    assert_rel(tiled, events_to_voxel(xs, ys, ts, ps, 5, (H, W), impl="xla"))
+    m = 8000
+    px = gen.uniform(5, 50, 40)
+    py = gen.uniform(5, 35, 40)
+    idx = gen.integers(0, 40, m)
+    t = np.sort(gen.uniform(0, 0.5, m))
+    params, rois, f, valid = grid_cmax_batched(
+        px[idx] + 10 * t, py[idx] - 6 * t, t, np.ones(m), roi_size=(20, 20),
+        img_size=(40, 60), maxiter=20)
+    assert params.device.type == "cuda" and bool(valid.all())
+    assert cs.bilinear_scatter.launches > 0
+    med = params.median(dim=0).values.cpu().numpy()
+    np.testing.assert_allclose(med, [10.0, -6.0], atol=2.0)

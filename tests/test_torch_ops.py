@@ -59,9 +59,19 @@ def float_events(rng, n=2000, sensor=SENSOR, margin=2.0):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port, the ROI-bucketed path's entry points and
+    ``chip_smoke`` import without jax or the JAX package."""
     code = ("import sys, pkgutil, importlib, event_utils_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
+            "import chip_smoke\n"
+            "from event_utils_tpu_torch.contrast_max import (\n"
+            "    bucket_events_by_roi, fit_global_motion, grid_cmax,\n"
+            "    grid_cmax_batched, make_patch_loss)\n"
+            "from event_utils_tpu_torch.representations import (\n"
+            "    events_to_voxel_tiled, voxel_grids_fixed_n)\n"
+            "from event_utils_tpu_torch.ops.cuda_scatter import (\n"
+            "    voxel_tiles_scatter, voxel_tiles_scatter_plain)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'event_utils_tpu.')) or "
             "m == 'event_utils_tpu')\n"
@@ -376,10 +386,19 @@ def test_kernel_wrappers_run_plain_on_cpu_and_check_inputs(rng):
     idx = torch.as_tensor(rng.integers(0, 100, 300), dtype=torch.int32)
     assert torch.equal(cs.flat_scatter(idx, w[None], 100),
                        cs.flat_scatter_plain(idx, w[None], 100))
-    assert cs.launch_counts() == {"voxel_scatter": 0, "flat_scatter": 0,
-                                  "bilinear_scatter": 0}
+    bx = idx.view(3, 100) % 8
+    bt = torch.rand(3, 100)
+    assert torch.equal(cs.voxel_tiles_scatter(bx, bx, bt, w.view(3, 100), 2,
+                                              8, 8),
+                       cs.voxel_tiles_scatter_plain(bx, bx, bt,
+                                                    w.view(3, 100), 2, 8, 8))
+    assert cs.launch_counts() == {"voxel_scatter": 0,
+                                  "voxel_tiles_scatter": 0,
+                                  "flat_scatter": 0, "bilinear_scatter": 0}
     with pytest.raises(P.errors.ConfigurationError):
         cs.flat_scatter(idx.long(), w[None], 100)       # wrong id type
+    with pytest.raises(P.errors.ConfigurationError):     # (T, cap) shapes
+        cs.voxel_tiles_scatter(bx, bx[:2], bt, w.view(3, 100), 2, 8, 8)
     with pytest.raises(P.errors.ConfigurationError):
         cs.bilinear_scatter(x, y, w, *SENSOR)           # w must be (K, N)
 

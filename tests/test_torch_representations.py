@@ -156,15 +156,6 @@ def test_events_to_voxel_truncates_negative_float_coords():
         assert float(got[:, 1, 0].sum()) == 1.0
 
 
-def test_events_to_voxel_tiled_is_not_ported_yet(rng):
-    xs, ys, ts, ps = events(rng, 50)
-    with pytest.raises(P.errors.ConfigurationError, match="not yet ported"):
-        P.representations.events_to_voxel(xs, ys, ts, ps, 3, SENSOR,
-                                          impl="tiled", device=CPU)
-    with pytest.raises(P.errors.ConfigurationError, match="not yet ported"):
-        P.representations.events_to_voxel_tiled(xs, ys, ts, ps, 3, SENSOR)
-
-
 def test_voxel_tensors_keep_their_device(rng):
     xs, ys, ts, ps = events(rng, 200)
     out = P.representations.events_to_voxel(
@@ -291,3 +282,48 @@ def test_timestamp_weight_sums_parity(rng):
                                         *args, "matmul")
     assert got.shape == (4,) + img_size
     assert_rel(got, ref, F32_REL)
+
+
+# ---------------------------------------------------------------------------
+# Reference-signature shims and the stateful accumulators
+# ---------------------------------------------------------------------------
+
+def test_interpolate_shims_parity(rng):
+    xs, ys, ts, ps = events(rng, floats=True, oob=2)
+    dx = rng.uniform(-0.5, 0.5, len(xs))
+    dy = rng.uniform(-0.5, 0.5, len(xs))
+    img = rng.normal(size=SENSOR).astype(np.float32)
+    ref = np.asarray(J.representations.interpolate_to_image(xs, ys, dx, dy,
+                                                            ps, img))
+    got = P.representations.interpolate_to_image(xs, ys, dx, dy, ps,
+                                                 torch.as_tensor(img))
+    assert_rel(got, ref, F32_REL)
+    d_img = rng.normal(size=(2,) + SENSOR).astype(np.float32)
+    w1 = rng.normal(size=len(xs))
+    w2 = rng.normal(size=len(xs))
+    ref = np.asarray(J.representations.interpolate_to_derivative_img(
+        xs, ys, dx, dy, d_img, w1, w2))
+    got = P.representations.interpolate_to_derivative_img(
+        xs, ys, dx, dy, torch.as_tensor(d_img), w1, w2)
+    assert_rel(got, ref, F32_REL)
+
+
+def test_timestamp_image_torch_alias_and_accumulators(rng):
+    xs, ys, ts, ps = events(rng, floats=True, oob=0)
+    ref = J.representations.events_to_timestamp_image_torch(
+        xs, ys, ts, ps, sensor_size=SENSOR)
+    got = P.representations.events_to_timestamp_image_torch(
+        xs, ys, ts, ps, device=CPU, sensor_size=SENSOR)
+    for a, b in zip(got, ref):
+        assert_rel(a, np.asarray(b), F32_REL)
+    ix = rng.integers(0, SENSOR[1], 500)
+    iy = rng.integers(0, SENSOR[0], 500)
+    its = np.sort(rng.random(500))
+    ips = rng.choice([-1.0, 1.0], 500)
+    for name in ("TimestampImage", "EventImage"):
+        j = getattr(J.representations, name)(SENSOR)
+        p = getattr(P.representations, name)(SENSOR)
+        for acc in (j, p):
+            acc.add_events(ix[:-1], iy[:-1], its[:-1], ips[:-1])
+            acc.add_event(ix[-1], iy[-1], its[-1], ips[-1])
+        np.testing.assert_array_equal(p.get_image(), j.get_image())
