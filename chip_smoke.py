@@ -5,34 +5,51 @@
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``event_utils_tpu_torch/csrc`` and prints the build time.
-2. Holds each kernel against its plain PyTorch version at the main path's
-   shapes (voxel: 2^21 time-sorted events, B=5, 180x240, also masked and
-   with a t1 override; per-tile voxel: the same stream at 720p bucketed
-   into 80 (96, 128) tiles, the same three cases; bilinear: K=1 and K=4 at
-   181x241 on 200k events, plus autograd gradients, and the patch atlas
-   of one batched ``grid_cmax_batched`` loss evaluation, 5.5M warped
-   events; flat: the D=2 derivative stack), and times the kernel, the
-   plain version and one PyTorch library call on the device (CUDA events
-   around CUDA-graph replays; see ``time_ms``).
+2. Holds each kernel, by route, against its plain PyTorch version at the
+   main path's shapes, and times the kernel, the plain version and one
+   PyTorch library call on the device (CUDA events around CUDA-graph
+   replays; see ``time_ms``):
+   - voxel: 2^21 time-sorted events, B=5, 180x240, also masked and with a
+     t1 override;
+   - per-tile voxel: the same stream at 720p bucketed into 80 (96, 128)
+     tiles, the same three cases, on the private route and on the direct
+     one, both also at VGA; the private route with unsorted slots and with
+     B=9; the direct route at a (240, 256) tile, whose plane
+     exceeds a block's shared memory;
+   - bilinear: K=1 (private route against direct) and K=4 (direct) at
+     181x241 on 200k events, the planted scene warped onto its 400 tracks,
+     ~2k events into 21x21 and 181x241 (the one-block form of the private
+     kernel, which no shape is sent to, against direct), NaN, +-1e30 and
+     all-out-of-frame coordinates on every route, and autograd gradients;
+   - bilinear patches: one batched ``grid_cmax_batched`` loss evaluation
+     (108 ROIs x 25 samples x 2048 slots into (64, 128) patches) at K=1 and
+     K=4, against the plain version and against the atlas route it
+     replaced (direct kernel + un-tiling copy); one descent step of it (108
+     patches: the direct patch route); a ragged case (P=7, C=1000,
+     (24, 40)) on both routes; a (240, 256) patch; gradients;
+   - flat: the D=2 derivative stack.
 3. Drives the main path through the public entry points with every launch
    count set to 0 first: ``events_to_voxel(impl="matmul")``,
-   ``events_to_image(impl="matmul")``, the analytic
+   ``events_to_image(impl="matmul")``,
+   ``events_to_timestamp_image(impl="matmul")``, the analytic
    ``variance_objective.evaluate_gradient(impl="matmul")``, then
    ``optimize_contrast_jit(grid_search_init=True)`` and
    ``optimize_contrast(grid_search_init=True)`` on a 200k-event DAVIS240
    scene with a planted velocity, which both must recover within 4 px/s.
    Then the ROI-bucketed path: ``events_to_voxel(impl="tiled")`` and
    ``events_to_voxel_tiled`` at VGA and 720p on 2^21 events (each against
-   the exact route), ``grid_cmax_batched`` on the rotating bench scene
-   (all-ROI median flow error at most 4.5 px/s; again with
-   ``pyramid="auto"``), and the host loop ``grid_cmax`` on one 40x60
-   corner of it. Every kernel must have launched during this phase.
+   the exact route; 720p also with (240, 256) tiles), ``grid_cmax_batched``
+   on the rotating bench scene (all-ROI median flow error at most 4.5
+   px/s; again with ``pyramid="auto"``), one patch loss with (240, 256)
+   patches, and the host loop ``grid_cmax`` on one 40x60 corner of it.
+   Every route that some shape is sent to must have launched during this
+   phase.
 4. Times the tiled route and its host bucketing alone, warm, and prints
    the bucketing's share of the route's wall.
 
-Prints a ``{"kernels": [...]}`` JSON line, then the card line, and last
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-so does a machine without a CUDA device.
+Prints a ``{"kernels": [...]}`` JSON line (one entry per route), then the
+card line, and last ``{"ok": true, "device": {...}}``. Any failure raises
+and exits non-zero; so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -56,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 F32_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 TILED_SENSORS = {"VGA": (480, 640), "720p": (720, 1280)}
 TILE = (96, 128)
+BIG_TILE = (240, 256)        # one plane exceeds a block's shared memory
 ROT_SENSOR = (180, 240)      # the rotating bench scene
 ROT_ROI = (20, 20)
 ROT_EVENTS = 200_000
@@ -70,6 +88,7 @@ REPLACES = {
     "voxel_tiles_scatter": "event_utils_tpu/ops/pallas_scatter.py:455",
     "flat_scatter": "event_utils_tpu/ops/pallas_scatter.py:496",
     "bilinear_scatter": "event_utils_tpu/ops/pallas_scatter.py:576",
+    "bilinear_patches_scatter": "event_utils_tpu/ops/pallas_scatter.py:576",
 }
 
 
@@ -87,31 +106,33 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(fn, torch):
+def time_ms(fn, torch, calls=CALLS, reps=REPS):
     """Device time of one call of ``fn``, in ms.
 
-    ``fn`` (output allocation, zeroing and launches) is captured CALLS
+    ``fn`` (output allocation, zeroing and launches) is captured ``calls``
     times into one CUDA graph, so that the replay runs back to back on the
-    card with no host gaps; the result is the median over REPS replays,
-    each timed with CUDA events, divided by CALLS.
+    card with no host gaps; the result is the median over ``reps`` replays,
+    each timed with CUDA events, divided by ``calls``. Slow plain versions
+    at the largest shapes pass smaller counts.
     """
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(CALLS):
+        for _ in range(calls):
             fn()
     graph.replay()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         graph.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / CALLS)
+        times.append(a.elapsed_time(b) / calls)
+    del graph
     return float(np.median(times))
 
 
@@ -121,14 +142,15 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bilinear_bound(x, y, K: int, H: int, W: int):
-    """Bound of one (K, H, W) bilinear splat on this run's coordinates: x
-    and y are read for every event, the K weights (and their taps) only
-    for events with a tap inside the image; the kernel drops the others
-    before it reads their weights."""
+def bilinear_bound(x, y, K: int, H: int, W: int, P: int = 1):
+    """Bound of one bilinear splat on this run's coordinates, into a
+    (K, H, W) image or (K, P, H, W) patches: x and y are read for every
+    event, the K weights (and their taps) only for events with a tap inside
+    their image; the output is written once. No memset is counted."""
     x0, y0 = x.floor(), y.floor()
     live = int(((x0 >= -1) & (x0 < W) & (y0 >= -1) & (y0 < H)).sum())
-    return bound(len(x) * 8 + live * 4 * K + K * H * W * 4, live * K * 20)
+    return bound(len(x) * 8 + live * 4 * K + K * P * H * W * 4,
+                 live * K * 20)
 
 
 def check_close(name, got, ref, rel=1e-5):
@@ -202,35 +224,67 @@ def flow_error(params, rois, valid):
     return float(np.median(np.linalg.norm(p - gt, axis=1)[v])), int(v.sum())
 
 
-def tiles_phase(torch, cs, rng, records):
-    """The per-tile voxel kernel at 720p: 2^21 events bucketed into
-    80 (96, 128) tiles by the port's bucket_events_by_roi."""
+def bucketed_tiles(torch, rng, sensor, tile):
+    """N_VOXEL events over ``sensor`` bucketed into ``tile``s by the port's
+    bucket_events_by_roi: tile-local (lx, ly), bt, bp, the slot mask and
+    the sorted timestamps."""
     from event_utils_tpu_torch.contrast_max import bucket_events_by_roi
-    dev = torch.device("cuda")
-    H, W = TILED_SENSORS["720p"]
-    th, tw = TILE
+    (H, W), (th, tw) = sensor, tile
     ny, nx = -(-H // th), -(-W // tw)
-    xs, ys, ts, ps = voxel_events(rng, (H, W))
+    xs, ys, ts, ps = voxel_events(rng, sensor)
     bx, by, bt, bp, bmask, org, _ = bucket_events_by_roi(
-        xs, ys, ts, ps, (ny * th, nx * tw), TILE, capacity_cap=None,
-        device=dev)
-    T, cap = bx.shape
-    log(f"per-tile voxel: T={T} tiles, capacity {cap}, {N_VOXEL} events")
+        xs, ys, ts, ps, (ny * th, nx * tw), tile, capacity_cap=None,
+        device=torch.device("cuda"))
     lx = bx.int() - org[:, 1:2].int()
     ly = by.int() - org[:, 0:1].int()
+    log(f"per-tile voxel {sensor} in {tile} tiles: T={lx.shape[0]}, "
+        f"capacity {lx.shape[1]}, {N_VOXEL} events")
+    return lx, ly, bt, bp, bmask, ts
+
+
+def tiles_phase(torch, cs, rng, records):
+    """The per-tile voxel kernel's two routes at 720p (80 (96, 128) tiles)
+    and VGA, the private route also with unsorted slots and with B=9, and
+    the direct route at a tile too large for shared memory."""
+    from event_utils_tpu_torch.errors import ConfigurationError
+    dev = torch.device("cuda")
+    th, tw = TILE
+    routes = ("private", "direct")
+    lx, ly, bt, bp, bmask, ts = bucketed_tiles(torch, rng,
+                                               TILED_SENSORS["720p"], TILE)
+    T, cap = lx.shape
     keep = torch.as_tensor(rng.random((T, cap)) > 0.2, device=dev).float()
-    errs = []
+    errs = {r: [] for r in routes}
     for label, mask, t1 in (("plain window", bmask, ts[-1]),
                             ("masked", bmask * keep, ts[-1]),
                             ("t1 override", bmask, ts[N_VOXEL // 2])):
         args = cs.voxel_tiles_inputs(lx, ly, bt, bp, B, TILE, ts[0], t1,
                                      mask=mask)
-        errs.append(check_close(
-            f"voxel_tiles_scatter ({label})",
-            cs.voxel_tiles_scatter(*args, B, th, tw),
-            cs.voxel_tiles_scatter_plain(*args, B, th, tw)))
+        ref = cs.voxel_tiles_scatter_plain(*args, B, th, tw)
+        for r in routes:
+            errs[r].append(check_close(
+                f"voxel_tiles_scatter:{r} ({label})",
+                cs.voxel_tiles_scatter(*args, B, th, tw, route=r), ref))
     args = cs.voxel_tiles_inputs(lx, ly, bt, bp, B, TILE, ts[0], ts[-1],
                                  mask=bmask)
+    ref = cs.voxel_tiles_scatter_plain(*args, B, th, tw)
+    # slots in any order give the same grid, to the order of the atomics
+    perm = torch.rand((T, cap), device=dev).argsort(1)
+    shuffled = [a.gather(1, perm).contiguous() for a in args]
+    errs["private"].append(check_close(
+        "voxel_tiles_scatter:private (unsorted slots)",
+        cs.voxel_tiles_scatter(*shuffled, B, th, tw), ref))
+    # more bins than a tile has in any caller: still one launch
+    args9 = cs.voxel_tiles_inputs(lx, ly, bt, bp, 9, TILE, ts[0], ts[-1],
+                                  mask=bmask)
+    before = cs.launch_counts()["voxel_tiles_scatter:private"]
+    errs["private"].append(check_close(
+        "voxel_tiles_scatter:private (B=9)",
+        cs.voxel_tiles_scatter(*args9, 9, th, tw),
+        cs.voxel_tiles_scatter_plain(*args9, 9, th, tw)))
+    if cs.launch_counts()["voxel_tiles_scatter:private"] != before + 1:
+        raise AssertionError("B=9 did not take the private route")
+
     t_norm, pv = args[2], args[3]
     b0 = torch.floor(t_norm)
     base = (torch.arange(T, device=dev)[:, None] * B * th * tw
@@ -246,20 +300,73 @@ def tiles_phase(torch, cs, rng, records):
     # only of the live ones; dead slots hold the pad sentinel bp = 0
     live = int((pv != 0).sum())
     log(f"  {live} live slots of {T * cap}")
-    records["voxel_tiles_scatter"] = dict(
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: cs.voxel_tiles_scatter(*args, B, th, tw), torch),
+    shared = dict(
         plain_ms=time_ms(lambda: cs.voxel_tiles_scatter_plain(*args, B, th,
                                                               tw), torch),
         library_ms=time_ms(lambda: torch.zeros(T * B * th * tw, device=dev)
                            .index_put_((ids,), vals, accumulate=True), torch),
         bound=bound(T * cap * 4 + live * 12 + T * B * th * tw * 4, live * 8))
+    for r in routes:
+        records[f"voxel_tiles_scatter:{r}"] = dict(
+            shared, shape=f"720p, {T} tiles x {cap} slots, B={B}",
+            ms=time_ms(lambda: cs.voxel_tiles_scatter(*args, B, th, tw,
+                                                      route=r), torch))
+    log("  720p timed: " + ", ".join(
+        f"{r} {records[f'voxel_tiles_scatter:{r}']['ms']:.4f} ms"
+        for r in routes) + f", bound {shared['bound'][0]:.4f} ms")
+
+    # ---- VGA, both routes -------------------------------------------------
+    vx, vy, vt, vp, vmask, vts = bucketed_tiles(torch, rng,
+                                                TILED_SENSORS["VGA"], TILE)
+    vargs = cs.voxel_tiles_inputs(vx, vy, vt, vp, B, TILE, vts[0], vts[-1],
+                                  mask=vmask)
+    vref = cs.voxel_tiles_scatter_plain(*vargs, B, th, tw)
+    vlive = int((vargs[3] != 0).sum())
+    for r in routes:
+        err = check_close(f"voxel_tiles_scatter:{r} (VGA)",
+                          cs.voxel_tiles_scatter(*vargs, B, th, tw, route=r),
+                          vref)
+        errs[r].append(err)
+        records[f"voxel_tiles_scatter:{r}"]["cases"] = [dict(
+            shape=f"VGA, {vx.shape[0]} tiles x {vx.shape[1]} slots, B={B}",
+            ms=time_ms(lambda: cs.voxel_tiles_scatter(*vargs, B, th, tw,
+                                                      route=r), torch),
+            max_abs_err=err,
+            bound_ms=bound(vx.numel() * 4 + vlive * 12 + vref.numel() * 4,
+                           vlive * 8)[0])]
+
+    # ---- a tile whose plane exceeds shared memory: the direct route ------
+    bh, bw = BIG_TILE
+    gx, gy, gt, gp, gmask, gts = bucketed_tiles(torch, rng,
+                                                TILED_SENSORS["720p"],
+                                                BIG_TILE)
+    gargs = cs.voxel_tiles_inputs(gx, gy, gt, gp, B, BIG_TILE, gts[0],
+                                  gts[-1], mask=gmask)
+    if cs.voxel_tiles_route(B, bh, bw) != "direct":
+        raise AssertionError(f"{BIG_TILE} tiles must take the direct route")
+    errs["direct"].append(check_close(
+        f"voxel_tiles_scatter:direct ({BIG_TILE} tiles)",
+        cs.voxel_tiles_scatter(*gargs, B, bh, bw),
+        cs.voxel_tiles_scatter_plain(*gargs, B, bh, bw)))
+    try:
+        cs.voxel_tiles_scatter(*gargs, B, bh, bw, route="private")
+    except ConfigurationError:
+        pass
+    else:
+        raise AssertionError("the private route took a plane that cannot "
+                             "fit shared memory")
+    for r in routes:
+        records[f"voxel_tiles_scatter:{r}"]["max_abs_err"] = max(errs[r])
 
 
-def bilinear_times(torch, cs, x, y, w1, H, W):
-    """Kernel, plain and ``index_put_`` times and the bound of one K=1
-    bilinear splat of ``w1`` (1, N) at (x, y) into (H, W); the kernel is
-    also held against its plain version on these inputs."""
+def live_taps(torch, x, y, w, H, W, base=None, pixels=None):
+    """Flat ids and values of the in-image taps of a bilinear splat of the
+    K rows of ``w``, for one ``index_put_`` into (K * pixels,); ``base`` is
+    each slot's first pixel id (patches) and ``pixels`` the size of one
+    channel (H * W for an image). Taps outside the image are left out: sent
+    to one id with weight 0 they would serialise index_put_'s duplicate
+    runs."""
+    pixels = H * W if pixels is None else pixels
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     taps_i, taps_v = [], []
@@ -267,35 +374,108 @@ def bilinear_times(torch, cs, x, y, w1, H, W):
         for ox, wx in ((0, 1 - (x - x0)), (1, x - x0)):
             ok = ((x0 + ox >= 0) & (x0 + ox < W) & (y0 + oy >= 0)
                   & (y0 + oy < H))
-            # taps outside the image are left out: sent to one id with
-            # weight 0 they would serialise index_put_'s duplicate runs
-            taps_i.append(((y0 + oy) * W + x0 + ox)[ok].long())
-            taps_v.append((w1[0] * wx * wy)[ok])
-    bi, bv = torch.cat(taps_i), torch.cat(taps_v)
-    shape = f"K=1, {len(x)} events into {H}x{W}"
-    rec = dict(
+            pix = ((y0 + oy) * W + x0 + ox)[ok].long()
+            if base is not None:
+                pix = pix + base[ok]
+            for k in range(w.shape[0]):
+                taps_i.append(pix + k * pixels)
+                taps_v.append((w[k] * wx * wy)[ok])
+    return torch.cat(taps_i), torch.cat(taps_v)
+
+
+def patches_library_ms(torch, x, y, w, P, C, PH, PW, **counts):
+    """Time of one ``index_put_(accumulate=True)`` that computes the patch
+    splat of all K channels on precomputed ids and weights."""
+    dev = x.device
+    K, pixels = w.shape[0], P * PH * PW
+    base = torch.arange(P, device=dev).repeat_interleave(C) * (PH * PW)
+    bi, bv = live_taps(torch, x, y, w, PH, PW, base, pixels)
+    return time_ms(lambda: torch.zeros(K * pixels, device=dev).index_put_(
+        (bi,), bv, accumulate=True), torch, **counts)
+
+
+def bilinear_case(torch, cs, label, x, y, w1, H, W, routes):
+    """One K=1 splat of ``w1`` (1, N) at (x, y) into (H, W) on each of
+    ``routes``: every route against the plain version, its time, and the
+    plain, ``index_put_`` and bound times of the shape. Returns
+    ``{route: record}``."""
+    bi, bv = live_taps(torch, x, y, w1, H, W)
+    shape = f"K=1, {len(x)} events ({label}) into {H}x{W}"
+    ref = cs.bilinear_scatter_plain(x, y, w1, H, W)
+    shared = dict(
         shape=shape,
-        max_abs_err=check_close(f"bilinear_scatter ({shape})",
-                                cs.bilinear_scatter(x, y, w1, H, W),
-                                cs.bilinear_scatter_plain(x, y, w1, H, W)),
-        ms=time_ms(lambda: cs.bilinear_scatter(x, y, w1, H, W), torch),
         plain_ms=time_ms(lambda: cs.bilinear_scatter_plain(x, y, w1, H, W),
                          torch),
         library_ms=time_ms(lambda: torch.zeros(H * W, device=x.device)
                            .index_put_((bi,), bv, accumulate=True), torch),
         bound=bilinear_bound(x, y, 1, H, W))
-    log(f"  timed: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
-        f"ms, index_put_ {rec['library_ms']:.4f} ms, bound "
-        f"{rec['bound'][0]:.5f} ms")
-    return rec
+    out = {}
+    for r in routes:
+        out[r] = dict(
+            shared,
+            max_abs_err=check_close(
+                f"bilinear_scatter:{r} ({shape})",
+                cs.bilinear_scatter(x, y, w1, H, W, route=r), ref),
+            ms=time_ms(lambda: cs.bilinear_scatter(x, y, w1, H, W, route=r),
+                       torch))
+    log("  timed: " + ", ".join(f"{r} {out[r]['ms']:.4f} ms" for r in routes)
+        + f", plain {shared['plain_ms']:.4f} ms, index_put_ "
+        f"{shared['library_ms']:.4f} ms, bound {shared['bound'][0]:.5f} ms")
+    return out
 
 
-def patch_atlas_inputs(torch):
-    """The bilinear kernel's inputs in one evaluation of the batched patch
+def as_case(rec, **extra):
+    return dict({k: rec[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                     "max_abs_err")},
+                bound_ms=rec["bound"][0], **extra)
+
+
+def odd_coordinates(torch, cs, rng):
+    """NaN, +-inf, +-1e30 and out-of-frame coordinates on every bilinear
+    route: dropped, never wrapped; a stream wholly out of frame gives an
+    exact zero image."""
+    dev = torch.device("cuda")
+    H, W, n = 40, 60, 4096
+    odd = np.array([np.nan, np.inf, -np.inf, 1e30, -1e30, -1.0, -1.5, W - 1,
+                    W - 0.5, W, 2.0 ** 31, -2.0 ** 31, 2.0 ** 40])
+    x = rng.uniform(-2, W + 1, n)
+    y = rng.uniform(-2, H + 1, n)
+    x[::7] = odd[np.arange(len(x[::7])) % len(odd)]
+    y[3::11] = odd[np.arange(len(y[3::11])) % len(odd)]
+    x, y = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (x, y))
+    w = torch.as_tensor(rng.uniform(-1, 1, (2, n)), dtype=torch.float32,
+                        device=dev)
+    ref = cs.bilinear_scatter_plain(x, y, w, H, W)
+    errs = []
+    for r in ("direct", "single", "private"):
+        errs.append(check_close(f"bilinear_scatter:{r} (odd coordinates)",
+                                cs.bilinear_scatter(x, y, w, H, W, route=r),
+                                ref))
+        away = cs.bilinear_scatter(x * 0 - 10.0, y, w, H, W, route=r)
+        if float(away.abs().max()) != 0.0:
+            raise AssertionError(f"bilinear_scatter:{r}: out-of-frame events "
+                                 f"left a mark")
+    P, C = 4, n // 4
+    pref = cs.bilinear_patches_scatter_plain(x, y, w, P, C, H, W)
+    for r in ("patch", "direct"):
+        errs.append(check_close(
+            f"bilinear_patches_scatter {r} route (odd coordinates)",
+            cs.bilinear_patches_scatter(x, y, w, P, C, H, W, route=r), pref))
+        away = cs.bilinear_patches_scatter(x, y * 0 + 1e30, w, P, C, H, W,
+                                           route=r)
+        if float(away.abs().max()) != 0.0:
+            raise AssertionError(f"bilinear_patches_scatter {r}: "
+                                 f"out-of-frame events left a mark")
+    return max(errs)
+
+
+def patch_loss_inputs(torch, objective):
+    """The patch kernel's inputs in one evaluation of the batched patch
     loss of ``grid_cmax_batched``'s first grid-search step: the rotating
     scene bucketed into 108 ROIs at capacity 2048, 25 velocity samples per
-    ROI, every patch splatted into one atlas. Returns (x, y, w, H, W),
-    captured at the loss's call of ``bilinear_matmul``."""
+    ROI. Returns (x, y, w, P, C, PH, PW) as the loss hands them to
+    ``bilinear_patches_scatter`` (K=1 for 'variance', K=4 for 'zhu')."""
     from event_utils_tpu_torch.contrast_max import events_cmax as ec
     from event_utils_tpu_torch.contrast_max import linvel_warp
     dev = torch.device("cuda")
@@ -303,29 +483,199 @@ def patch_atlas_inputs(torch):
     bx, by, bt, bp, bm, org, _ = ec.bucket_events_by_roi(
         *rotating_scene(), ROT_SENSOR, ROT_ROI, ROT_CAPACITY, device=dev)
     R = bx.shape[0]
-    loss = ec.make_patch_loss(linvel_warp(), ROT_ROI, "variance",
+    loss = ec.make_patch_loss(linvel_warp(), ROT_ROI, objective,
                               full_pixels=(H + 1) * (W + 1))
     g = torch.linspace(-150.0, 150.0, 5, device=dev)
     params = torch.stack(torch.meshgrid(g, g, indexing="ij"), -1)
     params = params.reshape(1, 25, 2).expand(R, 25, 2)
     seen = []
-    splat = ec.bilinear_matmul
+    splat = ec.bilinear_patches_scatter
 
-    def capture(x, y, w, shape, **kw):
-        seen.append((x, y, w, shape))
-        return splat(x, y, w, shape, **kw)
+    def capture(*a, **kw):
+        seen.append(a)
+        return splat(*a, **kw)
 
-    ec.bilinear_matmul = capture
+    ec.bilinear_patches_scatter = capture
     try:
         with torch.no_grad():
             loss(params, bx, by, bt, bp, bm, org.float())
     finally:
-        ec.bilinear_matmul = splat
-    x, y, w, (AH, AW) = seen[0]
-    log(f"patch atlas: {R} ROIs x 25 samples, {x.numel()} warped events "
-        f"into {AH}x{AW}")
-    return (x.float().contiguous(), y.float().contiguous(),
-            w.float().contiguous(), AH, AW)
+        ec.bilinear_patches_scatter = splat
+    x, y, w, P, C, PH, PW = seen[0]
+    log(f"patch loss ({objective}): {R} ROIs x 25 samples = {P} patches of "
+        f"({PH}, {PW}), {C} slots each, K={w.shape[0]}")
+    return x.contiguous(), y.contiguous(), w.contiguous(), P, C, PH, PW
+
+
+def atlas_route(torch, cs, x, y, w, P, C, PH, PW):
+    """The route the patch kernel replaced: every patch splatted by the
+    direct kernel into one near-square atlas (zeroed first), then un-tiled
+    with a copy. The same function where every slot with a tap outside its
+    patch has weight 0, as the patch loss makes them. Returns the callable
+    (atlas coordinates are made once, outside it)."""
+    K = w.shape[0]
+    ncol = max(1, int(round(np.sqrt(P * PH / PW))))
+    nrow = -(-P // ncol)
+    q = torch.arange(P, device=x.device).repeat_interleave(C)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    inpatch = (x0 >= 0) & (x0 + 1 < PW) & (y0 >= 0) & (y0 + 1 < PH)
+    ax = torch.where(inpatch, x + (q % ncol * PW).float(), -2.0)
+    ay = torch.where(inpatch, y + (q // ncol * PH).float(), -2.0)
+
+    def run():
+        img = cs.bilinear_scatter(ax, ay, w, nrow * PH, ncol * PW,
+                                  route="direct")
+        img = img.view(K, nrow, PH, ncol, PW).permute(0, 1, 3, 2, 4)
+        return img.reshape(K, nrow * ncol, PH, PW)[:, :P]
+
+    return run
+
+
+def patches_phase(torch, cs, rng, records):
+    """The patch kernel at one batched loss evaluation (K=1 and K=4),
+    against its plain version and the atlas route; a ragged shape; a patch
+    too large for shared memory (direct route); gradients."""
+    dev = torch.device("cuda")
+    slow = dict(calls=2, reps=5)
+    errs, cases = [], []
+    for objective in ("variance", "zhu"):
+        x, y, w, P, C, PH, PW = patch_loss_inputs(torch, objective)
+        K = w.shape[0]
+        kernel = lambda: cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW)
+        plain = lambda: cs.bilinear_patches_scatter_plain(x, y, w, P, C, PH,
+                                                          PW)
+        atlas = atlas_route(torch, cs, x, y, w, P, C, PH, PW)
+        ref = plain()
+        shape = (f"K={K}, {P} patches x {C} slots into ({PH}, {PW}) "
+                 f"(one {objective} loss evaluation)")
+        rec = dict(
+            shape=shape,
+            max_abs_err=check_close(f"bilinear_patches_scatter ({shape})",
+                                    kernel(), ref),
+            bound=bilinear_bound(x, y, K, PH, PW, P))
+        # the atlas offsets ride on the f32 coordinates (up to ~4.7e3 px):
+        # the bilinear fractions there keep ~5e-4 px, hence 1e-3
+        check_close("  atlas route (direct kernel + un-tiling) on the same "
+                    "evaluation", atlas(), ref, rel=1e-3)
+        del ref
+        rec["ms"] = time_ms(kernel, torch)
+        rec["atlas_ms"] = time_ms(atlas, torch, **slow)
+        rec["plain_ms"] = time_ms(plain, torch, **slow)
+        rec["library_ms"] = patches_library_ms(torch, x, y, w, P, C, PH, PW,
+                                               **slow)
+        log(f"  timed: patch kernel {rec['ms']:.4f} ms, atlas route "
+            f"{rec['atlas_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+            f"index_put_ {rec['library_ms']:.4f} ms, bound "
+            f"{rec['bound'][0]:.4f} ms")
+        errs.append(rec["max_abs_err"])
+        cases.append(rec)
+        if K == 1:
+            step = descent_step_case(torch, cs, x, y, w, P // 25, C, PH, PW)
+        del x, y, w, kernel, plain, atlas
+        torch.cuda.empty_cache()
+
+    # ---- ragged: sizes that are no multiple of any block --------------------
+    P, C, PH, PW = 7, 1000, 24, 40
+    x = torch.as_tensor(rng.uniform(-2, PW + 1, P * C), dtype=torch.float32,
+                        device=dev)
+    y = torch.as_tensor(rng.uniform(-2, PH + 1, P * C), dtype=torch.float32,
+                        device=dev)
+    w = torch.as_tensor(rng.uniform(-1, 1, (3, P * C)), dtype=torch.float32,
+                        device=dev)
+    ref = cs.bilinear_patches_scatter_plain(x, y, w, P, C, PH, PW)
+    derr = check_close(
+        f"bilinear_patches_scatter:direct (ragged: P={P}, C={C}, "
+        f"({PH}, {PW}), K=3)",
+        cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW), ref)
+    patch = lambda *a: cs.bilinear_patches_scatter(*a, route="patch")
+    errs.append(check_close(
+        "bilinear_patches_scatter (the same, patch route)",
+        patch(x, y, w, P, C, PH, PW), ref))
+    # P = 1 is the whole-image splat
+    errs.append(check_close(
+        "bilinear_patches_scatter (P=1) vs bilinear_scatter_plain",
+        patch(x, y, w, 1, P * C, PH, PW)[:, 0],
+        cs.bilinear_scatter_plain(x, y, w, PH, PW)))
+    # gradients: kernel forward + gather backward vs autograd of index_add_
+    tgt = torch.as_tensor(rng.normal(size=(3, P, PH, PW)),
+                          dtype=torch.float32, device=dev)
+    grads = []
+    for fn in (patch, cs.bilinear_patches_scatter_plain):
+        leaves = [a.clone().requires_grad_(True) for a in (x, y, w)]
+        grads.append(torch.autograd.grad(
+            (fn(*leaves, P, C, PH, PW) * tgt).sum(), leaves))
+    for name, gk, gp in zip("xyw", *grads):
+        errs.append(check_close(f"bilinear_patches grad d{name}", gk, gp,
+                                rel=1e-4))
+    errs.append(odd_coordinates(torch, cs, rng))
+
+    top = cases[0]
+    top["cases"] = [as_case(c, atlas_ms=c["atlas_ms"]) for c in cases]
+    top["max_abs_err"] = max(errs)
+    records["bilinear_patches_scatter"] = top
+
+    # ---- a patch whose plane exceeds shared memory: the direct route ----
+    P, C, (PH, PW) = 2, 100_000, BIG_TILE
+    if cs.bilinear_patches_route(2700, PH, PW) != "direct":
+        raise AssertionError(f"{BIG_TILE} patches must take the direct route")
+    x = torch.as_tensor(rng.uniform(-2, PW + 1, P * C), dtype=torch.float32,
+                        device=dev)
+    y = torch.as_tensor(rng.uniform(-2, PH + 1, P * C), dtype=torch.float32,
+                        device=dev)
+    w = torch.as_tensor(rng.uniform(-1, 1, (1, P * C)), dtype=torch.float32,
+                        device=dev)
+    shape = f"K=1, {P} patches x {C} slots into ({PH}, {PW})"
+    wide = dict(
+        shape=shape,
+        max_abs_err=check_close(
+            f"bilinear_patches_scatter:direct ({shape})",
+            cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW),
+            cs.bilinear_patches_scatter_plain(x, y, w, P, C, PH, PW)),
+        ms=time_ms(lambda: cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW),
+                   torch),
+        plain_ms=time_ms(lambda: cs.bilinear_patches_scatter_plain(
+            x, y, w, P, C, PH, PW), torch),
+        library_ms=patches_library_ms(torch, x, y, w, P, C, PH, PW),
+        bound=bilinear_bound(x, y, 1, PH, PW, P))
+    step["cases"] = [as_case(step, atlas_ms=step["atlas_ms"],
+                             patch_route_ms=step["patch_route_ms"]),
+                     as_case(wide)]
+    step["max_abs_err"] = max(step["max_abs_err"], wide["max_abs_err"], derr)
+    records["bilinear_patches_scatter:direct"] = step
+
+
+def descent_step_case(torch, cs, x, y, w, P, C, PH, PW):
+    """One descent step of the batched patch loss (one sample per ROI: the
+    first ``P`` patches of a grid-search evaluation): few patches, which
+    the direct patch route serves. Its time beside the patch kernel's and
+    the atlas route's on the same inputs."""
+    x, y, w = (x[:P * C].contiguous(), y[:P * C].contiguous(),
+               w[:, :P * C].contiguous())
+    if cs.bilinear_patches_route(P, PH, PW) != "direct":
+        raise AssertionError(f"{P} patches must take the direct route")
+    ref = cs.bilinear_patches_scatter_plain(x, y, w, P, C, PH, PW)
+    shape = (f"K=1, {P} patches x {C} slots into ({PH}, {PW}) (one descent "
+             f"step)")
+    rec = dict(
+        shape=shape,
+        max_abs_err=check_close(
+            f"bilinear_patches_scatter:direct ({shape})",
+            cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW), ref),
+        ms=time_ms(lambda: cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW),
+                   torch),
+        patch_route_ms=time_ms(lambda: cs.bilinear_patches_scatter(
+            x, y, w, P, C, PH, PW, route="patch"), torch),
+        atlas_ms=time_ms(atlas_route(torch, cs, x, y, w, P, C, PH, PW),
+                         torch),
+        plain_ms=time_ms(lambda: cs.bilinear_patches_scatter_plain(
+            x, y, w, P, C, PH, PW), torch),
+        library_ms=patches_library_ms(torch, x, y, w, P, C, PH, PW),
+        bound=bilinear_bound(x, y, 1, PH, PW, P))
+    log(f"  timed: direct patch route {rec['ms']:.4f} ms, patch kernel "
+        f"{rec['patch_route_ms']:.4f} ms, atlas route {rec['atlas_ms']:.4f} "
+        f"ms, plain {rec['plain_ms']:.4f} ms, index_put_ "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound'][0]:.4f} ms")
+    return rec
 
 
 def kernel_phase(torch, cs, rng, records):
@@ -366,26 +716,26 @@ def kernel_phase(torch, cs, rng, records):
 
     tiles_phase(torch, cs, rng, records)
 
-    # ---- bilinear ----------------------------------------------------------
+    # ---- bilinear, whole images ------------------------------------------
     HP, WP = H + 1, W + 1
     n = N_SCENE
     x = torch.as_tensor(rng.uniform(-2, WP + 1, n), dtype=torch.float32,
                         device=dev)
     y = torch.as_tensor(rng.uniform(-2, HP + 1, n), dtype=torch.float32,
                         device=dev)
-    errs = []
     w4 = torch.as_tensor(rng.uniform(-1, 1, (4, n)), dtype=torch.float32,
                          device=dev)
-    for K in (1, 4):
-        w = w4[:K].contiguous()
-        errs.append(check_close(
-            f"bilinear_scatter (K={K})", cs.bilinear_scatter(x, y, w, HP, WP),
-            cs.bilinear_scatter_plain(x, y, w, HP, WP)))
+    # K=4 at 181x241 (the timestamp image) exceeds shared memory: direct
+    if cs.bilinear_route(4, HP, WP, n) != "direct":
+        raise AssertionError("K=4 at 181x241 must take the direct route")
+    err_k4 = check_close(
+        "bilinear_scatter:direct (K=4)", cs.bilinear_scatter(x, y, w4, HP, WP),
+        cs.bilinear_scatter_plain(x, y, w4, HP, WP))
     # autograd: kernel forward + gather backward vs autograd of index_add_
     from event_utils_tpu_torch.ops.scatter import bilinear_scatter as bs
     tgt = torch.as_tensor(rng.normal(size=(HP, WP)), dtype=torch.float32,
                           device=dev)
-    grads = []
+    grads, err_grad = [], []
     for impl in ("matmul", "xla"):
         xg = x.clone().requires_grad_(True)
         yg = y.clone().requires_grad_(True)
@@ -393,17 +743,51 @@ def kernel_phase(torch, cs, rng, records):
         loss = (bs(xg, yg, wg, (HP, WP), impl=impl) * tgt).sum()
         grads.append(torch.autograd.grad(loss, (xg, yg, wg)))
     for name, gk, gp in zip("xyw", *grads):
-        errs.append(check_close(f"bilinear grad d{name}", gk, gp, rel=1e-4))
-    rec = bilinear_times(torch, cs, x, y, w4[:1].contiguous(), HP, WP)
-    # the patch atlas of grid_cmax_batched's loss, the path's largest launch
-    atlas = bilinear_times(torch, cs, *patch_atlas_inputs(torch))
-    rec["cases"] = [
-        dict({k: c[k] for k in ("shape", "ms", "plain_ms", "library_ms",
-                                "max_abs_err")}, bound_ms=c["bound"][0])
-        for c in (rec, atlas)]
-    rec["max_abs_err"] = max(errs + [rec["max_abs_err"],
-                                     atlas["max_abs_err"]])
-    records["bilinear_scatter"] = rec
+        err_grad.append(check_close(f"bilinear grad d{name}", gk, gp,
+                                    rel=1e-4))
+    # 200k uniform events, then the planted scene warped onto its tracks
+    # (what a solve near its answer splats): private route against direct
+    big = bilinear_case(torch, cs, "uniform", x, y, w4[:1].contiguous(), HP,
+                        WP, ("private", "direct"))
+    sx, sy, st, sp = planted_scene(np.random.default_rng(SEED))
+    wx = torch.as_tensor(sx - VELOCITY[0] * st, dtype=torch.float32,
+                         device=dev)
+    wy = torch.as_tensor(sy - VELOCITY[1] * st, dtype=torch.float32,
+                         device=dev)
+    wp = torch.as_tensor(sp, dtype=torch.float32, device=dev)[None]
+    sharp = bilinear_case(torch, cs, "planted scene, warped", wx, wy, wp, HP,
+                          WP, ("private", "direct"))
+    # few events: one ROI's ~2k events into a small image, and into the
+    # full frame as grid_cmax's per-ROI solves splat them
+    m = 2048
+    small = bilinear_case(
+        torch, cs, "one ROI", x[:m] % 21, y[:m] % 21, w4[:1, :m].contiguous(),
+        21, 21, ("single", "direct"))
+    few = bilinear_case(
+        torch, cs, "one ROI of the planted scene", wx[:m].contiguous(),
+        wy[:m].contiguous(), wp[:, :m].contiguous(), HP, WP,
+        ("single", "direct"))
+    # the one-block form is no route of the main path (it loses to the
+    # direct kernel at every shape): its times stand with the private
+    # kernel, whose code it shares
+    for route, cases in (
+            ("private", [big["private"], sharp["private"]]),
+            ("direct", [big["direct"], sharp["direct"], small["direct"],
+                        few["direct"]])):
+        rec = dict(cases[0])
+        rec["cases"] = [as_case(c) for c in cases]
+        rec["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+        records[f"bilinear_scatter:{route}"] = rec
+    rec = records["bilinear_scatter:private"]
+    rec["cases"] += [as_case(c, blocks=1) for c in (small["single"],
+                                                     few["single"])]
+    rec["max_abs_err"] = max(rec["max_abs_err"], small["single"]["max_abs_err"],
+                             few["single"]["max_abs_err"])
+    records["bilinear_scatter:direct"]["max_abs_err"] = max(
+        [records["bilinear_scatter:direct"]["max_abs_err"], err_k4]
+        + err_grad)
+
+    patches_phase(torch, cs, rng, records)
 
     # ---- flat: the D=2 derivative stack of bilinear_scatter_derivative ----
     jx = torch.stack([-(torch.rand(n, device=dev) * 0.25),
@@ -435,8 +819,8 @@ def main_path(torch, P, rng):
     from event_utils_tpu_torch.contrast_max import (
         linvel_warp, optimize_contrast, optimize_contrast_jit,
         variance_objective)
-    from event_utils_tpu_torch.representations import (events_to_image,
-                                                       events_to_voxel)
+    from event_utils_tpu_torch.representations import (
+        events_to_image, events_to_timestamp_image, events_to_voxel)
     H, W = SENSOR
     xs, ys, ts, ps = voxel_events(rng)
     sx, sy, st, sp = planted_scene(rng)
@@ -460,6 +844,12 @@ def main_path(torch, P, rng):
         xs, ys, ps, sensor_size=SENSOR, impl="matmul"))
     check_close("event image vs the exact 'xla' route", img, events_to_image(
         xs, ys, ps, sensor_size=SENSOR, impl="xla"))
+    tsi = timed("events_to_timestamp_image(impl='matmul')",
+                lambda: events_to_timestamp_image(sx, sy, st, sp, SENSOR,
+                                                  impl="matmul"))
+    for got, ref in zip(tsi, events_to_timestamp_image(sx, sy, st, sp, SENSOR,
+                                                       impl="xla")):
+        check_close("timestamp image vs the exact 'xla' route", got, ref)
     grad = timed("evaluate_gradient(impl='matmul')",
                  lambda: variance_objective().evaluate_gradient(
                      np.array(VELOCITY), sx, sy, st, sp, linvel_warp(),
@@ -501,6 +891,11 @@ def roi_path(torch, P, rng, timed):
             "events_to_voxel_tiled": timed(
                 f"events_to_voxel_tiled {name}",
                 lambda: events_to_voxel_tiled(xs, ys, ts, ps, B, (H, W)))}
+        if name == "720p":  # a tile plane past shared memory: direct route
+            grids[f"events_to_voxel_tiled, {BIG_TILE} tiles,"] = timed(
+                f"events_to_voxel_tiled {name}, {BIG_TILE} tiles",
+                lambda: events_to_voxel_tiled(xs, ys, ts, ps, B, (H, W),
+                                              tile=BIG_TILE))
         for label, grid in grids.items():
             check_close(f"{label} {name} vs the exact 'xla' route", grid,
                         exact)
@@ -523,6 +918,28 @@ def roi_path(torch, P, rng, timed):
             f"solve)")
         if not extra and not err <= FLOW_ERR_LIMIT:
             raise AssertionError(f"{label}: median flow error {err} px/s")
+
+    # one patch loss with patches past shared memory: the direct patch route
+    from event_utils_tpu_torch.contrast_max import (bucket_events_by_roi,
+                                                    linvel_warp,
+                                                    make_patch_loss)
+    dev = torch.device("cuda")
+    bx, by, bt, bp, bm, org, _ = bucket_events_by_roi(
+        sx, sy, st, sp, ROT_SENSOR, (60, 80), ROT_CAPACITY, device=dev)
+    v0 = torch.zeros((bx.shape[0], 2), device=dev)
+    wide, usual = (timed(
+        f"make_patch_loss, {patch} patches",
+        lambda: make_patch_loss(linvel_warp(), (60, 80), "sos",
+                                patch=patch)(v0, bx, by, bt, bp, bm,
+                                             org.float()))
+        for patch in (BIG_TILE, (120, 160)))
+    # zero motion keeps every event well inside both patches, so the sums
+    # of squares (-loss x patch pixels) agree
+    log(f"  patch losses {wide.tolist()} vs {usual.tolist()}")
+    if not bool(torch.isfinite(wide).all()):
+        raise AssertionError("make_patch_loss: non-finite loss")
+    check_close("patch loss, (240, 256) vs (120, 160) patches",
+                wide * (240 * 256), usual * (120 * 160), rel=1e-4)
 
     corner = (sx < 60) & (sy < 40)
     params, rois, _ = timed("grid_cmax (host loop, one 40x60 corner)",
@@ -598,10 +1015,16 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = cs.launch_counts()
     log(f"main-path launches: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    # every route that some shape is sent to; the one-block form of the
+    # private bilinear kernel is sent none (see kernel_phase)
+    routed = set(launches) - {"bilinear_scatter:single"}
+    missing = sorted(k for k in routed if launches[k] == 0)
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    if set(records) != routed:
+        raise AssertionError(f"routes not held against their plain "
+                             f"version: {routed ^ set(records)}")
     bucketing_share(torch, rng)
 
     kernels = []
@@ -609,11 +1032,12 @@ def main() -> int:
         bound_ms, bound_by = rec["bound"]
         kernels.append({
             "name": name, "route": "cuda", "source": SRC,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name.split(":")[0]],
+            "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": rec["library_ms"],
-            **({"cases": rec["cases"]} if "cases" in rec else {})})
+            **{k: rec[k] for k in ("shape", "cases") if k in rec}})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -47,7 +47,7 @@ from ..models.objectives import (OBJECTIVE_REGISTRY, get_iwe,
                                  variance_objective)
 from ..models.warps import linvel_warp, warp_function, xyztheta_warp
 from ..ops.blur import gaussian_filter, gaussian_kernel1d
-from ..ops.cuda_scatter import bilinear_matmul
+from ..ops.cuda_scatter import bilinear_patches_scatter
 from ..utils.event_util import infer_resolution, lifespan_mask
 from .bfgs import minimize_bfgs
 
@@ -477,12 +477,6 @@ PATCH_OBJECTIVES = ("variance", "sos", "rms", "soe", "sosa", "isoa", "moa",
                     "r1", "zhu")
 
 
-def _patch_atlas(P: int, PH: int, PW: int):
-    """(nrow, ncol) of a near-square grid holding P patches of (PH, PW)."""
-    ncol = max(1, int(round(math.sqrt(P * PH / PW))))
-    return -(-P // ncol), ncol
-
-
 def _zero_pad_blur(img, k1d):
     """Separable 'same' blur with zero padding over the last two axes
     (the JAX patch loss's ``conv_general_dilated`` pair)."""
@@ -523,14 +517,12 @@ def make_patch_loss(warpfunc, roi_size, objective=None, patch=PATCH_DEFAULT,
 
     The accumulation differs in method, not in function: JAX forms each
     patch as a bf16 one-hot matmul ``A @ V``; here every patch of one
-    evaluation goes through ONE launch of the CUDA bilinear kernel, into a
-    near-square atlas of patches. An event with a tap outside its patch has
-    weight 0 (as in JAX), so no tap crosses into a neighbouring patch, and
+    evaluation goes through ONE launch of the CUDA patch kernel
+    (``bilinear_patches_scatter``): the run of C slots of ROI r and sample
+    s is splatted, in patch-local coordinates, into patch (r, s) only, and
     the kernel's autograd backward gives the gradient through the bilinear
-    fractions. The atlas offsets ride on the f32 coordinates: at the bench
-    scene's 2700 patches (108 ROIs x 25 samples) they reach ~4.7e3 px,
-    where f32 keeps the bilinear fractions to ~5e-4 px — inside the bf16
-    class (~4e-3 relative) of the JAX product.
+    fractions. An event with a tap outside its patch has weight 0, as in
+    JAX.
 
     Returns ``loss(params, ex, ey, et, ep, mask, origin_yx)``. Events are
     (R, C) per-ROI batches with (R, 2) origins; ``params`` (R, dims) gives
@@ -581,22 +573,19 @@ def make_patch_loss(warpfunc, roi_size, objective=None, patch=PATCH_DEFAULT,
         x0 = torch.floor(px)
         y0 = torch.floor(py)
         inpatch = (x0 >= 0) & (x0 + 1 < PW) & (y0 >= 0) & (y0 + 1 < PH)
-        nrow, ncol = _patch_atlas(R * S, PH, PW)
-        q = torch.arange(R * S, device=dev).view(R, S, 1)
-        ax = torch.where(inpatch, px + (q % ncol * PW).float(), -2.0)
-        ay = torch.where(inpatch, py + (q // ncol * PH).float(), -2.0)
         inw = inpatch.to(torch.float32)
+        C = ex.shape[-1]
+        fx = px.expand(R, S, C).reshape(-1).float()
+        fy = py.expand(R, S, C).reshape(-1).float()
 
         def accumulate(wk):
             """(K, R, S, PH, PW) bilinear patches of the weights wk
-            (K, R, 1 or S, C); taps outside their patch get weight 0."""
+            (K, R, 1 or S, C); events with a tap outside their patch get
+            weight 0."""
             K = wk.shape[0]
-            wk = (wk * inw).reshape(K, -1)
-            img = bilinear_matmul(ax.reshape(-1), ay.reshape(-1), wk,
-                                  (nrow * PH, ncol * PW))
-            img = img.view(K, nrow, PH, ncol, PW).permute(0, 1, 3, 2, 4)
-            return img.reshape(K, nrow * ncol, PH, PW)[:, :R * S].reshape(
-                K, R, S, PH, PW)
+            img = bilinear_patches_scatter(fx, fy, (wk * inw).reshape(K, -1),
+                                           R * S, C, PH, PW)
+            return img.view(K, R, S, PH, PW)
 
         if name == "zhu":
             t_first = torch.where(

@@ -3,7 +3,8 @@
 // They replace the four Pallas TPU kernels of the JAX package's
 // event_utils_tpu/ops/pallas_scatter.py. The TPU kernels recast every
 // scatter as a one-hot matmul because a TPU has no fast scatter; an H100 has
-// fast L2 atomics, so each kernel here computes the same function directly:
+// atomics in its L2 and, faster still, in the shared memory of each SM, so
+// each kernel here computes the same function directly:
 //
 //   voxel_scatter        <- _voxel_kernel (voxel_matmul / _voxel_core)
 //   voxel_tiles_scatter  <- _voxel_kernel on the (tile, chunk) grid
@@ -11,25 +12,59 @@
 //   flat_scatter         <- _image_kernel (image_matmul,
 //                           scatter_add_flat_pallas)
 //   bilinear_scatter     <- _bilinear_kernel (bilinear_matmul /
-//                           _bilinear_core)
+//                           _bilinear_core), whole images and, as
+//                           bilinear_patches_scatter, runs of slots that
+//                           each own one patch
 //
-// What bounds them on this card: each event is read once from device memory
-// (16 B/event voxel, 8 B per (id, weight) pair flat, 8 + 4K B/event
-// bilinear) and scattered with float atomicAdd. The outputs of the main path
-// (180x240 sensors: 864 KB voxel grid, 174 KB image) sit in the 50 MB L2, so
-// the atomics resolve there; the limits are L2 atomic throughput and
-// serialisation when many events hit one hot pixel. The design: one thread
-// per event in a grid-stride loop (coalesced reads, enough blocks in flight
-// to fill 132 SMs), every tap bounds-checked in float before any integer
-// cast (out-of-image taps are dropped, never wrapped), and zero-weight
-// events (masked or folded away by the wrapper) skip their atomics.
+// Two designs live here.
+//
+// Direct (voxel_scatter, flat_scatter, and the *_direct routes of the other
+// two): one thread per event in a grid-stride loop, float atomicAdd into an
+// output that the wrapper has zeroed. Coalesced reads, enough blocks to fill
+// 132 SMs; the adds are native reductions in the L2 (RED.ADD.F32) that need
+// no answer, so a thread sends them and goes on. They resolve in L2 while
+// the output fits its 50 MB and in device memory beyond. What bounds it is
+// the L2's rate of atomics (~70 G/s measured) and, where very many events
+// share a pixel, their serialisation.
+//
+// Private tiles (the bilinear and per-tile voxel kernels' other routes): the
+// output, or the part of it that a block owns, is accumulated in that
+// block's shared memory and leaves the SM once. On this card a float
+// atomicAdd on shared memory is a compare-and-swap loop (ATOMS.CAST.SPIN):
+// updates of one pixel form a serial chain of ~100 cycles each. So a
+// private tile pays where the output outgrows the L2 (the patches of one
+// batched loss evaluation, 88 MB), where it spares the memset and the
+// atomics of a large output (per-tile voxel grids), or where events pile
+// onto few pixels; the wrapper sends the other shapes to the direct
+// kernels.
+//   - bilinear_patches: run q of C consecutive slots splats into patch q
+//     only, so one block per (patch, channel) owns its plane outright: zero
+//     in shared memory, shared atomics, one 1-D bulk store (cp.async.bulk,
+//     pointer + byte count: no tensor map). The output needs no memset and
+//     sees no global atomic.
+//   - bilinear_private: a whole (K, H, W) image that fits 227 KB. G blocks
+//     each splat a contiguous share of the events into a private copy and
+//     add its non-zero pixels to the zeroed output. With one block the copy
+//     is stored like a patch.
+//   - voxel_tiles_private: one block per (tile, bin) owns that bin plane in
+//     its shared memory and stores it once. Every block reads t_norm of all
+//     slots of its tile and keeps the taps of its own bin.
+// Variants that measured slower on an H100 (taps sent through a cluster's
+// distributed shared memory, cp.reduce.async.bulk of whole private images,
+// several channels per block, other block sizes) live with the script that
+// measures them, scripts/tune_scatter_variants.cu.
+//
+// Every tap is bounds-checked in float before any integer cast
+// (out-of-range taps are dropped, never wrapped), and zero-weight events
+// (masked or folded away by the wrapper) skip their atomics.
 //
 // Atomics make the order of accumulation, and so the last bits of the sum,
 // vary from run to run. The deterministic route is the port's 'sort' impl.
 //
 // Each entry point launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError() so that the Python wrapper raises on a refused
-// launch.
+// returns the first CUDA error so that the Python wrapper raises on a
+// refused launch. Which route a call takes is the wrapper's choice, by
+// shape alone; nothing here gives way to another kernel.
 
 #include <cuda_runtime.h>
 
@@ -190,6 +225,310 @@ __global__ void bilinear_scatter_kernel(const float* __restrict__ x,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Private tiles in shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxSharedBytes = 232448;  // 227 KB, the most one block can get
+constexpr int kAhead = 4;  // events loaded ahead of their atomics
+constexpr int kBulkBytes = 32768;  // one bulk copy moves at most this
+constexpr int kPatchThreads = 256;   // block sizes that measured fastest
+constexpr int kImageThreads = 1024;
+constexpr int kTileThreads = 1024;
+
+// Zero n floats of shared memory (16-byte aligned), all threads.
+__device__ __forceinline__ void zero_shared(float* s, int n) {
+  float4* s4 = reinterpret_cast<float4*>(s);
+  const int n4 = n >> 2;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    s4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = (n4 << 2) + threadIdx.x; i < n; i += blockDim.x) s[i] = 0.0f;
+}
+
+// Make this thread's shared-memory writes visible to the bulk-copy engine.
+// Every thread that wrote calls it before the barrier that precedes
+// store_start.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async;" ::: "memory");
+}
+
+// Store n floats of shared memory s to global g. All threads call it, after
+// a barrier that follows the last write to s (and fence_async_proxy in every
+// writer). Where both addresses are 16-byte aligned, thread 0 starts 1-D bulk
+// copies (cp.async.bulk, pointer + byte count: no tensor map) for the leading
+// n & ~3 floats and the block's first threads store the <= 3 left over;
+// otherwise every thread stores its share itself. store_wait must follow
+// before the block ends.
+__device__ __forceinline__ void store_start(float* g, const float* s, int n) {
+  const unsigned int s_addr =
+      static_cast<unsigned int>(__cvta_generic_to_shared(s));
+  if (((reinterpret_cast<unsigned long long>(g) | s_addr) & 15ULL) != 0) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) g[i] = s[i];
+    return;
+  }
+  const int n4 = n & ~3;
+  if (threadIdx.x == 0) {
+    fence_async_proxy();
+    for (int done = 0; done < n4 * 4; done += kBulkBytes) {
+      const int bytes = min(kBulkBytes, n4 * 4 - done);
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+          :: "l"(reinterpret_cast<const char*>(g) + done),
+             "r"(s_addr + done), "r"(bytes) : "memory");
+    }
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  }
+  const int i = n4 + threadIdx.x;
+  if (i < n) g[i] = s[i];
+}
+
+// Thread 0 waits until the bulk copies it started have read their source:
+// shared memory must outlive them.
+__device__ __forceinline__ void store_wait() {
+  if (threadIdx.x == 0)
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Splat slots [lo, hi) of (x, y) into the K planes of img (shared memory,
+// plane floats apart) with shared-memory atomics; channel k's weights are
+// w[k * wn + slot]. Each thread loads kAhead events before it starts their
+// atomics, so the loads of one batch are in flight together. Tap
+// (y0+oy, x0+ox) gets w*wx*wy as in bilinear_scatter_kernel; taps outside
+// [0, H) x [0, W) are dropped, zero weights skip.
+__device__ __forceinline__ void splat_range(
+    float* img, int plane, int K, int H, int W, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ w, long long wn,
+    long long lo, long long hi) {
+  const float fW = static_cast<float>(W);
+  const float fH = static_cast<float>(H);
+  const long long step = static_cast<long long>(blockDim.x) * kAhead;
+  for (long long first = lo + threadIdx.x; first < hi; first += step) {
+    float xs[kAhead], ys[kAhead], w0[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const long long i = first + static_cast<long long>(u) * blockDim.x;
+      const bool in = i < hi;
+      // a slot past the range gets a NaN coordinate: every tap test fails
+      xs[u] = in ? x[i] : __int_as_float(0x7fc00000);
+      ys[u] = in ? y[i] : 0.0f;
+      w0[u] = in ? w[i] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const float xf = xs[u];
+      const float yf = ys[u];
+      const float x0 = floorf(xf);
+      const float y0 = floorf(yf);
+      const bool okx0 = x0 >= 0.0f && x0 < fW;
+      const bool okx1 = x0 + 1.0f >= 0.0f && x0 + 1.0f < fW;
+      const bool oky0 = y0 >= 0.0f && y0 < fH;
+      const bool oky1 = y0 + 1.0f >= 0.0f && y0 + 1.0f < fH;
+      if (!(okx0 || okx1) || !(oky0 || oky1)) continue;
+      const float dx = xf - x0;
+      const float dy = yf - y0;
+      const int pix = static_cast<int>(y0) * W + static_cast<int>(x0);
+      const long long i = first + static_cast<long long>(u) * blockDim.x;
+      for (int k = 0; k < K; ++k) {
+        const float wk = k == 0 ? w0[u] : w[k * wn + i];
+        if (wk == 0.0f) continue;
+        const float wl = wk * (1.0f - dx);
+        const float wr = wk * dx;
+        float* o = img + k * plane + pix;
+        if (oky0) {
+          if (okx0) atomicAdd(o, wl * (1.0f - dy));
+          if (okx1) atomicAdd(o + 1, wr * (1.0f - dy));
+        }
+        if (oky1) {
+          if (okx0) atomicAdd(o + W, wl * dy);
+          if (okx1) atomicAdd(o + W + 1, wr * dy);
+        }
+      }
+    }
+  }
+}
+
+// (K, P, PH, PW) patches: run q of C consecutive slots is splatted, with
+// patch-local coordinates, into patch q only. Block (q, k) owns channel k of
+// patch q in shared memory and writes it out once: every element of out is
+// written by exactly one block, so out needs no memset and sees no atomic.
+//
+// What bounds it: 8 B of coordinates per slot, 4 B per live weight, and the
+// output written once.
+__global__ void __launch_bounds__(kPatchThreads)
+bilinear_patches_kernel(const float* __restrict__ x,
+                        const float* __restrict__ y,
+                        const float* __restrict__ w, long long C, int PH,
+                        int PW, float* __restrict__ out) {
+  extern __shared__ __align__(16) float img[];
+  const int plane = PH * PW;
+  const long long P = gridDim.x;
+  const long long q = blockIdx.x;
+  const long long k = blockIdx.y;
+  zero_shared(img, plane);
+  __syncthreads();
+  splat_range(img, plane, 1, PH, PW, x, y, w + k * P * C, P * C, q * C,
+              (q + 1) * C);
+  fence_async_proxy();
+  __syncthreads();
+  store_start(out + (k * P + q) * plane, img, plane);
+  store_wait();
+}
+
+// The patch function with one thread per slot and global atomics into a
+// zeroed out: for patches whose plane does not fit one block's shared
+// memory.
+__global__ void bilinear_patches_direct_kernel(const float* __restrict__ x,
+                                               const float* __restrict__ y,
+                                               const float* __restrict__ w,
+                                               long long n, long long C,
+                                               long long P, int K, int PH,
+                                               int PW,
+                                               float* __restrict__ out) {
+  const long long plane = static_cast<long long>(PH) * PW;
+  const float fW = static_cast<float>(PW);
+  const float fH = static_cast<float>(PH);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const float xf = x[i];
+    const float yf = y[i];
+    const float x0 = floorf(xf);
+    const float y0 = floorf(yf);
+    const bool okx0 = x0 >= 0.0f && x0 < fW;
+    const bool okx1 = x0 + 1.0f >= 0.0f && x0 + 1.0f < fW;
+    const bool oky0 = y0 >= 0.0f && y0 < fH;
+    const bool oky1 = y0 + 1.0f >= 0.0f && y0 + 1.0f < fH;
+    if (!(okx0 || okx1) || !(oky0 || oky1)) continue;
+    const float dx = xf - x0;
+    const float dy = yf - y0;
+    const long long base = (i / C) * plane +
+                           static_cast<long long>(y0) * PW +
+                           static_cast<long long>(x0);
+    for (int k = 0; k < K; ++k) {
+      const float wk = w[static_cast<long long>(k) * n + i];
+      if (wk == 0.0f) continue;
+      const float wl = wk * (1.0f - dx);
+      const float wr = wk * dx;
+      float* o = out + k * P * plane + base;
+      if (oky0) {
+        if (okx0) atomicAdd(o, wl * (1.0f - dy));
+        if (okx1) atomicAdd(o + 1, wr * (1.0f - dy));
+      }
+      if (oky1) {
+        if (okx0) atomicAdd(o + PW, wl * dy);
+        if (okx1) atomicAdd(o + PW + 1, wr * dy);
+      }
+    }
+  }
+}
+
+// (K, H, W) image that fits one block's shared memory. Each of the gridDim.x
+// blocks splats a contiguous share of the events into a private copy of the
+// whole image. One block: the copy is the result and is stored into out,
+// which needs no memset. Several: each adds the non-zero pixels of its copy
+// to the zeroed out (an image of warped events is mostly zeros).
+//
+// What bounds it: 8 + 4K B per event and the image written once; above that
+// bound it pays for zeroing and flushing gridDim.x copies of the image.
+__global__ void __launch_bounds__(kImageThreads)
+bilinear_private_kernel(const float* __restrict__ x,
+                        const float* __restrict__ y,
+                        const float* __restrict__ w, long long n, int K,
+                        int H, int W, float* __restrict__ out) {
+  extern __shared__ __align__(16) float img[];
+  const int total = K * H * W;
+  zero_shared(img, total);
+  __syncthreads();
+  const long long share = (n + gridDim.x - 1) / gridDim.x;
+  const long long lo = blockIdx.x * share;
+  const long long hi = lo + share < n ? lo + share : n;
+  splat_range(img, H * W, K, H, W, x, y, w, n, lo, hi);
+  fence_async_proxy();
+  __syncthreads();
+  if (gridDim.x == 1) {
+    store_start(out, img, total);
+    store_wait();
+  } else {
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const float v = img[i];
+      if (v != 0.0f) atomicAdd(out + i, v);
+    }
+  }
+}
+
+// (T, B, th, tw) per-tile voxel grids. Block (tile, b) owns bin plane
+// (tile, b) in shared memory and stores it once; out needs no memset and
+// sees no atomic. Every block reads t_norm of all slots of its tile and, for
+// the slots with a tap in its own bin, the rest. Slots need not be
+// time-sorted.
+//
+// What bounds it: 4 B per slot, 12 B more per live slot, the output written
+// once. Above that it reads t_norm B times and the rest of a live slot twice
+// (one block per tap), from L2 after the first.
+__global__ void __launch_bounds__(kTileThreads)
+voxel_tiles_private_kernel(const int* __restrict__ bx,
+                           const int* __restrict__ by,
+                           const float* __restrict__ t_norm,
+                           const float* __restrict__ bp, long long cap, int B,
+                           int th, int tw, float* __restrict__ out) {
+  extern __shared__ __align__(16) float bin[];
+  const int plane = th * tw;
+  const long long tile = blockIdx.x / B;
+  const float own = static_cast<float>(blockIdx.x % B);  // this block's bin
+  zero_shared(bin, plane);
+  __syncthreads();
+  const long long base = tile * cap;
+  const long long stride = blockDim.x;
+  for (long long first = threadIdx.x; first < cap; first += stride * kAhead) {
+    // t_norm first: it says whether a tap of the slot falls into this
+    // block's bin, and only then are the slot's other 12 bytes read. Dead
+    // slots carry t_norm = -100 and fail the test.
+    float tv[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const long long i = first + u * stride;
+      tv[u] = i < cap ? t_norm[base + i] : -100.0f;
+    }
+    int xs[kAhead], ys[kAhead];
+    float pv[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      // float tests: a NaN or huge bin fails them, and no bin is ever cast
+      const float b0 = floorf(tv[u]);
+      const bool want = b0 == own || b0 + 1.0f == own;
+      const long long i = base + first + u * stride;
+      pv[u] = want ? bp[i] : 0.0f;
+      xs[u] = want ? bx[i] : 0;
+      ys[u] = want ? by[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const float p = pv[u];
+      if (p == 0.0f) continue;
+      const int xi = xs[u];
+      const int yi = ys[u];
+      if (xi < 0 || xi >= tw || yi < 0 || yi >= th) continue;
+      const float t = tv[u];
+      const float b0 = floorf(t);
+      const float fb = t - b0;
+      atomicAdd(bin + yi * tw + xi, b0 == own ? p * (1.0f - fb) : p * fb);
+    }
+  }
+  fence_async_proxy();
+  __syncthreads();
+  store_start(out + blockIdx.x * static_cast<long long>(plane), bin, plane);
+  store_wait();
+}
+
+// Let a kernel ask for up to 227 KB of dynamic shared memory.
+template <typename Kernel>
+cudaError_t allow_max_shared(Kernel kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
+}
+
 }  // namespace
 
 extern "C" {
@@ -238,6 +577,70 @@ int bilinear_scatter(const void* x, const void* y, const void* w, long long n,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(y),
         static_cast<const float*>(w), n, K, H, W, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bilinear_patches_scatter(const void* x, const void* y, const void* w,
+                             long long P, long long C, int K, int PH, int PW,
+                             void* out, void* stream) {
+  static const cudaError_t attr = allow_max_shared(bilinear_patches_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (P > 0 && K > 0) {
+    const dim3 grid(static_cast<unsigned int>(P), static_cast<unsigned int>(K));
+    bilinear_patches_kernel<<<grid, kPatchThreads, sizeof(float) * PH * PW,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const float*>(w), C, PH, PW, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bilinear_patches_scatter_direct(const void* x, const void* y,
+                                    const void* w, long long P, long long C,
+                                    int K, int PH, int PW, void* out,
+                                    void* stream) {
+  const long long n = P * C;
+  if (n > 0 && K > 0) {
+    bilinear_patches_direct_kernel<<<grid_for(n), kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const float*>(w), n, C, P, K, PH, PW,
+        static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// blocks == 1 stores the image (out may hold anything); blocks > 1 add
+// their private images to out, which must be zeroed.
+int bilinear_scatter_private(const void* x, const void* y, const void* w,
+                             long long n, int K, int H, int W, void* out,
+                             int blocks, void* stream) {
+  static const cudaError_t attr = allow_max_shared(bilinear_private_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (K > 0 && blocks > 0) {
+    bilinear_private_kernel<<<blocks, kImageThreads,
+                              sizeof(float) * K * H * W,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const float*>(w), n, K, H, W, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int voxel_tiles_scatter_private(const void* bx, const void* by,
+                                const void* t_norm, const void* bp,
+                                long long T, long long cap, int B, int th,
+                                int tw, void* out, void* stream) {
+  static const cudaError_t attr = allow_max_shared(voxel_tiles_private_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (T > 0 && B > 0) {
+    voxel_tiles_private_kernel<<<static_cast<unsigned int>(T * B),
+                                 kTileThreads, sizeof(float) * th * tw,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(bx), static_cast<const int*>(by),
+        static_cast<const float*>(t_norm), static_cast<const float*>(bp), cap,
+        B, th, tw, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,6 +44,12 @@ SIGNATURES = {
         "voxel_tiles_scatter": (_P, _P, _P, _P, _L, _L, _I, _I, _I, _P, _P),
         "flat_scatter": (_P, _P, _L, _I, _L, _P, _P),
         "bilinear_scatter": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
+        "bilinear_patches_scatter": (_P, _P, _P, _L, _L, _I, _I, _I, _P, _P),
+        "bilinear_patches_scatter_direct": (_P, _P, _P, _L, _L, _I, _I, _I,
+                                            _P, _P),
+        "bilinear_scatter_private": (_P, _P, _P, _L, _I, _I, _I, _P, _I, _P),
+        "voxel_tiles_scatter_private": (_P, _P, _P, _P, _L, _L, _I, _I, _I,
+                                        _P, _P),
     },
 }
 

@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's ``ops/pallas_scatter.py``. The TPU kernels
 there recast scatter-add as one-hot matmuls on the MXU, because a TPU has no
-fast scatter. An H100 has fast atomics in its L2, so the kernels in
-``csrc/scatter_kernels.cu`` compute the same functions directly, one thread
-per event:
+fast scatter. An H100 has atomics in its L2 and in each SM's shared memory,
+so the kernels in ``csrc/scatter_kernels.cu`` compute the same functions
+directly:
 
 ================================  =========================================
 kernel wrapper (this module)      TPU kernel it replaces (pallas_scatter.py)
@@ -14,30 +14,66 @@ kernel wrapper (this module)      TPU kernel it replaces (pallas_scatter.py)
                                   grid via ``voxel_matmul_tiles``
 ``flat_scatter``                  ``_image_kernel`` via ``image_matmul`` and
                                   ``scatter_add_flat_pallas``
-``bilinear_scatter``              ``_bilinear_kernel`` via
-                                  ``bilinear_matmul``
+``bilinear_scatter``,             ``_bilinear_kernel`` via
+``bilinear_patches_scatter``      ``bilinear_matmul``
 ================================  =========================================
 
+Three wrappers have several kernels, called routes. A route is chosen from
+the call's shape before the launch (``bilinear_route``,
+``voxel_tiles_route``, ``bilinear_patches_route``), never from a failure.
+The thresholds are measurements on an H100 (``scripts/
+tune_scatter_routes.py``). What they reflect: a float ``atomicAdd`` on
+shared memory is a compare-and-swap loop on this card (``ATOMS.CAST.SPIN``),
+so updates of one pixel form a serial chain, while the L2's float adds
+(``RED.ADD.F32``) are native and need no answer. Private tiles in shared
+memory win where the output outgrows the L2 or where so many events share
+a pixel that the L2 serialises them; below that the direct kernels win.
+
+- ``bilinear_scatter:direct`` — one thread per event, global ``atomicAdd``
+  into the zeroed output: few events, or an image that does not fit one
+  block's shared memory (227 KB).
+- ``bilinear_scatter:private`` — 98304 events or more into an image that
+  fits: up to 132 blocks each accumulate a private copy in shared memory
+  and add its non-zero pixels to the zeroed output.
+- ``bilinear_scatter:single`` — the same kernel with one block, which
+  stores its image into an uninitialised output. It measured slower than
+  the direct route at every shape tried (one SM zeroing and storing the
+  image costs more than a memset node), so no shape is sent to it; it stays
+  selectable for measurement.
+- ``bilinear_patches_scatter`` — run ``q`` of ``C`` consecutive slots
+  splats into patch ``q`` only (the batched patch loss of the ROI solvers):
+  one block owns each patch in shared memory and stores it once into an
+  uninitialised output, from 768 patches on.
+  ``bilinear_patches_scatter:direct`` — one thread per slot, global atomics
+  into the zeroed patches: fewer patches (their output stays in L2), and
+  patches too large for shared memory.
+- ``voxel_tiles_scatter:private`` — one block per ``(tile, bin)`` owns that
+  bin plane in shared memory, reads its tile's slots and keeps the taps of
+  its bin, and stores the plane once into an uninitialised output.
+  ``voxel_tiles_scatter:direct`` (global atomics) serves bin planes too
+  large for shared memory.
+
 Each wrapper launches its kernel when its tensors lie on the card and adds
-one to its ``launches`` count when it does, and only then. For tensors on
-the CPU it runs its plain PyTorch version (``*_plain``, ``index_add_``
-based) instead: that is what the CPU tests run, and nothing on the main
-path calls the plain version when a card is present. There is no fallback:
-on a CUDA tensor a wrapper launches or raises.
+one to its route's count when it does, and only then (``launch_counts``).
+For tensors on the CPU it runs its plain PyTorch version (``*_plain``,
+``index_add_`` based) instead: that is what the CPU tests run, and nothing
+on the main path calls the plain version when a card is present. There is
+no fallback: on a CUDA tensor a wrapper launches or raises.
 
 The drivers keep the JAX names and preprocessing (``voxel_matmul``,
 ``voxel_matmul_tiles``, ``image_matmul``, ``bilinear_matmul``;
 ``scatter_add_flat_cuda`` stands for ``scatter_add_flat_pallas``) so that
-each has one counterpart to be held against. ``precision`` is accepted with the JAX values ('hilo', 'bf16',
-'int8') and every kernel computes in f32, which lies inside each of those
-precision classes. The VMEM planning of the TPU drivers (``_fit_chunk``,
-``SensorLimitError``, the oversized-sensor fallbacks) has no counterpart:
-the card has no such limit.
+each has one counterpart to be held against. ``precision`` is accepted with
+the JAX values ('hilo', 'bf16', 'int8') and every kernel computes in f32,
+which lies inside each of those precision classes. The VMEM planning of the
+JAX wrappers (``_fit_chunk``, ``SensorLimitError``, the oversized-sensor
+fallbacks) has no counterpart: the card has no such limit.
 
-Gradients: ``voxel_matmul`` and ``bilinear_matmul`` are
-``torch.autograd.Function``s whose backward is the plain-torch gather of
-``_voxel_core_bwd`` / ``_bilinear_core_bwd`` (plain jnp in the JAX package,
-so plain torch here); the flat scatter's backward is a gather too.
+Gradients: ``voxel_matmul``, ``bilinear_matmul`` and
+``bilinear_patches_scatter`` are ``torch.autograd.Function``s whose backward
+is the plain-torch gather of ``_voxel_core_bwd`` / ``_bilinear_core_bwd``
+(plain jnp in the JAX package, so plain torch here); the flat scatter's
+backward is a gather too.
 
 Float atomics accumulate in a run-dependent order, so results agree with
 the plain version to about 1e-6 of the grid scale, not bitwise (see
@@ -89,6 +125,30 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+# The most dynamic shared memory one block can have on an H100 (227 KB).
+SHARED_MAX_BYTES = 232448
+
+ROUTES = ("voxel_scatter", "voxel_tiles_scatter:private",
+          "voxel_tiles_scatter:direct", "flat_scatter",
+          "bilinear_scatter:direct", "bilinear_scatter:private",
+          "bilinear_scatter:single", "bilinear_patches_scatter",
+          "bilinear_patches_scatter:direct")
+_launches = dict.fromkeys(ROUTES, 0)
+
+
+def _pick(name: str, route, chosen: str, allowed) -> str:
+    """The route of a call: the one chosen from its shape, or the caller's
+    ``route`` where this shape allows it (for timing one route against
+    another); a route the shape does not allow raises."""
+    if route is None:
+        return chosen
+    if route not in allowed:
+        raise ConfigurationError(
+            f"{name}: route {route!r} does not serve this shape "
+            f"(allowed: {sorted(allowed)})")
+    return route
+
+
 # ---------------------------------------------------------------------------
 # Voxel grid (replaces _voxel_kernel, pallas_scatter.py:113)
 # ---------------------------------------------------------------------------
@@ -127,11 +187,8 @@ def voxel_scatter(xs, ys, t_norm, ps, B: int, H: int, W: int):
         xs.data_ptr(), ys.data_ptr(), t_norm.data_ptr(), ps.data_ptr(), n,
         B, H, W, out.data_ptr(), _stream())
     build.check(rc, "voxel_scatter")
-    voxel_scatter.launches += 1
+    _launches["voxel_scatter"] += 1
     return out
-
-
-voxel_scatter.launches = 0
 
 
 class _VoxelCore(torch.autograd.Function):
@@ -263,13 +320,30 @@ def voxel_tiles_scatter_plain(bx, by, t_norm, bp, B: int, th: int, tw: int):
     return out.view(T, B, th, tw)
 
 
-def voxel_tiles_scatter(bx, by, t_norm, bp, B: int, th: int, tw: int):
+def voxel_tiles_route(B: int, th: int, tw: int) -> str:
+    """'private' where one (th, tw) bin plane fits a block's shared memory
+    (227 KB: up to (232, 250), say), else 'direct'."""
+    return "private" if th * tw * 4 <= SHARED_MAX_BYTES else "direct"
+
+
+def voxel_tiles_scatter(bx, by, t_norm, bp, B: int, th: int, tw: int,
+                        route=None):
     """(T, B, th, tw) per-tile voxel grids of ``(T, cap)`` slots.
 
     ``bx``/``by`` int32 tile-local coordinates, ``t_norm`` f32 bin
     coordinate in [0, B-1] (dead slots -100), ``bp`` f32 weights (0 for
-    dead slots) — what ``voxel_tiles_inputs`` hands over. Launches the CUDA
-    kernel for CUDA tensors; the plain version for CPU tensors.
+    dead slots) — what ``voxel_tiles_inputs`` hands over; slots need not be
+    time-sorted. Launches a CUDA kernel for CUDA tensors; the plain version
+    for CPU tensors.
+
+    Routes, by shape alone (``voxel_tiles_route``): 'private' where a
+    (th, tw) plane fits 227 KB of shared memory — one block per (tile, bin)
+    reads its tile's slots, accumulates that plane in shared memory and
+    stores it once into an uninitialised output (on an H100 faster than
+    sending the taps through a cluster's distributed shared memory, which
+    took 3-5 times as long: scripts/tune_scatter_routes.py); 'direct'
+    otherwise — global atomics into a zeroed output. ``route`` forces one
+    of the routes the shape allows.
     """
     dev = _check("voxel_tiles_scatter", (bx, by, t_norm, bp),
                  (_I32, _I32, _F32, _F32))
@@ -279,18 +353,22 @@ def voxel_tiles_scatter(bx, by, t_norm, bp, B: int, th: int, tw: int):
     if dev.type == "cpu":
         return voxel_tiles_scatter_plain(bx, by, t_norm, bp, B, th, tw)
     T, cap = bx.shape
-    out = torch.zeros((T, B, th, tw), dtype=_F32, device=dev)
-    if T == 0 or cap == 0:
-        return out
-    rc = build.library().voxel_tiles_scatter(
-        bx.data_ptr(), by.data_ptr(), t_norm.data_ptr(), bp.data_ptr(),
-        T * cap, cap, B, th, tw, out.data_ptr(), _stream())
-    build.check(rc, "voxel_tiles_scatter")
-    voxel_tiles_scatter.launches += 1
+    if T == 0 or cap == 0 or B == 0:
+        return torch.zeros((T, B, th, tw), dtype=_F32, device=dev)
+    chosen = voxel_tiles_route(B, th, tw)
+    route = _pick("voxel_tiles_scatter", route, chosen, {chosen, "direct"})
+    ptrs = (bx.data_ptr(), by.data_ptr(), t_norm.data_ptr(), bp.data_ptr())
+    if route == "private":
+        out = torch.empty((T, B, th, tw), dtype=_F32, device=dev)
+        rc = build.library().voxel_tiles_scatter_private(
+            *ptrs, T, cap, B, th, tw, out.data_ptr(), _stream())
+    else:
+        out = torch.zeros((T, B, th, tw), dtype=_F32, device=dev)
+        rc = build.library().voxel_tiles_scatter(
+            *ptrs, T * cap, cap, B, th, tw, out.data_ptr(), _stream())
+    build.check(rc, f"voxel_tiles_scatter:{route}")
+    _launches[f"voxel_tiles_scatter:{route}"] += 1
     return out
-
-
-voxel_tiles_scatter.launches = 0
 
 
 def voxel_tiles_inputs(bx, by, bt, bp, B: int, tile, t0, t1, mask=None):
@@ -379,11 +457,8 @@ def flat_scatter(idx, w, num_buckets: int):
         idx.data_ptr(), w.data_ptr(), n, D, num_buckets, out.data_ptr(),
         _stream())
     build.check(rc, "flat_scatter")
-    flat_scatter.launches += 1
+    _launches["flat_scatter"] += 1
     return out
-
-
-flat_scatter.launches = 0
 
 
 class _FlatScatter(torch.autograd.Function):
@@ -464,10 +539,37 @@ def bilinear_scatter_plain(x, y, w, H: int, W: int):
     return out.view(-1, H, W)
 
 
-def bilinear_scatter(x, y, w, H: int, W: int):
+# Routes of the whole-image splat, from scripts/tune_scatter_routes.py on an
+# H100: at 181x241 the direct kernel wins at 65536 events and the private
+# one at 131072. One private block per 1024 events, at most one per SM (132).
+PRIVATE_MIN_EVENTS = 98304
+PRIVATE_EVENTS_PER_BLOCK = 1024
+PRIVATE_MAX_BLOCKS = 132
+
+
+def bilinear_route(K: int, H: int, W: int, n: int) -> str:
+    """Route of a (K, H, W) splat of n events: 'private' where the image
+    fits 227 KB of shared memory and n is at least 98304; else 'direct'."""
+    fits = K * H * W * 4 <= SHARED_MAX_BYTES
+    return "private" if fits and n >= PRIVATE_MIN_EVENTS else "direct"
+
+
+def bilinear_scatter(x, y, w, H: int, W: int, route=None):
     """(K, H, W) 4-tap bilinear splat of the K rows of ``w`` (f32 (K, N))
     at the shared f32 coordinates ``x``, ``y`` (N,); out-of-image taps are
-    dropped."""
+    dropped.
+
+    Routes, by shape alone (``bilinear_route``). 'private', where
+    ``K*H*W*4`` bytes fit 227 KB of shared memory (181x241 at K=1 does, at
+    K=4 it does not) and N >= 98304: one block of 1024 threads per 1024
+    events, at most 132, each with a private image in shared memory whose
+    non-zero pixels it adds to the zeroed output (a bulk reduction of whole
+    images measured slower). 'direct' for everything else: one thread per
+    event, global atomics into the zeroed output. 'single' (one block,
+    image stored once into an uninitialised output) is slower than 'direct'
+    wherever it was measured and is never chosen; ``route`` forces one of
+    the routes the shape allows.
+    """
     dev = _check("bilinear_scatter", (x, y, w), (_F32, _F32, _F32))
     if w.dim() != 2 or w.shape[1] != x.shape[0] or y.shape != x.shape:
         raise ConfigurationError(
@@ -476,18 +578,44 @@ def bilinear_scatter(x, y, w, H: int, W: int):
     if dev.type == "cpu":
         return bilinear_scatter_plain(x, y, w, H, W)
     K, n = w.shape
-    out = torch.zeros((K, H, W), dtype=_F32, device=dev)
     if n == 0 or K == 0:
-        return out
-    rc = build.library().bilinear_scatter(
-        x.data_ptr(), y.data_ptr(), w.data_ptr(), n, K, H, W, out.data_ptr(),
-        _stream())
-    build.check(rc, "bilinear_scatter")
-    bilinear_scatter.launches += 1
+        return torch.zeros((K, H, W), dtype=_F32, device=dev)
+    fits = K * H * W * 4 <= SHARED_MAX_BYTES
+    route = _pick("bilinear_scatter", route, bilinear_route(K, H, W, n),
+                  {"direct", "single", "private"} if fits else {"direct"})
+    ptrs = (x.data_ptr(), y.data_ptr(), w.data_ptr())
+    if route == "direct":
+        out = torch.zeros((K, H, W), dtype=_F32, device=dev)
+        rc = build.library().bilinear_scatter(
+            *ptrs, n, K, H, W, out.data_ptr(), _stream())
+    else:
+        blocks = 1 if route == "single" else max(2, min(
+            PRIVATE_MAX_BLOCKS, -(-n // PRIVATE_EVENTS_PER_BLOCK)))
+        alloc = torch.empty if blocks == 1 else torch.zeros
+        out = alloc((K, H, W), dtype=_F32, device=dev)
+        rc = build.library().bilinear_scatter_private(
+            *ptrs, n, K, H, W, out.data_ptr(), blocks, _stream())
+    build.check(rc, f"bilinear_scatter:{route}")
+    _launches[f"bilinear_scatter:{route}"] += 1
     return out
 
 
-bilinear_scatter.launches = 0
+def _bilinear_vjp(g, dx, dy, taps, w):
+    """Gather VJP of a bilinear splat (``_bilinear_core_bwd``,
+    pallas_scatter.py:749): ``g`` is the output's cotangent flattened to
+    (K, pixels), ``taps`` as ``_bilinear_taps`` returns them. Cotangents of
+    x, y and w."""
+    tap = {(oy, ox): torch.where(ok[None, :], g[:, pix], 0.0)
+           for oy, ox, ok, pix in taps}
+    g00, g01 = tap[(0, 0)], tap[(0, 1)]
+    g10, g11 = tap[(1, 0)], tap[(1, 1)]
+    g_w = (((1 - dx) * (1 - dy))[None] * g00 + (dx * (1 - dy))[None] * g01
+           + ((1 - dx) * dy)[None] * g10 + (dx * dy)[None] * g11)
+    g_x = torch.sum(w * ((1 - dy)[None] * (g01 - g00)
+                         + dy[None] * (g11 - g10)), dim=0)
+    g_y = torch.sum(w * ((1 - dx)[None] * (g10 - g00)
+                         + dx[None] * (g11 - g01)), dim=0)
+    return g_x, g_y, g_w
 
 
 class _BilinearCore(torch.autograd.Function):
@@ -505,18 +633,126 @@ class _BilinearCore(torch.autograd.Function):
         x, y, w = ctx.saved_tensors
         H, W = ctx.dims
         dx, dy, taps = _bilinear_taps(x, y, H, W)
-        gflat = g.reshape(g.shape[0], H * W)
-        tap = {(oy, ox): torch.where(ok[None, :], gflat[:, pix], 0.0)
-               for oy, ox, ok, pix in taps}
-        g00, g01 = tap[(0, 0)], tap[(0, 1)]
-        g10, g11 = tap[(1, 0)], tap[(1, 1)]
-        g_w = (((1 - dx) * (1 - dy))[None] * g00 + (dx * (1 - dy))[None] * g01
-               + ((1 - dx) * dy)[None] * g10 + (dx * dy)[None] * g11)
-        g_x = torch.sum(w * ((1 - dy)[None] * (g01 - g00)
-                             + dy[None] * (g11 - g10)), dim=0)
-        g_y = torch.sum(w * ((1 - dx)[None] * (g10 - g00)
-                             + dx[None] * (g11 - g01)), dim=0)
-        return g_x, g_y, g_w, None, None
+        return (*_bilinear_vjp(g.reshape(g.shape[0], H * W), dx, dy, taps, w),
+                None, None)
+
+
+# ---------------------------------------------------------------------------
+# Bilinear splat into per-run patches (the batched patch loss of the ROI
+# solvers; in the JAX package each patch is one ``A @ V`` one-hot product,
+# events_cmax.py:506-662, and a whole image is ``_bilinear_kernel``)
+# ---------------------------------------------------------------------------
+
+def _patch_taps(x, y, P: int, C: int, PH: int, PW: int):
+    """``_bilinear_taps`` in patch-local coordinates, with the pixel ids
+    moved to each slot's own patch of the flat (P*PH*PW,) output."""
+    dx, dy, taps = _bilinear_taps(x, y, PH, PW)
+    off = torch.arange(P, device=x.device).repeat_interleave(C) * (PH * PW)
+    return dx, dy, [(oy, ox, ok, pix + off) for oy, ox, ok, pix in taps]
+
+
+def bilinear_patches_scatter_plain(x, y, w, P: int, C: int, PH: int,
+                                   PW: int):
+    """Plain version of ``bilinear_patches_scatter``: the four taps of every
+    slot, summed into the slot's own patch with ``index_add_``."""
+    dx, dy, taps = _patch_taps(x, y, P, C, PH, PW)
+    wx = (1.0 - dx, dx)
+    wy = (1.0 - dy, dy)
+    out = torch.zeros((w.shape[0], P * PH * PW), dtype=_F32, device=w.device)
+    for oy, ox, ok, pix in taps:
+        val = (w * wx[ox][None, :]) * wy[oy][None, :]
+        out.index_add_(1, pix, torch.where(ok[None, :], val, 0.0))
+    return out.view(-1, P, PH, PW)
+
+
+# The patch count from which the patch kernel beats the direct one, from
+# scripts/tune_scatter_routes.py on an H100 ((64, 128) patches of 2048
+# slots: the direct kernel wins at 540 patches, the patch kernel at 1080,
+# for K=1 and K=4 alike).
+PATCH_MIN_PATCHES = 768
+
+
+def bilinear_patches_route(P: int, PH: int, PW: int) -> str:
+    """'patch' for at least 768 patches whose (PH, PW) plane fits a block's
+    shared memory (227 KB), else 'direct'."""
+    fits = PH * PW * 4 <= SHARED_MAX_BYTES
+    return "patch" if fits and P >= PATCH_MIN_PATCHES else "direct"
+
+
+def _patches_forward(x, y, w, P: int, C: int, PH: int, PW: int, route=None):
+    dev = _check("bilinear_patches_scatter", (x, y, w), (_F32, _F32, _F32))
+    if (x.dim() != 1 or x.shape[0] != P * C or y.shape != x.shape
+            or w.dim() != 2 or w.shape[1] != P * C):
+        raise ConfigurationError(
+            f"bilinear_patches_scatter: x, y must be ({P * C},) and w "
+            f"(K, {P * C}), got {tuple(x.shape)}, {tuple(y.shape)}, "
+            f"{tuple(w.shape)}")
+    if dev.type == "cpu":
+        return bilinear_patches_scatter_plain(x, y, w, P, C, PH, PW)
+    K = w.shape[0]
+    if P * C == 0 or K == 0:
+        return torch.zeros((K, P, PH, PW), dtype=_F32, device=dev)
+    fits = PH * PW * 4 <= SHARED_MAX_BYTES
+    route = _pick("bilinear_patches_scatter", route,
+                  bilinear_patches_route(P, PH, PW),
+                  {"patch", "direct"} if fits else {"direct"})
+    ptrs = (x.data_ptr(), y.data_ptr(), w.data_ptr())
+    if route == "patch":
+        out = torch.empty((K, P, PH, PW), dtype=_F32, device=dev)
+        rc = build.library().bilinear_patches_scatter(
+            *ptrs, P, C, K, PH, PW, out.data_ptr(), _stream())
+        name = "bilinear_patches_scatter"
+    else:
+        out = torch.zeros((K, P, PH, PW), dtype=_F32, device=dev)
+        rc = build.library().bilinear_patches_scatter_direct(
+            *ptrs, P, C, K, PH, PW, out.data_ptr(), _stream())
+        name = "bilinear_patches_scatter:direct"
+    build.check(rc, name)
+    _launches[name] += 1
+    return out
+
+
+class _BilinearPatchesCore(torch.autograd.Function):
+    """Patch splat with the gather VJP of ``_bilinear_core_bwd``
+    (pallas_scatter.py:749) on the (K, P, PH, PW) layout."""
+
+    @staticmethod
+    def forward(ctx, x, y, w, P, C, PH, PW, route):
+        ctx.save_for_backward(x, y, w)
+        ctx.dims = (P, C, PH, PW)
+        return _patches_forward(x, y, w, P, C, PH, PW, route)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, w = ctx.saved_tensors
+        dx, dy, taps = _patch_taps(x, y, *ctx.dims)
+        return (*_bilinear_vjp(g.reshape(g.shape[0], -1), dx, dy, taps, w),
+                None, None, None, None, None)
+
+
+def bilinear_patches_scatter(x, y, w, P: int, C: int, PH: int, PW: int,
+                             route=None):
+    """(K, P, PH, PW) bilinear splat of P runs of C slots, run ``q`` (slots
+    ``q*C .. (q+1)*C - 1``) into patch ``q`` only.
+
+    ``x``, ``y`` f32 (P*C,) *patch-local* coordinates, ``w`` f32 (K, P*C),
+    all contiguous. The 4-tap rule is ``bilinear_scatter``'s; taps outside
+    ``[0, PH) x [0, PW)`` are dropped (bounds tested in float), zero weights
+    skip. With ``P = 1``, ``C = N``, ``(PH, PW) = (H, W)`` it is
+    ``bilinear_scatter``. Differentiable in ``x``, ``y`` and ``w`` (gather
+    backward, plain torch). CUDA tensors launch a kernel, CPU tensors run
+    ``bilinear_patches_scatter_plain``.
+
+    Routes, by shape alone (``bilinear_patches_route``). 'patch', for at
+    least 768 patches whose (PH, PW) plane fits 227 KB of shared memory:
+    one block of 256 threads per (channel, patch) holds its plane there (32
+    KB for (64, 128)) and stores it once into an uninitialised output.
+    'direct',
+    for fewer patches (whose output stays in the L2, where float adds are
+    native) and for larger planes: one thread per slot, global atomics into
+    a zeroed output. ``route`` forces one of the routes the shape allows.
+    """
+    return _BilinearPatchesCore.apply(x, y, w, P, C, PH, PW, route)
 
 
 def bilinear_matmul(x, y, w, shape: Tuple[int, int], mask=None,
@@ -542,18 +778,25 @@ def bilinear_matmul(x, y, w, shape: Tuple[int, int], mask=None,
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
+    """Set every route's launch count to 0."""
+    for route in ROUTES:
+        _launches[route] = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    """Launches of every kernel route since the last reset."""
+    return dict(_launches)
 
 
+# The wrapper that launches each route.
 KERNEL_WRAPPERS = {
     "voxel_scatter": voxel_scatter,
-    "voxel_tiles_scatter": voxel_tiles_scatter,
+    "voxel_tiles_scatter:private": voxel_tiles_scatter,
+    "voxel_tiles_scatter:direct": voxel_tiles_scatter,
     "flat_scatter": flat_scatter,
-    "bilinear_scatter": bilinear_scatter,
+    "bilinear_scatter:direct": bilinear_scatter,
+    "bilinear_scatter:private": bilinear_scatter,
+    "bilinear_scatter:single": bilinear_scatter,
+    "bilinear_patches_scatter": bilinear_patches_scatter,
+    "bilinear_patches_scatter:direct": bilinear_patches_scatter,
 }

@@ -1,0 +1,346 @@
+#!/usr/bin/env python3
+"""Measure what the routes of the bilinear and per-tile voxel kernels cost
+on the card, and which launch parameters are fastest.
+
+    python3 scripts/tune_scatter_routes.py [--out results.jsonl]
+
+The thresholds in ``ops/cuda_scatter.py`` (``PRIVATE_*``,
+``PATCH_MIN_PATCHES``) and the launch parameters fixed in
+``csrc/scatter_kernels.cu`` come from this script's output. The package
+ships one configuration of each kernel; the others that are measured here
+(and the probe of part 1) are built from ``scripts/tune_scatter_variants.cu``.
+It prints the card's name and power limit, then one JSON line per
+measurement (with ``--out``, also written to that file):
+
+1. What holds the small splat back, at K=1, 200k events into 181x241, on
+   uniform coordinates, on the planted scene as recorded and on the planted
+   scene warped onto its 400 tracks: the ``torch.zeros`` alone; the direct
+   kernel with and without it; the same kernel with its atomics replaced
+   by a register sum that each thread stores once (``probe``, not part of
+   the package): what loads, arithmetic and the launch cost without any
+   atomic.
+2. The whole-image splat on every route over event counts from 512 to
+   200k, into 181x241 and 41x61: direct, one block (block size, bulk or
+   per-thread store), G private blocks (G, bulk reduction or per-thread
+   atomics that skip zeros).
+3. The patch kernel at one batched loss evaluation of the ROI solver
+   (K=1 and K=4): block size, bulk or per-thread store, channels per
+   block; then, from one descent step (one sample per ROI) up to the full
+   evaluation, the patch kernel against the direct patch kernel and the
+   atlas route.
+4. The per-tile voxel kernel at 720p and VGA: direct, the cluster variant
+   (taps through distributed shared memory) and the replicated variant
+   (every block reads all slots) with and without a cluster launch, block
+   size, bulk or per-thread store.
+5. The host's time per eager call of the whole-image splat on each route
+   (200 calls, no synchronisation): what a host-bound solver pays.
+
+Rows marked "as shipped" time the package's own kernel through its
+wrapper; the others time a variant (the variant with the shipped parameters
+keeps its run-time arguments and so runs a little slower than the package's
+kernel, in which they are constants). Every variant is first held against
+the plain version (1e-5 of the output scale); a variant that disagrees is
+reported and the script exits non-zero at its end. Times are
+``chip_smoke.time_ms`` (CUDA events around CUDA-graph replays of 10 calls,
+median of 20). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+VARIANTS_SOURCE = os.path.join(ROOT, "scripts", "tune_scatter_variants.cu")
+
+failed = []
+lines = []
+
+
+def emit(**kw):
+    lines.append(json.dumps(kw))
+    print(lines[-1], flush=True)
+
+
+def build_variants(build):
+    """Compile VARIANTS_SOURCE (the slower variants and the no-atomics
+    probe) into a temporary directory and load it."""
+    lib = os.path.join(tempfile.mkdtemp(prefix="variants_"),
+                       "libvariants.so")
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib,
+                    VARIANTS_SOURCE], check=True, capture_output=True,
+                   text=True)
+    dll = ctypes.CDLL(lib)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, argtypes in {
+            "probe": [P, P, P, L, I, I, P, I, P],
+            "patches_variant": [P, P, P, L, L, I, I, I, I, P, I, I, P],
+            "private_variant": [P, P, P, L, I, I, I, P, I, I, I, P],
+            "tiles_variant": [P, P, P, P, L, L, I, I, I, P, I, I, I, P],
+    }.items():
+        getattr(dll, name).argtypes = argtypes
+        getattr(dll, name).restype = I
+    return dll
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--out", help="also write the JSON lines here")
+    opts = parser.parse_args()
+    try:
+        return run()
+    finally:
+        if opts.out:
+            with open(opts.out, "w") as f:
+                f.write("\n".join(lines) + "\n")
+
+
+def run() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("tune: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from event_utils_tpu_torch.ops import build, cuda_scatter as cs
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    print(chip_smoke.card_line(), flush=True)
+    lib = build.library()
+    # registers and shared memory per kernel, when this process built them
+    print(build.build_log.get("scatter_kernels", {}).get("ptxas", ""),
+          flush=True)
+    vlib = build_variants(build)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    T = lambda fn, **kw: chip_smoke.time_ms(fn, torch, **kw)
+
+    def agrees(what, got, ref):
+        try:
+            chip_smoke.check_close(what, got, ref)
+            return True
+        except AssertionError as e:
+            failed.append(str(e))
+            return False
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=f32, device=dev)
+
+    # ---- coordinate sets, 200k events into 181x241 ----------------------
+    H, W = chip_smoke.SENSOR[0] + 1, chip_smoke.SENSOR[1] + 1
+    n = chip_smoke.N_SCENE
+    rng = np.random.default_rng(chip_smoke.SEED)
+    sx, sy, st, sp = chip_smoke.planted_scene(rng)
+    vx, vy = chip_smoke.VELOCITY
+    coords = {
+        "uniform": (t(rng.uniform(-2, W + 1, n)), t(rng.uniform(-2, H + 1, n)),
+                    t(rng.uniform(-1, 1, n))[None]),
+        "scene": (t(sx), t(sy), t(sp)[None]),
+        "scene_warped": (t(sx - vx * st), t(sy - vy * st), t(sp)[None]),
+    }
+
+    def direct_raw(x, y, w, h, wd, out):
+        build.check(lib.bilinear_scatter(
+            x.data_ptr(), y.data_ptr(), w.data_ptr(), x.shape[0], w.shape[0],
+            h, wd, out.data_ptr(), stream()), "direct")
+        return out
+
+    def private(x, y, w, h, wd, blocks, threads, bulk):
+        K = w.shape[0]
+        alloc = torch.empty if blocks == 1 else torch.zeros
+        out = alloc((K, h, wd), dtype=f32, device=dev)
+        build.check(vlib.private_variant(
+            x.data_ptr(), y.data_ptr(), w.data_ptr(), x.shape[0], K, h, wd,
+            out.data_ptr(), blocks, threads, bulk, stream()), "private")
+        return out
+
+    # ---- 1. what holds the small splat back -----------------------------
+    emit(part=1, what="torch.zeros((1, 181, 241)) alone",
+         ms=T(lambda: torch.zeros((1, H, W), dtype=f32, device=dev)))
+    scratch = torch.empty((1, H, W), dtype=f32, device=dev)
+    blocks = -(-n // 256)
+    sums = torch.empty(blocks * 256, dtype=f32, device=dev)
+    for name, (x, y, w) in coords.items():
+        emit(part=1, coords=name, what="zeros + direct kernel",
+             ms=T(lambda: cs.bilinear_scatter(x, y, w, H, W, route="direct")))
+        emit(part=1, coords=name, what="direct kernel alone (no memset)",
+             ms=T(lambda: direct_raw(x, y, w, H, W, scratch)))
+        emit(part=1, coords=name,
+             what="probe: same kernel, atomics replaced by a register sum",
+             ms=T(lambda: build.check(vlib.probe(
+                 x.data_ptr(), y.data_ptr(), w.data_ptr(), n, H, W,
+                 sums.data_ptr(), blocks, stream()), "probe")))
+    x, y, w = coords["uniform"]
+    emit(part=1, what="probe on one event, one block (launch floor)",
+         ms=T(lambda: build.check(vlib.probe(
+             x.data_ptr(), y.data_ptr(), w.data_ptr(), 1, H, W,
+             sums.data_ptr(), 1, stream()), "probe")))
+
+    # ---- 2. whole-image routes -------------------------------------------
+    for (h, wd), sets in (((H, W), ("uniform", "scene_warped")),
+                          ((41, 61), ("uniform",))):
+        for name in sets:
+            x0, y0, w0 = coords[name]
+            if (h, wd) != (H, W):
+                x0, y0 = x0 % wd, y0 % h
+            for m in (512, 2048, 8192, 32768, 65536, 131072, n):
+                x, y, w = (x0[:m].contiguous(), y0[:m].contiguous(),
+                           w0[:, :m].contiguous())
+                ref = cs.bilinear_scatter_plain(x, y, w, h, wd)
+                tag = dict(part=2, image=[h, wd], coords=name, events=m)
+                emit(**tag, route="direct", ms=T(
+                    lambda: cs.bilinear_scatter(x, y, w, h, wd,
+                                                route="direct")))
+                for route in ("single", "private"):
+                    if route == "single" and m > 32768:
+                        continue
+                    emit(**tag, route=f"{route}, as shipped", ms=T(
+                        lambda: cs.bilinear_scatter(x, y, w, h, wd,
+                                                    route=route)))
+                variants = []
+                if m <= 32768:
+                    variants += [(1, th, b) for th in (256, 1024)
+                                 for b in (1, 0)]
+                if m >= 8192:
+                    variants += [(g, 1024, b)
+                                 for g in (8, 16, 32, 64, 96, 132)
+                                 for b in (1, 0)]
+                    variants += [(64, 512, 0), (132, 512, 0)]
+                for g, th, b in variants:
+                    ok = agrees(f"private G={g} threads={th} bulk={b} {tag}",
+                                private(x, y, w, h, wd, g, th, b), ref)
+                    emit(**tag, route="single" if g == 1 else "private",
+                         blocks=g, threads=th, bulk=b, ok=ok,
+                         ms=T(lambda: private(x, y, w, h, wd, g, th, b)))
+
+    # ---- 3. the patch kernel ---------------------------------------------
+    def patches(x, y, w, P, C, PH, PW, kb, threads, bulk):
+        K = w.shape[0]
+        out = torch.empty((K, P, PH, PW), dtype=f32, device=dev)
+        build.check(vlib.patches_variant(
+            x.data_ptr(), y.data_ptr(), w.data_ptr(), P, C, K, kb, PH, PW,
+            out.data_ptr(), threads, bulk, stream()), "patches")
+        return out
+
+    for objective in ("variance", "zhu"):
+        x, y, w, P, C, PH, PW = chip_smoke.patch_loss_inputs(torch, objective)
+        K = w.shape[0]
+        ref = cs.bilinear_patches_scatter_plain(x, y, w, P, C, PH, PW)
+        tag = dict(part=3, K=K, patches=P, slots=C, patch=[PH, PW])
+        emit(**tag, route="atlas (direct kernel + un-tiling)",
+             ms=T(chip_smoke.atlas_route(torch, cs, x, y, w, P, C, PH, PW),
+                  calls=2, reps=5))
+        emit(**tag, route="patch, as shipped", ms=T(
+            lambda: cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW,
+                                                route="patch")))
+        for kb in ((1,) if K == 1 else (4, 2, 1)):
+            for th in (128, 256, 512, 1024):
+                for b in (1, 0):
+                    ok = agrees(f"patches kb={kb} threads={th} bulk={b} {tag}",
+                                patches(x, y, w, P, C, PH, PW, kb, th, b),
+                                ref)
+                    emit(**tag, route="patch", channels_per_block=kb,
+                         threads=th, bulk=b, ok=ok, ms=T(
+                             lambda: patches(x, y, w, P, C, PH, PW, kb, th,
+                                             b)))
+        del ref
+        # from one descent step (one sample per ROI) up: where the patch
+        # kernel overtakes the direct one (global atomics into a zeroed
+        # output that fits L2)
+        for samples in (1, 2, 5, 10, 25):
+            P1 = P // 25 * samples
+            x1, y1 = x[:P1 * C].contiguous(), y[:P1 * C].contiguous()
+            w1 = w[:, :P1 * C].contiguous()
+            tag = dict(part=3, K=K, patches=P1, slots=C, patch=[PH, PW])
+            emit(**tag, route="atlas (direct kernel + un-tiling)",
+                 ms=T(chip_smoke.atlas_route(torch, cs, x1, y1, w1, P1, C, PH,
+                                             PW), calls=2, reps=5))
+            emit(**tag, route="patches direct", ms=T(
+                lambda: cs.bilinear_patches_scatter(x1, y1, w1, P1, C, PH, PW,
+                                                    route="direct")))
+            emit(**tag, route="patch, as shipped", ms=T(
+                lambda: cs.bilinear_patches_scatter(x1, y1, w1, P1, C, PH, PW,
+                                                    route="patch")))
+            for th in (256, 512, 1024):
+                emit(**tag, route="patch", channels_per_block=1, threads=th,
+                     bulk=1, ms=T(lambda: patches(x1, y1, w1, P1, C, PH, PW,
+                                                  1, th, 1)))
+        del x, y, w, x1, y1, w1
+        torch.cuda.empty_cache()
+
+    # ---- 4. the per-tile voxel kernel ---------------------------------------
+    B = chip_smoke.B
+    th_, tw_ = chip_smoke.TILE
+    for sensor in ("720p", "VGA"):
+        lx, ly, bt, bp, bmask, ts = chip_smoke.bucketed_tiles(
+            torch, rng, chip_smoke.TILED_SENSORS[sensor], chip_smoke.TILE)
+        args = cs.voxel_tiles_inputs(lx, ly, bt, bp, B, chip_smoke.TILE,
+                                     ts[0], ts[-1], mask=bmask)
+        Tn, cap = lx.shape
+        ref = cs.voxel_tiles_scatter_plain(*args, B, th_, tw_)
+
+        def tiles(mode, threads, bulk):
+            out = torch.empty((Tn, B, th_, tw_), dtype=f32, device=dev)
+            build.check(vlib.tiles_variant(
+                *(a.data_ptr() for a in args), Tn, cap, B, th_, tw_,
+                out.data_ptr(), mode, threads, bulk, stream()), "tiles")
+            return out
+
+        tag = dict(part=4, sensor=sensor, tiles=Tn, slots=cap)
+        emit(**tag, route="direct", ms=T(
+            lambda: cs.voxel_tiles_scatter(*args, B, th_, tw_,
+                                           route="direct")))
+        emit(**tag, route="private, as shipped", ms=T(
+            lambda: cs.voxel_tiles_scatter(*args, B, th_, tw_,
+                                           route="private")))
+        names = {0: "replicated", 1: "cluster, remote atomics",
+                 2: "replicated, launched as clusters"}
+        for mode in (0, 2, 1):
+            for threads in (256, 512, 1024):
+                for bulk in (1, 0):
+                    ok = agrees(f"tiles mode={mode} threads={threads} "
+                                f"bulk={bulk} {tag}",
+                                tiles(mode, threads, bulk), ref)
+                    emit(**tag, route=names[mode], threads=threads,
+                         bulk=bulk, ok=ok,
+                         ms=T(lambda: tiles(mode, threads, bulk)))
+
+    # ---- 5. what a call costs the host ------------------------------------
+    # The solvers wait on the host, so a route's enqueue cost counts too:
+    # seconds of host time per eager call, no synchronisation inside.
+    import time
+    x0, y0, w0 = coords["scene_warped"]
+    for m in (2048, n):
+        x, y, w = (x0[:m].contiguous(), y0[:m].contiguous(),
+                   w0[:, :m].contiguous())
+        for route in ("direct", "single", "private"):
+            if route == "single" and m > 32768:
+                continue
+            reps = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    cs.bilinear_scatter(x, y, w, H, W, route=route)
+                reps.append((time.perf_counter() - t0) / 200)
+                torch.cuda.synchronize()
+            emit(part=5, events=m, image=[H, W], route=route,
+                 host_us_per_call=float(np.median(reps)) * 1e6)
+
+    print(chip_smoke.card_line(), flush=True)
+    if failed:
+        print("DISAGREED:\n" + "\n".join(failed), file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -46,10 +46,11 @@ def test_bilinear_kernel_matches_plain_and_counts(cuda, gen):
                         device=cuda)
     w = torch.as_tensor(gen.normal(size=(4, n)), dtype=torch.float32,
                         device=cuda)
-    before = cs.bilinear_scatter.launches
+    before = cs.launch_counts()["bilinear_scatter:direct"]
     assert_rel(cs.bilinear_scatter(x, y, w, H, W),
                cs.bilinear_scatter_plain(x, y, w, H, W))
-    assert cs.bilinear_scatter.launches == before + 1
+    # K=4 at 181x241 exceeds a block's shared memory: the direct route
+    assert cs.launch_counts()["bilinear_scatter:direct"] == before + 1
 
 
 @pytest.mark.cuda
@@ -97,9 +98,9 @@ def test_voxel_tiles_kernel_matches_plain(cuda, gen):
     for kw in ({"t0": 0.0, "t1": 1.0}, {"t0": 0.0, "t1": 1.0, "mask": mask},
                {"t0": 0.2, "t1": 0.7}):
         args = cs.voxel_tiles_inputs(bx, by, bt, bp, B, (th, tw), **kw)
-        before = cs.voxel_tiles_scatter.launches
+        before = cs.launch_counts()["voxel_tiles_scatter:private"]
         got = cs.voxel_tiles_scatter(*args, B, th, tw)
-        assert cs.voxel_tiles_scatter.launches == before + 1
+        assert cs.launch_counts()["voxel_tiles_scatter:private"] == before + 1
         assert got.shape == (T, B, th, tw)
         assert_rel(got, cs.voxel_tiles_scatter_plain(*args, B, th, tw))
     # one slot exactly at the last bin: all of its weight lands in bin B-1
@@ -153,7 +154,7 @@ def test_tiled_voxel_and_roi_solver_on_the_card(cuda, gen):
     ps = gen.choice([-1.0, 1.0], n)
     cs.reset_launch_counts()
     tiled = events_to_voxel(xs, ys, ts, ps, 5, (H, W), impl="tiled")
-    assert cs.voxel_tiles_scatter.launches == 1
+    assert cs.launch_counts()["voxel_tiles_scatter:private"] == 1
     assert_rel(tiled, events_to_voxel(xs, ys, ts, ps, 5, (H, W), impl="xla"))
     m = 8000
     px = gen.uniform(5, 50, 40)
@@ -164,6 +165,117 @@ def test_tiled_voxel_and_roi_solver_on_the_card(cuda, gen):
         px[idx] + 10 * t, py[idx] - 6 * t, t, np.ones(m), roi_size=(20, 20),
         img_size=(40, 60), maxiter=20)
     assert params.device.type == "cuda" and bool(valid.all())
-    assert cs.bilinear_scatter.launches > 0
+    # 6 ROIs: too few patches for the patch kernel, the direct patch route
+    assert cs.launch_counts()["bilinear_patches_scatter:direct"] > 0
     med = params.median(dim=0).values.cpu().numpy()
     np.testing.assert_allclose(med, [10.0, -6.0], atol=2.0)
+
+
+# ---------------------------------------------------------------------------
+# The routes that keep their output in shared memory
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,n", [("single", 777), ("private", 30_001),
+                                     ("direct", 30_001)])
+def test_bilinear_routes_match_plain(cuda, gen, route, n):
+    """Odd sizes: an image of 37x53 pixels (not a multiple of 4 floats, so
+    the bulk copy leaves a tail), K=3, event counts that fill no block."""
+    H, W, K = 37, 53, 3
+    x = torch.as_tensor(gen.uniform(-2, W + 1, n), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(-2, H + 1, n), dtype=torch.float32,
+                        device=cuda)
+    x[::13] = float("nan")
+    y[5::17] = 1e30
+    w = torch.as_tensor(gen.normal(size=(K, n)), dtype=torch.float32,
+                        device=cuda)
+    before = cs.launch_counts()[f"bilinear_scatter:{route}"]
+    assert_rel(cs.bilinear_scatter(x, y, w, H, W, route=route),
+               cs.bilinear_scatter_plain(x, y, w, H, W))
+    assert cs.launch_counts()[f"bilinear_scatter:{route}"] == before + 1
+
+
+@pytest.mark.cuda
+def test_bilinear_route_is_chosen_by_shape(cuda, gen):
+    from event_utils_tpu_torch.errors import ConfigurationError
+    assert cs.bilinear_route(1, 181, 241, 2000) == "direct"
+    assert cs.bilinear_route(1, 181, 241, 200_000) == "private"
+    assert cs.bilinear_route(1, 41, 61, 32768) == "direct"
+    assert cs.bilinear_route(4, 181, 241, 200_000) == "direct"
+    n = 100
+    x = torch.rand(n, device=cuda) * 200
+    w = torch.ones(4, n, device=cuda)
+    with pytest.raises(ConfigurationError):   # 697 KB cannot be private
+        cs.bilinear_scatter(x, x, w, 181, 241, route="private")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,C,PH,PW,K,route", [
+    (7, 1000, 24, 40, 3, "patch"), (7, 1000, 24, 40, 3, "direct"),
+    (3, 501, 19, 23, 1, "patch"), (800, 64, 16, 16, 2, None),
+    (5, 300, 64, 128, 8, "patch"), (2, 4000, 240, 256, 2, None)])
+def test_bilinear_patches_kernel_matches_plain(cuda, gen, P, C, PH, PW, K,
+                                               route):
+    """Ragged runs on both routes, a plane that is no multiple of 4 floats,
+    enough patches for the patch route to be chosen, many channels, and a
+    plane past shared memory (the direct route)."""
+    x = torch.as_tensor(gen.uniform(-2, PW + 1, P * C), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(-2, PH + 1, P * C), dtype=torch.float32,
+                        device=cuda)
+    w = torch.as_tensor(gen.normal(size=(K, P * C)), dtype=torch.float32,
+                        device=cuda)
+    took = route or cs.bilinear_patches_route(P, PH, PW)
+    assert took == {800: "patch", 2: "direct"}.get(P, route)
+    name = "bilinear_patches_scatter" + (":direct" if took == "direct"
+                                         else "")
+    before = cs.launch_counts()[name]
+    got = cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW, route=route)
+    assert cs.launch_counts()[name] == before + 1
+    assert got.shape == (K, P, PH, PW)
+    assert_rel(got, cs.bilinear_patches_scatter_plain(x, y, w, P, C, PH, PW))
+
+
+@pytest.mark.cuda
+def test_bilinear_patches_gradients_match_plain(cuda, gen):
+    P, C, PH, PW, K = 6, 700, 24, 40, 2
+    x = torch.as_tensor(gen.uniform(-1, PW, P * C), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(-1, PH, P * C), dtype=torch.float32,
+                        device=cuda)
+    w = torch.as_tensor(gen.normal(size=(K, P * C)), dtype=torch.float32,
+                        device=cuda)
+    tgt = torch.randn(K, P, PH, PW, device=cuda)
+    grads = []
+    patch = lambda *a: cs.bilinear_patches_scatter(*a, route="patch")
+    for fn in (patch, cs.bilinear_patches_scatter_plain):
+        leaves = [a.clone().requires_grad_(True) for a in (x, y, w)]
+        grads.append(torch.autograd.grad(
+            (fn(*leaves, P, C, PH, PW) * tgt).sum(), leaves))
+    for a, b in zip(*grads):
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * max(float(b.abs().max()), 1.0), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,th,tw,route", [(5, 96, 128, "private"),
+                                           (9, 33, 47, "private"),
+                                           (1, 96, 128, "private"),
+                                           (3, 240, 256, "direct")])
+def test_voxel_tiles_routes_match_plain_unsorted(cuda, gen, B, th, tw, route):
+    """Unsorted slots, more bins than any caller uses (9), a plane that is
+    no multiple of 4 floats, and a plane past shared memory."""
+    T, cap = 5, 1777
+    shape = (T, cap)
+    bx = torch.as_tensor(gen.integers(-3, tw + 3, shape), device=cuda)
+    by = torch.as_tensor(gen.integers(-3, th + 3, shape), device=cuda)
+    bt = torch.rand(shape, device=cuda)            # not sorted
+    bp = torch.as_tensor(gen.choice([-1.0, 1.0], shape), dtype=torch.float32,
+                         device=cuda)
+    assert cs.voxel_tiles_route(B, th, tw) == route
+    args = cs.voxel_tiles_inputs(bx, by, bt, bp, B, (th, tw), t0=0.1, t1=0.9)
+    before = cs.launch_counts()[f"voxel_tiles_scatter:{route}"]
+    got = cs.voxel_tiles_scatter(*args, B, th, tw)
+    assert cs.launch_counts()[f"voxel_tiles_scatter:{route}"] == before + 1
+    assert_rel(got, cs.voxel_tiles_scatter_plain(*args, B, th, tw))

@@ -392,9 +392,12 @@ def test_kernel_wrappers_run_plain_on_cpu_and_check_inputs(rng):
                                               8, 8),
                        cs.voxel_tiles_scatter_plain(bx, bx, bt,
                                                     w.view(3, 100), 2, 8, 8))
-    assert cs.launch_counts() == {"voxel_scatter": 0,
-                                  "voxel_tiles_scatter": 0,
-                                  "flat_scatter": 0, "bilinear_scatter": 0}
+    counts = cs.launch_counts()
+    assert set(counts) == set(cs.ROUTES) == set(cs.KERNEL_WRAPPERS)
+    assert {r.split(":")[0] for r in counts} == {
+        "voxel_scatter", "voxel_tiles_scatter", "flat_scatter",
+        "bilinear_scatter", "bilinear_patches_scatter"}
+    assert not any(counts.values())
     with pytest.raises(P.errors.ConfigurationError):
         cs.flat_scatter(idx.long(), w[None], 100)       # wrong id type
     with pytest.raises(P.errors.ConfigurationError):     # (T, cap) shapes

@@ -12,10 +12,18 @@ move an ROI's answer within the basin. Tolerances, in px/s: 1.5 per ROI and
 flow where the JAX tests ask 4-5. Losses: 5e-2 relative for the per-ROI
 ``f_evals`` (each is the loss at that ROI's own answer, which may sit up to
 1.5 px/s from JAX's), 1e-2 for the global fit and the host loop.
+
+An ROI may lie between two basins of nearly equal loss, and the descent's
+best-iterate pick then turns on the last bits of the loss. The objectives
+test admits such an ROI only on evidence: where the port's answer departs
+from JAX's by more than 1.5 px/s, the JAX package's own patch loss must rate
+the port's answer no worse than JAX's.
 """
 
 import warnings
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -34,6 +42,7 @@ ROI_ATOL = 1.5     # px/s, per ROI against JAX
 MED_ATOL = 0.5     # px/s, the valid-ROI median against JAX
 LOSS_REL = 1e-2
 F_EVAL_REL = 5e-2
+TIE_REL = 1e-3     # a departing ROI's JAX loss against JAX's own answer's
 SMALL = (24, 32)
 FLOW = (10.0, 5.0)
 
@@ -54,12 +63,26 @@ def both(scene, **kw):
             [a.numpy() for a in got])
 
 
-def check(ref, got, truth=FLOW):
+def check(ref, got, truth=FLOW, jax_loss=None):
+    """Hold the port's result against JAX's. ``jax_loss`` (params (R, 2) ->
+    the JAX patch loss of every ROI, numpy) admits ROIs further than
+    ROI_ATOL from JAX's answer where that loss rates the port's answer no
+    worse (to TIE_REL) than JAX's own; without it every ROI must be near."""
     (jp, jr, jf, jv), (pp, pr, pf, pv) = ref, got
     np.testing.assert_array_equal(pr, jr)
     np.testing.assert_array_equal(pv, jv)
     assert pp.shape == jp.shape and pp.dtype == np.float32
-    np.testing.assert_allclose(pp, jp, atol=ROI_ATOL)
+    far = np.abs(pp - jp).max(axis=1) > ROI_ATOL
+    if jax_loss is None or not far.any():
+        np.testing.assert_allclose(pp, jp, atol=ROI_ATOL)
+    else:
+        np.testing.assert_allclose(pp[~far], jp[~far], atol=ROI_ATOL)
+        at_port, at_jax = jax_loss(pp), jax_loss(jp)
+        limit = at_jax[far] + TIE_REL * np.abs(at_jax[far])
+        assert np.all(at_port[far] <= limit), (
+            f"ROIs {np.flatnonzero(far).tolist()} are over {ROI_ATOL} px/s "
+            f"from JAX's answer at a worse JAX loss: {at_port[far]} vs "
+            f"{at_jax[far]}")
     med = np.median(pp[pv], axis=0)
     np.testing.assert_allclose(med, np.median(jp[jv], axis=0), atol=MED_ATOL)
     np.testing.assert_allclose(med, truth, atol=2.0)
@@ -94,19 +117,56 @@ def test_grid_cmax_batched_options(small_scene, option):
         assert any("subsampled" in str(w.message) for w in caught)
 
 
-@pytest.mark.parametrize("obj", ["adaptive_lifespan", "sos", "zhu"])
-def test_grid_cmax_batched_objectives(obj):
-    """The reference's own grid_cmax objective (adaptive lifespan, min 105
-    events) and two other objectives through the batched solver, on the
-    40x60 scene of the JAX tests."""
-    scene = flow_scene(np.random.default_rng(1), 12.0, 6.0, 6000, (40, 60))
+def jax_patch_losses(scene, jobj, roi_size, img_size):
+    """``params (R, 2) -> (R,)``: the JAX package's patch loss of every ROI
+    of ``scene`` over its full window, as ``grid_cmax_batched`` forms it
+    (default patch, blur 1.0), at any params."""
+    bx, by, bt, bp, bm, org = jc.bucket_events_by_roi(
+        *scene, img_size, roi_size, None)[:6]
+    loss = jax.vmap(jc.make_patch_loss(
+        jc.linvel_warp(), roi_size, jobj, patch=jc.PATCH_DEFAULT,
+        blur_sigma=1.0, full_pixels=(img_size[0] + 1) * (img_size[1] + 1)))
+    org = jnp.asarray(org, jnp.float32)
+    return lambda params: np.asarray(
+        loss(jnp.asarray(params), bx, by, bt, bp, bm, org))
+
+
+def objectives_case(seed, obj):
+    scene = flow_scene(np.random.default_rng(seed), 12.0, 6.0, 6000, (40, 60))
     jobj = {"adaptive_lifespan": J.models.variance_objective(
                 adaptive_lifespan=True, minimum_events=105),
             "sos": J.models.sos_objective(),
             "zhu": J.models.zhu_timestamp_objective()}[obj]
     ref, got = both(scene, roi_size=(20, 20), img_size=(40, 60), maxiter=30,
                     obj=(jobj, objective_from_jax(jobj)))
-    check(ref, got, truth=(12.0, 6.0))
+    check(ref, got, truth=(12.0, 6.0),
+          jax_loss=jax_patch_losses(scene, jobj, (20, 20), (40, 60)))
+    return ref, got
+
+
+@pytest.mark.parametrize("obj", ["adaptive_lifespan", "sos", "zhu"])
+def test_grid_cmax_batched_objectives(obj):
+    """The reference's own grid_cmax objective (adaptive lifespan, min 105
+    events) and two other objectives through the batched solver, on a
+    40x60 scene like that of the JAX tests.
+
+    On this scene one ROI of the adaptive-lifespan solve lies between two
+    basins: the port's f32 patch splat with exact patch-local coordinates
+    lands 1.9 px/s from JAX's answer. The JAX patch loss itself must rate
+    that answer no worse than JAX's own, and every other ROI must lie
+    within ROI_ATOL."""
+    ref, got = objectives_case(1, obj)
+    if obj == "adaptive_lifespan":
+        far = np.abs(got[0] - ref[0]).max(axis=1) > ROI_ATOL
+        assert far.sum() <= 1
+
+
+@pytest.mark.parametrize("obj", ["adaptive_lifespan", "sos", "zhu"])
+def test_grid_cmax_batched_objectives_second_scene(obj):
+    """The same on a second scene, where every ROI's answer is well
+    conditioned: all ROIs within ROI_ATOL of JAX's."""
+    ref, got = objectives_case(19, obj)
+    np.testing.assert_allclose(got[0], ref[0], atol=ROI_ATOL)
 
 
 def test_warm_refine_trust_and_unknown_options(small_scene):
