@@ -9,8 +9,12 @@
    main path's shapes, and times the kernel, the plain version and one
    PyTorch library call on the device (CUDA events around CUDA-graph
    replays; see ``time_ms``):
-   - voxel: 2^21 time-sorted events, B=5, 180x240, also masked and with a
-     t1 override;
+   - voxel, on the vector route (one float2 reduction per event) and on
+     the direct one: 2^21 time-sorted events, B=5, 180x240, also masked,
+     with a t1 override that pins half the events to t_norm = B-1 exactly,
+     unsorted, all masked, with NaN, +-inf, +-1e30 and first bins of -1
+     among the t_norm, B = 1, 4 and 9, and a 4096-event stream (which the
+     dispatch sends to the direct route);
    - per-tile voxel: the same stream at 720p bucketed into 80 (96, 128)
      tiles, the same three cases, on the private route and on the direct
      one, both also at VGA; the private route with unsorted slots and with
@@ -27,9 +31,14 @@
      replaced (direct kernel + un-tiling copy); one descent step of it (108
      patches: the direct patch route); a ragged case (P=7, C=1000,
      (24, 40)) on both routes; a (240, 256) patch; gradients;
-   - flat: the D=2 derivative stack.
+   - flat, on the vector route (one float2 or float4 reduction per id)
+     and on the direct one: the D=2 derivative stack of 200k events (800k
+     ids), also with ids -1 and num_buckets mixed in, with all-zero weight
+     columns and with an all-zero row; D = 3, 4, 5 at 200k ids; D = 1 at 2^21 ids into 180x240
+     (the event image: direct route only).
 3. Drives the main path through the public entry points with every launch
-   count set to 0 first: ``events_to_voxel(impl="matmul")``,
+   count set to 0 first: ``events_to_voxel(impl="matmul")`` on 2^21 events
+   (vector route) and on their first 4096 (direct route),
    ``events_to_image(impl="matmul")``,
    ``events_to_timestamp_image(impl="matmul")``, the analytic
    ``variance_objective.evaluate_gradient(impl="matmul")``, then
@@ -43,7 +52,8 @@
    px/s; again with ``pyramid="auto"``), one patch loss with (240, 256)
    patches, and the host loop ``grid_cmax`` on one 40x60 corner of it.
    Every route that some shape is sent to must have launched during this
-   phase.
+   phase, and each voxel and flat call must have taken the route that
+   ``voxel_route`` / ``flat_route`` name for its shape.
 4. Times the tiled route and its host bucketing alone, warm, and prints
    the bucketing's share of the route's wall.
 
@@ -64,6 +74,7 @@ import numpy as np
 SENSOR = (180, 240)          # DAVIS240
 B = 5
 N_VOXEL = 1 << 21
+N_SMALL = 4096               # a short stream: the direct voxel route
 N_SCENE = 200_000
 VELOCITY = (60.0, -35.0)     # px/s, planted in the scene
 SEED = 0
@@ -678,42 +689,206 @@ def descent_step_case(torch, cs, x, y, w, P, C, PH, PW):
     return rec
 
 
+def derivative_stack(torch, x, y, w, shape):
+    """The flat kernel's inputs on the main path: the int32 ids (4N,) and
+    the (2, 4N) signed weights that ``bilinear_scatter_derivative`` sums for
+    a two-parameter warp of the N events (x, y) with weights w."""
+    from event_utils_tpu_torch.ops.scatter import derivative_taps
+    n, dev = len(x), x.device
+    jx = torch.stack([-(torch.rand(n, device=dev) * 0.25),
+                      torch.zeros(n, device=dev)])
+    fi, fw = derivative_taps(x, y, jx, jx.flip(0).contiguous(), w, shape)
+    return fi.to(torch.int32).contiguous(), fw.contiguous()
+
+
+def voxel_phase(torch, cs, rng, records):
+    """The voxel kernel's two routes against the plain version: the main
+    path's stream and its variations, odd bin coordinates, other bin
+    counts, a short stream; both routes timed at 2^21 and at N_SMALL
+    events."""
+    dev = torch.device("cuda")
+    H, W = SENSOR
+    routes = ("vector", "direct")
+    xs, ys, ts, ps = (torch.as_tensor(a, device=dev)
+                      for a in voxel_events(rng))
+    ts = ts.float()
+    ps = ps.float()
+    keep = torch.as_tensor(rng.random(N_VOXEL) > 0.2, device=dev)
+    errs = {r: [] for r in routes}
+
+    def hold(label, args, bins=B):
+        ref = cs.voxel_scatter_plain(*args, bins, H, W)
+        outs = {}
+        for r in routes:
+            outs[r] = cs.voxel_scatter(*args, bins, H, W, route=r)
+            errs[r].append(check_close(f"voxel_scatter:{r} ({label})",
+                                       outs[r], ref))
+        return outs
+
+    plain_args = cs.voxel_inputs(xs, ys, ts, ps, B, SENSOR)
+    hold("plain window", plain_args)
+    hold("masked", cs.voxel_inputs(xs, ys, ts, ps, B, SENSOR, mask=keep))
+    pinned = cs.voxel_inputs(xs, ys, ts, ps, B, SENSOR,
+                             t1=float(ts[N_VOXEL // 2]))
+    log(f"  t1 override: {int((pinned[2] == B - 1).sum())} events at "
+        f"t_norm = B-1 exactly")
+    hold("t1 override", pinned)
+    perm = torch.randperm(N_VOXEL, device=dev)
+    hold("unsorted", [a[perm].contiguous() for a in plain_args])
+    for r, out in hold("all masked", cs.voxel_inputs(
+            xs, ys, ts, ps, B, SENSOR, mask=torch.zeros_like(keep))).items():
+        if float(out.abs().max()) != 0.0:
+            raise AssertionError(f"voxel_scatter:{r}: masked events left a "
+                                 f"mark")
+    # bin coordinates no wrapper makes: dropped, never wrapped; first bins
+    # of -1 keep their second tap
+    odd = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30,
+                        -1e30, -0.25, -1.0, -1.5, B - 0.5, float(B), 2.0 ** 31,
+                        -2.0 ** 31], device=dev)
+    t_odd = plain_args[2].clone()
+    t_odd[::5] = odd[torch.arange(len(t_odd[::5]), device=dev) % len(odd)]
+    hold("odd t_norm", (plain_args[0], plain_args[1], t_odd, plain_args[3]))
+    for bins in (1, 4, 9):
+        hold(f"B={bins}", cs.voxel_inputs(xs, ys, ts, ps, bins, SENSOR), bins)
+        hold(f"B={bins}, t1 override", cs.voxel_inputs(
+            xs, ys, ts, ps, bins, SENSOR, t1=float(ts[N_VOXEL // 2])), bins)
+
+    def library(args):
+        t_norm, pv = args[2], args[3]
+        b0 = torch.floor(t_norm)
+        pix = args[1].long() * W + args[0].long()
+        ids = torch.cat([b0.long().clamp(0, B - 1) * H * W + pix,
+                         (b0.long() + 1).clamp(0, B - 1) * H * W + pix])
+        vals = torch.cat([pv * (1 - (t_norm - b0)),
+                          torch.where(b0 + 1 < B, pv * (t_norm - b0), 0.0)])
+        return lambda: torch.zeros(B * H * W, device=dev).index_put_(
+            (ids,), vals, accumulate=True)
+
+    def timed(args, n):
+        shared = dict(
+            shape=f"{n} events into ({B}, {H}, {W})",
+            plain_ms=time_ms(lambda: cs.voxel_scatter_plain(*args, B, H, W),
+                             torch),
+            library_ms=time_ms(library(args), torch),
+            bound=bound(n * 16 + B * H * W * 4, n * 8))
+        out = {r: dict(shared, ms=time_ms(
+            lambda: cs.voxel_scatter(*args, B, H, W, route=r), torch))
+            for r in routes}
+        log(f"  {shared['shape']}: " + ", ".join(
+            f"{r} {out[r]['ms']:.4f} ms" for r in routes)
+            + f", plain {shared['plain_ms']:.4f} ms, index_put_ "
+            f"{shared['library_ms']:.4f} ms, bound {shared['bound'][0]:.5f} "
+            f"ms; the dispatch takes {cs.voxel_route(n, B, H, W)}")
+        return out
+
+    small_args = cs.voxel_inputs(xs[:N_SMALL], ys[:N_SMALL], ts[:N_SMALL],
+                                 ps[:N_SMALL], B, SENSOR)
+    hold(f"{N_SMALL} events", small_args)
+    big, small = timed(plain_args, N_VOXEL), timed(small_args, N_SMALL)
+    for r in routes:
+        records[f"voxel_scatter:{r}"] = dict(
+            big[r], max_abs_err=max(errs[r]), cases=[
+                as_case(dict(c[r], max_abs_err=max(errs[r])))
+                for c in (big, small)])
+
+
+def flat_phase(torch, cs, rng, records, x, y, w):
+    """The flat kernel's two routes against the plain version: the D=2
+    derivative stack of the events (x, y, w) into 181x241, the same with
+    dropped ids and all-zero columns, D = 3, 4, 5, and the D=1 event image
+    of 2^21 events (direct route only); each timed."""
+    dev = torch.device("cuda")
+    H, W = SENSOR
+    nb = (H + 1) * (W + 1)
+    errs = {"vector": [], "direct": []}
+
+    def library(idx, wts, buckets):
+        D, m = wts.shape
+        # dropped ids are left out, as for the bilinear library call
+        ok = ((idx >= 0) & (idx < buckets))[None, :].expand(D, m)
+        lid = (torch.arange(D, device=dev)[:, None] * buckets
+               + idx.long()[None, :])[ok]
+        lv = wts[ok]
+        return lambda: torch.zeros(D * buckets, device=dev).index_put_(
+            (lid,), lv, accumulate=True)
+
+    def case(label, idx, wts, buckets, time=True):
+        D, m = wts.shape
+        ref = cs.flat_scatter_plain(idx, wts, buckets)
+        routes = ("vector", "direct") if D > 1 else ("direct",)
+        shape = f"D={D}, {m} ids ({label}) into {buckets} buckets"
+        shared = dict(shape=shape)
+        if time:
+            shared.update(
+                plain_ms=time_ms(lambda: cs.flat_scatter_plain(idx, wts,
+                                                               buckets),
+                                 torch),
+                library_ms=time_ms(library(idx, wts, buckets), torch),
+                bound=bound(m * 4 + D * m * 4 + D * buckets * 4, D * m))
+        out = {}
+        for r in routes:
+            err = check_close(f"flat_scatter:{r} ({shape})",
+                              cs.flat_scatter(idx, wts, buckets, route=r),
+                              ref)
+            errs[r].append(err)
+            out[r] = dict(shared, max_abs_err=err)
+            if time:
+                out[r]["ms"] = time_ms(lambda: cs.flat_scatter(
+                    idx, wts, buckets, route=r), torch)
+        if time:
+            log(f"  timed: " + ", ".join(
+                f"{r} {out[r]['ms']:.4f} ms" for r in routes)
+                + f", plain {shared['plain_ms']:.4f} ms, index_put_ "
+                f"{shared['library_ms']:.4f} ms, bound "
+                f"{shared['bound'][0]:.5f} ms; the dispatch takes "
+                f"{cs.flat_route(D, m, buckets)}")
+        return out
+
+    fi, fw = derivative_stack(torch, x, y, w, (H + 1, W + 1))
+    stack = case("derivative stack", fi, fw, nb)
+    # ids just outside the range among the others, and columns whose weights
+    # are all zero (the vector route skips their reduction)
+    m = fi.shape[0]
+    bad = fi.clone()
+    bad[::7] = -1
+    bad[3::11] = nb
+    bad[5::13] = nb + 5
+    gaps = fw.clone()
+    gaps[:, ::3] = 0.0
+    gaps[0, 1::3] = 0.0
+    case("ids -1 and num_buckets mixed in, zero columns", bad, gaps, nb,
+         time=False)
+    gaps[1] = 0.0
+    case("the same, one row all zero", bad, gaps, nb, time=False)
+    rid = torch.as_tensor(rng.integers(0, nb, N_SCENE), dtype=torch.int32,
+                          device=dev)
+    rows = [case("random ids", rid, torch.as_tensor(
+        rng.normal(size=(D, N_SCENE)), dtype=torch.float32, device=dev), nb)
+        for D in (3, 4, 5)]
+    # D=1: the event image of the voxel stream
+    ex, ey, _, ep = voxel_events(rng)
+    eid = torch.as_tensor(ey.astype(np.int32) * W + ex, dtype=torch.int32,
+                          device=dev)
+    ew = torch.as_tensor(ep, dtype=torch.float32, device=dev)[None]
+    image = case("event image", eid, ew, H * W)
+
+    vec = dict(stack["vector"])
+    vec["cases"] = [as_case(c["vector"]) for c in [stack] + rows]
+    vec["max_abs_err"] = max(errs["vector"])
+    records["flat_scatter:vector"] = vec
+    # the direct route's own shape on the main path is the event image
+    direct = dict(image["direct"])
+    direct["cases"] = [as_case(c["direct"]) for c in [image, stack] + rows]
+    direct["max_abs_err"] = max(errs["direct"])
+    records["flat_scatter:direct"] = direct
+
+
 def kernel_phase(torch, cs, rng, records):
     """Each kernel against its plain version at the main path's shapes."""
     dev = torch.device("cuda")
     H, W = SENSOR
 
-    # ---- voxel -----------------------------------------------------------
-    xs, ys, ts, ps = (torch.as_tensor(a, device=dev)
-                      for a in voxel_events(rng))
-    ts = ts.float()
-    ps = ps.float()
-    mask = torch.as_tensor(rng.random(N_VOXEL) > 0.2, device=dev)
-    errs = []
-    for label, kw in (("plain window", {}), ("masked", {"mask": mask}),
-                      ("t1 override", {"t1": float(ts[N_VOXEL // 2])})):
-        args = cs.voxel_inputs(xs, ys, ts, ps, B, SENSOR, **kw)
-        errs.append(check_close(
-            f"voxel_scatter ({label})", cs.voxel_scatter(*args, B, H, W),
-            cs.voxel_scatter_plain(*args, B, H, W)))
-    args = cs.voxel_inputs(xs, ys, ts, ps, B, SENSOR)
-    t_norm, pv = args[2], args[3]
-    b0 = torch.floor(t_norm)
-    pix = args[1].long() * W + args[0].long()
-    ids = torch.cat([b0.long().clamp(0, B - 1) * H * W + pix,
-                     (b0.long() + 1).clamp(0, B - 1) * H * W + pix])
-    vals = torch.cat([pv * (1 - (t_norm - b0)),
-                      torch.where(b0 + 1 < B, pv * (t_norm - b0), 0.0)])
-    lib = lambda: torch.zeros(B * H * W, device=dev).index_put_(
-        (ids,), vals, accumulate=True)
-    records["voxel_scatter"] = dict(
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: cs.voxel_scatter(*args, B, H, W), torch),
-        plain_ms=time_ms(lambda: cs.voxel_scatter_plain(*args, B, H, W),
-                         torch),
-        library_ms=time_ms(lib, torch),
-        bound=bound(N_VOXEL * 16 + B * H * W * 4, N_VOXEL * 8))
-
+    voxel_phase(torch, cs, rng, records)
     tiles_phase(torch, cs, rng, records)
 
     # ---- bilinear, whole images ------------------------------------------
@@ -789,29 +964,7 @@ def kernel_phase(torch, cs, rng, records):
 
     patches_phase(torch, cs, rng, records)
 
-    # ---- flat: the D=2 derivative stack of bilinear_scatter_derivative ----
-    jx = torch.stack([-(torch.rand(n, device=dev) * 0.25),
-                      torch.zeros(n, device=dev)])
-    jy = jx.flip(0).contiguous()
-    from event_utils_tpu_torch.ops.scatter import derivative_taps
-    fi, fw = derivative_taps(x, y, jx, jy, w4[0], (HP, WP))
-    fi = fi.to(torch.int32).contiguous()
-    fw = fw.contiguous()
-    nb = HP * WP
-    D, m = fw.shape
-    err = check_close("flat_scatter (D=2)", cs.flat_scatter(fi, fw, nb),
-                      cs.flat_scatter_plain(fi, fw, nb))
-    # dropped ids are left out, as for the bilinear library call
-    ok = ((fi >= 0) & (fi < nb))[None, :].expand(D, m)
-    lid = (torch.arange(D, device=dev)[:, None] * nb + fi.long()[None, :])[ok]
-    lv = fw[ok]
-    records["flat_scatter"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: cs.flat_scatter(fi, fw, nb), torch),
-        plain_ms=time_ms(lambda: cs.flat_scatter_plain(fi, fw, nb), torch),
-        library_ms=time_ms(lambda: torch.zeros(D * nb, device=dev)
-                           .index_put_((lid,), lv, accumulate=True), torch),
-        bound=bound(m * 4 + D * m * 4 + D * nb * 4, D * m))
+    flat_phase(torch, cs, rng, records, x, y, w4[0].contiguous())
 
 
 def main_path(torch, P, rng):
@@ -821,6 +974,7 @@ def main_path(torch, P, rng):
         variance_objective)
     from event_utils_tpu_torch.representations import (
         events_to_image, events_to_timestamp_image, events_to_voxel)
+    cs = P.ops.cuda_scatter
     H, W = SENSOR
     xs, ys, ts, ps = voxel_events(rng)
     sx, sy, st, sp = planted_scene(rng)
@@ -836,12 +990,26 @@ def main_path(torch, P, rng):
             f"launches so far {P.ops.launch_counts()}")
         return out
 
-    vox = timed("events_to_voxel(impl='matmul')", lambda: events_to_voxel(
-        xs, ys, ts, ps, B, sensor_size=SENSOR, impl="matmul"))
-    check_close("voxel grid vs the exact 'xla' route", vox, events_to_voxel(
-        xs, ys, ts, ps, B, sensor_size=SENSOR, impl="xla"))
-    img = timed("events_to_image(impl='matmul')", lambda: events_to_image(
-        xs, ys, ps, sensor_size=SENSOR, impl="matmul"))
+    def routed(route, label, fn):
+        """``timed``, and the call must add one launch of ``route``: the one
+        that the dispatch names for this call's shape."""
+        before = cs.launch_counts()[route]
+        out = timed(f"{label} -> {route}", fn)
+        if cs.launch_counts()[route] != before + 1:
+            raise AssertionError(f"{label} did not launch {route}")
+        return out
+
+    for n in (N_VOXEL, N_SMALL):  # the vector route, then the direct one
+        ev = (xs[:n], ys[:n], ts[:n], ps[:n])
+        vox = routed(f"voxel_scatter:{cs.voxel_route(n, B, H, W)}",
+                     f"events_to_voxel(impl='matmul'), {n} events",
+                     lambda: events_to_voxel(*ev, B, sensor_size=SENSOR,
+                                             impl="matmul"))
+        check_close("voxel grid vs the exact 'xla' route", vox,
+                    events_to_voxel(*ev, B, sensor_size=SENSOR, impl="xla"))
+    img = routed(f"flat_scatter:{cs.flat_route(1, N_VOXEL, H * W)}",
+                 "events_to_image(impl='matmul')", lambda: events_to_image(
+                     xs, ys, ps, sensor_size=SENSOR, impl="matmul"))
     check_close("event image vs the exact 'xla' route", img, events_to_image(
         xs, ys, ps, sensor_size=SENSOR, impl="xla"))
     tsi = timed("events_to_timestamp_image(impl='matmul')",
@@ -850,10 +1018,12 @@ def main_path(torch, P, rng):
     for got, ref in zip(tsi, events_to_timestamp_image(sx, sy, st, sp, SENSOR,
                                                        impl="xla")):
         check_close("timestamp image vs the exact 'xla' route", got, ref)
-    grad = timed("evaluate_gradient(impl='matmul')",
-                 lambda: variance_objective().evaluate_gradient(
-                     np.array(VELOCITY), sx, sy, st, sp, linvel_warp(),
-                     SENSOR, impl="matmul"))
+    # the derivative stack: four taps of every event, two parameters
+    flat = cs.flat_route(2, 4 * len(sx), (H + 1) * (W + 1))
+    grad = routed(f"flat_scatter:{flat}", "evaluate_gradient(impl='matmul')",
+                  lambda: variance_objective().evaluate_gradient(
+                      np.array(VELOCITY), sx, sy, st, sp, linvel_warp(),
+                      SENSOR, impl="matmul"))
     if not np.all(np.isfinite(grad)) or grad.shape != (2,):
         raise AssertionError(f"analytic gradient {grad}")
 

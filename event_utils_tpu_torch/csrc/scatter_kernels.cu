@@ -16,16 +16,37 @@
 //                           bilinear_patches_scatter, runs of slots that
 //                           each own one patch
 //
-// Two designs live here.
+// Three designs live here.
 //
-// Direct (voxel_scatter, flat_scatter, and the *_direct routes of the other
-// two): one thread per event in a grid-stride loop, float atomicAdd into an
-// output that the wrapper has zeroed. Coalesced reads, enough blocks to fill
-// 132 SMs; the adds are native reductions in the L2 (RED.ADD.F32) that need
-// no answer, so a thread sends them and goes on. They resolve in L2 while
-// the output fits its 50 MB and in device memory beyond. What bounds it is
-// the L2's rate of atomics (~70 G/s measured) and, where very many events
-// share a pixel, their serialisation.
+// Direct (the direct routes of every kernel): one thread per event in a
+// grid-stride loop, float atomicAdd into an output that the wrapper has
+// zeroed. Coalesced reads, enough blocks to fill 132 SMs; the adds are
+// native reductions in the L2 (REDG.E.ADD.F32) that need no answer, so a
+// thread sends them and goes on. They resolve in L2 while the output fits
+// its 50 MB and in device memory beyond. What bounds it is the L2's rate of
+// reductions (~77 G/s measured) and, where very many events share a pixel,
+// their serialisation.
+//
+// Vector reductions (voxel_scatter and flat_scatter from ~2.6 x 10^5 events
+// on): what bounds the direct kernels is the number of reductions the L2
+// takes, not their bytes, and sm_90 can add a float2 or a float4 to global
+// memory in one request (atomicAdd(float2*), atomicAdd(float4*): global
+// addresses, naturally aligned; with the result unused they compile to
+// REDG.E.ADD.F32x2 and REDG.E.ADD.F32x4). Measured on an H100, 2^21 threads
+// adding to random places of a 2 MB buffer take 0.026 ms whether each sends
+// one float, one float2 or one float4, and 0.049 ms for two floats, adjacent
+// or not. So the taps that one event sends are made adjacent in a scratch
+// accumulator and go as one request; a second small kernel rearranges the
+// scratch into the output, which then needs no memset.
+//   - voxel_vector: the two temporal taps of an event, bins b0 and b0 + 1 of
+//     one pixel, are neighbours in a bins-innermost scratch (H*W, Bp). A
+//     float2 must start at an even column, so there are two accumulators:
+//     events with even b0 add (b0, b0+1) to the first, events with odd b0
+//     add to the second, which is stored one column to the right so that
+//     its pairs are aligned too. voxel_combine adds the two into (B, H, W).
+//   - flat_vector: the D weights of one id are neighbours in a
+//     rows-innermost scratch (num_buckets, Dp) and go as one float2 (D = 2)
+//     or as float4s (four rows each); flat_transpose writes (D, num_buckets).
 //
 // Private tiles (the bilinear and per-tile voxel kernels' other routes): the
 // output, or the part of it that a block owns, is accumulated in that
@@ -51,8 +72,10 @@
 //     slots of its tile and keeps the taps of its own bin.
 // Variants that measured slower on an H100 (taps sent through a cluster's
 // distributed shared memory, cp.reduce.async.bulk of whole private images,
-// several channels per block, other block sizes) live with the script that
-// measures them, scripts/tune_scatter_variants.cu.
+// several channels per block, other block sizes, one voxel accumulator with
+// scalar reductions for odd first bins, flat ids loaded ahead or one thread
+// per (row, id) element) live with the script that measures them,
+// scripts/tune_scatter_variants.cu.
 //
 // Every tap is bounds-checked in float before any integer cast
 // (out-of-range taps are dropped, never wrapped), and zero-weight events
@@ -115,6 +138,65 @@ __global__ void voxel_scatter_kernel(const int* __restrict__ xs,
   }
 }
 
+// The voxel function with one float2 reduction per event. acc holds two
+// zeroed accumulators of (H*W, Bp) floats, bins innermost, Bp even and at
+// least B + 1 (B + 2 for even B). Column c of the first holds bin c; column
+// c of the second holds bin c - 1. An event with even b0 adds
+// (p*(1-fb), p*fb) at columns (b0, b0+1) of the first, one with odd b0
+// (b0 = -1 too) at columns (b0+1, b0+2) of the second: either pair starts at
+// an even column, 8-byte aligned. A tap outside [0, B) (bin -1, or bin B of
+// an event at t_norm = B-1) lands in a column that voxel_combine_kernel
+// never reads.
+//
+// What bounds it: 16 B read per event and one L2 reduction; then the scratch
+// (2 * H*W * Bp floats, in L2) is read once and the grid written once.
+__global__ void voxel_vector_kernel(const int* __restrict__ xs,
+                                    const int* __restrict__ ys,
+                                    const float* __restrict__ t_norm,
+                                    const float* __restrict__ ps,
+                                    long long n, int B, int H, int W, int Bp,
+                                    float* __restrict__ acc) {
+  const long long half = static_cast<long long>(H) * W * Bp;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const float p = ps[i];
+    if (p == 0.0f) continue;
+    const int x = xs[i];
+    const int y = ys[i];
+    if (x < 0 || x >= W || y < 0 || y >= H) continue;
+    const float t = t_norm[i];
+    const float b0 = floorf(t);
+    // float test before the cast: NaN, +-inf and huge bins fail it; below
+    // -1 or from B on neither tap has a bin
+    if (!(b0 >= -1.0f && b0 < static_cast<float>(B))) continue;
+    const float fb = t - b0;
+    const int ib = static_cast<int>(b0);  // -1 .. B-1
+    const int odd = ib & 1;               // 1 for -1 too
+    float* a = acc + odd * half +
+               (static_cast<long long>(y) * W + x) * Bp + (ib + odd);
+    atomicAdd(reinterpret_cast<float2*>(a),
+              make_float2(p * (1.0f - fb), p * fb));
+  }
+}
+
+// out[b, pix] = first[pix, b] + second[pix, b + 1] for the two accumulators
+// of voxel_vector_kernel: one thread per pixel, so that every store of a warp
+// is coalesced; the strided reads of the scratch come from L2 and L1.
+__global__ void voxel_combine_kernel(const float* __restrict__ acc,
+                                     long long plane, int B, int Bp,
+                                     float* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long pix = static_cast<long long>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+       pix < plane; pix += stride) {
+    const float* even = acc + pix * Bp;
+    const float* odd = even + plane * Bp + 1;
+    for (int b = 0; b < B; ++b) out[b * plane + pix] = even[b] + odd[b];
+  }
+}
+
 // (T, B, th, tw) per-tile voxel grids of events bucketed by sensor tile:
 // slot i of the (T, cap) arrays belongs to tile i / cap and carries
 // tile-local coordinates. The wrapper has applied voxel_matmul_tiles'
@@ -159,22 +241,75 @@ __global__ void voxel_tiles_scatter_kernel(const int* __restrict__ bx,
 }
 
 // (D, num_buckets) flat scatter-add: row d gets w[d, e] at bucket idx[e].
-// Ids outside [0, num_buckets) are dropped.
+// Ids outside [0, num_buckets) are dropped. One thread per id reads the id
+// once and sends one reduction per non-zero row.
 __global__ void flat_scatter_kernel(const int* __restrict__ idx,
                                     const float* __restrict__ w,
                                     long long n, int D, long long nb,
                                     float* __restrict__ out) {
-  const long long total = n * D;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-       i < total; i += stride) {
-    const long long d = i / n;
-    const int id = idx[i - d * n];
+       i < n; i += stride) {
+    const int id = idx[i];
     if (id < 0 || id >= nb) continue;
-    const float v = w[i];
-    if (v == 0.0f) continue;
-    atomicAdd(out + d * nb + id, v);
+    for (int d = 0; d < D; ++d) {
+      const float v = w[d * n + i];
+      if (v != 0.0f) atomicAdd(out + d * nb + id, v);
+    }
+  }
+}
+
+// The flat function with vector reductions of V floats (2 or 4) into a
+// zeroed rows-innermost scratch (num_buckets, Dp), Dp a multiple of V and at
+// least D: the weights of V consecutive rows at one id go as one request.
+// A group whose weights are all zero is skipped; rows from D on add zeros to
+// pad columns that flat_transpose_kernel never reads.
+//
+// What bounds it: 4 + 4D B read per id and ceil(D / V) L2 reductions; then
+// the scratch is read once and the output written once.
+template <int V>
+__global__ void flat_vector_kernel(const int* __restrict__ idx,
+                                   const float* __restrict__ w, long long n,
+                                   int D, long long nb, int Dp,
+                                   float* __restrict__ scratch) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const int id = idx[i];
+    if (id < 0 || id >= nb) continue;
+    float* row = scratch + static_cast<long long>(id) * Dp;
+    for (int g = 0; g < Dp; g += V) {
+      float v[V];
+      bool any = false;
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        v[u] = g + u < D ? w[(g + u) * n + i] : 0.0f;
+        any = any || v[u] != 0.0f;
+      }
+      if (!any) continue;
+      if constexpr (V == 2) {
+        atomicAdd(reinterpret_cast<float2*>(row + g),
+                  make_float2(v[0], v[1]));
+      } else {
+        atomicAdd(reinterpret_cast<float4*>(row + g),
+                  make_float4(v[0], v[1], v[2], v[3]));
+      }
+    }
+  }
+}
+
+// out[d, id] = scratch[id, d]: one thread per id, coalesced stores.
+__global__ void flat_transpose_kernel(const float* __restrict__ scratch,
+                                      long long nb, int D, int Dp,
+                                      float* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long id = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+       id < nb; id += stride) {
+    const float* row = scratch + id * Dp;
+    for (int d = 0; d < D; ++d) out[d * nb + id] = row[d];
   }
 }
 
@@ -562,10 +697,61 @@ int voxel_tiles_scatter(const void* bx, const void* by, const void* t_norm,
 int flat_scatter(const void* idx, const void* w, long long n, int D,
                  long long num_buckets, void* out, void* stream) {
   if (n > 0 && D > 0) {
-    flat_scatter_kernel<<<grid_for(n * D), kThreads, 0,
+    flat_scatter_kernel<<<grid_for(n), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(idx), static_cast<const float*>(w), n, D,
         num_buckets, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scratch: (num_buckets, Dp) zeroed floats, 16-byte aligned; Dp = 2 for
+// D = 2, else D rounded up to a multiple of 4. out may hold anything.
+int flat_scatter_vector(const void* idx, const void* w, long long n, int D,
+                        long long num_buckets, int Dp, void* scratch,
+                        void* out, void* stream) {
+  if (D < 2 || Dp < D || (Dp != 2 && Dp % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > 0) {
+    if (Dp == 2) {
+      flat_vector_kernel<2><<<grid_for(n), kThreads, 0, s>>>(
+          static_cast<const int*>(idx), static_cast<const float*>(w), n, D,
+          num_buckets, Dp, static_cast<float*>(scratch));
+    } else {
+      flat_vector_kernel<4><<<grid_for(n), kThreads, 0, s>>>(
+          static_cast<const int*>(idx), static_cast<const float*>(w), n, D,
+          num_buckets, Dp, static_cast<float*>(scratch));
+    }
+  }
+  if (num_buckets > 0) {
+    flat_transpose_kernel<<<grid_for(num_buckets), kThreads, 0, s>>>(
+        static_cast<const float*>(scratch), num_buckets, D, Dp,
+        static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// acc: two zeroed accumulators of (H*W, Bp) floats each, 8-byte aligned;
+// Bp even, at least B + 1 for odd B and B + 2 for even B. out may hold
+// anything.
+int voxel_scatter_vector(const void* xs, const void* ys, const void* t_norm,
+                         const void* ps, long long n, int B, int H, int W,
+                         int Bp, void* acc, void* out, void* stream) {
+  if (B < 1 || Bp % 2 != 0 || Bp < B + 1 + (B % 2 == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long plane = static_cast<long long>(H) * W;
+  if (n > 0) {
+    voxel_vector_kernel<<<grid_for(n), kThreads, 0, s>>>(
+        static_cast<const int*>(xs), static_cast<const int*>(ys),
+        static_cast<const float*>(t_norm), static_cast<const float*>(ps), n, B,
+        H, W, Bp, static_cast<float*>(acc));
+  }
+  if (plane > 0) {
+    voxel_combine_kernel<<<grid_for(plane), kThreads, 0, s>>>(
+        static_cast<const float*>(acc), plane, B, Bp,
+        static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,16 +18,32 @@ kernel wrapper (this module)      TPU kernel it replaces (pallas_scatter.py)
 ``bilinear_patches_scatter``      ``bilinear_matmul``
 ================================  =========================================
 
-Three wrappers have several kernels, called routes. A route is chosen from
-the call's shape before the launch (``bilinear_route``,
-``voxel_tiles_route``, ``bilinear_patches_route``), never from a failure.
-The thresholds are measurements on an H100 (``scripts/
-tune_scatter_routes.py``). What they reflect: a float ``atomicAdd`` on
-shared memory is a compare-and-swap loop on this card (``ATOMS.CAST.SPIN``),
-so updates of one pixel form a serial chain, while the L2's float adds
-(``RED.ADD.F32``) are native and need no answer. Private tiles in shared
-memory win where the output outgrows the L2 or where so many events share
-a pixel that the L2 serialises them; below that the direct kernels win.
+Every wrapper has several kernels, called routes. A route is chosen from
+the call's shape before the launch (``voxel_route``, ``flat_route``,
+``bilinear_route``, ``voxel_tiles_route``, ``bilinear_patches_route``),
+never from a failure. The thresholds are measurements on an H100
+(``scripts/tune_scatter_routes.py``). What they reflect: a float
+``atomicAdd`` on shared memory is a compare-and-swap loop on this card
+(``ATOMS.CAST.SPIN``), so updates of one pixel form a serial chain, while
+the L2's float adds (``REDG.E.ADD.F32``) are native and need no answer; the
+L2 takes ~77 G of them a second, and a ``float2`` or ``float4`` reduction
+(``REDG.E.ADD.F32x2`` / ``.F32x4``) costs it no more than a scalar one.
+Private tiles in shared memory win where the output outgrows the L2 or
+where so many events share a pixel that the L2 serialises them; vector
+reductions win where one event's taps can be made neighbours in memory and
+the events are many; below that the direct kernels win.
+
+- ``voxel_scatter:vector`` — from 262144 events on at 180x240 (later on
+  larger sensors, never at 720p): both temporal taps of an event go as one
+  ``float2`` reduction into a bins-innermost scratch, which a second kernel
+  rearranges into the uninitialised ``(B, H, W)`` grid.
+  ``voxel_scatter:direct`` — fewer events, or a scratch that would crowd
+  the L2: two scalar reductions per event into the zeroed grid.
+- ``flat_scatter:vector`` — two rows or more and enough ids (D = 2: from
+  262144): the weights of one id go as one ``float2`` or as ``float4``
+  reductions into a rows-innermost scratch, transposed by a second kernel.
+  ``flat_scatter:direct`` — one row (the event image), or few ids: one
+  thread per id, one scalar reduction per row into the zeroed output.
 
 - ``bilinear_scatter:direct`` — one thread per event, global ``atomicAdd``
   into the zeroed output: few events, or an image that does not fit one
@@ -128,8 +144,9 @@ def _stream() -> int:
 # The most dynamic shared memory one block can have on an H100 (227 KB).
 SHARED_MAX_BYTES = 232448
 
-ROUTES = ("voxel_scatter", "voxel_tiles_scatter:private",
-          "voxel_tiles_scatter:direct", "flat_scatter",
+ROUTES = ("voxel_scatter:vector", "voxel_scatter:direct",
+          "voxel_tiles_scatter:private", "voxel_tiles_scatter:direct",
+          "flat_scatter:vector", "flat_scatter:direct",
           "bilinear_scatter:direct", "bilinear_scatter:private",
           "bilinear_scatter:single", "bilinear_patches_scatter",
           "bilinear_patches_scatter:direct")
@@ -168,26 +185,84 @@ def voxel_scatter_plain(xs, ys, t_norm, ps, B: int, H: int, W: int):
     return out.view(B, H, W)
 
 
-def voxel_scatter(xs, ys, t_norm, ps, B: int, H: int, W: int):
+# Where the vector routes pay, from scripts/tune_scatter_routes.py on an H100
+# (parts 6-8). A vector reduction costs the L2 one request whatever its width
+# (~77 G requests/s for scalars, float2s and float4s alike), so a vector
+# route saves one request per event (voxel) or per id and spared row (flat);
+# against that it zeroes a scratch, keeps it in L2 and runs a second pass
+# over it. With 262144 requests saved the routes break even (voxel at
+# 180x240: 0.0097 against 0.0099 ms; flat, D = 2: 0.0089 against 0.0101), at
+# 131072 they lose, from 524288 they win by 15-40%. The scratch may hold four
+# floats per saved request (VGA, 3.7M floats: lost at 524288 events, won at
+# 2^20) and must stay in L2 beside the output (720p, 44 MB: lost at every
+# count, 0.121 against 0.061 ms at 2^21 events).
+VECTOR_MIN_SAVED = 262144
+VECTOR_SCRATCH_PER_SAVED = 4
+VECTOR_MAX_SCRATCH_BYTES = 16 << 20
+
+
+def _vector_pays(saved: int, scratch_floats: int) -> bool:
+    return (saved >= VECTOR_MIN_SAVED
+            and scratch_floats <= VECTOR_SCRATCH_PER_SAVED * saved
+            and scratch_floats * 4 <= VECTOR_MAX_SCRATCH_BYTES)
+
+
+def _voxel_scratch_bins(B: int) -> int:
+    """Columns of one bins-innermost accumulator: even, and past the last
+    pair of either parity (B + 1 for odd B, B + 2 for even B)."""
+    return (B + 2) & ~1
+
+
+def voxel_route(n: int, B: int, H: int, W: int) -> str:
+    """Route of a (B, H, W) voxel grid of n events: 'vector' where one
+    reduction saved per event outweighs the two scratch accumulators (from
+    262144 events on at 180x240, from ~920k at VGA, never at 720p), else
+    'direct'."""
+    scratch = 2 * H * W * _voxel_scratch_bins(B)
+    return "vector" if _vector_pays(n, scratch) else "direct"
+
+
+def voxel_scatter(xs, ys, t_norm, ps, B: int, H: int, W: int, route=None):
     """(B, H, W) temporally-bilinear voxel grid of preprocessed events.
 
     ``xs``/``ys`` int32 in-image coordinates, ``t_norm`` f32 in [0, B-1],
     ``ps`` f32 weights (0 for dropped events) — what ``voxel_matmul``
-    hands over. Launches the CUDA kernel for CUDA tensors; the plain
-    version for CPU tensors.
+    hands over; events in any order. Launches a CUDA kernel for CUDA
+    tensors; the plain version for CPU tensors.
+
+    Routes, by shape alone (``voxel_route``). 'vector', for many events on
+    a grid whose scratch stays small beside them: each event sends both
+    temporal taps as one ``float2`` reduction into one of two zeroed
+    bins-innermost accumulators ``(H*W, Bp)`` (even and odd first bins, so
+    that every pair is 8-byte aligned), and a second kernel adds the two
+    into an uninitialised ``(B, H, W)`` grid. 'direct' otherwise: two scalar
+    reductions per event into the zeroed grid, one kernel. ``route`` forces
+    either.
     """
     dev = _check("voxel_scatter", (xs, ys, t_norm, ps), (_I32, _I32, _F32, _F32))
+    n = xs.shape[0]
+    route = _pick("voxel_scatter", route, voxel_route(n, B, H, W),
+                  {"vector", "direct"})
     if dev.type == "cpu":
         return voxel_scatter_plain(xs, ys, t_norm, ps, B, H, W)
-    out = torch.zeros((B, H, W), dtype=_F32, device=dev)
-    n = xs.shape[0]
-    if n == 0:
-        return out
-    rc = build.library().voxel_scatter(
-        xs.data_ptr(), ys.data_ptr(), t_norm.data_ptr(), ps.data_ptr(), n,
-        B, H, W, out.data_ptr(), _stream())
-    build.check(rc, "voxel_scatter")
-    _launches["voxel_scatter"] += 1
+    if n == 0 or B == 0:
+        return torch.zeros((B, H, W), dtype=_F32, device=dev)
+    ptrs = (xs.data_ptr(), ys.data_ptr(), t_norm.data_ptr(), ps.data_ptr())
+    if route == "vector":
+        Bp = _voxel_scratch_bins(B)
+        acc = torch.zeros((2, H * W, Bp), dtype=_F32, device=dev)
+        if acc.data_ptr() % 8:
+            raise ConfigurationError(
+                "voxel_scatter: scratch not aligned for float2 reductions")
+        out = torch.empty((B, H, W), dtype=_F32, device=dev)
+        rc = build.library().voxel_scatter_vector(
+            *ptrs, n, B, H, W, Bp, acc.data_ptr(), out.data_ptr(), _stream())
+    else:
+        out = torch.zeros((B, H, W), dtype=_F32, device=dev)
+        rc = build.library().voxel_scatter(
+            *ptrs, n, B, H, W, out.data_ptr(), _stream())
+    build.check(rc, f"voxel_scatter:{route}")
+    _launches[f"voxel_scatter:{route}"] += 1
     return out
 
 
@@ -437,27 +512,65 @@ def flat_scatter_plain(idx, w, num_buckets: int):
     return out
 
 
-def flat_scatter(idx, w, num_buckets: int):
+def _flat_scratch_rows(D: int) -> int:
+    """Columns of the rows-innermost scratch: 2 for two rows (one float2
+    per id), else D rounded up to whole float4s."""
+    return 2 if D == 2 else -(-D // 4) * 4
+
+
+def flat_route(D: int, n: int, num_buckets: int) -> str:
+    """Route of a (D, num_buckets) flat scatter of n ids: 'vector' where
+    the reductions saved (per id, D less the number of vector requests)
+    outweigh the scratch (D = 2 into 181x241: from 262144 ids on), else
+    'direct'. One row has nothing to pair."""
+    Dp = _flat_scratch_rows(D)
+    saved = n * (D - (1 if D == 2 else Dp // 4))
+    return ("vector" if D >= 2 and _vector_pays(saved, num_buckets * Dp)
+            else "direct")
+
+
+def flat_scatter(idx, w, num_buckets: int, route=None):
     """(D, num_buckets) scatter-add: row d sums ``w[d]`` by bucket ``idx``.
 
     ``idx`` int32 (N,), ids outside ``[0, num_buckets)`` dropped; ``w`` f32
-    (D, N). One launch for all D rows.
+    (D, N). One wrapper call for all D rows.
+
+    Routes, by shape alone (``flat_route``). 'vector', for D >= 2 and
+    many ids: the D weights of an id go as one ``float2`` (D = 2) or
+    as ``float4`` reductions (four rows each) into a zeroed rows-innermost
+    scratch ``(num_buckets, Dp)``, which a second kernel transposes into an
+    uninitialised output. 'direct' otherwise: one thread per id, one scalar
+    reduction per row into the zeroed output. ``route`` forces one of the
+    routes the shape allows (D = 1 allows 'direct' only).
     """
     dev = _check("flat_scatter", (idx, w), (_I32, _F32))
     if w.dim() != 2 or w.shape[1] != idx.shape[0]:
         raise ConfigurationError(
             f"flat_scatter: w must be (D, {idx.shape[0]}), got {tuple(w.shape)}")
+    D, n = w.shape
+    route = _pick("flat_scatter", route, flat_route(D, n, num_buckets),
+                  {"vector", "direct"} if D >= 2 else {"direct"})
     if dev.type == "cpu":
         return flat_scatter_plain(idx, w, num_buckets)
-    D, n = w.shape
-    out = torch.zeros((D, num_buckets), dtype=_F32, device=dev)
-    if n == 0 or D == 0:
-        return out
-    rc = build.library().flat_scatter(
-        idx.data_ptr(), w.data_ptr(), n, D, num_buckets, out.data_ptr(),
-        _stream())
-    build.check(rc, "flat_scatter")
-    _launches["flat_scatter"] += 1
+    if n == 0 or D == 0 or num_buckets == 0:
+        return torch.zeros((D, num_buckets), dtype=_F32, device=dev)
+    if route == "vector":
+        Dp = _flat_scratch_rows(D)
+        scratch = torch.zeros((num_buckets, Dp), dtype=_F32, device=dev)
+        if scratch.data_ptr() % 16:
+            raise ConfigurationError(
+                "flat_scatter: scratch not aligned for float4 reductions")
+        out = torch.empty((D, num_buckets), dtype=_F32, device=dev)
+        rc = build.library().flat_scatter_vector(
+            idx.data_ptr(), w.data_ptr(), n, D, num_buckets, Dp,
+            scratch.data_ptr(), out.data_ptr(), _stream())
+    else:
+        out = torch.zeros((D, num_buckets), dtype=_F32, device=dev)
+        rc = build.library().flat_scatter(
+            idx.data_ptr(), w.data_ptr(), n, D, num_buckets, out.data_ptr(),
+            _stream())
+    build.check(rc, f"flat_scatter:{route}")
+    _launches[f"flat_scatter:{route}"] += 1
     return out
 
 
@@ -790,10 +903,12 @@ def launch_counts() -> dict:
 
 # The wrapper that launches each route.
 KERNEL_WRAPPERS = {
-    "voxel_scatter": voxel_scatter,
+    "voxel_scatter:vector": voxel_scatter,
+    "voxel_scatter:direct": voxel_scatter,
     "voxel_tiles_scatter:private": voxel_tiles_scatter,
     "voxel_tiles_scatter:direct": voxel_tiles_scatter,
-    "flat_scatter": flat_scatter,
+    "flat_scatter:vector": flat_scatter,
+    "flat_scatter:direct": flat_scatter,
     "bilinear_scatter:direct": bilinear_scatter,
     "bilinear_scatter:private": bilinear_scatter,
     "bilinear_scatter:single": bilinear_scatter,

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Measure what the routes of the bilinear and per-tile voxel kernels cost
-on the card, and which launch parameters are fastest.
+"""Measure what the routes of the scatter kernels cost on the card, and
+which launch parameters are fastest.
 
-    python3 scripts/tune_scatter_routes.py [--out results.jsonl]
+    python3 scripts/tune_scatter_routes.py [--parts 6,7,8] [--out r.jsonl]
 
 The thresholds in ``ops/cuda_scatter.py`` (``PRIVATE_*``,
-``PATCH_MIN_PATCHES``) and the launch parameters fixed in
+``PATCH_MIN_PATCHES``, ``VECTOR_*``) and the launch parameters fixed in
 ``csrc/scatter_kernels.cu`` come from this script's output. The package
 ships one configuration of each kernel; the others that are measured here
 (and the probe of part 1) are built from ``scripts/tune_scatter_variants.cu``.
@@ -34,6 +34,23 @@ measurement (with ``--out``, also written to that file):
    size, bulk or per-thread store.
 5. The host's time per eager call of the whole-image splat on each route
    (200 calls, no synchronisation): what a host-bound solver pays.
+6. What holds the voxel and flat kernels back. The reductions and atomics
+   in the SASS of both built libraries, by kernel (``cuobjdump -sass``).
+   The voxel kernel on 2^21 events into (5, 180, 240) and the flat kernel
+   on the D=2 derivative stack of 200k events: ``torch.zeros`` alone, the
+   kernel with and without it, the kernel with its atomics replaced by a
+   register sum. The L2's rate of reductions: 2^21 threads that each send
+   one scalar, two scalars half a buffer apart, two adjacent scalars, one
+   ``float2`` or one ``float4`` to a random place of an 0.86 MB and a 2 MB
+   buffer. ``atomicAdd`` on shared memory, int against float.
+7. The voxel kernel's routes over event counts from 4096 to 2^21 at
+   180x240 (5 and 9 bins), VGA and 720p: direct, vector, and the variant
+   with one accumulator (a ``float2`` for even first bins, two scalars for
+   odd ones).
+8. The flat kernel's routes: the D=2 derivative stack over id counts from
+   4096 to 800k, the D=1 event image up to 2^21 ids, D = 3, 4, 5, 8 at
+   200k ids, D=2 into 480x640 buckets; direct and vector, and the variants
+   with one thread per (row, id) element and with ids loaded ahead.
 
 Rows marked "as shipped" time the package's own kernel through its
 wrapper; the others time a variant (the variant with the shipped parameters
@@ -51,6 +68,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -76,9 +94,11 @@ def build_variants(build):
     probe) into a temporary directory and load it."""
     lib = os.path.join(tempfile.mkdtemp(prefix="variants_"),
                        "libvariants.so")
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib,
-                    VARIANTS_SOURCE], check=True, capture_output=True,
-                   text=True)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib,
+                           VARIANTS_SOURCE], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {VARIANTS_SOURCE}:\n"
+                           f"{proc.stderr[-6000:]}")
     dll = ctypes.CDLL(lib)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, argtypes in {
@@ -86,25 +106,55 @@ def build_variants(build):
             "patches_variant": [P, P, P, L, L, I, I, I, I, P, I, I, P],
             "private_variant": [P, P, P, L, I, I, I, P, I, I, I, P],
             "tiles_variant": [P, P, P, P, L, L, I, I, I, P, I, I, I, P],
+            "voxel_probe": [P, P, P, P, L, I, I, I, P, P],
+            "flat_rows": [P, P, L, I, L, P, I, P],
+            "flat_ahead": [P, P, L, I, L, P, P],
+            "voxel_single": [P, P, P, P, L, I, I, I, I, P, P, P],
+            "red_probe": [P, L, L, I, P],
+            "shared_atomic_probe": [P, I, I, I, I, P],
     }.items():
         getattr(dll, name).argtypes = argtypes
         getattr(dll, name).restype = I
     return dll
 
 
+def sass_reductions(build, lib_path):
+    """Count the reduction and atomic instructions in each kernel of a
+    built library (``cuobjdump -sass``): ``{kernel: {mnemonic: count}}``."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    found, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            # the mangled name from the kernel's own name on, template
+            # arguments included (flat_vector_kernelILi2EE...)
+            kernel = line.split("Function :")[1].strip()
+            short = re.search(r"\d([a-z][a-z_]*_kernel\w{0,8})", kernel)
+            kernel = short.group(1) if short else kernel
+            continue
+        m = re.search(r"\b((?:REDG?|ATOM[GS]?)\.[A-Za-z0-9_.]+)", line)
+        if m and kernel:
+            per = found.setdefault(kernel, {})
+            per[m.group(1)] = per.get(m.group(1), 0) + 1
+    return found
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write the JSON lines here")
+    parser.add_argument("--parts", default="1,2,3,4,5,6,7,8",
+                        help="comma-separated parts to run (default: all)")
     opts = parser.parse_args()
     try:
-        return run()
+        return run({int(k) for k in opts.parts.split(",")})
     finally:
         if opts.out:
             with open(opts.out, "w") as f:
                 f.write("\n".join(lines) + "\n")
 
 
-def run() -> int:
+def run(parts) -> int:
     import torch
     if not torch.cuda.is_available():
         print("tune: no CUDA device", file=sys.stderr)
@@ -163,177 +213,375 @@ def run() -> int:
         return out
 
     # ---- 1. what holds the small splat back -----------------------------
-    emit(part=1, what="torch.zeros((1, 181, 241)) alone",
-         ms=T(lambda: torch.zeros((1, H, W), dtype=f32, device=dev)))
-    scratch = torch.empty((1, H, W), dtype=f32, device=dev)
-    blocks = -(-n // 256)
-    sums = torch.empty(blocks * 256, dtype=f32, device=dev)
-    for name, (x, y, w) in coords.items():
-        emit(part=1, coords=name, what="zeros + direct kernel",
-             ms=T(lambda: cs.bilinear_scatter(x, y, w, H, W, route="direct")))
-        emit(part=1, coords=name, what="direct kernel alone (no memset)",
-             ms=T(lambda: direct_raw(x, y, w, H, W, scratch)))
-        emit(part=1, coords=name,
-             what="probe: same kernel, atomics replaced by a register sum",
+    if 1 in parts:
+        emit(part=1, what="torch.zeros((1, 181, 241)) alone",
+             ms=T(lambda: torch.zeros((1, H, W), dtype=f32, device=dev)))
+        scratch = torch.empty((1, H, W), dtype=f32, device=dev)
+        blocks = -(-n // 256)
+        sums = torch.empty(blocks * 256, dtype=f32, device=dev)
+        for name, (x, y, w) in coords.items():
+            emit(part=1, coords=name, what="zeros + direct kernel",
+                 ms=T(lambda: cs.bilinear_scatter(x, y, w, H, W,
+                                                  route="direct")))
+            emit(part=1, coords=name, what="direct kernel alone (no memset)",
+                 ms=T(lambda: direct_raw(x, y, w, H, W, scratch)))
+            emit(part=1, coords=name,
+                 what="probe: same kernel, atomics replaced by a register sum",
+                 ms=T(lambda: build.check(vlib.probe(
+                     x.data_ptr(), y.data_ptr(), w.data_ptr(), n, H, W,
+                     sums.data_ptr(), blocks, stream()), "probe")))
+        x, y, w = coords["uniform"]
+        emit(part=1, what="probe on one event, one block (launch floor)",
              ms=T(lambda: build.check(vlib.probe(
-                 x.data_ptr(), y.data_ptr(), w.data_ptr(), n, H, W,
-                 sums.data_ptr(), blocks, stream()), "probe")))
-    x, y, w = coords["uniform"]
-    emit(part=1, what="probe on one event, one block (launch floor)",
-         ms=T(lambda: build.check(vlib.probe(
-             x.data_ptr(), y.data_ptr(), w.data_ptr(), 1, H, W,
-             sums.data_ptr(), 1, stream()), "probe")))
+                 x.data_ptr(), y.data_ptr(), w.data_ptr(), 1, H, W,
+                 sums.data_ptr(), 1, stream()), "probe")))
 
     # ---- 2. whole-image routes -------------------------------------------
-    for (h, wd), sets in (((H, W), ("uniform", "scene_warped")),
-                          ((41, 61), ("uniform",))):
-        for name in sets:
-            x0, y0, w0 = coords[name]
-            if (h, wd) != (H, W):
-                x0, y0 = x0 % wd, y0 % h
-            for m in (512, 2048, 8192, 32768, 65536, 131072, n):
-                x, y, w = (x0[:m].contiguous(), y0[:m].contiguous(),
-                           w0[:, :m].contiguous())
-                ref = cs.bilinear_scatter_plain(x, y, w, h, wd)
-                tag = dict(part=2, image=[h, wd], coords=name, events=m)
-                emit(**tag, route="direct", ms=T(
-                    lambda: cs.bilinear_scatter(x, y, w, h, wd,
-                                                route="direct")))
-                for route in ("single", "private"):
-                    if route == "single" and m > 32768:
-                        continue
-                    emit(**tag, route=f"{route}, as shipped", ms=T(
+    if 2 in parts:
+        for (h, wd), sets in (((H, W), ("uniform", "scene_warped")),
+                              ((41, 61), ("uniform",))):
+            for name in sets:
+                x0, y0, w0 = coords[name]
+                if (h, wd) != (H, W):
+                    x0, y0 = x0 % wd, y0 % h
+                for m in (512, 2048, 8192, 32768, 65536, 131072, n):
+                    x, y, w = (x0[:m].contiguous(), y0[:m].contiguous(),
+                               w0[:, :m].contiguous())
+                    ref = cs.bilinear_scatter_plain(x, y, w, h, wd)
+                    tag = dict(part=2, image=[h, wd], coords=name, events=m)
+                    emit(**tag, route="direct", ms=T(
                         lambda: cs.bilinear_scatter(x, y, w, h, wd,
-                                                    route=route)))
-                variants = []
-                if m <= 32768:
-                    variants += [(1, th, b) for th in (256, 1024)
-                                 for b in (1, 0)]
-                if m >= 8192:
-                    variants += [(g, 1024, b)
-                                 for g in (8, 16, 32, 64, 96, 132)
-                                 for b in (1, 0)]
-                    variants += [(64, 512, 0), (132, 512, 0)]
-                for g, th, b in variants:
-                    ok = agrees(f"private G={g} threads={th} bulk={b} {tag}",
-                                private(x, y, w, h, wd, g, th, b), ref)
-                    emit(**tag, route="single" if g == 1 else "private",
-                         blocks=g, threads=th, bulk=b, ok=ok,
-                         ms=T(lambda: private(x, y, w, h, wd, g, th, b)))
+                                                    route="direct")))
+                    for route in ("single", "private"):
+                        if route == "single" and m > 32768:
+                            continue
+                        emit(**tag, route=f"{route}, as shipped", ms=T(
+                            lambda: cs.bilinear_scatter(x, y, w, h, wd,
+                                                        route=route)))
+                    variants = []
+                    if m <= 32768:
+                        variants += [(1, th, b) for th in (256, 1024)
+                                     for b in (1, 0)]
+                    if m >= 8192:
+                        variants += [(g, 1024, b)
+                                     for g in (8, 16, 32, 64, 96, 132)
+                                     for b in (1, 0)]
+                        variants += [(64, 512, 0), (132, 512, 0)]
+                    for g, th, b in variants:
+                        ok = agrees(f"private G={g} threads={th} bulk={b} "
+                                    f"{tag}",
+                                    private(x, y, w, h, wd, g, th, b), ref)
+                        emit(**tag, route="single" if g == 1 else "private",
+                             blocks=g, threads=th, bulk=b, ok=ok,
+                             ms=T(lambda: private(x, y, w, h, wd, g, th, b)))
 
     # ---- 3. the patch kernel ---------------------------------------------
-    def patches(x, y, w, P, C, PH, PW, kb, threads, bulk):
-        K = w.shape[0]
-        out = torch.empty((K, P, PH, PW), dtype=f32, device=dev)
-        build.check(vlib.patches_variant(
-            x.data_ptr(), y.data_ptr(), w.data_ptr(), P, C, K, kb, PH, PW,
-            out.data_ptr(), threads, bulk, stream()), "patches")
-        return out
-
-    for objective in ("variance", "zhu"):
-        x, y, w, P, C, PH, PW = chip_smoke.patch_loss_inputs(torch, objective)
-        K = w.shape[0]
-        ref = cs.bilinear_patches_scatter_plain(x, y, w, P, C, PH, PW)
-        tag = dict(part=3, K=K, patches=P, slots=C, patch=[PH, PW])
-        emit(**tag, route="atlas (direct kernel + un-tiling)",
-             ms=T(chip_smoke.atlas_route(torch, cs, x, y, w, P, C, PH, PW),
-                  calls=2, reps=5))
-        emit(**tag, route="patch, as shipped", ms=T(
-            lambda: cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW,
-                                                route="patch")))
-        for kb in ((1,) if K == 1 else (4, 2, 1)):
-            for th in (128, 256, 512, 1024):
-                for b in (1, 0):
-                    ok = agrees(f"patches kb={kb} threads={th} bulk={b} {tag}",
-                                patches(x, y, w, P, C, PH, PW, kb, th, b),
-                                ref)
-                    emit(**tag, route="patch", channels_per_block=kb,
-                         threads=th, bulk=b, ok=ok, ms=T(
-                             lambda: patches(x, y, w, P, C, PH, PW, kb, th,
-                                             b)))
-        del ref
-        # from one descent step (one sample per ROI) up: where the patch
-        # kernel overtakes the direct one (global atomics into a zeroed
-        # output that fits L2)
-        for samples in (1, 2, 5, 10, 25):
-            P1 = P // 25 * samples
-            x1, y1 = x[:P1 * C].contiguous(), y[:P1 * C].contiguous()
-            w1 = w[:, :P1 * C].contiguous()
-            tag = dict(part=3, K=K, patches=P1, slots=C, patch=[PH, PW])
-            emit(**tag, route="atlas (direct kernel + un-tiling)",
-                 ms=T(chip_smoke.atlas_route(torch, cs, x1, y1, w1, P1, C, PH,
-                                             PW), calls=2, reps=5))
-            emit(**tag, route="patches direct", ms=T(
-                lambda: cs.bilinear_patches_scatter(x1, y1, w1, P1, C, PH, PW,
-                                                    route="direct")))
-            emit(**tag, route="patch, as shipped", ms=T(
-                lambda: cs.bilinear_patches_scatter(x1, y1, w1, P1, C, PH, PW,
-                                                    route="patch")))
-            for th in (256, 512, 1024):
-                emit(**tag, route="patch", channels_per_block=1, threads=th,
-                     bulk=1, ms=T(lambda: patches(x1, y1, w1, P1, C, PH, PW,
-                                                  1, th, 1)))
-        del x, y, w, x1, y1, w1
-        torch.cuda.empty_cache()
-
-    # ---- 4. the per-tile voxel kernel ---------------------------------------
-    B = chip_smoke.B
-    th_, tw_ = chip_smoke.TILE
-    for sensor in ("720p", "VGA"):
-        lx, ly, bt, bp, bmask, ts = chip_smoke.bucketed_tiles(
-            torch, rng, chip_smoke.TILED_SENSORS[sensor], chip_smoke.TILE)
-        args = cs.voxel_tiles_inputs(lx, ly, bt, bp, B, chip_smoke.TILE,
-                                     ts[0], ts[-1], mask=bmask)
-        Tn, cap = lx.shape
-        ref = cs.voxel_tiles_scatter_plain(*args, B, th_, tw_)
-
-        def tiles(mode, threads, bulk):
-            out = torch.empty((Tn, B, th_, tw_), dtype=f32, device=dev)
-            build.check(vlib.tiles_variant(
-                *(a.data_ptr() for a in args), Tn, cap, B, th_, tw_,
-                out.data_ptr(), mode, threads, bulk, stream()), "tiles")
+    if 3 in parts:
+        def patches(x, y, w, P, C, PH, PW, kb, threads, bulk):
+            K = w.shape[0]
+            out = torch.empty((K, P, PH, PW), dtype=f32, device=dev)
+            build.check(vlib.patches_variant(
+                x.data_ptr(), y.data_ptr(), w.data_ptr(), P, C, K, kb, PH, PW,
+                out.data_ptr(), threads, bulk, stream()), "patches")
             return out
 
-        tag = dict(part=4, sensor=sensor, tiles=Tn, slots=cap)
-        emit(**tag, route="direct", ms=T(
-            lambda: cs.voxel_tiles_scatter(*args, B, th_, tw_,
-                                           route="direct")))
-        emit(**tag, route="private, as shipped", ms=T(
-            lambda: cs.voxel_tiles_scatter(*args, B, th_, tw_,
-                                           route="private")))
-        names = {0: "replicated", 1: "cluster, remote atomics",
-                 2: "replicated, launched as clusters"}
-        for mode in (0, 2, 1):
-            for threads in (256, 512, 1024):
-                for bulk in (1, 0):
-                    ok = agrees(f"tiles mode={mode} threads={threads} "
-                                f"bulk={bulk} {tag}",
-                                tiles(mode, threads, bulk), ref)
-                    emit(**tag, route=names[mode], threads=threads,
-                         bulk=bulk, ok=ok,
-                         ms=T(lambda: tiles(mode, threads, bulk)))
+        for objective in ("variance", "zhu"):
+            x, y, w, P, C, PH, PW = chip_smoke.patch_loss_inputs(
+                torch, objective)
+            K = w.shape[0]
+            ref = cs.bilinear_patches_scatter_plain(x, y, w, P, C, PH, PW)
+            tag = dict(part=3, K=K, patches=P, slots=C, patch=[PH, PW])
+            emit(**tag, route="atlas (direct kernel + un-tiling)",
+                 ms=T(chip_smoke.atlas_route(torch, cs, x, y, w, P, C, PH, PW),
+                      calls=2, reps=5))
+            emit(**tag, route="patch, as shipped", ms=T(
+                lambda: cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW,
+                                                    route="patch")))
+            for kb in ((1,) if K == 1 else (4, 2, 1)):
+                for th in (128, 256, 512, 1024):
+                    for b in (1, 0):
+                        ok = agrees(f"patches kb={kb} threads={th} bulk={b} "
+                                    f"{tag}",
+                                    patches(x, y, w, P, C, PH, PW, kb, th, b),
+                                    ref)
+                        emit(**tag, route="patch", channels_per_block=kb,
+                             threads=th, bulk=b, ok=ok, ms=T(
+                                 lambda: patches(x, y, w, P, C, PH, PW, kb, th,
+                                                 b)))
+            del ref
+            # from one descent step (one sample per ROI) up: where the patch
+            # kernel overtakes the direct one (global atomics into a zeroed
+            # output that fits L2)
+            for samples in (1, 2, 5, 10, 25):
+                P1 = P // 25 * samples
+                x1, y1 = x[:P1 * C].contiguous(), y[:P1 * C].contiguous()
+                w1 = w[:, :P1 * C].contiguous()
+                tag = dict(part=3, K=K, patches=P1, slots=C, patch=[PH, PW])
+                emit(**tag, route="atlas (direct kernel + un-tiling)",
+                     ms=T(chip_smoke.atlas_route(torch, cs, x1, y1, w1, P1,
+                                                 C, PH, PW),
+                          calls=2, reps=5))
+                emit(**tag, route="patches direct", ms=T(
+                    lambda: cs.bilinear_patches_scatter(
+                        x1, y1, w1, P1, C, PH, PW, route="direct")))
+                emit(**tag, route="patch, as shipped", ms=T(
+                    lambda: cs.bilinear_patches_scatter(
+                        x1, y1, w1, P1, C, PH, PW, route="patch")))
+                for th in (256, 512, 1024):
+                    emit(**tag, route="patch", channels_per_block=1,
+                         threads=th, bulk=1, ms=T(lambda: patches(
+                             x1, y1, w1, P1, C, PH, PW, 1, th, 1)))
+            del x, y, w, x1, y1, w1
+            torch.cuda.empty_cache()
+
+    # ---- 4. the per-tile voxel kernel ---------------------------------------
+    if 4 in parts:
+        B = chip_smoke.B
+        th_, tw_ = chip_smoke.TILE
+        for sensor in ("720p", "VGA"):
+            lx, ly, bt, bp, bmask, ts = chip_smoke.bucketed_tiles(
+                torch, rng, chip_smoke.TILED_SENSORS[sensor], chip_smoke.TILE)
+            args = cs.voxel_tiles_inputs(lx, ly, bt, bp, B, chip_smoke.TILE,
+                                         ts[0], ts[-1], mask=bmask)
+            Tn, cap = lx.shape
+            ref = cs.voxel_tiles_scatter_plain(*args, B, th_, tw_)
+
+            def tiles(mode, threads, bulk):
+                out = torch.empty((Tn, B, th_, tw_), dtype=f32, device=dev)
+                build.check(vlib.tiles_variant(
+                    *(a.data_ptr() for a in args), Tn, cap, B, th_, tw_,
+                    out.data_ptr(), mode, threads, bulk, stream()), "tiles")
+                return out
+
+            tag = dict(part=4, sensor=sensor, tiles=Tn, slots=cap)
+            emit(**tag, route="direct", ms=T(
+                lambda: cs.voxel_tiles_scatter(*args, B, th_, tw_,
+                                               route="direct")))
+            emit(**tag, route="private, as shipped", ms=T(
+                lambda: cs.voxel_tiles_scatter(*args, B, th_, tw_,
+                                               route="private")))
+            names = {0: "replicated", 1: "cluster, remote atomics",
+                     2: "replicated, launched as clusters"}
+            for mode in (0, 2, 1):
+                for threads in (256, 512, 1024):
+                    for bulk in (1, 0):
+                        ok = agrees(f"tiles mode={mode} threads={threads} "
+                                    f"bulk={bulk} {tag}",
+                                    tiles(mode, threads, bulk), ref)
+                        emit(**tag, route=names[mode], threads=threads,
+                             bulk=bulk, ok=ok,
+                             ms=T(lambda: tiles(mode, threads, bulk)))
 
     # ---- 5. what a call costs the host ------------------------------------
-    # The solvers wait on the host, so a route's enqueue cost counts too:
-    # seconds of host time per eager call, no synchronisation inside.
-    import time
-    x0, y0, w0 = coords["scene_warped"]
-    for m in (2048, n):
-        x, y, w = (x0[:m].contiguous(), y0[:m].contiguous(),
-                   w0[:, :m].contiguous())
-        for route in ("direct", "single", "private"):
-            if route == "single" and m > 32768:
-                continue
-            reps = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(200):
-                    cs.bilinear_scatter(x, y, w, H, W, route=route)
-                reps.append((time.perf_counter() - t0) / 200)
-                torch.cuda.synchronize()
-            emit(part=5, events=m, image=[H, W], route=route,
-                 host_us_per_call=float(np.median(reps)) * 1e6)
+    if 5 in parts:
+        # The solvers wait on the host, so a route's enqueue cost counts too:
+        # seconds of host time per eager call, no synchronisation inside.
+        import time
+        x0, y0, w0 = coords["scene_warped"]
+        for m in (2048, n):
+            x, y, w = (x0[:m].contiguous(), y0[:m].contiguous(),
+                       w0[:, :m].contiguous())
+            for route in ("direct", "single", "private"):
+                if route == "single" and m > 32768:
+                    continue
+                reps = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(200):
+                        cs.bilinear_scatter(x, y, w, H, W, route=route)
+                    reps.append((time.perf_counter() - t0) / 200)
+                    torch.cuda.synchronize()
+                emit(part=5, events=m, image=[H, W], route=route,
+                     host_us_per_call=float(np.median(reps)) * 1e6)
+
+    # ---- 6. what holds voxel_scatter and flat_scatter back ----------------
+    Hs, Ws = chip_smoke.SENSOR
+    Bn, N = chip_smoke.B, chip_smoke.N_VOXEL
+    plane = Hs * Ws
+
+    def ptrs(*tensors):
+        return tuple(a.data_ptr() for a in tensors)
+
+    def flat_variant(name, idx, w, nb):
+        """'rows': one thread per (row, id) element; 'ahead': kAhead ids
+        loaded before their reductions. Global atomics into zeros."""
+        D, m = w.shape
+        out = torch.zeros((D, nb), dtype=f32, device=dev)
+        if name == "rows":
+            rc = vlib.flat_rows(*ptrs(idx, w), m, D, nb, out.data_ptr(), 0,
+                                stream())
+        else:
+            rc = vlib.flat_ahead(*ptrs(idx, w), m, D, nb, out.data_ptr(),
+                                 stream())
+        build.check(rc, f"flat {name}")
+        return out
+
+    def voxel_single(args, bins, h, wd):
+        """One accumulator: float2 for even first bins, two scalars for odd
+        ones, then a transpose."""
+        Bp = (bins + 2) & ~1
+        acc = torch.zeros((h * wd, Bp), dtype=f32, device=dev)
+        out = torch.empty((bins, h, wd), dtype=f32, device=dev)
+        build.check(vlib.voxel_single(*ptrs(*args), args[0].shape[0], bins,
+                                      h, wd, Bp, *ptrs(acc, out), stream()),
+                    "voxel_single")
+        return out
+
+    def voxel_stream(sensor, seed):
+        xs, ys, ts, ps = (torch.as_tensor(a, device=dev) for a in
+                          chip_smoke.voxel_events(np.random.default_rng(seed),
+                                                  sensor))
+        return xs, ys, ts.float(), ps.float()
+
+    if 6 in parts:
+        for path in (build._lib_path("scatter_kernels"), vlib._name):
+            emit(part=6, what="reductions and atomics in the SASS",
+                 lib=os.path.basename(str(path)),
+                 mnemonics=sass_reductions(build, path))
+        sums = torch.empty(132 * 16 * 256, dtype=f32, device=dev)
+        # the voxel kernel at the smoke's shape
+        ev = voxel_stream(chip_smoke.SENSOR, chip_smoke.SEED)
+        vargs = cs.voxel_inputs(*ev, Bn, chip_smoke.SENSOR)
+        grid = torch.empty((Bn, Hs, Ws), dtype=f32, device=dev)
+        tag = dict(part=6, kernel="voxel", events=N, grid=[Bn, Hs, Ws])
+        emit(**tag, what="torch.zeros of the grid alone",
+             ms=T(lambda: torch.zeros((Bn, Hs, Ws), dtype=f32, device=dev)))
+        emit(**tag, what="torch.zeros of the two accumulators alone",
+             ms=T(lambda: torch.zeros((2, plane, 6), dtype=f32, device=dev)))
+        emit(**tag, what="zeros + direct kernel",
+             ms=T(lambda: cs.voxel_scatter(*vargs, Bn, Hs, Ws,
+                                           route="direct")))
+        emit(**tag, what="direct kernel alone (no memset)",
+             ms=T(lambda: build.check(lib.voxel_scatter(
+                 *ptrs(*vargs), N, Bn, Hs, Ws, grid.data_ptr(), stream()),
+                 "voxel")))
+        emit(**tag, what="probe: atomics replaced by a register sum",
+             ms=T(lambda: build.check(vlib.voxel_probe(
+                 *ptrs(*vargs), N, Bn, Hs, Ws, sums.data_ptr(), stream()),
+                 "voxel_probe")))
+        # the flat kernel on the D=2 derivative stack of 200k events
+        x, y, w = coords["uniform"]
+        fi, fw = chip_smoke.derivative_stack(torch, x, y, w[0], (H, W))
+        D, m = fw.shape
+        nb = H * W
+        out = torch.empty((D, nb), dtype=f32, device=dev)
+        tag = dict(part=6, kernel="flat", D=D, ids=m, buckets=nb)
+        emit(**tag, what="torch.zeros of the output alone",
+             ms=T(lambda: torch.zeros((D, nb), dtype=f32, device=dev)))
+        emit(**tag, what="zeros + kernel, one thread per (row, id)",
+             ms=T(lambda: flat_variant("rows", fi, fw, nb)))
+        emit(**tag, what="kernel alone, one thread per (row, id)",
+             ms=T(lambda: build.check(vlib.flat_rows(
+                 *ptrs(fi, fw), m, D, nb, out.data_ptr(), 0, stream()),
+                 "flat_rows")))
+        emit(**tag, what="probe: the same, atomics replaced by a register sum",
+             ms=T(lambda: build.check(vlib.flat_rows(
+                 *ptrs(fi, fw), m, D, nb, sums.data_ptr(), 1, stream()),
+                 "flat_rows")))
+        emit(**tag, what="zeros + direct kernel, one thread per id",
+             ms=T(lambda: cs.flat_scatter(fi, fw, nb, route="direct")))
+        # the L2's rate of reductions
+        modes = ((0, "one scalar", 1, 1), (1, "two scalars, half a buffer "
+                                           "apart", 2, 2),
+                 (2, "two adjacent scalars", 2, 2), (3, "one float2", 1, 2),
+                 (4, "one float4", 1, 4))
+        for F in (Bn * plane, 1 << 19):
+            buf = torch.zeros(F, dtype=f32, device=dev)
+            for mode, name, requests, floats in modes:
+                run = lambda: build.check(vlib.red_probe(
+                    buf.data_ptr(), F, N, mode, stream()), "red_probe")
+                buf.zero_()
+                run()
+                ok = float(buf.double().sum()) == float(N * floats)
+                if not ok:
+                    failed.append(f"red_probe mode {mode}: wrong sum")
+                ms = T(run)
+                emit(part=6, what="L2 reductions", threads=N, each_sends=name,
+                     buffer_bytes=F * 4, ok=ok, ms=ms,
+                     requests_per_s=N * requests / ms * 1e3,
+                     floats_per_s=N * floats / ms * 1e3)
+        # atomicAdd on shared memory: int (native) against float
+        blocks, cells = 132 * 8, 8192
+        for as_float in (0, 1):
+            res = torch.empty(blocks * cells, device=dev,
+                              dtype=f32 if as_float else torch.int32)
+            times = {}
+            for per_thread in (0, 64):
+                times[per_thread] = T(lambda: build.check(
+                    vlib.shared_atomic_probe(res.data_ptr(), blocks,
+                                             per_thread, cells, as_float,
+                                             stream()), "shared probe"))
+            adds = blocks * 256 * 64
+            ok = float(res.double().sum()) == 1.5 * adds   # 1, 2, 1, 2..
+            if not ok:
+                failed.append(f"shared probe as_float={as_float}: wrong sum")
+            emit(part=6, what="atomicAdd on shared memory",
+                 type="float" if as_float else "int", adds=adds, ok=ok,
+                 ms=times[64], ms_without_adds=times[0],
+                 adds_per_s=adds / (times[64] - times[0]) * 1e3)
+
+    # ---- 7. voxel routes over event counts and sensors --------------------
+    if 7 in parts:
+        for sensor, bins in ((chip_smoke.SENSOR, Bn), (chip_smoke.SENSOR, 9),
+                             ((480, 640), Bn), ((720, 1280), Bn)):
+            h, wd = sensor
+            ev = voxel_stream(sensor, chip_smoke.SEED + 1)
+            for m in (4096, 16384, 65536, 131072, 262144, 524288, 1 << 20, N):
+                args = cs.voxel_inputs(*(a[:m] for a in ev), bins, sensor)
+                ref = cs.voxel_scatter_plain(*args, bins, h, wd)
+                tag = dict(part=7, sensor=[h, wd], bins=bins, events=m,
+                           dispatch=cs.voxel_route(m, bins, h, wd))
+                for route in ("direct", "vector"):
+                    run = lambda: cs.voxel_scatter(*args, bins, h, wd,
+                                                   route=route)
+                    ok = agrees(f"voxel {route} {tag}", run(), ref)
+                    emit(**tag, route=f"{route}, as shipped", ok=ok,
+                         ms=T(run))
+                ok = agrees(f"voxel one accumulator {tag}",
+                            voxel_single(args, bins, h, wd), ref)
+                emit(**tag, route="one accumulator (float2 or two scalars)",
+                     ok=ok, ms=T(lambda: voxel_single(args, bins, h, wd)))
+
+    # ---- 8. flat routes over id counts and row counts ---------------------
+    if 8 in parts:
+        x, y, w = coords["uniform"]
+        fi, fw = chip_smoke.derivative_stack(torch, x, y, w[0], (H, W))
+        nb = H * W
+        frng = np.random.default_rng(chip_smoke.SEED + 2)
+        cases = [(2, "derivative stack", fi[:m].contiguous(),
+                  fw[:, :m].contiguous(), nb)
+                 for m in (4096, 16384, 65536, 131072, 262144, fi.shape[0])]
+        ex, ey, _, ep = voxel_stream(chip_smoke.SENSOR, chip_smoke.SEED + 3)
+        eid = ey.int() * Ws + ex.int()
+        cases += [(1, "event image", eid[:m].contiguous(),
+                   ep[None, :m].contiguous(), plane)
+                  for m in (65536, 262144, N)]
+        rid = torch.as_tensor(frng.integers(-3, nb + 3, n), dtype=torch.int32,
+                              device=dev)
+        cases += [(D, "random ids", rid, t(frng.normal(size=(D, n))), nb)
+                  for D in (3, 4, 5, 8)]
+        # many buckets: the scratch and its second pass grow with them
+        vga = 480 * 640
+        wide = torch.as_tensor(frng.integers(0, vga, N), dtype=torch.int32,
+                               device=dev)
+        cases += [(2, "random ids", wide[:m].contiguous(),
+                   t(frng.normal(size=(2, m))), vga)
+                  for m in (262144, 524288, N)]
+        for D, what, idx, wts, buckets in cases:
+            ref = cs.flat_scatter_plain(idx, wts, buckets)
+            tag = dict(part=8, D=D, ids=idx.shape[0], buckets=buckets,
+                       data=what,
+                       dispatch=cs.flat_route(D, idx.shape[0], buckets))
+            for route in ("direct", "vector")[:2 if D > 1 else 1]:
+                run = lambda: cs.flat_scatter(idx, wts, buckets, route=route)
+                ok = agrees(f"flat {route} {tag}", run(), ref)
+                emit(**tag, route=f"{route}, as shipped", ok=ok, ms=T(run))
+            for name in ("rows", "ahead"):
+                ok = agrees(f"flat {name} {tag}",
+                            flat_variant(name, idx, wts, buckets), ref)
+                emit(**tag, route=name, ok=ok,
+                     ms=T(lambda: flat_variant(name, idx, wts, buckets)))
 
     print(chip_smoke.card_line(), flush=True)
     if failed:

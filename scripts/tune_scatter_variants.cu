@@ -16,7 +16,21 @@
 //                     mode 2: mode 0 launched as clusters; bins go in groups
 //                     of up to 8 (the portable cluster size) per launch;
 //   probe             the direct bilinear kernel with its atomics replaced by
-//                     a register sum: loads, arithmetic and launch alone.
+//                     a register sum: loads, arithmetic and launch alone;
+//   voxel_probe,      the direct voxel kernel and the one-thread-per-element
+//   flat_probe        flat kernel, likewise without atomics;
+//   flat_rows         the flat kernel with one thread per (row, id) element,
+//                     which re-reads the id for every row and divides to
+//                     find the row (the package's first flat kernel);
+//   flat_ahead        the direct flat kernel with kAhead ids loaded before
+//                     their reductions start;
+//   voxel_single      the vector voxel kernel with one accumulator: a float2
+//                     reduction for an even first bin, two scalar ones for
+//                     an odd one, then a transpose;
+//   red_probe         the L2's rate of reductions: every thread sends one
+//                     scalar, two scalars half a buffer apart, two adjacent
+//                     scalars, one float2 or one float4 to a random place;
+//   shared_atomic_probe  atomicAdd on shared memory, int against float.
 // With the shipped parameters each computes what the shipped kernel does.
 // The helpers (zero_shared, splat_range, store_wait, ...) are the package's.
 
@@ -261,6 +275,188 @@ __global__ void probe_kernel(const float* __restrict__ x,
   sums[tid] = acc;
 }
 
+
+// voxel_scatter_kernel with its two atomics replaced by a register sum
+__global__ void voxel_probe_kernel(const int* __restrict__ xs,
+                                   const int* __restrict__ ys,
+                                   const float* __restrict__ t_norm,
+                                   const float* __restrict__ ps, long long n,
+                                   int B, int H, int W,
+                                   float* __restrict__ sums) {
+  const long long plane = static_cast<long long>(H) * W;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  float acc = 0.0f;
+  for (long long i = tid; i < n; i += stride) {
+    const float p = ps[i];
+    if (p == 0.0f) continue;
+    const int x = xs[i];
+    const int y = ys[i];
+    if (x < 0 || x >= W || y < 0 || y >= H) continue;
+    const float t = t_norm[i];
+    const float b0 = floorf(t);
+    const float fb = t - b0;
+    const long long pix = static_cast<long long>(y) * W + x;
+    if (b0 >= 0.0f && b0 < static_cast<float>(B))
+      acc += p * (1.0f - fb) +
+             static_cast<float>(static_cast<long long>(b0) * plane + pix);
+    const float b1 = b0 + 1.0f;
+    if (b1 >= 0.0f && b1 < static_cast<float>(B)) acc += p * fb;
+  }
+  sums[tid] = acc;
+}
+
+// One thread per (row, id) element of a flat scatter: the row comes from a
+// 64-bit division and the id is read again for every row. kProbe replaces
+// the atomic by a register sum.
+template <bool kProbe>
+__global__ void flat_rows_kernel(const int* __restrict__ idx,
+                                 const float* __restrict__ w, long long n,
+                                 int D, long long nb,
+                                 float* __restrict__ out) {
+  const long long total = n * D;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  float acc = 0.0f;
+  for (long long i = tid; i < total; i += stride) {
+    const long long d = i / n;
+    const int id = idx[i - d * n];
+    if (id < 0 || id >= nb) continue;
+    const float v = w[i];
+    if (v == 0.0f) continue;
+    if (kProbe)
+      acc += v + static_cast<float>(d * nb + id);
+    else
+      atomicAdd(out + d * nb + id, v);
+  }
+  if (kProbe) out[tid] = acc;
+}
+
+// flat_scatter_kernel with kAhead ids and first-row weights loaded before
+// their reductions start.
+__global__ void flat_ahead_kernel(const int* __restrict__ idx,
+                                  const float* __restrict__ w, long long n,
+                                  int D, long long nb,
+                                  float* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long first = static_cast<long long>(blockIdx.x) * blockDim.x +
+                         threadIdx.x;
+       first < n; first += stride * kAhead) {
+    int ids[kAhead];
+    float w0[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const long long i = first + u * stride;
+      ids[u] = i < n ? idx[i] : -1;
+      w0[u] = i < n ? w[i] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int id = ids[u];
+      if (id < 0 || id >= nb) continue;
+      const long long i = first + u * stride;
+      for (int d = 0; d < D; ++d) {
+        const float v = d == 0 ? w0[u] : w[d * n + i];
+        if (v != 0.0f) atomicAdd(out + d * nb + id, v);
+      }
+    }
+  }
+}
+
+// voxel_vector_kernel with one zeroed accumulator (H*W, Bp), column c = bin
+// c: an event with even b0 sends one float2, one with odd b0 two scalars.
+__global__ void voxel_single_kernel(const int* __restrict__ xs,
+                                    const int* __restrict__ ys,
+                                    const float* __restrict__ t_norm,
+                                    const float* __restrict__ ps, long long n,
+                                    int B, int H, int W, int Bp,
+                                    float* __restrict__ acc) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const float p = ps[i];
+    if (p == 0.0f) continue;
+    const int x = xs[i];
+    const int y = ys[i];
+    if (x < 0 || x >= W || y < 0 || y >= H) continue;
+    const float t = t_norm[i];
+    const float b0 = floorf(t);
+    if (!(b0 >= -1.0f && b0 < static_cast<float>(B))) continue;
+    const float fb = t - b0;
+    const int ib = static_cast<int>(b0);
+    float* a = acc + (static_cast<long long>(y) * W + x) * Bp + ib;
+    if ((ib & 1) == 0) {
+      atomicAdd(reinterpret_cast<float2*>(a),
+                make_float2(p * (1.0f - fb), p * fb));
+    } else {
+      if (ib >= 0) atomicAdd(a, p * (1.0f - fb));
+      if (ib + 1 < B) atomicAdd(a + 1, p * fb);
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned int hash32(unsigned int x) {
+  x ^= x >> 16;
+  x *= 0x7feb352dU;
+  x ^= x >> 15;
+  x *= 0x846ca68bU;
+  x ^= x >> 16;
+  return x;
+}
+
+// Every one of n threads adds ones to a pseudo-random place of buf (F
+// floats, F a multiple of 4, zeroed). kMode 0: one scalar; 1: two scalars
+// F/2 floats apart; 2: two adjacent scalars; 3: one float2; 4: one float4.
+template <int kMode>
+__global__ void red_probe_kernel(float* __restrict__ buf, unsigned int F,
+                                 long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const unsigned int h = hash32(static_cast<unsigned int>(i));
+    if (kMode == 4) {
+      atomicAdd(reinterpret_cast<float4*>(buf + 4 * (h % (F / 4))),
+                make_float4(1.0f, 1.0f, 1.0f, 1.0f));
+      continue;
+    }
+    const unsigned int base = 2 * (h % (F / 2));
+    if (kMode == 3) {
+      atomicAdd(reinterpret_cast<float2*>(buf + base),
+                make_float2(1.0f, 1.0f));
+      continue;
+    }
+    atomicAdd(buf + base, 1.0f);
+    if (kMode == 1) atomicAdd(buf + (base + F / 2) % F, 1.0f);
+    if (kMode == 2) atomicAdd(buf + base + 1, 1.0f);
+  }
+}
+
+// Every thread sends per_thread atomicAdds (of 1 and 2 in turn) to
+// pseudo-random cells of its block's shared memory (cells a power of two),
+// then the block writes the cells out so that the adds stay live.
+template <typename T>
+__global__ void shared_atomic_probe_kernel(T* __restrict__ out,
+                                           int per_thread, int cells) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  T* s = reinterpret_cast<T*>(raw);
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) s[i] = T(0);
+  __syncthreads();
+  unsigned int h = hash32(blockIdx.x * blockDim.x + threadIdx.x);
+  for (int k = 0; k < per_thread; ++k) {
+    h = hash32(h + k);
+    // 1 or 2: a constant 1 would let the compiler count the warp's
+    // matching lanes instead of adding (ATOMS.POPC.INC)
+    atomicAdd(s + (h & (cells - 1)), T(1 + (k & 1)));
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cells; i += blockDim.x)
+    out[static_cast<long long>(blockIdx.x) * cells + i] = s[i];
+}
+
 }  // namespace
 
 extern "C" {
@@ -347,6 +543,89 @@ int probe(const void* x, const void* y, const void* w, long long n,
   probe_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(y),
       static_cast<const float*>(w), n, H, W, static_cast<float*>(sums));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int voxel_probe(const void* xs, const void* ys, const void* t_norm,
+                const void* ps, long long n, int B, int H, int W, void* sums,
+                void* stream) {
+  voxel_probe_kernel<<<grid_for(n), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(xs), static_cast<const int*>(ys),
+      static_cast<const float*>(t_norm), static_cast<const float*>(ps), n, B,
+      H, W, static_cast<float*>(sums));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// probe != 0: out takes one float per thread of the grid (at most
+// 132 * 16 * 256) and needs no zeroing
+int flat_rows(const void* idx, const void* w, long long n, int D,
+              long long nb, void* out, int probe, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (probe) {
+    flat_rows_kernel<true><<<grid_for(n * D), kThreads, 0, s>>>(
+        static_cast<const int*>(idx), static_cast<const float*>(w), n, D, nb,
+        static_cast<float*>(out));
+  } else {
+    flat_rows_kernel<false><<<grid_for(n * D), kThreads, 0, s>>>(
+        static_cast<const int*>(idx), static_cast<const float*>(w), n, D, nb,
+        static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int flat_ahead(const void* idx, const void* w, long long n, int D,
+               long long nb, void* out, void* stream) {
+  flat_ahead_kernel<<<grid_for((n + kAhead - 1) / kAhead), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(idx), static_cast<const float*>(w), n, D, nb,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// acc: one zeroed accumulator (H*W, Bp), Bp even and at least B + 1; out
+// (B, H, W) may hold anything
+int voxel_single(const void* xs, const void* ys, const void* t_norm,
+                 const void* ps, long long n, int B, int H, int W, int Bp,
+                 void* acc, void* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long plane = static_cast<long long>(H) * W;
+  voxel_single_kernel<<<grid_for(n), kThreads, 0, s>>>(
+      static_cast<const int*>(xs), static_cast<const int*>(ys),
+      static_cast<const float*>(t_norm), static_cast<const float*>(ps), n, B,
+      H, W, Bp, static_cast<float*>(acc));
+  flat_transpose_kernel<<<grid_for(plane), kThreads, 0, s>>>(
+      static_cast<const float*>(acc), plane, B, Bp, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int red_probe(void* buf, long long F, long long n, int mode, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* b = static_cast<float*>(buf);
+  const unsigned int f = static_cast<unsigned int>(F);
+  const unsigned int g = grid_for(n);
+  switch (mode) {
+    case 0: red_probe_kernel<0><<<g, kThreads, 0, s>>>(b, f, n); break;
+    case 1: red_probe_kernel<1><<<g, kThreads, 0, s>>>(b, f, n); break;
+    case 2: red_probe_kernel<2><<<g, kThreads, 0, s>>>(b, f, n); break;
+    case 3: red_probe_kernel<3><<<g, kThreads, 0, s>>>(b, f, n); break;
+    case 4: red_probe_kernel<4><<<g, kThreads, 0, s>>>(b, f, n); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out: blocks * cells values of 4 bytes; cells a power of two, at most 8192
+int shared_atomic_probe(void* out, int blocks, int per_thread, int cells,
+                        int as_float, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (as_float) {
+    shared_atomic_probe_kernel<float><<<blocks, kThreads, cells * 4, s>>>(
+        static_cast<float*>(out), per_thread, cells);
+  } else {
+    shared_atomic_probe_kernel<int><<<blocks, kThreads, cells * 4, s>>>(
+        static_cast<int*>(out), per_thread, cells);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -279,3 +279,167 @@ def test_voxel_tiles_routes_match_plain_unsorted(cuda, gen, B, th, tw, route):
     got = cs.voxel_tiles_scatter(*args, B, th, tw)
     assert cs.launch_counts()[f"voxel_tiles_scatter:{route}"] == before + 1
     assert_rel(got, cs.voxel_tiles_scatter_plain(*args, B, th, tw))
+
+
+# ---------------------------------------------------------------------------
+# The voxel and flat kernels' routes: vector reductions and direct
+# ---------------------------------------------------------------------------
+
+def _voxel_stream(cuda, gen, n, H, W):
+    xs = torch.as_tensor(gen.integers(-2, W + 2, n), device=cuda)
+    ys = torch.as_tensor(gen.integers(-2, H + 2, n), device=cuda)
+    ts = torch.sort(torch.rand(n, device=cuda)).values
+    ps = torch.as_tensor(gen.choice([-1.0, 1.0], n), dtype=torch.float32,
+                         device=cuda)
+    return xs, ys, ts, ps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["vector", "direct"])
+@pytest.mark.parametrize("B", [1, 4, 5, 9])
+def test_voxel_routes_match_plain(cuda, gen, route, B):
+    """Even and odd bin counts and one bin, on a sensor whose pixel count is
+    odd: the whole window, a mask, a ``t1`` override that pins a third of
+    the stream to ``t_norm = B-1`` exactly, unsorted events, and every
+    event masked (an exact zero grid)."""
+    n, H, W = 70_001, 45, 67
+    xs, ys, ts, ps = _voxel_stream(cuda, gen, n, H, W)
+    mask = torch.rand(n, device=cuda) > 0.3
+    perm = torch.randperm(n, device=cuda)
+    cases = [cs.voxel_inputs(xs, ys, ts, ps, B, (H, W), **kw)
+             for kw in ({}, {"mask": mask}, {"t1": float(ts[2 * n // 3])},
+                        {"t0": 0.2, "t1": 0.7})]
+    assert int((cases[2][2] == B - 1).sum()) >= n // 3
+    cases.append([a[perm].contiguous() for a in cases[0]])
+    for args in cases:
+        before = cs.launch_counts()[f"voxel_scatter:{route}"]
+        got = cs.voxel_scatter(*args, B, H, W, route=route)
+        assert cs.launch_counts()[f"voxel_scatter:{route}"] == before + 1
+        assert got.shape == (B, H, W) and got.is_contiguous()
+        assert_rel(got, cs.voxel_scatter_plain(*args, B, H, W))
+    none = cs.voxel_inputs(xs, ys, ts, ps, B, (H, W),
+                           mask=torch.zeros_like(mask), t0=0.0, t1=1.0)
+    assert float(cs.voxel_scatter(*none, B, H, W, route=route).abs().max()) \
+        == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["vector", "direct"])
+def test_voxel_routes_drop_odd_bins(cuda, gen, route):
+    """Bin coordinates that no wrapper makes: NaN, +-inf, +-1e30 and bins
+    from B on are dropped, never wrapped; a first bin of -1 keeps its second
+    tap and ``t_norm = B-1`` its first."""
+    n, B, H, W = 50_000, 5, 40, 60
+    xs, ys, ts, ps = _voxel_stream(cuda, gen, n, H, W)
+    x, y, t_norm, p = cs.voxel_inputs(xs, ys, ts, ps, B, (H, W))
+    odd = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30,
+                        -1e30, -0.25, -1.0, -1.5, B - 0.5, float(B), 2.0 ** 31,
+                        -2.0 ** 31], device=cuda)
+    t_norm = t_norm.clone()
+    t_norm[::3] = odd[torch.arange(len(t_norm[::3]), device=cuda) % len(odd)]
+    assert_rel(cs.voxel_scatter(x, y, t_norm, p, B, H, W, route=route),
+               cs.voxel_scatter_plain(x, y, t_norm, p, B, H, W))
+    one = [torch.tensor(v, dtype=dt, device=cuda) for v, dt in
+           (([3, 3], torch.int32), ([4, 4], torch.int32),
+            ([-0.5, B - 0.5], torch.float32), ([1.0, 1.0], torch.float32))]
+    out = cs.voxel_scatter(*one, B, H, W, route=route)
+    assert float(out[0, 4, 3]) == 0.5 and float(out[B - 1, 4, 3]) == 0.5
+    assert float(out.sum()) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["vector", "direct"])
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 5, 9])
+def test_flat_routes_match_plain(cuda, gen, route, D):
+    """Row counts on either side of a float4, ids outside the range mixed
+    in, ids whose weights are all zero or partly zero, a bucket count that
+    is odd; one row has only the direct route."""
+    from event_utils_tpu_torch.errors import ConfigurationError
+    nb, n = 181 * 241, 60_001
+    idx = torch.as_tensor(gen.integers(-5, nb + 5, n), dtype=torch.int32,
+                          device=cuda)
+    idx[::17] = -1
+    idx[5::19] = nb
+    w = torch.as_tensor(gen.normal(size=(D, n)), dtype=torch.float32,
+                        device=cuda)
+    w[:, ::3] = 0.0
+    w[0, 1::3] = 0.0
+    if D > 2:
+        w[D - 1] = 0.0
+    if D == 1 and route == "vector":
+        with pytest.raises(ConfigurationError):
+            cs.flat_scatter(idx, w, nb, route=route)
+        return
+    before = cs.launch_counts()[f"flat_scatter:{route}"]
+    got = cs.flat_scatter(idx, w, nb, route=route)
+    assert cs.launch_counts()[f"flat_scatter:{route}"] == before + 1
+    assert got.shape == (D, nb) and got.is_contiguous()
+    assert_rel(got, cs.flat_scatter_plain(idx, w, nb))
+    bad = torch.tensor([-1, nb, nb + 3], dtype=torch.int32, device=cuda)
+    assert float(cs.flat_scatter(bad, torch.ones(D, 3, device=cuda), nb,
+                                 route=route).abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_voxel_and_flat_routes_are_chosen_by_shape(cuda, gen):
+    """Without ``route=`` a call launches the route that ``voxel_route`` /
+    ``flat_route`` name for its shape, on both sides of the thresholds."""
+    B, H, W = 5, 180, 240
+    for n in (4096, 300_000):
+        args = cs.voxel_inputs(*_voxel_stream(cuda, gen, n, H, W), B, (H, W))
+        name = f"voxel_scatter:{cs.voxel_route(n, B, H, W)}"
+        assert name.endswith("vector" if n > 4096 else "direct")
+        before = cs.launch_counts()[name]
+        assert_rel(cs.voxel_scatter(*args, B, H, W),
+                   cs.voxel_scatter_plain(*args, B, H, W))
+        assert cs.launch_counts()[name] == before + 1
+    nb = H * W
+    for D, n in ((1, 300_000), (2, 4096), (2, 300_000), (4, 100_000)):
+        idx = torch.as_tensor(gen.integers(0, nb, n), dtype=torch.int32,
+                              device=cuda)
+        w = torch.randn(D, n, device=cuda)
+        name = f"flat_scatter:{cs.flat_route(D, n, nb)}"
+        assert name.endswith("vector" if D > 1 and n > 4096 else "direct")
+        before = cs.launch_counts()[name]
+        assert_rel(cs.flat_scatter(idx, w, nb),
+                   cs.flat_scatter_plain(idx, w, nb))
+        assert cs.launch_counts()[name] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["vector", "direct"])
+def test_voxel_and_flat_gradients_through_each_route(cuda, gen, route,
+                                                     monkeypatch):
+    """``voxel_matmul`` and ``scatter_add_flat_cuda`` with the kernel of
+    either route as forward: the gradients of autograd through the plain
+    versions."""
+    monkeypatch.setattr(cs, "voxel_route", lambda *a: route)
+    monkeypatch.setattr(cs, "flat_route", lambda *a: route)
+    n, B, H, W = 20_000, 5, 40, 60
+    xs, ys, ts, ps = _voxel_stream(cuda, gen, n, H, W)
+    tgt = torch.randn(B, H, W, device=cuda)
+    grads = []
+    for plain in (False, True):
+        tt = ts.clone().requires_grad_(True)
+        pt = ps.clone().requires_grad_(True)
+        before = cs.launch_counts()[f"voxel_scatter:{route}"]
+        if plain:
+            out = cs.voxel_scatter_plain(*cs.voxel_inputs(
+                xs, ys, tt, pt, B, (H, W), t0=0.1, t1=0.8), B, H, W)
+        else:
+            out = cs.voxel_matmul(xs, ys, tt, pt, B, (H, W), t0=0.1, t1=0.8)
+            assert (cs.launch_counts()[f"voxel_scatter:{route}"]
+                    == before + 1)
+        grads.append(torch.autograd.grad((out * tgt).sum(), (tt, pt)))
+    nb = 700
+    idx = torch.as_tensor(gen.integers(-5, nb + 5, n), dtype=torch.int32,
+                          device=cuda)
+    w = torch.randn(3, n, device=cuda)
+    g = torch.randn(3, nb, device=cuda)
+    for fn in (cs.scatter_add_flat_cuda, cs.flat_scatter_plain):
+        wt = w.clone().requires_grad_(True)
+        grads[fn is cs.flat_scatter_plain] += torch.autograd.grad(
+            (fn(idx, wt, nb) * g).sum(), (wt,))
+    for a, b in zip(*grads):
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * max(float(b.abs().max()), 1.0), err
