@@ -54,19 +54,48 @@
    Every route that some shape is sent to must have launched during this
    phase, and each voxel and flat call must have taken the route that
    ``voxel_route`` / ``flat_route`` name for its shape.
-4. Times the tiled route and its host bucketing alone, warm, and prints
+4. The serving path, with the launch counts set to 0 again first: a
+   recording made here from ``SEED`` (128x128, the sensor of the committed
+   weights; 2 s of a textured plane under the similarity motion of the
+   seed-91 flow recording, v = (24, -15) px/s, omega = 4 rad/s, divergence
+   0.35 about the centre; log-intensity crossings at C = 0.15, >= 10^6
+   events; 21 frames at 0, 0.1, ..., 2 s, so 20 ``between_frames``
+   windows, the first empty as in the simulator's recordings, each frame
+   with the analytic flow) written by the port's ``memmap_packager``; then
+   the port's ``infer_flow`` with ``runs/flow128_similarity/params.npz``
+   (``--eval_gt --batch_size 8``) on the card under
+   ``set_default_impl('pallas')``, again under ``'xla'``, and on the CPU,
+   and ``reconstruct`` with ``runs/recon128v2/params.npz`` on the card
+   (``'pallas'``) and on the CPU. Every 'pallas' run on the card must
+   launch ``flat_scatter:direct`` exactly twice per window (the positive
+   and the negative grid) and nothing else; the card's flows must agree
+   with the CPU's to 1e-3 of max|flow|, its frames to 1e-3 after all 20
+   recurrent windows, the 'pallas' voxel grids with the 'xla' ones to 1e-5
+   of their scale. AEE, PSNR and SSIM are printed, not gated (the scene is
+   not the simulator's). Then ``flat_scatter:direct`` at one window's
+   shape against its plain version (a case of its record), and warm
+   timings: windows/s of each CLI, the dataset's host ms per window and
+   one window's two grids alone (from host arrays and from card tensors),
+   each with the flat kernel and with ``index_add_`` in turns, the
+   networks' device ms per batch (CUDA events), and each CLI's device idle
+   share (``torch.profiler`` busy time over the unprofiled warm wall).
+5. Times the tiled route and its host bucketing alone, warm, and prints
    the bucketing's share of the route's wall.
 
-Prints a ``{"kernels": [...]}`` JSON line (one entry per route), then the
-card line, and last ``{"ok": true, "device": {...}}``. Any failure raises
-and exits non-zero; so does a machine without a CUDA device.
+Prints a ``{"serving": {...}}`` JSON line, a ``{"kernels": [...]}`` line
+(one entry per route; ``launches`` counts the contrast-maximisation path,
+``launches_serving`` the serving path), then the card line, and last
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,6 +122,24 @@ ROT_CAPACITY = 2048
 ROT_MAXITER = 30
 FLOW_ERR_LIMIT = 4.5         # px/s, all-ROI median against the field
 TILED_REPS = 5               # warm calls timed per route for the share
+# The serving scene: the motion of the seed-91 similarity recording that
+# scores the committed flow weights (runs/flow128_similarity/README.md)
+SERVE_SENSOR = (128, 128)    # the sensor both committed models were trained on
+SERVE_SECONDS = 2.0
+SERVE_FRAMES = 21            # frames at 0, 0.1, ..., 2 s: 20 windows, the
+                             # first one (before frame 0) empty
+SERVE_RENDER_HZ = 1000.0     # log-intensity samples per second
+SERVE_C = 0.15               # contrast threshold, log units
+SERVE_V = (24.0, -15.0)      # px/s
+SERVE_OMEGA = 4.0            # rad/s about the sensor centre
+SERVE_DIV = 0.35             # 1/s about the sensor centre
+SERVE_MIN_EVENTS = 1_000_000
+SERVE_TIMED = 10             # CUDA-event-timed network calls (median)
+SERVE_PASSES = 10            # timed passes per scatter route (in turns)
+SERVE_GRID_CALLS = 20        # calls per timed pass of one window's grids
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FLOW_PARAMS = os.path.join(ROOT, "runs", "flow128_similarity", "params.npz")
+RECON_PARAMS = os.path.join(ROOT, "runs", "recon128v2", "params.npz")
 SRC = "event_utils_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
     "voxel_scatter": "event_utils_tpu/ops/pallas_scatter.py:113",
@@ -792,6 +839,54 @@ def voxel_phase(torch, cs, rng, records):
                 for c in (big, small)])
 
 
+def flat_library(torch, idx, wts, buckets):
+    """One ``index_put_(accumulate=True)`` computing the flat scatter;
+    dropped ids are left out, as for the bilinear library call."""
+    D, m = wts.shape
+    ok = ((idx >= 0) & (idx < buckets))[None, :].expand(D, m)
+    lid = (torch.arange(D, device=idx.device)[:, None] * buckets
+           + idx.long()[None, :])[ok]
+    lv = wts[ok]
+    return lambda: torch.zeros(D * buckets, device=idx.device).index_put_(
+        (lid,), lv, accumulate=True)
+
+
+def flat_case(torch, cs, label, idx, wts, buckets, errs, time=True):
+    """The flat kernel's routes for this shape against the plain version
+    (errors appended to ``errs[route]``), and, with ``time``, each timed
+    beside the plain version, the library call and the bound."""
+    D, m = wts.shape
+    ref = cs.flat_scatter_plain(idx, wts, buckets)
+    routes = ("vector", "direct") if D > 1 else ("direct",)
+    shape = f"D={D}, {m} ids ({label}) into {buckets} buckets"
+    shared = dict(shape=shape)
+    if time:
+        shared.update(
+            plain_ms=time_ms(lambda: cs.flat_scatter_plain(idx, wts,
+                                                           buckets),
+                             torch),
+            library_ms=time_ms(flat_library(torch, idx, wts, buckets),
+                               torch),
+            bound=bound(m * 4 + D * m * 4 + D * buckets * 4, D * m))
+    out = {}
+    for r in routes:
+        err = check_close(f"flat_scatter:{r} ({shape})",
+                          cs.flat_scatter(idx, wts, buckets, route=r), ref)
+        errs.setdefault(r, []).append(err)
+        out[r] = dict(shared, max_abs_err=err)
+        if time:
+            out[r]["ms"] = time_ms(lambda: cs.flat_scatter(
+                idx, wts, buckets, route=r), torch)
+    if time:
+        log(f"  timed: " + ", ".join(
+            f"{r} {out[r]['ms']:.4f} ms" for r in routes)
+            + f", plain {shared['plain_ms']:.4f} ms, index_put_ "
+            f"{shared['library_ms']:.4f} ms, bound "
+            f"{shared['bound'][0]:.5f} ms; the dispatch takes "
+            f"{cs.flat_route(D, m, buckets)}")
+    return out
+
+
 def flat_phase(torch, cs, rng, records, x, y, w):
     """The flat kernel's two routes against the plain version: the D=2
     derivative stack of the events (x, y, w) into 181x241, the same with
@@ -802,47 +897,8 @@ def flat_phase(torch, cs, rng, records, x, y, w):
     nb = (H + 1) * (W + 1)
     errs = {"vector": [], "direct": []}
 
-    def library(idx, wts, buckets):
-        D, m = wts.shape
-        # dropped ids are left out, as for the bilinear library call
-        ok = ((idx >= 0) & (idx < buckets))[None, :].expand(D, m)
-        lid = (torch.arange(D, device=dev)[:, None] * buckets
-               + idx.long()[None, :])[ok]
-        lv = wts[ok]
-        return lambda: torch.zeros(D * buckets, device=dev).index_put_(
-            (lid,), lv, accumulate=True)
-
     def case(label, idx, wts, buckets, time=True):
-        D, m = wts.shape
-        ref = cs.flat_scatter_plain(idx, wts, buckets)
-        routes = ("vector", "direct") if D > 1 else ("direct",)
-        shape = f"D={D}, {m} ids ({label}) into {buckets} buckets"
-        shared = dict(shape=shape)
-        if time:
-            shared.update(
-                plain_ms=time_ms(lambda: cs.flat_scatter_plain(idx, wts,
-                                                               buckets),
-                                 torch),
-                library_ms=time_ms(library(idx, wts, buckets), torch),
-                bound=bound(m * 4 + D * m * 4 + D * buckets * 4, D * m))
-        out = {}
-        for r in routes:
-            err = check_close(f"flat_scatter:{r} ({shape})",
-                              cs.flat_scatter(idx, wts, buckets, route=r),
-                              ref)
-            errs[r].append(err)
-            out[r] = dict(shared, max_abs_err=err)
-            if time:
-                out[r]["ms"] = time_ms(lambda: cs.flat_scatter(
-                    idx, wts, buckets, route=r), torch)
-        if time:
-            log(f"  timed: " + ", ".join(
-                f"{r} {out[r]['ms']:.4f} ms" for r in routes)
-                + f", plain {shared['plain_ms']:.4f} ms, index_put_ "
-                f"{shared['library_ms']:.4f} ms, bound "
-                f"{shared['bound'][0]:.5f} ms; the dispatch takes "
-                f"{cs.flat_route(D, m, buckets)}")
-        return out
+        return flat_case(torch, cs, label, idx, wts, buckets, errs, time)
 
     fi, fw = derivative_stack(torch, x, y, w, (H + 1, W + 1))
     stack = case("derivative stack", fi, fw, nb)
@@ -1123,6 +1179,386 @@ def roi_path(torch, P, rng, timed):
         raise AssertionError(f"grid_cmax: {params} over {rois}")
 
 
+# ---------------------------------------------------------------------------
+# Serving: recording -> dataset -> voxel grid -> EV-FlowNet / E2VID
+# ---------------------------------------------------------------------------
+
+def serving_texture(rng, size, octaves=3, contrast=0.9):
+    """Smooth random intensity in [1 - contrast, 1]: bilinearly upsampled
+    random grids of 16, 32 and 64 cells over ``size`` px, the finer ones
+    weighted 1.5x each, so that the scene crosses 10^6 events."""
+    from scipy.ndimage import map_coordinates
+    acc = np.zeros((size, size))
+    amp, total = 1.0, 0.0
+    for o in range(octaves):
+        g = max(2, size // 2 ** (octaves - o + 1))
+        grid = rng.uniform(size=(g + 1, g + 1))
+        c = np.linspace(0, g, size)
+        yy, xx = np.meshgrid(c, c, indexing="ij")
+        acc += amp * map_coordinates(grid, [yy, xx], order=1)
+        total += amp
+        amp *= 1.5
+    acc /= total
+    unit = (acc - acc.min()) / max(acc.max() - acc.min(), 1e-6)
+    return (1 - contrast) + contrast * unit
+
+
+def serving_scene(rng):
+    """Events, frames and ground-truth flow of a textured plane under the
+    similarity motion u(x) = v + s (x - c) + omega J (x - c) about the
+    sensor centre c (a stationary field: the same flow at every frame).
+
+    The intensity at pixel p and time t is the texture at the point the
+    flow carries to p, ``c' + exp(-A t) (p - c')`` with ``A = [[s, -w],
+    [w, s]]`` and ``c' = c - A^-1 v``. Events are the crossings of the log
+    intensity (``log(I + 1e-3)``) through levels ``C`` apart from each
+    pixel's last event, sampled at SERVE_RENDER_HZ, each stamped at its
+    linear-interpolated crossing time."""
+    from scipy.ndimage import map_coordinates
+    H, W = SERVE_SENSOR
+    canvas = 2 * max(H, W)
+    tex = serving_texture(rng, canvas)
+    s, w = SERVE_DIV, SERVE_OMEGA
+    c = np.array([(W - 1) / 2.0, (H - 1) / 2.0])
+    A = np.array([[s, -w], [w, s]])
+    cp = c - np.linalg.solve(A, np.array(SERVE_V))
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    dx, dy = (xx - c[0]).astype(np.float32), (yy - c[1]).astype(np.float32)
+    flow = np.stack([SERVE_V[0] + s * dx - w * dy,
+                     SERVE_V[1] + w * dx + s * dy]).astype(np.float32)
+    px, py = xx.ravel() - cp[0], yy.ravel() - cp[1]
+    off = (canvas - np.array([W, H])) / 2.0
+
+    def intensity(t):
+        e, ca, sa = np.exp(-s * t), np.cos(w * t), np.sin(w * t)
+        x0 = cp[0] + e * (ca * px + sa * py) + off[0]
+        y0 = cp[1] + e * (-sa * px + ca * py) + off[1]
+        return map_coordinates(tex, [y0, x0], order=1, mode="reflect")
+
+    steps = int(round(SERVE_SECONDS * SERVE_RENDER_HZ))
+    prev = np.log(intensity(0.0) + 1e-3)
+    ref = prev.copy()
+    chunks = []
+    for k in range(1, steps + 1):
+        cur = np.log(intensity(k / SERVE_RENDER_HZ) + 1e-3)
+        d = cur - ref
+        n = np.floor(np.abs(d) / SERVE_C).astype(np.int64)
+        hit = np.nonzero(n)[0]
+        if len(hit):
+            reps = n[hit]
+            pix = np.repeat(hit, reps)
+            j = (np.arange(reps.sum())
+                 - np.repeat(np.cumsum(reps) - reps, reps) + 1)
+            sign = np.sign(d[pix])
+            level = ref[pix] + sign * j * SERVE_C
+            frac = np.clip((level - prev[pix]) / (cur[pix] - prev[pix]), 0, 1)
+            t = (k - 1 + frac) / SERVE_RENDER_HZ
+            order = np.argsort(t, kind="stable")
+            chunks.append((pix[order], t[order], sign[order]))
+            ref[hit] += np.sign(d[hit]) * reps * SERVE_C
+        prev = cur
+    pix = np.concatenate([ch[0] for ch in chunks])
+    frame_ts = np.linspace(0.0, SERVE_SECONDS, SERVE_FRAMES)
+    frames = np.stack([np.clip(intensity(t).reshape(H, W) * 255, 0, 255)
+                       .astype(np.uint8) for t in frame_ts])
+    return ((pix % W).astype(np.int16), (pix // W).astype(np.int16),
+            np.concatenate([ch[1] for ch in chunks]),
+            np.concatenate([ch[2] for ch in chunks]), frame_ts, frames, flow)
+
+
+def write_serving_recording(path, rng):
+    """The serving scene as a memmap recording, through the port's
+    ``memmap_packager``; returns the event count."""
+    from event_utils_tpu_torch.data_formats import memmap_packager
+    xs, ys, ts, ps, frame_ts, frames, flow = serving_scene(rng)
+    if len(xs) < SERVE_MIN_EVENTS:
+        raise AssertionError(f"serving scene: {len(xs)} events")
+    with memmap_packager(path) as pk:
+        pk.package_events(xs, ys, ts, ps)
+        for i, (ft, fr) in enumerate(zip(frame_ts, frames)):
+            pk.package_image(fr, float(ft), i)
+            pk.package_flow(flow, float(ft), i)
+        pk.add_metadata(len(xs), int((ps > 0).sum()), int((ps <= 0).sum()),
+                        ts[-1] - ts[0], ts[0], ts[-1], len(frames),
+                        len(frames), sensor_size=SERVE_SENSOR)
+    return len(xs)
+
+
+def device_busy(torch, fn):
+    """Device busy seconds of ``fn`` (the card's kernel, memset and memcpy
+    times under ``torch.profiler``) and its five largest device entries."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = per.get(e.name, (0.0, 0))
+            per[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy = sum(us for us, _ in per.values()) * 1e-6
+    if not busy > 0:
+        raise AssertionError("the profiler recorded no device time")
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:5]
+    return busy, [[k[:60], round(us * 1e-3, 4), n] for k, (us, n) in top]
+
+
+def voxel_flat_ids(torch, xs, ys, ts, ws, B, H, W):
+    """The (ids, weights) that ``events_to_voxel`` sends to the flat
+    scatter for one grid: two temporal taps per event, dropped taps -1."""
+    t_norm = (ts - ts[0]) / torch.where(ts[-1] > ts[0], ts[-1] - ts[0],
+                                        1.0) * (B - 1)
+    b0 = torch.floor(t_norm)
+    fb = t_norm - b0
+    px = ys.long() * W + xs.long()
+    ids, wts = [], []
+    for ib, wb in ((b0.long(), 1.0 - fb), (b0.long() + 1, fb)):
+        ok = (ib >= 0) & (ib < B)
+        ids.append(torch.where(ok, ib * (H * W) + px, -1))
+        wts.append(ws * wb)
+    return (torch.cat(ids).to(torch.int32).contiguous(),
+            torch.cat(wts)[None].contiguous())
+
+
+def serving_phase(torch, cs, records):
+    """The serving path through the port's CLIs on the serving scene, with
+    its own launch counts; then the checks, one kernel case at its shape,
+    and warm timings. Returns what it measured."""
+    from event_utils_tpu_torch.cli import infer_flow, reconstruct
+    from event_utils_tpu_torch.data_loaders import MemMapDataset
+    from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
+    from event_utils_tpu_torch.representations import events_to_neg_pos_voxel
+    from event_utils_tpu_torch.training import (FlowTrainer,
+                                                ReconstructionTrainer)
+    H, W = SERVE_SENSOR
+    direct = "flat_scatter:direct"
+    out = {}
+    prev_impl = get_default_impl()
+    with tempfile.TemporaryDirectory(prefix=".smoke_serving_",
+                                     dir=ROOT) as work:
+        rec = os.path.join(work, "recording")
+        t0 = time.perf_counter()
+        out["events"] = write_serving_recording(rec,
+                                                np.random.default_rng(SEED))
+        log(f"serving: {out['events']} events at {SERVE_SENSOR}, "
+            f"{SERVE_SECONDS} s, {SERVE_FRAMES} frames, v={SERVE_V}, "
+            f"omega={SERVE_OMEGA}, div={SERVE_DIV}, C={SERVE_C}; made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        flow_args = [rec, "--params", FLOW_PARAMS, "--method",
+                     "between_frames", "--eval_gt", "--batch_size", "8",
+                     "--no_window_cache"]
+        recon_args = [rec, "--params", RECON_PARAMS, "--eval_gt", "--npy",
+                      "--no_window_cache"]
+
+        def run(cli, args, name, impl, device):
+            set_default_impl(impl)
+            dest = os.path.join(work, name)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            summary = cli.main(args + ["--output_dir", dest, "--device",
+                                       device])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            set_default_impl(prev_impl)
+            if summary["windows"] != SERVE_FRAMES - 1:
+                raise AssertionError(f"{name}: {summary['windows']} windows")
+            log(f"  {name}: {summary['windows']} windows in {wall:.3f} s, "
+                f"launches so far {cs.launch_counts()[direct]}")
+            return dest, summary, wall
+
+        # the serving path: counts set to 0 just before it, read after it
+        cs.reset_launch_counts()
+        runs, expect = {}, 0
+        for cli, args, name, impl, device in (
+                (infer_flow, flow_args, "flow_pallas_cuda", "pallas",
+                 "cuda"),
+                (infer_flow, flow_args, "flow_xla_cuda", "xla", "cuda"),
+                (infer_flow, flow_args, "flow_cpu", "xla", "cpu"),
+                (reconstruct, recon_args, "recon_pallas_cuda", "pallas",
+                 "cuda"),
+                (reconstruct, recon_args, "recon_cpu", "xla", "cpu")):
+            runs[name] = run(cli, args, name, impl, device)
+            if impl == "pallas" and device == "cuda":
+                # one grid per window, two scatters (positive, negative)
+                expect += 2 * (SERVE_FRAMES - 1)
+            got = cs.launch_counts()
+            if got[direct] != expect or sum(got.values()) != expect:
+                raise AssertionError(f"{name}: launches {got}, expected "
+                                     f"{direct} {expect} and nothing else")
+        launches = cs.launch_counts()
+        log(f"serving-path launches: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+
+        def fields(name, prefix):
+            files = sorted(f for f in os.listdir(runs[name][0])
+                           if f.startswith(prefix) and f.endswith(".npy"))
+            return np.stack([np.load(os.path.join(runs[name][0], f))
+                             for f in files])
+
+        flows = {k: fields(k, "flow_") for k in
+                 ("flow_pallas_cuda", "flow_xla_cuda", "flow_cpu")}
+        ref = flows["flow_cpu"]
+        scale = float(np.abs(ref).max())
+        if not (np.isfinite(ref).all() and scale > 0
+                and ref.shape == (SERVE_FRAMES - 1, 2, H, W)):
+            raise AssertionError(f"flows {ref.shape}, max|flow| {scale}")
+        for k in ("flow_pallas_cuda", "flow_xla_cuda"):
+            err = float(np.abs(flows[k] - ref).max())
+            log(f"  {k} vs flow_cpu: max|err| {err:.3e} of max|flow| "
+                f"{scale:.3e}")
+            if not err <= 1e-3 * scale:
+                raise AssertionError(f"{k}: flow off the CPU run by {err}")
+        frames = {k: np.load(os.path.join(runs[k][0], "frames.npy"))
+                  for k in ("recon_pallas_cuda", "recon_cpu")}
+        ferr = np.abs(frames["recon_pallas_cuda"]
+                      - frames["recon_cpu"]).reshape(SERVE_FRAMES - 1, -1)
+        log(f"  reconstruction card vs CPU: max|err| {ferr.max():.3e}, "
+            f"after window 20 {ferr[-1].max():.3e}")
+        if not (np.isfinite(frames["recon_cpu"]).all()
+                and ferr.max() <= 1e-3):
+            raise AssertionError(f"reconstruction off the CPU run by "
+                                 f"{ferr.max()}")
+        mf = runs["flow_pallas_cuda"][1]["metrics"]
+        mr = runs["recon_pallas_cuda"][1]["metrics"]
+        for k, v in (("aee_px_s", mf["aee_px_s"]),
+                     ("zero_flow_aee_px_s", mf["zero_flow_aee_px_s"]),
+                     ("psnr_db", mr["psnr_db"]), ("ssim", mr["ssim"])):
+            if not np.isfinite(v):
+                raise AssertionError(f"{k} = {v}")
+            out[k] = v
+        out["num_fields"] = mf["num_fields"]
+        log(f"  flow AEE {mf['aee_px_s']} px/s over {mf['num_fields']} "
+            f"informative windows (zero-flow {mf['zero_flow_aee_px_s']}); "
+            f"reconstruction PSNR {mr['psnr_db']} dB, SSIM {mr['ssim']} "
+            f"(steady {mr['psnr_steady_db']} / {mr['ssim_steady']}); no "
+            "gate: this scene is not the simulator's")
+
+        # the two cuda runs' voxel grids: 'pallas' against 'xla'
+        grids = {}
+        for impl in ("pallas", "xla"):
+            set_default_impl(impl)
+            with MemMapDataset(rec, device="cuda") as ds:
+                grids[impl] = [ds[i]["voxel"] for i in range(len(ds))]
+            set_default_impl(prev_impl)
+        for i, (a, b) in enumerate(zip(grids["pallas"], grids["xla"])):
+            check_close(f"voxel grid {i}, 'pallas' vs 'xla'",
+                        torch.as_tensor(a), torch.as_tensor(b))
+
+        # the flat kernel at the serving shape: the densest window's
+        # positive grid
+        with MemMapDataset(rec, device="cuda") as ds:
+            sizes = [i1 - i0 for i0, i1 in ds.event_indices[:len(ds)]]
+            i0, i1 = ds.get_event_indices(int(np.argmax(sizes)))
+            host_events = ds.get_events(i0, i1)
+            xs, ys, ts, ps = (torch.as_tensor(np.asarray(a, np.float32),
+                                              device="cuda")
+                              for a in host_events)
+        idx, wts = voxel_flat_ids(torch, xs, ys, ts, (ps > 0).float(), 5, H,
+                                  W)
+        errs = {}
+        case = flat_case(torch, cs, "one serving window's positive grid",
+                         idx, wts, 5 * H * W, errs)["direct"]
+        rec_direct = records[direct]
+        rec_direct["cases"].append(as_case(case))
+        rec_direct["max_abs_err"] = max(rec_direct["max_abs_err"],
+                                        case["max_abs_err"])
+        out["flat_case"] = as_case(case)
+
+        # warm timings (after the counted run). The dataset: every window
+        # fetched (voxelized and copied back), with the flat kernel and
+        # with index_add_, in turns; medians of SERVE_PASSES passes
+        walls = {"pallas": [], "xla": []}
+        with MemMapDataset(rec, device="cuda") as ds:
+            n = len(ds)
+            for impl in ("pallas", "xla", "xla", "pallas") * (
+                    SERVE_PASSES // 2):
+                set_default_impl(impl)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                batch = [ds[i]["voxel"] for i in range(n)]
+                walls[impl].append((time.perf_counter() - t) / n * 1e3)
+                set_default_impl(prev_impl)
+        out["dataset_ms_per_window"] = float(np.median(walls["pallas"]))
+        out["dataset_ms_per_window_xla"] = float(np.median(walls["xla"]))
+        # the densest window's two grids alone (the dataset's
+        # events_to_neg_pos_voxel call), from host arrays as the dataset
+        # passes them and from tensors already on the card: ms per call
+        grid_ms = {}
+        for where, ev in (("host", host_events), ("card", (xs, ys, ts, ps))):
+            for impl in ("pallas", "xla", "xla", "pallas") * (
+                    SERVE_PASSES // 2):
+                set_default_impl(impl)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(SERVE_GRID_CALLS):
+                    events_to_neg_pos_voxel(*ev, 5, sensor_size=SERVE_SENSOR,
+                                            device="cuda")
+                torch.cuda.synchronize()
+                grid_ms.setdefault(f"{where} events, {impl}", []).append(
+                    (time.perf_counter() - t) / SERVE_GRID_CALLS * 1e3)
+                set_default_impl(prev_impl)
+        out["grids_ms_per_window"] = {k: float(np.median(v))
+                                      for k, v in grid_ms.items()}
+        vox = torch.as_tensor(np.stack(batch[:8]), device="cuda")
+        flow_net = FlowTrainer(SERVE_SENSOR, device="cuda")
+        flow_net.load_params(FLOW_PARAMS)
+        recon_net = ReconstructionTrainer(
+            SERVE_SENSOR, model_kwargs={"recurrent_levels": 3,
+                                        "num_res_blocks": 2}, device="cuda")
+        recon_net.load_params(RECON_PARAMS)
+        for label, fn in (("flow_net_ms_per_batch8",
+                           lambda: flow_net.predict(vox)),
+                          ("recon_net_ms_per_chunk8",
+                           lambda: recon_net.reconstruct(vox[:, None]))):
+            fn()
+            ms = []
+            for _ in range(SERVE_TIMED):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+            out[label] = float(np.median(ms))
+        for name, cli, args in (("flow", infer_flow, flow_args),
+                                ("recon", reconstruct, recon_args)):
+            _, _, wall = run(cli, args, f"{name}_warm", "pallas", "cuda")
+            set_default_impl("pallas")
+            busy, top = device_busy(torch, lambda: cli.main(
+                args + ["--output_dir", os.path.join(work, f"{name}_prof"),
+                        "--device", "cuda"]))
+            set_default_impl(prev_impl)
+            out[f"{name}_windows_per_s"] = (SERVE_FRAMES - 1) / wall
+            out[f"{name}_wall_s"] = wall
+            out[f"{name}_device_busy_s"] = busy
+            out[f"{name}_idle_share"] = 1.0 - busy / wall
+            out[f"{name}_top_device"] = top
+    card = card_line()
+    log(f"serving timings ({card}): infer_flow "
+        f"{out['flow_windows_per_s']:.2f} windows/s (wall "
+        f"{out['flow_wall_s']:.3f} s, device busy "
+        f"{out['flow_device_busy_s']:.4f} s, idle share "
+        f"{out['flow_idle_share']:.3f}); reconstruct "
+        f"{out['recon_windows_per_s']:.2f} windows/s (wall "
+        f"{out['recon_wall_s']:.3f} s, busy {out['recon_device_busy_s']:.4f}"
+        f" s, idle {out['recon_idle_share']:.3f}); dataset "
+        f"{out['dataset_ms_per_window']:.2f} ms/window on the host "
+        f"('xla': {out['dataset_ms_per_window_xla']:.2f}); "
+        f"EV-FlowNet {out['flow_net_ms_per_batch8']:.3f} ms per batch of 8, "
+        f"E2VID {out['recon_net_ms_per_chunk8']:.3f} ms per 8 windows "
+        f"(device, CUDA events)")
+    log(f"  one window's two grids, ms per call (medians of {SERVE_PASSES} "
+        f"passes of {SERVE_GRID_CALLS}): "
+        + ", ".join(f"{k} {v:.3f}"
+                    for k, v in out["grids_ms_per_window"].items()))
+    log(f"  largest device entries: flow {out['flow_top_device']}; recon "
+        f"{out['recon_top_device']}")
+    out["card"] = card
+    return launches, out
+
+
 def bucketing_share(torch, rng):
     """Share of the tiled voxel route's wall that the host bucketing takes:
     warm medians over TILED_REPS calls of each, alternated, at VGA and
@@ -1195,6 +1631,7 @@ def main() -> int:
     if set(records) != routed:
         raise AssertionError(f"routes not held against their plain "
                              f"version: {routed ^ set(records)}")
+    serving_launches, serving = serving_phase(torch, cs, records)
     bucketing_share(torch, rng)
 
     kernels = []
@@ -1204,10 +1641,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SRC,
             "replaces": REPLACES[name.split(":")[0]],
             "launches": launches[name],
+            "launches_serving": serving_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": rec["library_ms"],
             **{k: rec[k] for k in ("shape", "cases") if k in rec}})
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,8 @@ def as_tensor(a, device: torch.device, dtype=None) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a if dtype is None or a.dtype == dtype else a.to(dtype)
     arr = np.asarray(a)
+    if not arr.flags.writeable:  # e.g. a memmap slice: torch needs a copy
+        arr = arr.copy()
     if dtype is None and np.issubdtype(arr.dtype, np.floating):
         dtype = torch.float32
     return torch.as_tensor(arr, device=device, dtype=dtype)

@@ -1,0 +1,8 @@
+"""Command-line entry points of the port (run on the card unless
+``--device cpu``):
+
+- ``python -m event_utils_tpu_torch.cli.infer_flow``   EV-FlowNet inference
+- ``python -m event_utils_tpu_torch.cli.reconstruct``  E2VID inference
+
+The JAX package's other CLIs are not ported yet.
+"""

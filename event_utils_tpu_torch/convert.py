@@ -1,14 +1,28 @@
-"""Carry the contrast-maximisation state across from the JAX package.
+"""Carry state across from the JAX package.
 
-This path has no learned weights: its state is the warp model and the
-objective with their knobs. ``warp_from_jax`` and ``objective_from_jax``
-build the port's counterpart of a JAX instance by reading its class name
-and its knobs — duck typing only, nothing of the JAX package is imported.
+- Contrast maximisation has no learned weights: its state is the warp
+  model and the objective with their knobs. ``warp_from_jax`` and
+  ``objective_from_jax`` build the port's counterpart of a JAX instance by
+  reading its class name and its knobs — duck typing only.
+- The learned models' weights: ``load_params_npz`` reads a ``params.npz``
+  written by the JAX package's ``training.checkpointing.save_params_npz``
+  (one array per flax tree path, plus ``__step__`` and
+  ``__model_json__``) into the port's ``EVFlowNet`` / ``E2VID``.
+
+Nothing of the JAX package is imported.
 """
 
 from __future__ import annotations
 
-from .errors import RegistryError
+import json
+import re
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .errors import DataFormatError, RegistryError
 from .models import objectives, warps
 
 # the knobs the JAX optimizers key their compiled losses on, plus the
@@ -38,3 +52,98 @@ def objective_from_jax(obj) -> objectives.objective_function:
         if hasattr(obj, knob):
             setattr(out, knob, getattr(obj, knob))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Learned weights: flax params.npz -> nn.Module
+# ---------------------------------------------------------------------------
+
+_PATH_PART = re.compile(r"\['([^'\]]+)'\]")
+_META_KEYS = ("__step__", "__model_json__")
+
+
+def flax_key_to_name(key: str) -> Tuple[str, bool]:
+    """``"['params']['_Encoder_0']['Conv_1']['kernel']"`` ->
+    ``("_Encoder_0.Conv_1.weight", True)``; the flag says the array is a
+    kernel (HWIO, to be transposed). The port's modules register their
+    submodules under flax's own auto-names (``models.networks``), so the
+    path carries over part for part; only the leaf is renamed."""
+    parts = _PATH_PART.findall(key)
+    if (len(parts) < 3 or parts[0] != "params"
+            or "".join(f"['{p}']" for p in parts) != key
+            or parts[-1] not in ("kernel", "bias")):
+        raise DataFormatError(f"not a flax conv parameter path: {key!r}")
+    leaf = "weight" if parts[-1] == "kernel" else "bias"
+    return ".".join(parts[1:-1] + [leaf]), parts[-1] == "kernel"
+
+
+def convert_flax_params(flat: Mapping[str, np.ndarray]
+                        ) -> Dict[str, torch.Tensor]:
+    """Flat flax parameters (``jax.tree_util.keystr`` path -> array) as a
+    state dict of the port's modules: kernels HWIO -> OIHW
+    (``permute(3, 2, 0, 1)``), biases unchanged, float32."""
+    out = {}
+    for key, arr in flat.items():
+        name, is_kernel = flax_key_to_name(key)
+        t = torch.tensor(np.asarray(arr, np.float32))
+        if is_kernel:
+            if t.dim() != 4:
+                raise DataFormatError(
+                    f"{key}: a conv kernel must be 4-D HWIO, got "
+                    f"{tuple(t.shape)}")
+            t = t.permute(3, 2, 0, 1)
+        out[name] = t.contiguous()
+    return out
+
+
+def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]
+                     ) -> nn.Module:
+    """Load flat flax parameters into ``model`` (on its device).
+
+    Raises ``DataFormatError`` on a parameter the model has and the file
+    lacks, on one the file has and the model lacks, and on a shape
+    mismatch — a partial load never happens."""
+    state = convert_flax_params(flat)
+    have = model.state_dict()
+    missing = sorted(set(have) - set(state))
+    surplus = sorted(set(state) - set(have))
+    if missing or surplus:
+        raise DataFormatError(
+            f"params do not fit {type(model).__name__}: missing {missing}, "
+            f"surplus {surplus}")
+    for name, t in state.items():
+        if tuple(t.shape) != tuple(have[name].shape):
+            raise DataFormatError(
+                f"{name}: saved shape {tuple(t.shape)} != model "
+                f"{tuple(have[name].shape)}")
+    model.load_state_dict(state)
+    return model
+
+
+def read_model_json_npz(path: str) -> dict:
+    """The ``__model_json__`` architecture sidecar of a ``params.npz``
+    (``{}`` for snapshots that predate it)."""
+    with np.load(path) as z:
+        if "__model_json__" not in z:
+            return {}
+        return json.loads(bytes(z["__model_json__"]).decode())
+
+
+def load_params_npz(model: nn.Module, path: str,
+                    model_kwargs: Optional[dict] = None) -> int:
+    """Load a JAX ``params.npz`` into ``model``; returns its ``__step__``.
+
+    ``model_kwargs``, when given, must equal the snapshot's
+    ``__model_json__`` (the architecture the weights were saved for), as
+    the JAX package's ``load_params_npz`` requires."""
+    with np.load(path) as z:
+        saved = (json.loads(bytes(z["__model_json__"]).decode())
+                 if "__model_json__" in z else {})
+        if model_kwargs is not None and saved != dict(model_kwargs):
+            raise DataFormatError(
+                f"params file was saved for model_kwargs={saved}, "
+                f"model has {dict(model_kwargs)}")
+        flat = {k: z[k] for k in z.files if k not in _META_KEYS}
+        step = int(z["__step__"]) if "__step__" in z else 0
+    load_flax_params(model, flat)
+    return step

@@ -1,4 +1,5 @@
-"""Motion models (warps) and contrast objectives."""
+"""Motion models (warps), contrast objectives, and the learned networks
+(EV-FlowNet, E2VID)."""
 
 from .warps import (  # noqa: F401
     WARP_REGISTRY,
@@ -24,4 +25,11 @@ from .objectives import (  # noqa: F401
     sosa_objective,
     variance_objective,
     zhu_timestamp_objective,
+)
+from .networks import (  # noqa: F401
+    E2VID,
+    ConvGRU,
+    EVFlowNet,
+    SameConv,
+    init_lecun_normal,
 )

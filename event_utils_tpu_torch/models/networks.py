@@ -1,0 +1,320 @@
+"""The learned models that consume voxel-grid batches: EV-FlowNet and E2VID.
+
+Port of the inference half of ``event_utils_tpu.models.networks`` (the
+flax modules) as ``torch.nn.Module``s:
+
+- ``EVFlowNet``  — encoder-decoder optical flow (Zhu et al.);
+- ``E2VID``      — recurrent encoder-decoder intensity reconstruction
+  (Rebecq et al.) with ConvGRU state.
+
+Both take ``(B, C, H, W)`` float32 voxel grids (C = 2*num_bins
+polarity-split or num_bins combined, what ``BaseVoxelDataset`` emits).
+
+Layout and names. Tensors are NCHW, so flax's channel-last concatenations
+and splits run on axis 1. Every module registers its submodules under the
+names flax gives them, in flax's creation order (``Conv_0``,
+``_Encoder_0``, ``ConvGRU_1``, ...), so a key of a JAX ``params.npz``
+names its parameter here directly (``convert.load_params_npz``).
+
+What differs from ``nn.Conv2d`` defaults, on purpose:
+
+- flax ``padding="SAME"`` pads ``(0, 1)`` for a stride-2 3x3 kernel on an
+  even input (nothing before, one after), where ``padding=1`` would pad
+  ``(1, 1)`` and shift every output by one pixel: ``SameConv`` computes
+  flax's padding per axis;
+- ``jax.image.resize(..., "bilinear")`` for the x2 upsampling samples at
+  half-pixel centres and renormalises at the borders, which is
+  ``F.interpolate(mode="bilinear", align_corners=False)`` with no
+  antialiasing;
+- weights are drawn from an explicit ``torch.Generator`` (flax's default
+  ``lecun_normal``: truncated normal of variance 1/fan_in; zero biases).
+
+The forward passes run inside ``_device.no_tf32()``: cuDNN would run f32
+convolutions in TF32 (~1e-3 relative) by default, and the reference is
+f32. Tolerance class: f32, ~1e-5 of the output's scale against the JAX
+package (accumulation order only).
+
+The losses (``contrast_flow_loss``, ``perceptual_distance``,
+``reconstruction_loss``) belong to training and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .._device import no_tf32
+from ..errors import ConfigurationError
+
+
+def _same_pads(n: int, kernel: int, stride: int):
+    """flax/XLA ``SAME`` padding of one axis: (before, after)."""
+    total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv(nn.Module):
+    """2-D convolution with flax's ``padding="SAME"`` (``nn.Conv``).
+
+    ``weight`` is OIHW, ``bias`` per output channel. Parameters start
+    empty; the owning model draws them (``init_lecun_normal``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
+                 stride: int = 1):
+        super().__init__()
+        self.kernel, self.stride = kernel, stride
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel, kernel))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def forward(self, x):
+        top, bottom = _same_pads(x.shape[-2], self.kernel, self.stride)
+        left, right = _same_pads(x.shape[-1], self.kernel, self.stride)
+        if top == bottom and left == right:
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            (top, left))
+        return F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight,
+                        self.bias, self.stride)
+
+
+def init_lecun_normal(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Draw every ``SameConv`` of ``model`` as flax's default does:
+    kernels from a truncated normal (+-2 sigma) of variance 1/fan_in,
+    biases zero. One ``torch.Generator`` seeded by ``seed``, modules in
+    registration order. The draws are not flax's (Threefry bits are not
+    reproducible in torch); load JAX weights with ``convert`` for parity."""
+    g = torch.Generator(device="cpu").manual_seed(int(seed))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SameConv):
+                fan_in = m.weight.shape[1] * m.kernel * m.kernel
+                # std of the unit normal truncated at +-2 sigma
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                w = torch.empty(m.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                      generator=g)
+                m.weight.copy_(w)
+                m.bias.zero_()
+    return model
+
+
+def _check_divisible(hw, depth, name):
+    """Fail loudly on spatial dims the stride-2 pyramid cannot round-trip —
+    otherwise the decoder would drop skip connections and return a
+    differently-shaped output."""
+    H, W = int(hw[0]), int(hw[1])
+    d = 2 ** depth
+    if H % d or W % d:
+        raise ConfigurationError(
+            f"{name}: input {H}x{W} not divisible by 2^depth={d}; pad with "
+            "utils.util.CropParameters first")
+
+
+def _upsample2x(x):
+    return F.interpolate(x, size=(2 * x.shape[-2], 2 * x.shape[-1]),
+                         mode="bilinear", align_corners=False)
+
+
+class ConvGRU(nn.Module):
+    """Convolutional GRU cell (the E2VID recurrent state)."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.features = features
+        self.Conv_0 = SameConv(in_channels + features, 2 * features)
+        self.Conv_1 = SameConv(in_channels + features, features)
+
+    def forward(self, h, x):
+        if h is None:
+            h = x.new_zeros((x.shape[0], self.features) + x.shape[2:])
+        zr = torch.sigmoid(self.Conv_0(torch.cat([x, h], 1)))
+        z, r = zr.chunk(2, 1)
+        cand = torch.tanh(self.Conv_1(torch.cat([x, r * h], 1)))
+        return (1 - z) * h + z * cand
+
+
+class _Encoder(nn.Module):
+    """Stride-2 conv + ReLU per level; every level's output is a skip."""
+
+    def __init__(self, in_channels: int, features: Sequence[int]):
+        super().__init__()
+        self.n = len(features)
+        for i, f in enumerate(features):
+            self.add_module(f"Conv_{i}", SameConv(in_channels, f, stride=2))
+            in_channels = f
+
+    def forward(self, x):
+        skips = []
+        for i in range(self.n):
+            x = F.relu(getattr(self, f"Conv_{i}")(x))
+            skips.append(x)
+        return x, skips
+
+
+class _ResBlock(nn.Module):
+    """Pre-activation residual conv block (E2VID bottleneck stack)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.Conv_0 = SameConv(features, features)
+        self.Conv_1 = SameConv(features, features)
+
+    def forward(self, x):
+        h = self.Conv_0(F.relu(x))
+        h = self.Conv_1(F.relu(h))
+        return x + h
+
+
+class _Decoder(nn.Module):
+    """x2 bilinear upsampling + conv + ReLU per level, each level
+    concatenated with the encoder's skip of its size, then one more x2
+    upsampling and the output conv.
+
+    ``skip_channels`` are the encoder's level widths, shallowest first.
+    The flax module concatenates a skip only when its size matches;
+    ``_check_divisible`` admits only inputs where every one matches, so
+    the port always concatenates."""
+
+    def __init__(self, in_channels: int, features: Sequence[int],
+                 out_channels: int, skip_channels: Sequence[int]):
+        super().__init__()
+        skips = list(reversed(list(skip_channels)[:-1]))
+        self.n = min(len(features), len(skips))
+        for i in range(self.n):
+            self.add_module(f"Conv_{i}", SameConv(in_channels, features[i]))
+            in_channels = features[i] + skips[i]
+        self.add_module(f"Conv_{self.n}", SameConv(in_channels, out_channels))
+
+    def forward(self, x, skips):
+        for i, skip in zip(range(self.n), reversed(skips[:-1])):
+            x = F.relu(getattr(self, f"Conv_{i}")(_upsample2x(x)))
+            x = torch.cat([x, skip], 1)
+        return getattr(self, f"Conv_{self.n}")(_upsample2x(x))
+
+
+def _features(base_features: int, depth: int):
+    return [base_features * (2 ** i) for i in range(depth)]
+
+
+class EVFlowNet(nn.Module):
+    """Encoder-decoder optical flow from voxel grids.
+
+    Input ``(B, in_channels, H, W)`` (H, W multiples of 2^depth — pad with
+    ``utils.util.CropParameters``); output ``(B, 2, H, W)`` flow (u, v) in
+    px/s. Submodules: ``_Encoder_0``, ``Conv_0`` (bottleneck),
+    ``_Decoder_0``.
+    """
+
+    def __init__(self, in_channels: int = 10, base_features: int = 32,
+                 depth: int = 3, seed: int = 0):
+        super().__init__()
+        self.depth = depth
+        feats = _features(base_features, depth)
+        self._Encoder_0 = _Encoder(in_channels, feats)
+        self.Conv_0 = SameConv(feats[-1], feats[-1])
+        self._Decoder_0 = _Decoder(
+            feats[-1], list(reversed(feats[:-1])) or [base_features], 2,
+            feats)
+        init_lecun_normal(self, seed)
+
+    def forward(self, voxel):
+        _check_divisible(voxel.shape[-2:], self.depth, "EVFlowNet")
+        with no_tf32():
+            x, skips = self._Encoder_0(voxel)
+            x = F.relu(self.Conv_0(x))
+            return self._Decoder_0(x, skips) * 10.0  # flow-scale init
+
+
+class E2VID(nn.Module):
+    """Recurrent intensity reconstruction from voxel grids.
+
+    ``forward(voxel, state) -> (image (B, 1, H, W) in [0, 1], state)``;
+    ``state=None`` starts a sequence from zeros. ``recurrent_levels`` 1
+    keeps one ConvGRU at the bottleneck (state: one tensor; submodules
+    ``_Encoder_0``, ``ConvGRU_0``, ``Conv_0``); ``k > 1`` adds a ConvGRU
+    after each of the ``k`` deepest encoder levels (state: a ``k``-tuple,
+    shallowest first; submodules ``Conv_0..depth-1`` for the encoder,
+    ``ConvGRU_0..k-1``, ``Conv_{depth}`` for the bottleneck).
+    ``num_res_blocks`` stacks ``_ResBlock_i`` at the bottleneck.
+    """
+
+    def __init__(self, in_channels: int = 10, base_features: int = 32,
+                 depth: int = 3, recurrent_levels: int = 1,
+                 num_res_blocks: int = 0, seed: int = 0):
+        super().__init__()
+        if not 1 <= recurrent_levels <= depth:
+            raise ConfigurationError(
+                f"E2VID: recurrent_levels={recurrent_levels} must be "
+                f"in [1, depth={depth}]")
+        self.depth = depth
+        self.recurrent_levels = recurrent_levels
+        self.num_res_blocks = num_res_blocks
+        feats = self.feats = _features(base_features, depth)
+        if recurrent_levels == 1:
+            self._Encoder_0 = _Encoder(in_channels, feats)
+            self.ConvGRU_0 = ConvGRU(feats[-1], feats[-1])
+        else:
+            first_rec = depth - recurrent_levels
+            ch = in_channels
+            for i, f in enumerate(feats):
+                self.add_module(f"Conv_{i}", SameConv(ch, f, stride=2))
+                if i >= first_rec:
+                    self.add_module(f"ConvGRU_{i - first_rec}",
+                                    ConvGRU(f, f))
+                ch = f
+        for i in range(num_res_blocks):
+            self.add_module(f"_ResBlock_{i}", _ResBlock(feats[-1]))
+        self.bottleneck = f"Conv_{0 if recurrent_levels == 1 else depth}"
+        self.add_module(self.bottleneck, SameConv(feats[-1], feats[-1]))
+        self._Decoder_0 = _Decoder(
+            feats[-1], list(reversed(feats[:-1])) or [base_features], 1,
+            feats)
+        init_lecun_normal(self, seed)
+
+    def state_shapes(self, batch: int, H: int, W: int):
+        """Shapes of the recurrent state for a ``(batch, C, H, W)`` input:
+        one shape for ``recurrent_levels`` 1, else a tuple of them."""
+        if self.recurrent_levels == 1:
+            d = 2 ** self.depth
+            return (batch, self.feats[-1], H // d, W // d)
+        first_rec = self.depth - self.recurrent_levels
+        return tuple((batch, f, H // 2 ** (i + 1), W // 2 ** (i + 1))
+                     for i, f in enumerate(self.feats) if i >= first_rec)
+
+    def zero_state(self, batch: int, H: int, W: int, device=None):
+        """All-zero initial state (what ``state=None`` starts from)."""
+        shapes = self.state_shapes(batch, H, W)
+        if self.recurrent_levels == 1:
+            return torch.zeros(shapes, device=device)
+        return tuple(torch.zeros(s, device=device) for s in shapes)
+
+    def forward(self, voxel, state=None):
+        _check_divisible(voxel.shape[-2:], self.depth, "E2VID")
+        with no_tf32():
+            if self.recurrent_levels == 1:
+                x, skips = self._Encoder_0(voxel)
+                state = self.ConvGRU_0(state, x)
+                bottleneck = state
+            else:
+                first_rec = self.depth - self.recurrent_levels
+                states_in = ((None,) * self.recurrent_levels
+                             if state is None else tuple(state))
+                x, skips, new_states = voxel, [], []
+                for i in range(self.depth):
+                    x = F.relu(getattr(self, f"Conv_{i}")(x))
+                    if i >= first_rec:
+                        j = i - first_rec
+                        x = getattr(self, f"ConvGRU_{j}")(states_in[j], x)
+                        new_states.append(x)
+                    skips.append(x)
+                state = tuple(new_states)
+                bottleneck = x
+            for i in range(self.num_res_blocks):
+                bottleneck = getattr(self, f"_ResBlock_{i}")(bottleneck)
+            x = F.relu(getattr(self, self.bottleneck)(bottleneck))
+            img = torch.sigmoid(self._Decoder_0(x, skips))
+        return img, state

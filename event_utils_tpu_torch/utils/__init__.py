@@ -1,4 +1,5 @@
-"""Event utilities: masks, clipping, windowing, search, hot-pixel removal."""
+"""Event utilities (masks, clipping, windowing, search, hot pixels), crop
+geometry, JSON and PNG helpers, and the image-quality metrics."""
 
 from .event_util import (  # noqa: F401
     binary_search_array,
@@ -14,3 +15,20 @@ from .event_util import (  # noqa: F401
     lifespan_mask,
     remove_hot_pixels,
 )
+from .util import (  # noqa: F401
+    CropParameters,
+    ensure_dir,
+    flow2bgr_np,
+    format_power,
+    gray_levels,
+    inf_loop,
+    normalize_image,
+    optimal_crop_size,
+    plot_image,
+    plot_image_grid,
+    read_json,
+    save_image,
+    write_gray_png,
+    write_json,
+)
+from .metrics import average_endpoint_error, psnr, ssim  # noqa: F401

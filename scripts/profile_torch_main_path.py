@@ -10,7 +10,15 @@ up, then once under ``torch.profiler``:
   ``optimize_contrast(grid_search_init=True)`` on the planted 200k-event
   DAVIS240 scene;
 - ``grid_cmax_batched`` on the rotating bench scene (the smoke's settings);
-- ``events_to_voxel_tiled`` at 720p on 2^21 events.
+- ``events_to_voxel_tiled`` at 720p on 2^21 events;
+- the serving path on the smoke's serving recording (128x128, 20
+  ``between_frames`` windows of >= 10^6 events, made by
+  ``chip_smoke.write_serving_recording``) under
+  ``set_default_impl('pallas')``: one batch of ``infer_flow`` (8 windows
+  fetched from ``MemMapDataset``, padded, and one EV-FlowNet call) and one
+  chunk of ``reconstruct`` (8 windows and 8 recurrent E2VID steps), with
+  the committed weights; the flow batch again under the default ``'xla'``
+  (``index_add_`` in place of the flat kernel).
 
 For each it prints one JSON line: host wall time, device busy time (sum of
 the card's kernel, memset and memcpy times), the device's idle share
@@ -26,6 +34,7 @@ import collections
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -110,15 +119,62 @@ def main() -> int:
     vx, vy = rng.integers(0, big[1], n), rng.integers(0, big[0], n)
     vt, vp = np.sort(rng.uniform(0, 0.5, n)), rng.choice([-1.0, 1.0], n)
     tiled = lambda: events_to_voxel_tiled(vx, vy, vt, vp, chip_smoke.B, big)
-    for label, fn in (("optimize_contrast_jit", jit),
-                      ("optimize_contrast", host),
-                      ("grid_cmax_batched", roi),
-                      ("events_to_voxel_tiled 720p", tiled)):
-        def counted():
-            cs.reset_launch_counts()
-            fn()
-        profile(torch, label, counted, evals)
+    phases = [("optimize_contrast_jit", jit), ("optimize_contrast", host),
+              ("grid_cmax_batched", roi), ("events_to_voxel_tiled 720p",
+                                           tiled)]
+    with tempfile.TemporaryDirectory(prefix=".profile_serving_",
+                                     dir=chip_smoke.ROOT) as work:
+        phases += serving_phases(torch, work)
+        for label, fn in phases:
+            def counted():
+                cs.reset_launch_counts()
+                fn()
+            profile(torch, label, counted, evals)
     return 0
+
+
+def serving_phases(torch, work):
+    """One warm batch of each serving CLI's loop, as (label, fn) pairs."""
+    import chip_smoke
+    from event_utils_tpu_torch.cli.reconstruct import _pad_to_multiple_hw
+    from event_utils_tpu_torch.data_loaders import MemMapDataset
+    from event_utils_tpu_torch.ops import set_default_impl
+    from event_utils_tpu_torch.training import (FlowTrainer,
+                                                ReconstructionTrainer)
+
+    rec = os.path.join(work, "recording")
+    chip_smoke.write_serving_recording(
+        rec, np.random.default_rng(chip_smoke.SEED))
+    ds = MemMapDataset(rec, device="cuda")
+    flow = FlowTrainer(chip_smoke.SERVE_SENSOR, device="cuda")
+    flow.load_params(chip_smoke.FLOW_PARAMS)
+    recon = ReconstructionTrainer(
+        chip_smoke.SERVE_SENSOR, model_kwargs={"recurrent_levels": 3,
+                                               "num_res_blocks": 2},
+        device="cuda")
+    recon.load_params(chip_smoke.RECON_PARAMS)
+
+    def windows(lo, hi):
+        return np.stack([_pad_to_multiple_hw(np.asarray(ds[i]["voxel"]))
+                         for i in range(lo, hi)])
+
+    def flow_batch():
+        flow.predict(windows(8, 16)).cpu()
+
+    def recon_chunk():
+        recon.reconstruct(windows(8, 16)[:, None])[0].cpu()
+
+    def with_impl(impl, fn):
+        def run():
+            set_default_impl(impl)
+            fn()
+        return run
+
+    return [("infer_flow batch (8 windows)", with_impl("pallas", flow_batch)),
+            ("infer_flow batch (8 windows), 'xla' default",
+             with_impl("xla", flow_batch)),
+            ("reconstruct chunk (8 windows)",
+             with_impl("pallas", recon_chunk))]
 
 
 if __name__ == "__main__":

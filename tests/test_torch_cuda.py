@@ -11,6 +11,8 @@ Tolerance: 1e-5 of the output's max |value| — float atomics change only
 the order of the f32 sums.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -443,3 +445,77 @@ def test_voxel_and_flat_gradients_through_each_route(cuda, gen, route,
     for a, b in zip(*grads):
         err = float((a - b).abs().max())
         assert err <= 1e-4 * max(float(b.abs().max()), 1.0), err
+
+
+# ---------------------------------------------------------------------------
+# The serving path on the card
+# ---------------------------------------------------------------------------
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.cuda
+def test_networks_on_the_card_match_the_cpu_in_full_f32(cuda, gen):
+    """EV-FlowNet and E2VID with the committed weights: the card's forward
+    (cuDNN, TF32 off inside the models) against the CPU's, and the TF32
+    flags restored after the call."""
+    from event_utils_tpu_torch.training import (FlowTrainer,
+                                                ReconstructionTrainer)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    x = np.abs(gen.normal(size=(3, 1, 10, 64, 64))).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        flow = FlowTrainer((64, 64), device=dev)
+        flow.load_params(os.path.join(_REPO, "runs", "flow128_similarity",
+                                      "params.npz"))
+        recon = ReconstructionTrainer(
+            (64, 64), model_kwargs={"recurrent_levels": 3,
+                                    "num_res_blocks": 2}, device=dev)
+        recon.load_params(os.path.join(_REPO, "runs", "recon128v2",
+                                       "params.npz"))
+        outs[dev] = (flow.predict(x[:, 0]).cpu(),
+                     recon.reconstruct(x)[0].cpu())
+    assert flags == (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+    for got, ref in zip(outs["cuda"], outs["cpu"]):
+        err = float((got - ref).abs().max())
+        assert err <= 1e-4 * max(float(ref.abs().max()), 1e-3), err
+
+
+@pytest.mark.cuda
+def test_dataset_grids_on_the_card_launch_the_flat_kernel(cuda, gen,
+                                                          tmp_path):
+    """Under the 'pallas' default a dataset on the card builds each
+    polarity-split grid with two ``flat_scatter:direct`` launches; the
+    grids equal the CPU's to 1e-5 of their scale."""
+    from event_utils_tpu_torch.data_formats import memmap_packager
+    from event_utils_tpu_torch.data_loaders import MemMapDataset
+    from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
+    H, W, n = 48, 64, 20_000
+    path = str(tmp_path / "rec")
+    ts = np.sort(gen.uniform(0, 1.0, n))
+    ps = gen.choice([-1, 1], n)
+    with memmap_packager(path) as pk:
+        pk.package_events(gen.integers(0, W, n), gen.integers(0, H, n), ts,
+                          ps)
+        for i, ft in enumerate((0.0, 0.3, 0.6, 0.9)):
+            pk.package_image(np.zeros((H, W), np.uint8), ft, i)
+        pk.add_metadata(n, int((ps > 0).sum()), int((ps <= 0).sum()),
+                        ts[-1] - ts[0], ts[0], ts[-1], 4, 0,
+                        sensor_size=(H, W))
+    prev = get_default_impl()
+    set_default_impl("pallas")
+    try:
+        with MemMapDataset(path, device="cuda") as card, \
+                MemMapDataset(path, device="cpu") as host:
+            for i in range(len(card)):
+                before = cs.launch_counts()["flat_scatter:direct"]
+                got = card[i]["voxel"]
+                assert cs.launch_counts()["flat_scatter:direct"] == \
+                    before + 2
+                ref = host[i]["voxel"]
+                err = float(np.abs(got - ref).max())
+                assert err <= 1e-5 * max(float(np.abs(ref).max()), 1.0)
+    finally:
+        set_default_impl(prev)

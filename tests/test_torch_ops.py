@@ -59,8 +59,10 @@ def float_events(rng, n=2000, sensor=SENSOR, margin=2.0):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, the ROI-bucketed path's entry points and
-    ``chip_smoke`` import without jax or the JAX package."""
+    """Every module of the port, the ROI-bucketed and serving paths' entry
+    points and ``chip_smoke`` import without jax or the JAX package, and
+    without the packages the card machine lacks (h5py, matplotlib, flax,
+    orbax: each is imported only by the function that needs it)."""
     code = ("import sys, pkgutil, importlib, event_utils_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -72,9 +74,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "    events_to_voxel_tiled, voxel_grids_fixed_n)\n"
             "from event_utils_tpu_torch.ops.cuda_scatter import (\n"
             "    voxel_tiles_scatter, voxel_tiles_scatter_plain)\n"
+            "from event_utils_tpu_torch.cli import infer_flow, reconstruct\n"
+            "from event_utils_tpu_torch.convert import load_params_npz\n"
+            "from event_utils_tpu_torch.data_formats import (\n"
+            "    hdf5_packager, memmap_packager, read_h5_events_dict)\n"
+            "from event_utils_tpu_torch.data_loaders import (\n"
+            "    DynamicH5Dataset, MemMapDataset, NpyDataset)\n"
+            "from event_utils_tpu_torch.models import E2VID, EVFlowNet\n"
+            "from event_utils_tpu_torch.training import (\n"
+            "    FlowTrainer, ReconstructionTrainer)\n"
+            "from event_utils_tpu_torch.transforms import warp_events_flow\n"
+            "from event_utils_tpu_torch.utils import (\n"
+            "    average_endpoint_error, flow2bgr_np, psnr, write_gray_png)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'event_utils_tpu.')) or "
-            "m == 'event_utils_tpu')\n"
+            "m == 'event_utils_tpu' or m.split('.')[0] in "
+            "('h5py', 'matplotlib', 'flax', 'orbax'))\n"
             "print(bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
