@@ -79,18 +79,45 @@
    each with the flat kernel and with ``index_add_`` in turns, the
    networks' device ms per batch (CUDA events), and each CLI's device idle
    share (``torch.profiler`` busy time over the unprofiled warm wall).
-5. Times the tiled route and its host bucketing alone, warm, and prints
+5. The published serving anchors, with the launch counts set to 0 again
+   first, everything under ``set_default_impl('pallas')``: the port's
+   ``simulate`` CLI makes the three recordings of the JAX simulator on the
+   card from the committed textures (seed 91, similarity, 2 s: 746,962
+   events, 162 dropped; seed 77, translate, 0.4 s and 1.0 s: 31,242 and
+   81,926), each held to JAX's event count and drops within 0.1% of the
+   count and its per-window counts within 0.5%; seed 91 again, warm, on
+   the card and on the CPU (events/s, and the card-vs-CPU difference in
+   events and per-window grids, printed); ``infer_flow`` with the flow
+   weights on seed 91 (AEE 27.114 +- 0.30 px/s, each of windows 1-19
+   within 1.0 of JAX's, zero-flow 196.634 +- 0.01); ``reconstruct`` on
+   the seed-77 recordings (steady 24.626 +- 0.10 dB / SSIM 0.8561 +-
+   0.003 at 8 windows, 25.212 / 0.8818 at 20); each serving CLI must
+   launch ``flat_scatter:direct`` exactly twice per window and nothing
+   else; ``eval_cmax --max_windows 4`` on seed 91 (median AEE within 1% of
+   52.523 px/s), which may launch only the patch routes; the
+   background-activity filter on the labelled 48x48 scene of
+   ``tests/test_denoise.py`` simulated on the card (signal recall > 0.95,
+   noise removal > 0.6). After the counts are read, the kernels at this
+   path's own shapes against their plain versions (cases of their
+   records): the inputs of the first call of every distinct shape that
+   ``eval_cmax`` sent to the patch splat (grid-search evaluations and
+   descent steps, kept during the run), and ``flat_scatter:direct`` on
+   the densest window's positive grid of each served recording.
+6. Times the tiled route and its host bucketing alone, warm, and prints
    the bucketing's share of the route's wall.
 
-Prints a ``{"serving": {...}}`` JSON line, a ``{"kernels": [...]}`` line
-(one entry per route; ``launches`` counts the contrast-maximisation path,
-``launches_serving`` the serving path), then the card line, and last
+Prints a ``{"serving": {...}}`` JSON line, a ``{"simulated_anchors":
+{...}}`` line (the gated numbers, walls and windows/s), a ``{"kernels":
+[...]}`` line (one entry per route; ``launches`` counts the
+contrast-maximisation path, ``launches_serving`` the serving path,
+``launches_sim`` the simulated anchors), then the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -140,6 +167,60 @@ SERVE_GRID_CALLS = 20        # calls per timed pass of one window's grids
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLOW_PARAMS = os.path.join(ROOT, "runs", "flow128_similarity", "params.npz")
 RECON_PARAMS = os.path.join(ROOT, "runs", "recon128v2", "params.npz")
+
+# The published serving anchors: recordings of the JAX simulator (commands
+# of runs/flow128_similarity/README.md:114-118 and runs/recon128v2/
+# README.md:10-14,32-37), served with the committed weights. The counts and
+# metrics below are the JAX package's on the CPU, run from the same
+# commands; the textures are JAX's, committed as data
+# (scripts/make_sim_textures.py), found by ``simulation.texture_path(seed)``.
+SIM_COMMON = ["--sensor", "128", "128", "--c_pos", "0.15", "--c_neg", "0.15",
+              "--octaves", "3", "--format", "memmap"]
+ANCHOR_SIMS = {
+    "flow91": {
+        "args": ["--scene", "similarity", "--velocity", "24", "-15",
+                 "--omega", "4.0", "--divergence", "0.35", "--duration",
+                 "2.0", "--fps", "100", "--frame_fps", "10", "--seed", "91"],
+        "seed": 91, "events": 746_962,
+        "dropped": 162,
+        "windows": [52503, 56094, 54106, 47078, 42403, 47547, 47160, 39620,
+                    35303, 36962, 37774, 34737, 30023, 30657, 29779, 27563,
+                    24726, 26858, 24213, 21856]},
+    "recon77_8": {
+        "args": ["--scene", "translate", "--velocity", "28", "-17",
+                 "--duration", "0.4", "--fps", "80", "--frame_fps", "20",
+                 "--seed", "77"],
+        "seed": 77, "events": 31_242, "dropped": 0,
+        "windows": [1378, 4093, 4338, 4308, 4409, 4184, 4342, 4190]},
+    "recon77_20": {
+        "args": ["--scene", "translate", "--velocity", "28", "-17",
+                 "--duration", "1.0", "--fps", "80", "--frame_fps", "20",
+                 "--seed", "77"],
+        "seed": 77, "events": 81_926, "dropped": 0,
+        "windows": [1378, 4093, 4338, 4308, 4409, 4184, 4342, 4190, 4242,
+                    4291, 4155, 4242, 4221, 4183, 4331, 4076, 4232, 4240,
+                    4212, 4259]},
+}
+EVENTS_REL = 1e-3            # event count and drops, of the event count
+WINDOW_REL = 5e-3            # per-window event counts
+FLOW_AEE = 27.114            # px/s over the 19 informative windows
+FLOW_AEE_TOL = 0.30
+FLOW_AEE_WINDOWS = [21.803, 24.402, 24.725, 22.558, 22.834, 27.759, 23.940,
+                    24.365, 20.007, 20.556, 28.681, 23.364, 23.646, 28.989,
+                    30.979, 31.114, 38.861, 36.430, 40.159]  # windows 1-19
+FLOW_WINDOW_TOL = 1.0
+FLOW_ZERO = 196.634
+FLOW_ZERO_TOL = 0.01
+RECON_STEADY = {"recon77_8": (24.626, 0.8561),   # PSNR dB, SSIM
+                "recon77_20": (25.212, 0.8818)}
+PSNR_TOL = 0.10
+SSIM_TOL = 0.003
+CMAX_MEDIAN = 52.523         # px/s, eval_cmax --max_windows 4 on flow91
+CMAX_REL_TOL = 0.01          # 0.525 px/s; the port read 52.679 on the CPU
+                             # and 52.715 on the H100
+CMAX_WINDOWS = 4
+BAF_RECALL = 0.95            # tests/test_denoise.py's limits
+BAF_REMOVAL = 0.6
 SRC = "event_utils_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
     "voxel_scatter": "event_utils_tpu/ops/pallas_scatter.py:113",
@@ -1321,6 +1402,32 @@ def voxel_flat_ids(torch, xs, ys, ts, ws, B, H, W):
             torch.cat(wts)[None].contiguous())
 
 
+def densest_window(rec):
+    """Host events (x, y, t, p) of the densest ``between_frames`` window of
+    a memmap recording, as the serving datasets read them."""
+    from event_utils_tpu_torch.data_loaders import MemMapDataset
+    with MemMapDataset(rec, device="cuda") as ds:
+        sizes = [i1 - i0 for i0, i1 in ds.event_indices[:len(ds)]]
+        i0, i1 = ds.get_event_indices(int(np.argmax(sizes)))
+        return ds.get_events(i0, i1)
+
+
+def window_flat_case(torch, cs, records, label, host_events, H, W):
+    """``flat_scatter:direct`` on one window's positive (5, H, W) grid, the
+    ids and weights that ``events_to_neg_pos_voxel`` sends it, against the
+    plain version and timed; added to the route's record as a case, which
+    is returned."""
+    xs, ys, ts, ps = (torch.as_tensor(np.asarray(a, np.float32),
+                                      device="cuda") for a in host_events)
+    idx, wts = voxel_flat_ids(torch, xs, ys, ts, (ps > 0).float(), 5, H, W)
+    case = as_case(flat_case(torch, cs, label, idx, wts, 5 * H * W,
+                             {})["direct"])
+    rec = records["flat_scatter:direct"]
+    rec["cases"].append(case)
+    rec["max_abs_err"] = max(rec["max_abs_err"], case["max_abs_err"])
+    return case
+
+
 def serving_phase(torch, cs, records):
     """The serving path through the port's CLIs on the serving scene, with
     its own launch counts; then the checks, one kernel case at its shape,
@@ -1447,23 +1554,13 @@ def serving_phase(torch, cs, records):
 
         # the flat kernel at the serving shape: the densest window's
         # positive grid
-        with MemMapDataset(rec, device="cuda") as ds:
-            sizes = [i1 - i0 for i0, i1 in ds.event_indices[:len(ds)]]
-            i0, i1 = ds.get_event_indices(int(np.argmax(sizes)))
-            host_events = ds.get_events(i0, i1)
-            xs, ys, ts, ps = (torch.as_tensor(np.asarray(a, np.float32),
-                                              device="cuda")
-                              for a in host_events)
-        idx, wts = voxel_flat_ids(torch, xs, ys, ts, (ps > 0).float(), 5, H,
-                                  W)
-        errs = {}
-        case = flat_case(torch, cs, "one serving window's positive grid",
-                         idx, wts, 5 * H * W, errs)["direct"]
-        rec_direct = records[direct]
-        rec_direct["cases"].append(as_case(case))
-        rec_direct["max_abs_err"] = max(rec_direct["max_abs_err"],
-                                        case["max_abs_err"])
-        out["flat_case"] = as_case(case)
+        host_events = densest_window(rec)
+        out["flat_case"] = window_flat_case(
+            torch, cs, records, "one serving window's positive grid",
+            host_events, H, W)
+        xs, ys, ts, ps = (torch.as_tensor(np.asarray(a, np.float32),
+                                          device="cuda")
+                          for a in host_events)
 
         # warm timings (after the counted run). The dataset: every window
         # fetched (voxelized and copied back), with the flat kernel and
@@ -1559,6 +1656,321 @@ def serving_phase(torch, cs, records):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Simulated anchors: the simulator on the card -> the published numbers
+# ---------------------------------------------------------------------------
+
+def window_counts(rec):
+    """Events between consecutive frames of a memmap recording."""
+    t = np.load(os.path.join(rec, "t.npy"), mmap_mode="r")[:, 0]
+    stamps = np.load(os.path.join(rec, "timestamps.npy"))
+    return np.diff(np.searchsorted(t, stamps)), stamps
+
+
+def window_grids(ev, edges, bins, H, W):
+    """(windows, bins, H, W) temporally bilinear grids of a simulated
+    stream between ``edges`` (numpy: the same function for both runs)."""
+    cut = np.searchsorted(ev.ts, edges)
+    out = np.zeros((len(edges) - 1, bins, H * W))
+    for i, (a, b) in enumerate(zip(cut[:-1], cut[1:])):
+        if b - a < 2:
+            continue
+        ts = ev.ts[a:b]
+        tn = (ts - ts[0]) / (ts[-1] - ts[0]) * (bins - 1)
+        b0 = np.floor(tn).astype(np.int64)
+        f = tn - b0
+        px = ev.ys[a:b].astype(np.int64) * W + ev.xs[a:b].astype(np.int64)
+        for bb, w in ((b0, 1 - f), (np.minimum(b0 + 1, bins - 1), f)):
+            np.add.at(out[i], (bb, px), ev.ps[a:b] * w)
+    return out
+
+
+def within(name, got, want, tol):
+    if not abs(got - want) <= tol:
+        raise AssertionError(f"{name}: {got}, want {want} +- {tol}")
+
+
+def baf_scene(torch):
+    """tests/test_denoise.py::test_baf_scores_against_simulator_labels on
+    the card: six bright blocks on a 48x48 plane drifting at (120, 50)
+    px/s, leak and shot noise at 1 Hz, 0.1 s at 500 fps; returns the
+    filter's signal recall and noise removal."""
+    from event_utils_tpu_torch.ops import background_activity_filter
+    from event_utils_tpu_torch.simulation import (SimulatorConfig,
+                                                  simulate_scene,
+                                                  translating_scene)
+    rng = np.random.default_rng(0)
+    tex = np.full((48, 48), 0.3, np.float32)
+    for _ in range(6):
+        y, x = rng.integers(6, 42, 2)
+        tex[y - 2:y + 2, x - 2:x + 2] = 1.0
+    sc = translating_scene(tex, (120.0, 50.0), device="cuda")
+    cfg = SimulatorConfig(c_pos=0.2, c_neg=0.2, leak_rate_hz=1.0,
+                          shot_rate_hz=1.0)
+    ev, *_ = simulate_scene(sc, 0.1, 500.0, cfg,
+                            generator=torch.Generator().manual_seed(SEED))
+    if ev.labels is None or int((ev.labels == 1).sum()) != \
+            ev.stats["num_noise"] or ev.stats["num_noise"] == 0:
+        raise AssertionError(f"BAF scene: labels {ev.stats}")
+    keep = background_activity_filter(
+        ev.xs, ev.ys, ev.ts, 0.008, sensor_size=(48, 48), n_slices=64,
+        device="cuda").cpu().numpy()
+    sig = ev.labels == 0
+    return (float(keep[sig].mean()), float(1 - keep[~sig].mean()),
+            len(ev), ev.stats["num_noise"])
+
+
+@contextlib.contextmanager
+def patch_calls(cs):
+    """Inside, the first call of every distinct (route, K, P, C, PH, PW)
+    that the patch losses of ``grid_cmax_batched`` send to the patch splat
+    keeps a copy of its inputs: yields ``{shape: (x, y, w, order)}``, where
+    ``order`` counts the splat calls before it. The calls themselves run
+    unchanged."""
+    from event_utils_tpu_torch.contrast_max import events_cmax as ec
+    seen, calls = {}, [0]
+    splat = ec.bilinear_patches_scatter
+
+    def capture(x, y, w, P, C, PH, PW, route=None):
+        key = (route or cs.bilinear_patches_route(P, PH, PW), w.shape[0], P,
+               C, PH, PW)
+        if key not in seen:
+            seen[key] = tuple(a.detach().clone() for a in (x, y, w)) + (
+                calls[0],)
+        calls[0] += 1
+        return splat(x, y, w, P, C, PH, PW, route=route)
+
+    ec.bilinear_patches_scatter = capture
+    try:
+        yield seen
+    finally:
+        ec.bilinear_patches_scatter = splat
+
+
+def patch_path_cases(torch, cs, records, seen, label):
+    """The patch splat on each shape of ``seen`` (``patch_calls``), on the
+    route the path took: against the plain version, timed beside it, the
+    library call and the bound, and added to the route's record as a
+    case. Returns the cases."""
+    slow = dict(calls=2, reps=5)
+    cases = []
+    for (route, K, P, C, PH, PW), (x, y, w, order) in seen.items():
+        name = "bilinear_patches_scatter" + (
+            "" if route == "patch" else f":{route}")
+        shape = (f"K={K}, {P} patches x {C} slots into ({PH}, {PW}) "
+                 f"({label}, splat call {order})")
+        kernel = lambda: cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW,
+                                                     route=route)
+        plain = lambda: cs.bilinear_patches_scatter_plain(x, y, w, P, C, PH,
+                                                          PW)
+        case = as_case(dict(
+            shape=shape,
+            max_abs_err=check_close(f"{name} ({shape})", kernel(), plain()),
+            ms=time_ms(kernel, torch),
+            plain_ms=time_ms(plain, torch, **slow),
+            library_ms=patches_library_ms(torch, x, y, w, P, C, PH, PW,
+                                          **slow),
+            bound=bilinear_bound(x, y, K, PH, PW, P)))
+        log(f"  timed: {name} {case['ms']:.4f} ms, plain "
+            f"{case['plain_ms']:.4f} ms, index_put_ {case['library_ms']:.4f}"
+            f" ms, bound {case['bound_ms']:.5f} ms")
+        rec = records[name]
+        rec["cases"].append(case)
+        rec["max_abs_err"] = max(rec["max_abs_err"], case["max_abs_err"])
+        cases.append(case)
+    return cases
+
+
+def simulated_anchors_phase(torch, cs, records):
+    """The published serving anchors rebuilt on the card: the port's
+    simulate CLI makes the three recordings from the committed textures,
+    then infer_flow, reconstruct and eval_cmax serve them and the BAF
+    filters a labelled scene, each gated on the JAX package's numbers.
+    Returns the phase's launch counts and what it measured."""
+    from event_utils_tpu_torch.cli import (eval_cmax, infer_flow,
+                                           reconstruct, simulate)
+    from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
+    from event_utils_tpu_torch.simulation import (SimulatorConfig,
+                                                  affine_scene, load_texture,
+                                                  simulate_scene,
+                                                  texture_path)
+    direct = "flat_scatter:direct"
+    out = {"card": card_line()}
+    prev_impl = get_default_impl()
+    cs.reset_launch_counts()
+    set_default_impl("pallas")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    try:
+        with tempfile.TemporaryDirectory(prefix=".smoke_sim_",
+                                         dir=ROOT) as work:
+            recs = {}
+            for name, a in ANCHOR_SIMS.items():
+                rec = os.path.join(work, name)
+                summary, wall = timed(lambda: simulate.main(
+                    [rec, "--device", "cuda", "--texture",
+                     texture_path(a["seed"])]
+                    + SIM_COMMON + a["args"]))
+                counts, stamps = window_counts(rec)
+                n, dropped = summary["events"], summary["stats"]["dropped"]
+                log(f"simulated {name}: {n} events ({dropped} dropped; JAX "
+                    f"{a['events']}, {a['dropped']}) in {wall:.2f} s")
+                within(f"{name} events", n, a["events"],
+                       EVENTS_REL * a["events"])
+                within(f"{name} dropped", dropped, a["dropped"],
+                       EVENTS_REL * a["events"])
+                want = np.asarray(a["windows"])
+                if counts.shape != want.shape or not np.all(
+                        np.abs(counts - want) <= WINDOW_REL * want):
+                    raise AssertionError(f"{name} window counts {counts}, "
+                                         f"JAX {want}")
+                out[name] = {"events": n, "dropped": dropped,
+                             "cli_wall_s": wall,
+                             "window_count_max_rel_err": float(
+                                 np.max(np.abs(counts - want) / want))}
+                recs[name] = rec
+
+            # seed 91 again, warm, on the card and on the CPU
+            a = ANCHOR_SIMS["flow91"]
+            tex = load_texture(texture_path(a["seed"]), (128, 128))
+            cfg = SimulatorConfig(c_pos=0.15, c_neg=0.15)
+            sims = {}
+            for dev in ("cuda", "cpu"):
+                scene = affine_scene(tex, divergence=0.35, omega=4.0,
+                                     device=dev)
+                (ev, *_), wall = timed(lambda: simulate_scene(
+                    scene, 2.0, 100.0, cfg))
+                sims[dev] = (ev, wall)
+            card_ev, card_wall = sims["cuda"]
+            edges = np.linspace(0.0, 2.0, 21)
+            grids = [window_grids(sims[d][0], edges, 5, 128, 128)
+                     for d in ("cuda", "cpu")]
+            grid_err = max(float(np.abs(g - h).max() / np.abs(h).max())
+                           for g, h in zip(*grids))
+            grid_l1 = max(float(np.abs(g - h).sum() / np.abs(h).sum())
+                          for g, h in zip(*grids))
+            out["sim_events_per_s_card"] = len(card_ev) / card_wall
+            out["sim_wall_s_card"] = card_wall
+            out["sim_wall_s_cpu"] = sims["cpu"][1]
+            out["card_vs_cpu_events"] = len(card_ev) - len(sims["cpu"][0])
+            out["card_vs_cpu_grid_rel_err"] = grid_err
+            out["card_vs_cpu_grid_rel_l1"] = grid_l1
+            log(f"  seed 91 warm: card {card_wall:.3f} s "
+                f"({out['sim_events_per_s_card']:.0f} events/s), CPU "
+                f"{sims['cpu'][1]:.2f} s; card - CPU events "
+                f"{out['card_vs_cpu_events']}, largest per-window grid "
+                f"difference {grid_err:.2e} of its max|value| and "
+                f"{grid_l1:.2e} of its L1")
+
+            def serve(cli, name, args, windows):
+                before = cs.launch_counts()
+                summary, wall = timed(lambda: cli.main(
+                    [recs[name]] + args + ["--output_dir",
+                                           os.path.join(work, f"out_{name}"),
+                                           "--device", "cuda",
+                                           "--no_window_cache"]))
+                got = {k: v - before[k] for k, v in cs.launch_counts().items()
+                       if v != before[k]}
+                if summary["windows"] != windows or got != {
+                        direct: 2 * windows}:
+                    raise AssertionError(
+                        f"{name}: {summary['windows']} windows, launches "
+                        f"{got}; expected {direct} {2 * windows} only")
+                return summary["metrics"], {
+                    "wall_s": wall, "windows": windows,
+                    "windows_per_s": windows / wall}
+
+            m, out["infer_flow"] = serve(
+                infer_flow, "flow91", ["--params", FLOW_PARAMS, "--method",
+                                       "between_frames", "--eval_gt"], 20)
+            log(f"  infer_flow: AEE {m['aee_px_s']} px/s over "
+                f"{m['num_fields']} (JAX {FLOW_AEE}), zero-flow "
+                f"{m['zero_flow_aee_px_s']}")
+            within("AEE", m["aee_px_s"], FLOW_AEE, FLOW_AEE_TOL)
+            within("zero-flow AEE", m["zero_flow_aee_px_s"], FLOW_ZERO,
+                   FLOW_ZERO_TOL)
+            per = m["aee_per_window"][1:]
+            if len(per) != len(FLOW_AEE_WINDOWS):
+                raise AssertionError(f"AEE windows {per}")
+            for i, (g, w) in enumerate(zip(per, FLOW_AEE_WINDOWS)):
+                within(f"AEE window {i + 1}", g, w, FLOW_WINDOW_TOL)
+            out["infer_flow"].update(
+                aee_px_s=m["aee_px_s"],
+                zero_flow_aee_px_s=m["zero_flow_aee_px_s"],
+                aee_window_max_abs_err=max(abs(g - w) for g, w in
+                                           zip(per, FLOW_AEE_WINDOWS)))
+
+            for name, (psnr, ssim) in RECON_STEADY.items():
+                n = len(ANCHOR_SIMS[name]["windows"])
+                m, out[f"reconstruct_{name}"] = serve(
+                    reconstruct, name, ["--params", RECON_PARAMS,
+                                        "--method", "between_frames",
+                                        "--eval_gt"], n)
+                log(f"  reconstruct {name}: steady {m['psnr_steady_db']} dB"
+                    f" / SSIM {m['ssim_steady']} (JAX {psnr} / {ssim}); all "
+                    f"{m['psnr_db']} / {m['ssim']}")
+                within(f"{name} steady PSNR", m["psnr_steady_db"], psnr,
+                       PSNR_TOL)
+                within(f"{name} steady SSIM", m["ssim_steady"], ssim,
+                       SSIM_TOL)
+                out[f"reconstruct_{name}"].update(
+                    psnr_steady_db=m["psnr_steady_db"],
+                    ssim_steady=m["ssim_steady"], psnr_db=m["psnr_db"],
+                    ssim=m["ssim"])
+
+            before = cs.launch_counts()
+            with patch_calls(cs) as seen:
+                m, wall = timed(lambda: eval_cmax.main(
+                    [recs["flow91"], "--max_windows", str(CMAX_WINDOWS),
+                     "--device", "cuda"]))
+            routes = {k: v - before[k] for k, v in cs.launch_counts().items()
+                      if v != before[k]}
+            log(f"  eval_cmax: median AEE {m['median_aee_px_s']} px/s over "
+                f"{m['num_rois']} ROIs (JAX {CMAX_MEDIAN}) in {wall:.2f} s; "
+                f"launches {routes}")
+            within("eval_cmax median AEE", m["median_aee_px_s"], CMAX_MEDIAN,
+                   CMAX_REL_TOL * CMAX_MEDIAN)
+            kept = {"bilinear_patches_scatter"
+                    + ("" if r == "patch" else f":{r}") for r, *_ in seen}
+            if not routes or set(routes) != kept:
+                raise AssertionError(f"eval_cmax launched {routes}; inputs "
+                                     f"kept for {sorted(kept)}")
+            out["eval_cmax"] = {"median_aee_px_s": m["median_aee_px_s"],
+                                "num_rois": m["num_rois"], "wall_s": wall,
+                                "windows": CMAX_WINDOWS,
+                                "windows_per_s": CMAX_WINDOWS / wall,
+                                "launches": routes}
+            windows = {name: densest_window(recs[name])
+                       for name in ("flow91", "recon77_20")}
+
+        recall, removal, n, noise = baf_scene(torch)
+        log(f"  BAF on the card: {n} events ({noise} noise), signal recall "
+            f"{recall:.4f}, noise removal {removal:.4f}")
+        if not (recall > BAF_RECALL and removal > BAF_REMOVAL):
+            raise AssertionError(f"BAF recall {recall}, removal {removal}")
+        out["baf"] = {"recall": recall, "removal": removal, "events": n,
+                      "noise": noise}
+    finally:
+        set_default_impl(prev_impl)
+    torch.cuda.synchronize()
+    launches = cs.launch_counts()
+    log(f"simulated-anchors launches: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    # the kernels at this path's shapes, after the counts are read
+    out["patch_cases"] = patch_path_cases(
+        torch, cs, records, seen, "eval_cmax on flow91")
+    out["flat_cases"] = [window_flat_case(
+        torch, cs, records, f"densest {name} window's positive grid", ev,
+        128, 128) for name, ev in windows.items()]
+    return launches, out
+
+
 def bucketing_share(torch, rng):
     """Share of the tiled voxel route's wall that the host bucketing takes:
     warm medians over TILED_REPS calls of each, alternated, at VGA and
@@ -1632,6 +2044,7 @@ def main() -> int:
         raise AssertionError(f"routes not held against their plain "
                              f"version: {routed ^ set(records)}")
     serving_launches, serving = serving_phase(torch, cs, records)
+    sim_launches, anchors = simulated_anchors_phase(torch, cs, records)
     bucketing_share(torch, rng)
 
     kernels = []
@@ -1642,11 +2055,13 @@ def main() -> int:
             "replaces": REPLACES[name.split(":")[0]],
             "launches": launches[name],
             "launches_serving": serving_launches[name],
+            "launches_sim": sim_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": rec["library_ms"],
             **{k: rec[k] for k in ("shape", "cases") if k in rec}})
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"simulated_anchors": anchors}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,13 @@
 
 A second package beside the JAX one, for an NVIDIA H100. It imports
 ``torch`` and never ``jax`` or ``event_utils_tpu``. Ported so far: the
-contrast-maximisation path over dense event representations, and the
+contrast-maximisation path over dense event representations, the
 learned-model serving path (recording -> dataset -> voxel grid ->
-EV-FlowNet / E2VID with the JAX package's weights).
+EV-FlowNet / E2VID with the JAX package's weights), and the event
+simulator with its consumers.
 
-- ``ops``             scatter-add, gather, scipy-parity Gaussian blur, and
+- ``ops``             scatter-add, gather, scipy-parity Gaussian blur, the
+                      background-activity filter, and
                       the hand-written CUDA accumulation kernels
                       (``csrc/scatter_kernels.cu``) with their plain versions
 - ``utils``           event masks / clipping / windowing / lifespan cuts,
@@ -19,7 +21,10 @@ EV-FlowNet / E2VID with the JAX package's weights).
 - ``data_loaders``    windowed voxel datasets, transforms, collation
 - ``transforms``      dense-flow event warping
 - ``training``        inference surface of the flow and E2VID trainers
-- ``cli``             ``infer_flow`` and ``reconstruct``
+- ``simulation``      the ESIM-style event simulator and its scenes, with
+                      the JAX package's textures as data
+- ``cli``             ``infer_flow``, ``reconstruct``, ``simulate`` and
+                      ``eval_cmax``
 - ``convert``         warps/objectives from JAX instances, and JAX
                       ``params.npz`` weights into the networks
 
@@ -33,4 +38,4 @@ __version__ = "0.1.0"
 from . import errors  # noqa: F401
 from . import ops, utils, representations, models, contrast_max  # noqa: F401
 from . import data_formats, data_loaders, transforms, training  # noqa: F401
-from . import convert  # noqa: F401
+from . import simulation, convert  # noqa: F401

@@ -3,6 +3,10 @@
 
 - ``python -m event_utils_tpu_torch.cli.infer_flow``   EV-FlowNet inference
 - ``python -m event_utils_tpu_torch.cli.reconstruct``  E2VID inference
+- ``python -m event_utils_tpu_torch.cli.simulate``     ground-truth recordings
+                                                     from the simulator
+- ``python -m event_utils_tpu_torch.cli.eval_cmax``    ``grid_cmax_batched``
+                                                     flow against ground truth
 
 The JAX package's other CLIs are not ported yet.
 """

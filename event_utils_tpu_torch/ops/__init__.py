@@ -1,5 +1,6 @@
-"""Device kernels: scatter-add, gather, Gaussian blur, and the hand-written
-CUDA accumulation kernels with their plain versions."""
+"""Device kernels: scatter-add, gather, Gaussian blur, the background-
+activity filter, and the hand-written CUDA accumulation kernels with their
+plain versions."""
 
 from .scatter import (  # noqa: F401
     bilinear_gather,
@@ -11,6 +12,10 @@ from .scatter import (  # noqa: F401
     set_default_impl,
 )
 from .blur import gaussian_filter, gaussian_blur_image, gaussian_kernel1d  # noqa: F401
+from .denoise import (  # noqa: F401
+    background_activity_filter,
+    filter_background_activity,
+)
 from .cuda_scatter import (  # noqa: F401
     bilinear_matmul,
     image_matmul,

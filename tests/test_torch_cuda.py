@@ -519,3 +519,52 @@ def test_dataset_grids_on_the_card_launch_the_flat_kernel(cuda, gen,
                 assert err <= 1e-5 * max(float(np.abs(ref).max()), 1.0)
     finally:
         set_default_impl(prev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["similarity", "rotate"])
+def test_simulation_on_the_card_matches_the_cpu(cuda, scene):
+    """The simulator on the card against the CPU on a committed texture:
+    event counts and drops within 0.1%, per-window grids within 1e-3 in L1
+    (f32 log, exp, sin and cos may differ by an ulp, and a crossing that
+    sits on a threshold then moves or drops: at most 2 of L1 each)."""
+    from event_utils_tpu_torch.simulation import (SimulatorConfig,
+                                                  affine_scene, load_texture,
+                                                  rotating_scene,
+                                                  simulate_scene,
+                                                  texture_path)
+    from chip_smoke import window_grids
+    tex = load_texture(texture_path(91), (128, 128))
+    cfg = SimulatorConfig(c_pos=0.15, c_neg=0.15)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sc = (affine_scene(tex, 0.35, 4.0, device=dev)
+              if scene == "similarity" else rotating_scene(tex, 2.0,
+                                                           device=dev))
+        runs[dev] = simulate_scene(sc, 0.5, 100.0, cfg)
+    card, host = runs["cuda"][0], runs["cpu"][0]
+    assert len(host) > 50_000
+    assert abs(len(card) - len(host)) <= 1e-3 * len(host)
+    assert abs(card.stats["dropped"] - host.stats["dropped"]) \
+        <= 1e-3 * len(host)
+    np.testing.assert_allclose(runs["cuda"][1], runs["cpu"][1], rtol=0,
+                               atol=1e-5)
+    edges = np.linspace(0.0, 0.5, 6)
+    for a, b in zip(window_grids(card, edges, 5, 128, 128),
+                    window_grids(host, edges, 5, 128, 128)):
+        assert np.abs(a - b).sum() <= 1e-3 * np.abs(b).sum()
+
+
+@pytest.mark.cuda
+def test_background_activity_filter_on_the_card_matches_the_cpu(cuda, gen):
+    from event_utils_tpu_torch.ops import background_activity_filter
+    n, H, W = 200_000, 180, 240
+    xs = gen.uniform(-2, W + 1, n)
+    ys = gen.uniform(-2, H + 1, n)
+    ts = 1.6e9 + np.sort(gen.uniform(0.0, 1.0, n))
+    mask = (gen.uniform(size=n) > 0.05).astype(np.float32)
+    keep = {dev: background_activity_filter(
+        xs, ys, ts, 0.005, sensor_size=(H, W), mask=mask, device=dev).cpu()
+        for dev in ("cpu", "cuda")}
+    assert torch.equal(keep["cuda"], keep["cpu"])
+    assert 0 < int(keep["cpu"].sum()) < n

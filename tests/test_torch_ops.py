@@ -59,10 +59,11 @@ def float_events(rng, n=2000, sensor=SENSOR, margin=2.0):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, the ROI-bucketed and serving paths' entry
-    points and ``chip_smoke`` import without jax or the JAX package, and
-    without the packages the card machine lacks (h5py, matplotlib, flax,
-    orbax: each is imported only by the function that needs it)."""
+    """Every module of the port, the ROI-bucketed, serving and simulation
+    paths' entry points and ``chip_smoke`` import without jax or the JAX
+    package, and without the packages the card machine lacks (h5py,
+    matplotlib, flax, orbax: each is imported only by the function that
+    needs it)."""
     code = ("import sys, pkgutil, importlib, event_utils_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -74,7 +75,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "    events_to_voxel_tiled, voxel_grids_fixed_n)\n"
             "from event_utils_tpu_torch.ops.cuda_scatter import (\n"
             "    voxel_tiles_scatter, voxel_tiles_scatter_plain)\n"
-            "from event_utils_tpu_torch.cli import infer_flow, reconstruct\n"
+            "from event_utils_tpu_torch.cli import (\n"
+            "    eval_cmax, infer_flow, reconstruct, simulate)\n"
+            "for cli in (eval_cmax, infer_flow, reconstruct, simulate):\n"
+            "    assert callable(cli.main)\n"
+            "from event_utils_tpu_torch.ops import (\n"
+            "    background_activity_filter, filter_background_activity)\n"
+            "from event_utils_tpu_torch.simulation import (\n"
+            "    SimulatorConfig, affine_scene, hot_pixel_map, load_texture,\n"
+            "    rotating_scene, simulate_events, simulate_events_device,\n"
+            "    simulate_scene, smooth_texture, texture_path,\n"
+            "    translating_scene)\n"
             "from event_utils_tpu_torch.convert import load_params_npz\n"
             "from event_utils_tpu_torch.data_formats import (\n"
             "    hdf5_packager, memmap_packager, read_h5_events_dict)\n"
