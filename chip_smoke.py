@@ -103,14 +103,44 @@
    ``eval_cmax`` sent to the patch splat (grid-search evaluations and
    descent steps, kept during the run), and ``flat_scatter:direct`` on
    the densest window's positive grid of each served recording.
-6. Times the tiled route and its host bucketing alone, warm, and prints
+6. The training path, with the launch counts set to 0 again first,
+   everything under ``set_default_impl('pallas')`` and TF32 off: JAX's
+   two pinned eval batches (stage 9 of ``runs/flow128_similarity``,
+   stage 8 of ``runs/recon128v2``) rebuilt on the card from the committed
+   scene parameters (``event_utils_tpu_torch/training/data``), each
+   scene's event count within 0.1% of JAX's, and the committed weights
+   scored through the trainers' evals (AEE within 1% of JAX-on-the-CPU's,
+   zero-flow within 0.01 px/s; PSNR/SSIM, all and steady windows, within
+   0.10 dB / 0.003); then ``train_flow --simulate`` (stage-9 recipe, 20
+   steps at lr 5e-6 from the committed weights, eval at the end),
+   ``train_reconstruction --simulate`` (stage-8 recipe, 6 steps: 2 batches
+   x 3 carried segments) and ``train_reconstruction`` on the seed-77
+   recording of phase 5 (2 steps): finite losses, the final evals within
+   bands around the CPU port's readings of the same commands,
+   ``--params_out`` reloaded into fresh trainers bit-identical, and
+   exactly ``flat_scatter:direct`` 3 per flow step (two grids, the loss's
+   splat) plus 2 for the eval grids, 2 per simulated E2VID batch and 2 per
+   recording window, nothing else. After the counts are read: 2 Adam
+   steps of each recipe on one batch on the card and on the CPU (losses
+   to 1e-4; gradients per leaf, cosine >= 0.9999 and 1e-3 of the leaf's
+   scale; weights and EMA, 99% of the coordinates the CPU run moved
+   within 1e-3 of the summed learning rate, all within twice it),
+   'pallas' against 'xla' grids (1e-5), ``contrast_flow_loss``'s gradient
+   against the CPU's (cosine >= 0.9999, 1e-4 of its scale), the flat
+   kernel at every shape the path sent it, forward against the plain
+   version and its adjoint against the plain gather (exact), and warm
+   timings: forward+backward device ms, one flow step, one E2VID batch
+   generation and one segment step with their device idle shares.
+7. Times the tiled route and its host bucketing alone, warm, and prints
    the bucketing's share of the route's wall.
 
 Prints a ``{"serving": {...}}`` JSON line, a ``{"simulated_anchors":
-{...}}`` line (the gated numbers, walls and windows/s), a ``{"kernels":
-[...]}`` line (one entry per route; ``launches`` counts the
-contrast-maximisation path, ``launches_serving`` the serving path,
-``launches_sim`` the simulated anchors), then the card line, and last
+{...}}`` line (the gated numbers, walls and windows/s), a ``{"training":
+{...}}`` line (gated numbers, steps/s, Mev/s, the simulator's share,
+timings), a ``{"kernels": [...]}`` line (one entry per route;
+``launches`` counts the contrast-maximisation path, ``launches_serving``
+the serving path, ``launches_sim`` the simulated anchors,
+``launches_train`` the training path), then the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 so does a machine without a CUDA device.
 """
@@ -221,6 +251,57 @@ CMAX_REL_TOL = 0.01          # 0.525 px/s; the port read 52.679 on the CPU
 CMAX_WINDOWS = 4
 BAF_RECALL = 0.95            # tests/test_denoise.py's limits
 BAF_REMOVAL = 0.6
+# The training path (the stage-9 flow recipe of runs/flow128_similarity and
+# the stage-8 E2VID recipe of runs/recon128v2, metrics_stage9.json and
+# metrics_stage8.json), gated on JAX-on-the-CPU's numbers on the pinned
+# eval batches (event_utils_tpu_torch/training/data/eval_anchors.json,
+# written by scripts/make_train_eval_scenes.py)
+TRAIN_FLOW = ["--simulate", "--sensor", "128", "128", "--batch_size", "8",
+              "--capacity", "65536", "--v_max", "40", "--window_t", "0.1",
+              "--num_frames", "9", "--omega_max", "6", "--s_max", "0.6",
+              "--burn_in", "1", "--fresh_prob", "0.25", "--age_max", "2.5",
+              "--supervised_weight", "1.0"]
+TRAIN_RECON = ["--sensor", "128", "128", "--seq_len", "8", "--batch_size",
+               "4", "--capacity", "294912", "--window_t", "0.05",
+               "--carry_segments", "3", "--burn_in", "1", "--lpips_weight",
+               "0.1", "--mse_weight", "4.0", "--ema_decay", "0.999",
+               "--recurrent_levels", "3", "--num_res_blocks", "2"]
+# on the seed-77 recording of the simulated anchors: one sequence a step
+TRAIN_RECON_FILE = ["--seq_len", "8", "--batch_size", "1", "--burn_in", "1",
+                    "--lpips_weight", "0.1", "--mse_weight", "4.0",
+                    "--ema_decay", "0.999", "--recurrent_levels", "3",
+                    "--num_res_blocks", "2"]
+RECON_KWARGS = {"recurrent_levels": 3, "num_res_blocks": 2}
+TRAIN_FLOW_STEPS = 20
+TRAIN_RECON_STEPS = 6        # 2 simulated batches x 3 carried segments
+TRAIN_FILE_STEPS = 2
+TRAIN_SEED = 7
+TRAIN_EVENTS_REL = 1e-3      # per-scene event counts of the eval batches
+TRAIN_AEE_REL = 0.01         # held-out AEE, of JAX's
+TRAIN_ZERO_TOL = 0.01        # zero-flow baseline, px/s
+STEP_LOSS_REL = 1e-4         # card vs CPU, per step
+STEP_GRAD_COS = 0.9999       # the gradients, card vs CPU, per leaf; max
+STEP_GRAD_REL = 1e-3         # |diff| of the leaf's scale (E2VID's worst
+#                              leaf read 1.4e-6 and 1.5e-4 in two runs on
+#                              an H100: cuDNN's algorithms, not the inputs)
+# card vs CPU weights after the steps: of the coordinates the CPU run
+# moved, 99% within 1e-3 of the summed learning rate; every coordinate
+# within 2x it. A coordinate whose gradient is exactly zero (a dead
+# channel: 0.6-0.8% of either net, which the CPU run leaves in place) gets
+# ~1e-7 of its leaf's scale from cuDNN's transforms on the card, which
+# Adam turns into a full step of ~lr (measured on an H100, 700 W)
+STEP_PARAM_Q99 = 1e-3
+STEP_PARAM_MAX = 2.0
+GRID_REL = 1e-5              # 'pallas' vs 'xla' voxel grids
+GRAD_COS = 0.9999            # contrast_flow_loss gradient, card vs CPU
+GRAD_REL = 1e-4
+# the final held-out evals of the short CLI runs: bands around the CPU
+# port's readings of the same commands (PERF.md section 2)
+# (CPU: AEE 57.1736 px/s; PSNR 25.1996 dB, SSIM 0.8517): +-0.3 px/s, and
+# the anchors' +-0.10 dB / +-0.003
+CLI_FLOW_AEE = (56.87, 57.47)
+CLI_RECON_PSNR = (25.10, 25.30)
+CLI_RECON_SSIM = (0.8487, 0.8547)
 SRC = "event_utils_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
     "voxel_scatter": "event_utils_tpu/ops/pallas_scatter.py:113",
@@ -1685,6 +1766,15 @@ def window_grids(ev, edges, bins, H, W):
     return out
 
 
+def synced(torch, fn):
+    """``(fn(), wall seconds)``, the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
 def within(name, got, want, tol):
     if not abs(got - want) <= tol:
         raise AssertionError(f"{name}: {got}, want {want} +- {tol}")
@@ -1781,12 +1871,13 @@ def patch_path_cases(torch, cs, records, seen, label):
     return cases
 
 
-def simulated_anchors_phase(torch, cs, records):
+def simulated_anchors_phase(torch, cs, records, work):
     """The published serving anchors rebuilt on the card: the port's
-    simulate CLI makes the three recordings from the committed textures,
-    then infer_flow, reconstruct and eval_cmax serve them and the BAF
-    filters a labelled scene, each gated on the JAX package's numbers.
-    Returns the phase's launch counts and what it measured."""
+    simulate CLI makes the three recordings from the committed textures
+    (into ``work``, where the training phase reads one of them), then
+    infer_flow, reconstruct and eval_cmax serve them and the BAF filters a
+    labelled scene, each gated on the JAX package's numbers. Returns the
+    phase's launch counts and what it measured."""
     from event_utils_tpu_torch.cli import (eval_cmax, infer_flow,
                                            reconstruct, simulate)
     from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
@@ -1800,154 +1891,145 @@ def simulated_anchors_phase(torch, cs, records):
     cs.reset_launch_counts()
     set_default_impl("pallas")
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t
-
     try:
-        with tempfile.TemporaryDirectory(prefix=".smoke_sim_",
-                                         dir=ROOT) as work:
-            recs = {}
-            for name, a in ANCHOR_SIMS.items():
-                rec = os.path.join(work, name)
-                summary, wall = timed(lambda: simulate.main(
-                    [rec, "--device", "cuda", "--texture",
-                     texture_path(a["seed"])]
-                    + SIM_COMMON + a["args"]))
-                counts, stamps = window_counts(rec)
-                n, dropped = summary["events"], summary["stats"]["dropped"]
-                log(f"simulated {name}: {n} events ({dropped} dropped; JAX "
-                    f"{a['events']}, {a['dropped']}) in {wall:.2f} s")
-                within(f"{name} events", n, a["events"],
-                       EVENTS_REL * a["events"])
-                within(f"{name} dropped", dropped, a["dropped"],
-                       EVENTS_REL * a["events"])
-                want = np.asarray(a["windows"])
-                if counts.shape != want.shape or not np.all(
-                        np.abs(counts - want) <= WINDOW_REL * want):
-                    raise AssertionError(f"{name} window counts {counts}, "
-                                         f"JAX {want}")
-                out[name] = {"events": n, "dropped": dropped,
-                             "cli_wall_s": wall,
-                             "window_count_max_rel_err": float(
-                                 np.max(np.abs(counts - want) / want))}
-                recs[name] = rec
+        recs = {}
+        for name, a in ANCHOR_SIMS.items():
+            rec = os.path.join(work, name)
+            summary, wall = synced(torch, lambda: simulate.main(
+                [rec, "--device", "cuda", "--texture",
+                 texture_path(a["seed"])]
+                + SIM_COMMON + a["args"]))
+            counts, stamps = window_counts(rec)
+            n, dropped = summary["events"], summary["stats"]["dropped"]
+            log(f"simulated {name}: {n} events ({dropped} dropped; JAX "
+                f"{a['events']}, {a['dropped']}) in {wall:.2f} s")
+            within(f"{name} events", n, a["events"],
+                   EVENTS_REL * a["events"])
+            within(f"{name} dropped", dropped, a["dropped"],
+                   EVENTS_REL * a["events"])
+            want = np.asarray(a["windows"])
+            if counts.shape != want.shape or not np.all(
+                    np.abs(counts - want) <= WINDOW_REL * want):
+                raise AssertionError(f"{name} window counts {counts}, "
+                                     f"JAX {want}")
+            out[name] = {"events": n, "dropped": dropped,
+                         "cli_wall_s": wall,
+                         "window_count_max_rel_err": float(
+                             np.max(np.abs(counts - want) / want))}
+            recs[name] = rec
 
-            # seed 91 again, warm, on the card and on the CPU
-            a = ANCHOR_SIMS["flow91"]
-            tex = load_texture(texture_path(a["seed"]), (128, 128))
-            cfg = SimulatorConfig(c_pos=0.15, c_neg=0.15)
-            sims = {}
-            for dev in ("cuda", "cpu"):
-                scene = affine_scene(tex, divergence=0.35, omega=4.0,
-                                     device=dev)
-                (ev, *_), wall = timed(lambda: simulate_scene(
-                    scene, 2.0, 100.0, cfg))
-                sims[dev] = (ev, wall)
-            card_ev, card_wall = sims["cuda"]
-            edges = np.linspace(0.0, 2.0, 21)
-            grids = [window_grids(sims[d][0], edges, 5, 128, 128)
-                     for d in ("cuda", "cpu")]
-            grid_err = max(float(np.abs(g - h).max() / np.abs(h).max())
-                           for g, h in zip(*grids))
-            grid_l1 = max(float(np.abs(g - h).sum() / np.abs(h).sum())
-                          for g, h in zip(*grids))
-            out["sim_events_per_s_card"] = len(card_ev) / card_wall
-            out["sim_wall_s_card"] = card_wall
-            out["sim_wall_s_cpu"] = sims["cpu"][1]
-            out["card_vs_cpu_events"] = len(card_ev) - len(sims["cpu"][0])
-            out["card_vs_cpu_grid_rel_err"] = grid_err
-            out["card_vs_cpu_grid_rel_l1"] = grid_l1
-            log(f"  seed 91 warm: card {card_wall:.3f} s "
-                f"({out['sim_events_per_s_card']:.0f} events/s), CPU "
-                f"{sims['cpu'][1]:.2f} s; card - CPU events "
-                f"{out['card_vs_cpu_events']}, largest per-window grid "
-                f"difference {grid_err:.2e} of its max|value| and "
-                f"{grid_l1:.2e} of its L1")
+        # seed 91 again, warm, on the card and on the CPU
+        a = ANCHOR_SIMS["flow91"]
+        tex = load_texture(texture_path(a["seed"]), (128, 128))
+        cfg = SimulatorConfig(c_pos=0.15, c_neg=0.15)
+        sims = {}
+        for dev in ("cuda", "cpu"):
+            scene = affine_scene(tex, divergence=0.35, omega=4.0,
+                                 device=dev)
+            (ev, *_), wall = synced(torch, lambda: simulate_scene(
+                scene, 2.0, 100.0, cfg))
+            sims[dev] = (ev, wall)
+        card_ev, card_wall = sims["cuda"]
+        edges = np.linspace(0.0, 2.0, 21)
+        grids = [window_grids(sims[d][0], edges, 5, 128, 128)
+                 for d in ("cuda", "cpu")]
+        grid_err = max(float(np.abs(g - h).max() / np.abs(h).max())
+                       for g, h in zip(*grids))
+        grid_l1 = max(float(np.abs(g - h).sum() / np.abs(h).sum())
+                      for g, h in zip(*grids))
+        out["sim_events_per_s_card"] = len(card_ev) / card_wall
+        out["sim_wall_s_card"] = card_wall
+        out["sim_wall_s_cpu"] = sims["cpu"][1]
+        out["card_vs_cpu_events"] = len(card_ev) - len(sims["cpu"][0])
+        out["card_vs_cpu_grid_rel_err"] = grid_err
+        out["card_vs_cpu_grid_rel_l1"] = grid_l1
+        log(f"  seed 91 warm: card {card_wall:.3f} s "
+            f"({out['sim_events_per_s_card']:.0f} events/s), CPU "
+            f"{sims['cpu'][1]:.2f} s; card - CPU events "
+            f"{out['card_vs_cpu_events']}, largest per-window grid "
+            f"difference {grid_err:.2e} of its max|value| and "
+            f"{grid_l1:.2e} of its L1")
 
-            def serve(cli, name, args, windows):
-                before = cs.launch_counts()
-                summary, wall = timed(lambda: cli.main(
-                    [recs[name]] + args + ["--output_dir",
-                                           os.path.join(work, f"out_{name}"),
-                                           "--device", "cuda",
-                                           "--no_window_cache"]))
-                got = {k: v - before[k] for k, v in cs.launch_counts().items()
-                       if v != before[k]}
-                if summary["windows"] != windows or got != {
-                        direct: 2 * windows}:
-                    raise AssertionError(
-                        f"{name}: {summary['windows']} windows, launches "
-                        f"{got}; expected {direct} {2 * windows} only")
-                return summary["metrics"], {
-                    "wall_s": wall, "windows": windows,
-                    "windows_per_s": windows / wall}
-
-            m, out["infer_flow"] = serve(
-                infer_flow, "flow91", ["--params", FLOW_PARAMS, "--method",
-                                       "between_frames", "--eval_gt"], 20)
-            log(f"  infer_flow: AEE {m['aee_px_s']} px/s over "
-                f"{m['num_fields']} (JAX {FLOW_AEE}), zero-flow "
-                f"{m['zero_flow_aee_px_s']}")
-            within("AEE", m["aee_px_s"], FLOW_AEE, FLOW_AEE_TOL)
-            within("zero-flow AEE", m["zero_flow_aee_px_s"], FLOW_ZERO,
-                   FLOW_ZERO_TOL)
-            per = m["aee_per_window"][1:]
-            if len(per) != len(FLOW_AEE_WINDOWS):
-                raise AssertionError(f"AEE windows {per}")
-            for i, (g, w) in enumerate(zip(per, FLOW_AEE_WINDOWS)):
-                within(f"AEE window {i + 1}", g, w, FLOW_WINDOW_TOL)
-            out["infer_flow"].update(
-                aee_px_s=m["aee_px_s"],
-                zero_flow_aee_px_s=m["zero_flow_aee_px_s"],
-                aee_window_max_abs_err=max(abs(g - w) for g, w in
-                                           zip(per, FLOW_AEE_WINDOWS)))
-
-            for name, (psnr, ssim) in RECON_STEADY.items():
-                n = len(ANCHOR_SIMS[name]["windows"])
-                m, out[f"reconstruct_{name}"] = serve(
-                    reconstruct, name, ["--params", RECON_PARAMS,
-                                        "--method", "between_frames",
-                                        "--eval_gt"], n)
-                log(f"  reconstruct {name}: steady {m['psnr_steady_db']} dB"
-                    f" / SSIM {m['ssim_steady']} (JAX {psnr} / {ssim}); all "
-                    f"{m['psnr_db']} / {m['ssim']}")
-                within(f"{name} steady PSNR", m["psnr_steady_db"], psnr,
-                       PSNR_TOL)
-                within(f"{name} steady SSIM", m["ssim_steady"], ssim,
-                       SSIM_TOL)
-                out[f"reconstruct_{name}"].update(
-                    psnr_steady_db=m["psnr_steady_db"],
-                    ssim_steady=m["ssim_steady"], psnr_db=m["psnr_db"],
-                    ssim=m["ssim"])
-
+        def serve(cli, name, args, windows):
             before = cs.launch_counts()
-            with patch_calls(cs) as seen:
-                m, wall = timed(lambda: eval_cmax.main(
-                    [recs["flow91"], "--max_windows", str(CMAX_WINDOWS),
-                     "--device", "cuda"]))
-            routes = {k: v - before[k] for k, v in cs.launch_counts().items()
-                      if v != before[k]}
-            log(f"  eval_cmax: median AEE {m['median_aee_px_s']} px/s over "
-                f"{m['num_rois']} ROIs (JAX {CMAX_MEDIAN}) in {wall:.2f} s; "
-                f"launches {routes}")
-            within("eval_cmax median AEE", m["median_aee_px_s"], CMAX_MEDIAN,
-                   CMAX_REL_TOL * CMAX_MEDIAN)
-            kept = {"bilinear_patches_scatter"
-                    + ("" if r == "patch" else f":{r}") for r, *_ in seen}
-            if not routes or set(routes) != kept:
-                raise AssertionError(f"eval_cmax launched {routes}; inputs "
-                                     f"kept for {sorted(kept)}")
-            out["eval_cmax"] = {"median_aee_px_s": m["median_aee_px_s"],
-                                "num_rois": m["num_rois"], "wall_s": wall,
-                                "windows": CMAX_WINDOWS,
-                                "windows_per_s": CMAX_WINDOWS / wall,
-                                "launches": routes}
-            windows = {name: densest_window(recs[name])
-                       for name in ("flow91", "recon77_20")}
+            summary, wall = synced(torch, lambda: cli.main(
+                [recs[name]] + args + ["--output_dir",
+                                       os.path.join(work, f"out_{name}"),
+                                       "--device", "cuda",
+                                       "--no_window_cache"]))
+            got = {k: v - before[k] for k, v in cs.launch_counts().items()
+                   if v != before[k]}
+            if summary["windows"] != windows or got != {
+                    direct: 2 * windows}:
+                raise AssertionError(
+                    f"{name}: {summary['windows']} windows, launches "
+                    f"{got}; expected {direct} {2 * windows} only")
+            return summary["metrics"], {
+                "wall_s": wall, "windows": windows,
+                "windows_per_s": windows / wall}
+
+        m, out["infer_flow"] = serve(
+            infer_flow, "flow91", ["--params", FLOW_PARAMS, "--method",
+                                   "between_frames", "--eval_gt"], 20)
+        log(f"  infer_flow: AEE {m['aee_px_s']} px/s over "
+            f"{m['num_fields']} (JAX {FLOW_AEE}), zero-flow "
+            f"{m['zero_flow_aee_px_s']}")
+        within("AEE", m["aee_px_s"], FLOW_AEE, FLOW_AEE_TOL)
+        within("zero-flow AEE", m["zero_flow_aee_px_s"], FLOW_ZERO,
+               FLOW_ZERO_TOL)
+        per = m["aee_per_window"][1:]
+        if len(per) != len(FLOW_AEE_WINDOWS):
+            raise AssertionError(f"AEE windows {per}")
+        for i, (g, w) in enumerate(zip(per, FLOW_AEE_WINDOWS)):
+            within(f"AEE window {i + 1}", g, w, FLOW_WINDOW_TOL)
+        out["infer_flow"].update(
+            aee_px_s=m["aee_px_s"],
+            zero_flow_aee_px_s=m["zero_flow_aee_px_s"],
+            aee_window_max_abs_err=max(abs(g - w) for g, w in
+                                       zip(per, FLOW_AEE_WINDOWS)))
+
+        for name, (psnr, ssim) in RECON_STEADY.items():
+            n = len(ANCHOR_SIMS[name]["windows"])
+            m, out[f"reconstruct_{name}"] = serve(
+                reconstruct, name, ["--params", RECON_PARAMS,
+                                    "--method", "between_frames",
+                                    "--eval_gt"], n)
+            log(f"  reconstruct {name}: steady {m['psnr_steady_db']} dB"
+                f" / SSIM {m['ssim_steady']} (JAX {psnr} / {ssim}); all "
+                f"{m['psnr_db']} / {m['ssim']}")
+            within(f"{name} steady PSNR", m["psnr_steady_db"], psnr,
+                   PSNR_TOL)
+            within(f"{name} steady SSIM", m["ssim_steady"], ssim,
+                   SSIM_TOL)
+            out[f"reconstruct_{name}"].update(
+                psnr_steady_db=m["psnr_steady_db"],
+                ssim_steady=m["ssim_steady"], psnr_db=m["psnr_db"],
+                ssim=m["ssim"])
+
+        before = cs.launch_counts()
+        with patch_calls(cs) as seen:
+            m, wall = synced(torch, lambda: eval_cmax.main(
+                [recs["flow91"], "--max_windows", str(CMAX_WINDOWS),
+                 "--device", "cuda"]))
+        routes = {k: v - before[k] for k, v in cs.launch_counts().items()
+                  if v != before[k]}
+        log(f"  eval_cmax: median AEE {m['median_aee_px_s']} px/s over "
+            f"{m['num_rois']} ROIs (JAX {CMAX_MEDIAN}) in {wall:.2f} s; "
+            f"launches {routes}")
+        within("eval_cmax median AEE", m["median_aee_px_s"], CMAX_MEDIAN,
+               CMAX_REL_TOL * CMAX_MEDIAN)
+        kept = {"bilinear_patches_scatter"
+                + ("" if r == "patch" else f":{r}") for r, *_ in seen}
+        if not routes or set(routes) != kept:
+            raise AssertionError(f"eval_cmax launched {routes}; inputs "
+                                 f"kept for {sorted(kept)}")
+        out["eval_cmax"] = {"median_aee_px_s": m["median_aee_px_s"],
+                            "num_rois": m["num_rois"], "wall_s": wall,
+                            "windows": CMAX_WINDOWS,
+                            "windows_per_s": CMAX_WINDOWS / wall,
+                            "launches": routes}
+        windows = {name: densest_window(recs[name])
+                   for name in ("flow91", "recon77_20")}
 
         recall, removal, n, noise = baf_scene(torch)
         log(f"  BAF on the card: {n} events ({noise} noise), signal recall "
@@ -1969,6 +2051,499 @@ def simulated_anchors_phase(torch, cs, records):
         torch, cs, records, f"densest {name} window's positive grid", ev,
         128, 128) for name, ev in windows.items()]
     return launches, out
+
+
+# ---------------------------------------------------------------------------
+# Training: the trainers on simulated scenes, gated on the eval anchors
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def flat_calls(cs):
+    """Inside, the call with the most ids for each bucket count sent to the
+    flat kernel's wrapper keeps a copy of its inputs: yields
+    ``{num_buckets: (idx, w)}``. The calls run unchanged."""
+    seen = {}
+    flat = cs.flat_scatter
+
+    def capture(idx, w, num_buckets, route=None):
+        if idx.shape[0] > seen.get(num_buckets, (idx[:0],))[0].shape[0]:
+            seen[num_buckets] = (idx.detach().clone(), w.detach().clone())
+        return flat(idx, w, num_buckets, route=route)
+
+    cs.flat_scatter = capture
+    try:
+        yield seen
+    finally:
+        cs.flat_scatter = flat
+
+
+def flat_gradient_case(torch, cs, idx, w, num_buckets):
+    """The flat kernel under autograd against the plain adjoint (a gather
+    of the cotangent, exact): returns the max abs difference."""
+    wg = w.clone().requires_grad_(True)
+    out = cs.scatter_add_flat_cuda(idx, wg[0] if w.shape[0] == 1 else wg,
+                                   num_buckets)
+    g = torch.randn(out.shape, device=out.device,
+                    generator=torch.Generator(out.device).manual_seed(SEED))
+    out.backward(g)
+    ok = (idx >= 0) & (idx < num_buckets)
+    ref = torch.where(ok, g.reshape(-1, num_buckets)[:, torch.where(
+        ok, idx, 0).long()], 0.0)
+    return float((wg.grad.reshape(ref.shape) - ref).abs().max())
+
+
+def check_weights(name, card_state, cpu_state, init_state, lr_sum):
+    """Card against CPU weights after the parity steps, from the same
+    ``init_state``: the 99% quantile of |diff| over the coordinates the CPU
+    run moved and the max over all, against the summed learning rate."""
+    d, moved = [], []
+    for k, x in card_state.items():
+        ref = cpu_state[k].cpu()
+        d.append((x.cpu() - ref).abs().reshape(-1).numpy())
+        moved.append((ref != init_state[k].cpu()).reshape(-1).numpy())
+    d, moved = np.concatenate(d), np.concatenate(moved)
+    q, mx = float(np.quantile(d[moved], 0.99)), float(d.max())
+    log(f"  {name}: card vs CPU weights, 99% of |diff| where the CPU moved "
+        f"({moved.mean():.4f} of them) {q:.3e}, max {mx:.3e} (summed lr "
+        f"{lr_sum:.2e})")
+    if not (q <= STEP_PARAM_Q99 * lr_sum and mx <= STEP_PARAM_MAX * lr_sum):
+        raise AssertionError(f"{name}: card and CPU weights part: {q}, {mx}")
+    return {"q99_abs_diff_moved": q, "max_abs_diff": mx,
+            "moved_share": float(moved.mean()), "lr_sum": lr_sum}
+
+
+def check_grads(torch, name, nets, loss_fn):
+    """One loss's gradients in the weights, card against CPU, leaf by leaf
+    (``nets``: {"card"/"host": (trainer, batch)}; no step is taken): the
+    worst leaf's cosine and max |diff| of the leaf's scale."""
+    grads = {}
+    for key, (t, batch) in nets.items():
+        loss_fn(t, batch).backward()
+        grads[key] = {k: p.grad.reshape(-1).cpu().double()
+                      for k, p in t.model.named_parameters()}
+    cos_min, rel_max = 1.0, 0.0
+    for k, a in grads["card"].items():
+        b = grads["host"][k]
+        scale = float(b.abs().max())
+        if scale > 0:
+            cos_min = min(cos_min, float(
+                torch.nn.functional.cosine_similarity(a, b, dim=0)))
+            rel_max = max(rel_max, float((a - b).abs().max()) / scale)
+    log(f"  {name}: gradients, card vs CPU: worst leaf cosine "
+        f"{cos_min:.10f}, max|diff| {rel_max:.3e} of its scale")
+    if not (cos_min >= STEP_GRAD_COS and rel_max <= STEP_GRAD_REL):
+        raise AssertionError(f"{name} gradients: {cos_min}, {rel_max}")
+    return {"leaf_cosine_min": cos_min, "leaf_max_rel_diff": rel_max}
+
+
+def cuda_ms(torch, fn, reps=5):
+    """Median device ms of ``fn`` between two CUDA events (warm)."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return float(np.median(ms))
+
+
+def training_phase(torch, cs, records, work):
+    """The training path: JAX's pinned eval batches rebuilt on the card and
+    served through the trainers' evals; the three CLI runs; then card-vs-CPU
+    train steps, 'pallas' vs 'xla' grids, the loss gradient against the
+    CPU's, and the flat kernel at this path's shapes. ``work`` holds the
+    seed-77 recording of the simulated-anchors phase. Returns the phase's
+    launch counts and what it measured."""
+    from event_utils_tpu_torch._device import no_tf32
+    from event_utils_tpu_torch.cli import train_flow, train_reconstruction
+    from event_utils_tpu_torch.models import contrast_flow_loss
+    from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
+    from event_utils_tpu_torch.training import (FlowTrainer,
+                                                ReconstructionTrainer,
+                                                cosine_decay_schedule)
+    from event_utils_tpu_torch.training import in_the_loop as itl
+    with open(itl.EVAL_ANCHORS) as f:
+        anchors = json.load(f)
+    direct = "flat_scatter:direct"
+    out = {"card": card_line()}
+    prev_impl = get_default_impl()
+    cs.reset_launch_counts()
+    set_default_impl("pallas")
+
+    def launched(fn, want, what):
+        before = cs.launch_counts()
+        res = fn()
+        got = {k: v - before[k] for k, v in cs.launch_counts().items()
+               if v != before[k]}
+        if got != ({direct: want} if want else {}):
+            raise AssertionError(f"{what}: launches {got}, expected "
+                                 f"{direct} {want} only")
+        return res
+
+    try:
+        with no_tf32(), flat_calls(cs) as seen:
+            # 1. the eval anchors
+            fa, ra = anchors["flow"], anchors["recon"]
+            fc, rc = fa["config"], ra["config"]
+            (ev, mask, gt, sat), wall = synced(torch, lambda: launched(
+                lambda: itl.simulate_flow_scenes(
+                    itl.load_scenes(itl.FLOW_EVAL_SCENES), fc["capacity"],
+                    window_t=fc["window_t"], num_frames=fc["num_frames"],
+                    burn_in=fc["burn_in"], return_saturation=True,
+                    device="cuda"), 0, "flow eval batch"))
+            counts = mask.sum(1).long().tolist()
+            log(f"training: stage-9 flow eval batch on the card in "
+                f"{wall:.3f} s: kept events {counts} (JAX {fa['events']}), "
+                f"saturated {sat.tolist()}")
+            for b, (n, want) in enumerate(zip(counts, fa["events"])):
+                within(f"flow eval scene {b} events", n, want,
+                       TRAIN_EVENTS_REL * want)
+            flow_net = FlowTrainer((128, 128), supervised_weight=1.0,
+                                   device="cuda")
+            flow_net.load_params(FLOW_PARAMS)
+            vox = launched(lambda: itl.voxelize_batch(ev, mask, 5,
+                                                      (128, 128)),
+                           2, "flow eval grids")
+            aee, zero = itl.flow_eval(flow_net, vox, gt)
+            log(f"  held-out AEE {aee:.4f} px/s (JAX on the CPU "
+                f"{fa['aee_px_s']:.4f}), zero-flow {zero:.4f} "
+                f"({fa['zero_flow_aee_px_s']:.4f})")
+            within("held-out AEE", aee, fa["aee_px_s"],
+                   TRAIN_AEE_REL * fa["aee_px_s"])
+            within("zero-flow AEE", zero, fa["zero_flow_aee_px_s"],
+                   TRAIN_ZERO_TOL)
+            out["flow_eval"] = {"events": counts, "aee_px_s": aee,
+                                "zero_flow_aee_px_s": zero,
+                                "sim_wall_s": wall}
+            T = rc["seq_len"] * rc["carry_segments"]
+            (rvox, rframes, rsat), wall = synced(torch, lambda: launched(
+                lambda: itl.simulate_recon_scenes(
+                    itl.load_scenes(itl.RECON_EVAL_SCENES), rc["capacity"],
+                    T, window_t=rc["window_t"],
+                    sim_steps_per_window=rc["sim_steps_per_window"],
+                    num_bins=rc["num_bins"], return_saturation=True,
+                    device="cuda"), 2, "recon eval batch"))
+            counts = [int(round(float(x)))
+                      for x in rvox.sum((0, 2, 3, 4)).cpu()]
+            log(f"  stage-8 E2VID eval batch in {wall:.3f} s: events in "
+                f"windows {counts} (JAX {ra['events_in_windows']})")
+            for b, (n, want) in enumerate(zip(counts,
+                                              ra["events_in_windows"])):
+                within(f"recon eval scene {b} events", n, want,
+                       TRAIN_EVENTS_REL * want)
+            recon_net = ReconstructionTrainer(
+                (128, 128), model_kwargs=RECON_KWARGS, burn_in=1,
+                ema_decay=0.999, device="cuda")
+            recon_net.load_params(RECON_PARAMS)
+            p, s_, p_ss, s_ss = itl.recon_eval(recon_net, rvox, rframes)
+            log(f"  held-out PSNR {p:.4f} dB / SSIM {s_:.4f}, steady "
+                f"{p_ss:.4f} / {s_ss:.4f} (JAX {ra['psnr_db']:.4f} / "
+                f"{ra['ssim']:.4f}, {ra['psnr_steady_db']:.4f} / "
+                f"{ra['ssim_steady']:.4f})")
+            for name, got, want, tol in (
+                    ("PSNR", p, ra["psnr_db"], PSNR_TOL),
+                    ("SSIM", s_, ra["ssim"], SSIM_TOL),
+                    ("steady PSNR", p_ss, ra["psnr_steady_db"], PSNR_TOL),
+                    ("steady SSIM", s_ss, ra["ssim_steady"], SSIM_TOL)):
+                within(f"recon eval {name}", got, want, tol)
+            out["recon_eval"] = {"events_in_windows": counts, "psnr_db": p,
+                                 "ssim": s_, "psnr_steady_db": p_ss,
+                                 "ssim_steady": s_ss, "sim_wall_s": wall}
+
+            # 2. the CLIs: the stage-9 recipe from the committed weights,
+            # the stage-8 recipe, and the seed-77 recording
+            runs = {}
+            flow_out = os.path.join(work, "train_flow.npz")
+            res, wall = synced(torch, lambda: launched(lambda: train_flow.main(
+                TRAIN_FLOW + [
+                    "--resume_params", FLOW_PARAMS, "--lr", "5e-6",
+                    "--steps", str(TRAIN_FLOW_STEPS), "--seed",
+                    str(TRAIN_SEED), "--eval_seed", "0", "--eval_scenes",
+                    itl.FLOW_EVAL_SCENES, "--eval_every",
+                    str(TRAIN_FLOW_STEPS),
+                    "--params_out", flow_out, "--metrics_out",
+                    os.path.join(work, "train_flow.json"), "--device",
+                    "cuda"]), 2 + 3 * TRAIN_FLOW_STEPS, "train_flow"))
+            runs["train_flow"] = res, wall
+            recon_out = os.path.join(work, "train_recon.npz")
+            res, wall = synced(torch, lambda: launched(
+                lambda: train_reconstruction.main(TRAIN_RECON + [
+                    "--simulate", "--resume_params", RECON_PARAMS, "--lr",
+                    "3e-5", "--lr_end", "3e-6", "--steps",
+                    str(TRAIN_RECON_STEPS), "--seed", str(TRAIN_SEED),
+                    "--eval_seed", "0", "--eval_scenes",
+                    itl.RECON_EVAL_SCENES, "--eval_every",
+                    str(TRAIN_RECON_STEPS),
+                    "--params_out", recon_out, "--device", "cuda"]),
+                2 + 2 * TRAIN_RECON_STEPS // 3, "train_reconstruction"))
+            runs["train_reconstruction"] = res, wall
+            rec = os.path.join(work, "recon77_20")
+            res, wall = synced(torch, lambda: launched(
+                lambda: train_reconstruction.main([rec] + TRAIN_RECON_FILE + [
+                    "--max_steps", str(TRAIN_FILE_STEPS), "--resume_params",
+                    RECON_PARAMS, "--lr", "3e-6", "--device", "cuda"]),
+                2 * 8 * TRAIN_FILE_STEPS, "train_reconstruction on recon77"))
+            runs["train_reconstruction_file"] = res, wall
+        launches = cs.launch_counts()
+        log(f"training launches: { {k: v for k, v in launches.items() if v} }")
+
+        # the runs' numbers: finite losses, the final evals in their bands
+        for name, (res, wall) in runs.items():
+            losses = np.asarray(res["losses"])
+            if not (len(losses) and np.isfinite(losses).all()):
+                raise AssertionError(f"{name}: losses {losses}")
+            entry = {"steps": len(losses), "wall_s": wall,
+                     "steps_per_s": len(losses) / wall,
+                     "loss_first": float(losses[0]),
+                     "loss_last": float(losses[-1])}
+            if "events" in res:
+                entry.update(mev_per_s=res["events"] / res["wall_s"] / 1e6,
+                             sim_share=res["sim_s"] / res["wall_s"],
+                             loop_wall_s=res["wall_s"])
+            out[name] = entry
+            log(f"  {name}: {len(losses)} steps in {wall:.2f} s "
+                f"({entry['steps_per_s']:.2f} steps/s), losses "
+                f"{losses.round(5).tolist()}"
+                + (f", {entry['mev_per_s']:.3f} Mev/s simulated+trained, "
+                   f"simulator {entry['sim_share']:.3f} of the loop's wall"
+                   if "events" in res else ""))
+        (_, aee_end), = runs["train_flow"][0]["aee_curve"]
+        (_, p_end, s_end, *_), = runs["train_reconstruction"][0][
+            "psnr_curve"]
+        out["train_flow"]["final_aee_px_s"] = aee_end
+        out["train_reconstruction"].update(final_psnr_db=p_end,
+                                           final_ssim=s_end)
+        log(f"  final evals: AEE {aee_end:.4f} px/s (band {CLI_FLOW_AEE}), "
+            f"PSNR {p_end:.4f} dB {CLI_RECON_PSNR} / SSIM {s_end:.4f} "
+            f"{CLI_RECON_SSIM}")
+        for name, got, (lo, hi) in (("AEE", aee_end, CLI_FLOW_AEE),
+                                    ("PSNR", p_end, CLI_RECON_PSNR),
+                                    ("SSIM", s_end, CLI_RECON_SSIM)):
+            if not lo <= got <= hi:
+                raise AssertionError(f"final {name} {got} outside "
+                                     f"[{lo}, {hi}]")
+        # --params_out into fresh trainers: bit-identical output
+        flow_back = FlowTrainer((128, 128), device="cuda")
+        flow_back.load_params(flow_out)
+        recon_back = ReconstructionTrainer(
+            (128, 128), model_kwargs=RECON_KWARGS, device="cuda")
+        recon_back.load_params(recon_out)
+        with no_tf32():
+            same = (torch.equal(flow_back.predict(vox),
+                                runs["train_flow"][0]["trainer"].predict(
+                                    vox)),
+                    torch.equal(recon_back.reconstruct(rvox[:8])[0],
+                                runs["train_reconstruction"][0][
+                                    "trainer"].reconstruct(rvox[:8])[0]))
+        if not all(same):
+            raise AssertionError(f"--params_out reloaded: bit-identical "
+                                 f"(flow, recon) {same}")
+        log("  --params_out reloaded on the card: predict and reconstruct "
+            "bit-identical")
+
+        # 3. card vs CPU steps on one batch drawn by the CPU generator
+        with no_tf32():
+            out["parity"] = step_parity(torch, itl, contrast_flow_loss,
+                                        FlowTrainer, ReconstructionTrainer,
+                                        cosine_decay_schedule)
+    finally:
+        set_default_impl(prev_impl)
+    # 4. the flat kernel at this path's shapes, after the counts are read
+    cases, grads = [], []
+    rec_direct = records[direct]
+    for nb, (idx, w) in sorted(seen.items()):
+        n = idx.shape[0]
+        case = as_case(flat_case(torch, cs, "training path", idx, w, nb,
+                                 {})["direct"])
+        case["grad_max_abs_err"] = flat_gradient_case(torch, cs, idx, w, nb)
+        if case["grad_max_abs_err"] != 0.0:
+            raise AssertionError(f"flat adjoint at {n} ids: "
+                                 f"{case['grad_max_abs_err']}")
+        rec_direct["cases"].append(case)
+        rec_direct["max_abs_err"] = max(rec_direct["max_abs_err"],
+                                        case["max_abs_err"])
+        cases.append(case)
+    out["flat_cases"] = cases
+    out["timings"] = training_timings(torch, itl, FlowTrainer,
+                                      ReconstructionTrainer, work)
+    return launches, out
+
+
+def step_parity(torch, itl, contrast_flow_loss, FlowTrainer,
+                ReconstructionTrainer, cosine_decay_schedule):
+    """Two Adam steps of each recipe from the committed weights on one batch
+    (the CPU generator's scenes, simulated on the card), on the card and on
+    the CPU; 'pallas' against 'xla' grids; the loss gradient against the
+    CPU's."""
+    from event_utils_tpu_torch.ops import set_default_impl
+    out = {}
+    ev, mask, gt = itl.simulate_flow_batch(
+        TRAIN_SEED, 0, 8, (128, 128), 65536, omega_max=6.0, s_max=0.6,
+        burn_in=1, fresh_prob=0.25, age_max=2.5, device="cuda")
+    grids = {}
+    for impl in ("xla", "pallas"):
+        set_default_impl(impl)
+        grids[impl] = itl.voxelize_batch(ev, mask, 5, (128, 128))
+    check_close("flow grids, 'pallas' vs 'xla'", grids["pallas"],
+                grids["xla"], GRID_REL)
+    vox = grids["pallas"]
+    batch = (vox, ev, mask, itl.dense_gt(gt, (128, 128)))
+    lr = cosine_decay_schedule(1e-4, 6000, alpha=0.05)
+    nets = {}
+    for key, dev in (("card", "cuda"), ("host", "cpu")):
+        t = FlowTrainer((128, 128), learning_rate=lr, supervised_weight=1.0,
+                        device=dev)
+        t.load_params(FLOW_PARAMS)
+        nets[key] = (t, [a.to(dev) for a in batch])
+    init = {k: v.clone() for k, v in nets["host"][0].model.state_dict()
+            .items()}
+    out["flow_grads"] = check_grads(torch, "flow", nets,
+                                    lambda t, b: t.loss(*b))
+    losses = [[nets[k][0].train_batch(*nets[k][1]) for k in nets]
+              for _ in range(2)]
+    log(f"  flow steps, card vs CPU losses: {losses}")
+    for a, b in losses:
+        within("flow step loss", a, b, STEP_LOSS_REL * abs(b))
+    out["flow_losses"] = losses
+    out["flow_weights"] = check_weights(
+        "flow", nets["card"][0].model.state_dict(),
+        nets["host"][0].model.state_dict(), init, lr(0) + lr(1))
+    # the loss gradient in the flow, card ('pallas': the flat kernel and
+    # its gather adjoint) against the CPU's plain route
+    flow = nets["card"][0].predict(vox).detach()
+    g = {}
+    for key, dev in (("card", "cuda"), ("host", "cpu")):
+        f = flow.detach().to(dev, copy=True).requires_grad_(True)
+        contrast_flow_loss(f, ev.to(dev), mask.to(dev),
+                           (128, 128)).backward()
+        g[key] = f.grad.reshape(-1).cpu()
+    cos = float(torch.nn.functional.cosine_similarity(g["card"], g["host"],
+                                                      dim=0))
+    err = float((g["card"] - g["host"]).abs().max())
+    scale = float(g["host"].abs().max())
+    log(f"  contrast_flow_loss gradient, card vs CPU: cosine {cos:.8f}, "
+        f"max|diff| {err:.3e} of scale {scale:.3e}")
+    if not (cos >= GRAD_COS and err <= GRAD_REL * scale):
+        raise AssertionError(f"loss gradient: cosine {cos}, {err}/{scale}")
+    out["loss_grad"] = {"cosine": cos, "max_abs_diff": err, "scale": scale}
+
+    # E2VID: the first cold segment of one stage-8 batch, EMA on
+    rvox = {}
+    for impl in ("xla", "pallas"):
+        set_default_impl(impl)
+        rvox[impl], rframes = itl.simulate_recon_batch(
+            TRAIN_SEED, 0, 4, (128, 128), 294912, 24, device="cuda")
+    check_close("E2VID grids, 'pallas' vs 'xla'", rvox["pallas"],
+                rvox["xla"], GRID_REL)
+    seg = (rvox["pallas"][:8], rframes[:8])
+    lr = cosine_decay_schedule(3e-5, 3000, alpha=0.1)
+    nets = {}
+    for key, dev in (("card", "cuda"), ("host", "cpu")):
+        t = ReconstructionTrainer(
+            (128, 128), learning_rate=lr, lpips_weight=0.1, mse_weight=4.0,
+            model_kwargs=RECON_KWARGS, burn_in=1, ema_decay=0.999,
+            device=dev)
+        t.load_params(RECON_PARAMS)
+        nets[key] = (t, [a.to(dev) for a in seg])
+    init = {k: v.clone() for k, v in nets["host"][0].model.state_dict()
+            .items()}
+    out["recon_grads"] = check_grads(
+        torch, "E2VID", nets,
+        lambda t, b: t.sequence_loss(*b, burn_in=t.burn_in)[0])
+    losses = [[nets[k][0].train_sequence(*nets[k][1]) for k in nets]
+              for _ in range(2)]
+    log(f"  E2VID steps, card vs CPU losses: {losses}")
+    for a, b in losses:
+        within("E2VID step loss", a, b, STEP_LOSS_REL * abs(b))
+    out["recon_losses"] = losses
+    out["recon_weights"] = check_weights(
+        "E2VID", nets["card"][0].model.state_dict(),
+        nets["host"][0].model.state_dict(), init, lr(0) + lr(1))
+    out["recon_ema"] = check_weights(
+        "E2VID EMA", nets["card"][0].ema_model.state_dict(),
+        nets["host"][0].ema_model.state_dict(), init, lr(0) + lr(1))
+    return out
+
+
+def training_timings(torch, itl, FlowTrainer, ReconstructionTrainer, work):
+    """Warm timings of the training path on the card: one forward-plus-
+    backward pass of each recipe (CUDA events), one full flow step and one
+    E2VID batch generation and segment step (host wall, and the device
+    idle share under torch.profiler)."""
+    from event_utils_tpu_torch._device import no_tf32
+    from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
+    prev = get_default_impl()
+    set_default_impl("pallas")
+    out = {}
+    try:
+        with no_tf32():
+            flow = FlowTrainer((128, 128), supervised_weight=1.0,
+                               learning_rate=5e-6, device="cuda")
+            flow.load_params(FLOW_PARAMS)
+            recon = ReconstructionTrainer(
+                (128, 128), learning_rate=3e-6, lpips_weight=0.1,
+                mse_weight=4.0, model_kwargs=RECON_KWARGS, burn_in=1,
+                ema_decay=0.999, device="cuda")
+            recon.load_params(RECON_PARAMS)
+            step_no = [0]
+
+            def flow_batch():
+                step_no[0] += 1
+                ev, mask, gt = itl.simulate_flow_batch(
+                    TRAIN_SEED, 100 + step_no[0], 8, (128, 128), 65536,
+                    omega_max=6.0, s_max=0.6, burn_in=1, fresh_prob=0.25,
+                    age_max=2.5, device="cuda")
+                return (itl.voxelize_batch(ev, mask, 5, (128, 128)), ev,
+                        mask, itl.dense_gt(gt, (128, 128)))
+
+            def recon_batch():
+                step_no[0] += 1
+                return itl.simulate_recon_batch(
+                    TRAIN_SEED, 100 + step_no[0], 4, (128, 128), 294912, 24,
+                    device="cuda")
+
+            fb = flow_batch()
+            rv, rf = recon_batch()
+            seg = (rv[:8], rf[:8])
+            out["flow_fwd_bwd_ms"] = cuda_ms(
+                torch, lambda: flow.loss(*fb).backward())
+            out["recon_fwd_bwd_ms"] = cuda_ms(
+                torch, lambda: recon.sequence_loss(*seg, burn_in=1)[0]
+                .backward())
+            for name, fn in (
+                    ("flow_step", lambda: flow.train_batch(*flow_batch())),
+                    ("recon_batch_generation", recon_batch),
+                    ("recon_segment_step",
+                     lambda: recon.train_sequence(*seg))):
+                fn()
+                walls = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t)
+                wall = float(np.median(walls))
+                busy, top = device_busy(torch, fn)
+                out[name] = {"wall_s": wall, "device_busy_s": busy,
+                             "idle_share": max(0.0, 1.0 - busy / wall),
+                             "top_device": top}
+    finally:
+        set_default_impl(prev)
+    card = card_line()
+    log(f"training timings ({card}): forward+backward EV-FlowNet "
+        f"{out['flow_fwd_bwd_ms']:.2f} ms (batch 8), E2VID "
+        f"{out['recon_fwd_bwd_ms']:.2f} ms (8 windows x 4); "
+        + "; ".join(f"{k} wall {v['wall_s']:.4f} s, busy "
+                    f"{v['device_busy_s']:.4f} s, idle "
+                    f"{v['idle_share']:.3f}" for k, v in out.items()
+                    if isinstance(v, dict)))
+    out["card"] = card
+    return out
 
 
 def bucketing_share(torch, rng):
@@ -2044,7 +2619,10 @@ def main() -> int:
         raise AssertionError(f"routes not held against their plain "
                              f"version: {routed ^ set(records)}")
     serving_launches, serving = serving_phase(torch, cs, records)
-    sim_launches, anchors = simulated_anchors_phase(torch, cs, records)
+    with tempfile.TemporaryDirectory(prefix=".smoke_sim_", dir=ROOT) as work:
+        sim_launches, anchors = simulated_anchors_phase(torch, cs, records,
+                                                        work)
+        train_launches, training = training_phase(torch, cs, records, work)
     bucketing_share(torch, rng)
 
     kernels = []
@@ -2056,12 +2634,14 @@ def main() -> int:
             "launches": launches[name],
             "launches_serving": serving_launches[name],
             "launches_sim": sim_launches[name],
+            "launches_train": train_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": rec["library_ms"],
             **{k: rec[k] for k in ("shape", "cases") if k in rec}})
     print(json.dumps({"serving": serving}))
     print(json.dumps({"simulated_anchors": anchors}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

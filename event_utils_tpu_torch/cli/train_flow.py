@@ -1,0 +1,227 @@
+"""EV-FlowNet training CLI (port of ``event_utils_tpu.cli.train_flow``).
+
+The ``--simulate`` route trains in the loop on scenes simulated on the
+device every step, with the JAX CLI's flags: the similarity family
+(``--omega_max``, ``--s_max``), ``--burn_in``, ``--fresh_prob``,
+``--age_max``, the supervised AEE term, ``--lr_end`` (cosine decay over
+``--steps``, optax's formula), ``--metrics_out`` and ``--params_out``
+rewritten atomically at every eval, ``--resume_params`` (a ``params.npz``
+of either package) and ``--resume`` (the port's ``--ckpt_dir``). It runs
+on the card unless ``--device cpu`` is passed.
+
+Differences from the JAX CLI:
+
+- training scenes come from ``torch.Generator`` draws
+  (``training.in_the_loop``), so they agree with JAX's in distribution
+  only; ``--eval_scenes`` rebuilds a pinned eval batch from committed scene
+  parameters (``training/data/flow_eval_scenes.npz`` is stage 9's);
+- ``--ckpt_dir`` holds the port's own checkpoint format
+  (``training.checkpointing``), not orbax's;
+- the file route (a recording) needs the streaming loaders and
+  ``--data_parallel`` a multi-card mesh, neither ported yet: both raise
+  ``ConfigurationError`` (``ROADMAP.md`` queue 1 items 2 and 6).
+
+Example (the stage-9 recipe of ``runs/flow128_similarity``):
+    python -m event_utils_tpu_torch.cli.train_flow --simulate \\
+        --sensor 128 128 --batch_size 8 --capacity 65536 --v_max 40 \\
+        --omega_max 6 --s_max 0.6 --burn_in 1 --fresh_prob 0.25 \\
+        --age_max 2.5 --supervised_weight 1.0 --lr 1e-4 --lr_end 5e-6 \\
+        --eval_seed 0 --resume_params runs/flow128_similarity/params.npz \\
+        --steps 6000 --params_out params.npz --metrics_out metrics.json
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(
+        description="Train EV-FlowNet self-supervised on simulated scenes")
+    parser.add_argument("path", nargs="?", default=None,
+                        help="memmap dir or H5 file: not supported by the "
+                             "port yet (pass --simulate)")
+    parser.add_argument("--simulate", action="store_true",
+                        help="training in the loop: simulate fresh scenes "
+                             "on the device every step (no files)")
+    parser.add_argument("--steps", type=int, default=1000,
+                        help="steps for --simulate mode")
+    parser.add_argument("--capacity", type=int, default=16384,
+                        help="per-scene event capacity for --simulate")
+    parser.add_argument("--v_max", type=float, default=40.0,
+                        help="|velocity| bound (px/s) for --simulate scenes")
+    parser.add_argument("--window_t", type=float, default=0.1,
+                        help="seconds of events per --simulate window")
+    parser.add_argument("--num_frames", type=int, default=9,
+                        help="rendered frames per --simulate window")
+    parser.add_argument("--metrics_out", default=None,
+                        help="write {losses, aee_curve, config} JSON here, "
+                             "rewritten at every eval")
+    parser.add_argument("--supervised_weight", type=float, default=0.0,
+                        help="weight of the sim-supervised AEE term")
+    parser.add_argument("--omega_max", type=float, default=0.0,
+                        help="max |rotation rate| rad/s of --simulate scenes "
+                             "(nonzero: dense similarity-field GT)")
+    parser.add_argument("--s_max", type=float, default=0.0,
+                        help="max |divergence rate| 1/s of --simulate scenes "
+                             "(nonzero: dense similarity-field GT)")
+    parser.add_argument("--burn_in", type=int, default=0,
+                        help="extra simulated windows before the trained one "
+                             "(steady-state sensor statistics); size "
+                             "--capacity for burn_in+1 windows")
+    parser.add_argument("--fresh_prob", type=float, default=0.0,
+                        help="with --burn_in: probability that a scene "
+                             "trains on its fresh first window instead of "
+                             "the steady last one (eval stays steady)")
+    parser.add_argument("--age_max", type=float, default=0.0,
+                        help="per-scene age jitter in seconds: the rotation/"
+                             "scale clock starts at U[0, age_max]")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="scene seed (vary across resumed stages)")
+    parser.add_argument("--eval_seed", type=int, default=None,
+                        help="seed of the held-out batch (default --seed)")
+    parser.add_argument("--eval_scenes", default=None,
+                        help="rebuild the held-out batch from these scene "
+                             "parameters (.npz of texture, v, ws) instead of "
+                             "drawing it")
+    parser.add_argument("--eval_every", type=int, default=100,
+                        help="steps between held-out evals (0: none)")
+    parser.add_argument("--sensor", nargs=2, type=int, default=(64, 64),
+                        help="sensor H W (multiples of 8)")
+    parser.add_argument("--num_bins", type=int, default=5)
+    parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--lr", type=float, default=1e-4)
+    parser.add_argument("--lr_end", type=float, default=None,
+                        help="cosine-decay the learning rate from --lr to "
+                             "this value over --steps")
+    parser.add_argument("--params_out", default=None,
+                        help="write the weights as a flat .npz (the JAX "
+                             "package's layout), also at every eval")
+    parser.add_argument("--ckpt_dir", default=None,
+                        help="resumable checkpoints (the port's format)")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue from the latest --ckpt_dir step")
+    parser.add_argument("--resume_params", default=None,
+                        help="warm-start weights from a params .npz "
+                             "(optimizer state re-initialized)")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="shard the batch over all devices: not "
+                             "supported by the port yet")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device: 'cuda' (default; raises "
+                             "without a card) or 'cpu'")
+    return parser
+
+
+def _config(args) -> dict:
+    return {"sensor": list(args.sensor), "num_bins": args.num_bins,
+            "batch_size": args.batch_size, "steps": args.steps,
+            "capacity": args.capacity, "v_max": args.v_max,
+            "window_t": args.window_t, "num_frames": args.num_frames,
+            "omega_max": args.omega_max, "s_max": args.s_max,
+            "burn_in": args.burn_in, "fresh_prob": args.fresh_prob,
+            "age_max": args.age_max, "lr": args.lr, "lr_end": args.lr_end,
+            "supervised_weight": args.supervised_weight,
+            # provenance: which scenes this stage saw, what it resumed from
+            "seed": args.seed, "eval_seed": args.eval_seed,
+            "eval_scenes": args.eval_scenes,
+            "resume_params": args.resume_params, "device": args.device}
+
+
+def learning_rate(args):
+    """``--lr``, or its cosine decay to ``--lr_end`` over ``--steps``."""
+    from ..training import cosine_decay_schedule
+
+    if args.lr_end is None:
+        return args.lr
+    return cosine_decay_schedule(args.lr, decay_steps=args.steps,
+                                 alpha=args.lr_end / args.lr)
+
+
+def write_json_atomic(path: str, payload: dict) -> None:
+    import json
+    import os
+
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f)
+    os.replace(tmp, path)
+
+
+def resume(trainer, args) -> None:
+    """``--resume`` from ``--ckpt_dir`` or ``--resume_params``."""
+    if args.resume and args.ckpt_dir:
+        step = trainer.restore_checkpoint(args.ckpt_dir)
+        print(f"resumed from step {step}")
+    elif args.resume_params:
+        step = trainer.load_params(args.resume_params)
+        print(f"warm-started weights from {args.resume_params} "
+              f"(step {step}; fresh optimizer state)")
+
+
+def main(argv=None):
+    """Run the CLI; returns ``{"losses", "aee_curve", "steps", "wall_s",
+    "sim_s", "events", "params_out", "trainer"}`` (the loop's ``stats``
+    and the trained ``FlowTrainer``)."""
+    args = build_parser().parse_args(argv)
+    if args.resume and args.resume_params:
+        raise SystemExit("--resume (checkpoint) and --resume_params (npz "
+                         "snapshot) are alternatives; pass one")
+
+    import numpy as np
+
+    from ..errors import ConfigurationError
+    from ..training import FlowTrainer, train_flow_in_the_loop
+    from ..training.checkpointing import save_params_npz
+
+    if args.data_parallel:
+        raise ConfigurationError(
+            "--data_parallel needs a multi-card mesh, which the port does "
+            "not have yet (ROADMAP.md queue 1 item 6)")
+    if not args.simulate:
+        raise ConfigurationError(
+            "training on a recording needs the streaming loaders "
+            "(NativeWindowedLoader, H5WindowedLoader, ChainLoader), which "
+            "are not ported yet (ROADMAP.md queue 1 item 2); pass "
+            "--simulate")
+
+    trainer = FlowTrainer(sensor_size=tuple(args.sensor),
+                          num_bins=args.num_bins,
+                          learning_rate=learning_rate(args),
+                          supervised_weight=args.supervised_weight,
+                          device=args.device)
+    resume(trainer, args)
+
+    def write_metrics(losses, aee):
+        # rewritten after every eval (atomic), so an interrupted run keeps
+        # its curve and weights up to the last eval
+        if args.metrics_out:
+            write_json_atomic(args.metrics_out, {
+                "losses": [round(float(x), 5) for x in losses],
+                "aee_curve": [[int(s), round(float(a), 3)] for s, a in aee],
+                "config": _config(args)})
+        if args.params_out:
+            save_params_npz(trainer, args.params_out)
+
+    stats = {}
+    losses, aee = train_flow_in_the_loop(
+        trainer, steps=args.steps, batch_size=args.batch_size,
+        capacity=args.capacity, v_max=args.v_max, seed=args.seed,
+        window_t=args.window_t, num_frames=args.num_frames,
+        omega_max=args.omega_max, s_max=args.s_max, burn_in=args.burn_in,
+        fresh_prob=args.fresh_prob, age_max=args.age_max,
+        eval_seed=args.eval_seed, eval_scenes=args.eval_scenes,
+        eval_every=args.eval_every, ckpt_dir=args.ckpt_dir,
+        on_eval=write_metrics if (args.metrics_out or args.params_out)
+        else None, stats=stats)
+    write_metrics(losses, aee)
+    if args.params_out:
+        print(f"final params saved to {args.params_out}")
+    print(f"final loss: {np.mean(losses[-10:]):.5f} over {len(losses)} steps"
+          + (f"; final AEE {aee[-1][1]:.2f} px/s" if aee else ""))
+    return {"losses": losses, "aee_curve": aee,
+            "params_out": args.params_out, "trainer": trainer, **stats}
+
+
+if __name__ == "__main__":
+    main()

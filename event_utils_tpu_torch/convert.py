@@ -7,7 +7,9 @@
 - The learned models' weights: ``load_params_npz`` reads a ``params.npz``
   written by the JAX package's ``training.checkpointing.save_params_npz``
   (one array per flax tree path, plus ``__step__`` and
-  ``__model_json__``) into the port's ``EVFlowNet`` / ``E2VID``.
+  ``__model_json__``) into the port's ``EVFlowNet`` / ``E2VID``;
+  ``state_to_flax_params`` is the inverse of ``convert_flax_params``, with
+  which the port's trainers write the same layout.
 
 Nothing of the JAX package is imported.
 """
@@ -93,6 +95,31 @@ def convert_flax_params(flat: Mapping[str, np.ndarray]
                     f"{tuple(t.shape)}")
             t = t.permute(3, 2, 0, 1)
         out[name] = t.contiguous()
+    return out
+
+
+def state_to_flax_params(state: Mapping[str, torch.Tensor]
+                         ) -> Dict[str, np.ndarray]:
+    """The inverse of ``convert_flax_params``: a state dict of the port's
+    modules as flat flax parameters (``"_Encoder_0.Conv_1.weight"`` ->
+    ``"['params']['_Encoder_0']['Conv_1']['kernel']"``), kernels OIHW ->
+    HWIO, float32 host arrays."""
+    out = {}
+    for name, t in state.items():
+        *path, leaf = name.split(".")
+        if leaf not in ("weight", "bias") or not path:
+            raise DataFormatError(f"not a conv parameter name: {name!r}")
+        arr = t.detach().to("cpu", torch.float32)
+        if leaf == "weight":
+            if arr.dim() != 4:
+                raise DataFormatError(
+                    f"{name}: a conv weight must be 4-D OIHW, got "
+                    f"{tuple(arr.shape)}")
+            arr = arr.permute(2, 3, 1, 0)
+        key = "".join(f"['{p}']" for p in
+                      ["params"] + path + ["kernel" if leaf == "weight"
+                                           else "bias"])
+        out[key] = np.ascontiguousarray(arr.numpy())
     return out
 
 

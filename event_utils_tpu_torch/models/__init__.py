@@ -31,5 +31,8 @@ from .networks import (  # noqa: F401
     ConvGRU,
     EVFlowNet,
     SameConv,
+    contrast_flow_loss,
     init_lecun_normal,
+    perceptual_distance,
+    reconstruction_loss,
 )

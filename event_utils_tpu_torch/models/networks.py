@@ -34,21 +34,35 @@ convolutions in TF32 (~1e-3 relative) by default, and the reference is
 f32. Tolerance class: f32, ~1e-5 of the output's scale against the JAX
 package (accumulation order only).
 
-The losses (``contrast_flow_loss``, ``perceptual_distance``,
-``reconstruction_loss``) belong to training and are not ported yet.
+The training losses (``contrast_flow_loss``, ``perceptual_distance``,
+``reconstruction_loss``) close the module. ``contrast_flow_loss`` splats
+all B elements of a batch in ONE flat scatter (ids offset by ``b*H*W``),
+where the JAX package vmaps one splat per element: under
+``set_default_impl('pallas')`` that is one flat-kernel launch per loss on
+the card, differentiated through the kernel's gather adjoint
+(``ops.cuda_scatter._FlatScatter``). The perceptual loss's fixed random
+filters are JAX's threefry draws, carried over as data
+(``training/data/perceptual_filters.npz``, written by
+``scripts/make_train_eval_scenes.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+import os
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .._device import no_tf32
 from ..errors import ConfigurationError
+
+PERCEPTUAL_FILTERS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "training",
+    "data", "perceptual_filters.npz")
 
 
 def _same_pads(n: int, kernel: int, stride: int):
@@ -72,13 +86,18 @@ class SameConv(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_channels))
 
     def forward(self, x):
-        top, bottom = _same_pads(x.shape[-2], self.kernel, self.stride)
-        left, right = _same_pads(x.shape[-1], self.kernel, self.stride)
-        if top == bottom and left == right:
-            return F.conv2d(x, self.weight, self.bias, self.stride,
-                            (top, left))
-        return F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight,
-                        self.bias, self.stride)
+        return same_conv2d(x, self.weight, self.bias, self.stride)
+
+
+def same_conv2d(x, weight, bias=None, stride: int = 1):
+    """``F.conv2d`` with flax/XLA ``SAME`` padding (OIHW ``weight``)."""
+    k = weight.shape[-1]
+    top, bottom = _same_pads(x.shape[-2], k, stride)
+    left, right = _same_pads(x.shape[-1], k, stride)
+    if top == bottom and left == right:
+        return F.conv2d(x, weight, bias, stride, (top, left))
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias,
+                    stride)
 
 
 def init_lecun_normal(model: nn.Module, seed: int = 0) -> nn.Module:
@@ -318,3 +337,138 @@ class E2VID(nn.Module):
             x = F.relu(getattr(self, self.bottleneck)(bottleneck))
             img = torch.sigmoid(self._Decoder_0(x, skips))
         return img, state
+
+
+# ---------------------------------------------------------------------------
+# Training losses
+# ---------------------------------------------------------------------------
+
+def _gather_rows(img, x, y):
+    """Per-row 4-tap bilinear gather: ``img`` (B, C, H, W) sampled at the
+    float coordinates ``x``, ``y`` (B, N) of its row -> (B, C, N). The
+    formula of ``ops.scatter.bilinear_gather`` (taps outside the image
+    give 0), which samples one image."""
+    B, C, H, W = img.shape
+    flat = img.reshape(B, C, H * W)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    dx = x - x0
+    dy = y - y0
+
+    def tap(oy, ox, wt):
+        xx = x0 + ox
+        yy = y0 + oy
+        valid = (xx >= 0) & (xx < W) & (yy >= 0) & (yy < H)
+        pix = (torch.where(valid, yy, 0.0).long() * W
+               + torch.where(valid, xx, 0.0).long())
+        v = torch.gather(flat, 2, pix[:, None, :].expand(B, C, -1))
+        return torch.where(valid[:, None], v, 0.0) * wt[:, None]
+
+    return (tap(0, 0, (1 - dx) * (1 - dy)) + tap(0, 1, dx * (1 - dy))
+            + tap(1, 0, (1 - dx) * dy) + tap(1, 1, dx * dy))
+
+
+def contrast_flow_loss(flow, events, events_mask, sensor_size,
+                       blur_sigma: float = 1.0,
+                       smoothness_weight: float = 0.5):
+    """Self-supervised EV-FlowNet loss: warp each window's raw events by the
+    predicted dense flow, maximise the contrast (variance) of the blurred
+    image of warped events, plus a total-variation prior on the flow.
+
+    The warp runs with the compensating sign: ``-flow`` through the formula
+    of ``transforms.optic_flow.warp_events_flow`` (each event moves by the
+    flow at its pixel times ``t - t0``, ``t0`` its row's last valid stamp),
+    so the network learns true forward flow, the simulator's convention.
+    The IWE of every element is one bilinear splat of ``p * mask`` over the
+    warped events inside the frame; all B splats go to ONE
+    ``ops.scatter.scatter_add_flat`` into ``B*H*W`` buckets.
+
+    @param flow ``(B, 2, H, W)`` predicted flow
+    @param events ``(B, N, 4)`` padded raw events (x, y, t, p)
+    @param events_mask ``(B, N)`` validity
+    """
+    from ..ops.blur import gaussian_blur_image
+    from ..ops.scatter import _bilinear_taps, scatter_add_flat
+
+    H, W = sensor_size
+    B = flow.shape[0]
+    xs, ys, ts, ps = events.unbind(-1)
+    m = events_mask != 0
+    t0 = torch.where(m.any(1), torch.where(m, ts, -torch.inf).amax(1),
+                     0.0)[:, None]
+    # padding_mode='zeros' of the reference warp: a zero ring and a
+    # shifted, clamped gather
+    padded = F.pad(-flow, (1, 1, 1, 1))
+    uv = _gather_rows(padded, torch.clamp(xs + 1.0, 0.0, W + 1.0),
+                      torch.clamp(ys + 1.0, 0.0, H + 1.0))
+    dt = ts - t0
+    xw = torch.where(m, xs + uv[:, 0] * dt, xs)
+    yw = torch.where(m, ys + uv[:, 1] * dt, ys)
+    valid = (xw >= 0) & (xw < W) & (yw >= 0) & (yw < H) & m
+    idxs, ws = _bilinear_taps(xw, yw, ps * events_mask, (H, W), valid)
+    base = (torch.arange(B, device=flow.device) * (H * W))[:, None, None]
+    ids = torch.stack(idxs, 1)                       # (B, 4, N)
+    ids = torch.where(ids >= 0, ids + base, -1)
+    iwe = scatter_add_flat(ids.reshape(-1), torch.stack(ws, 1).reshape(-1),
+                           B * H * W).view(B, H, W)
+    iwe = gaussian_blur_image(iwe, blur_sigma)
+    contrast = torch.mean(-torch.var(iwe, dim=(1, 2), correction=0))
+    tv = (torch.mean(torch.abs(torch.diff(flow, dim=-1)))
+          + torch.mean(torch.abs(torch.diff(flow, dim=-2))))
+    return contrast + smoothness_weight * tv
+
+
+def perceptual_filters(levels: int = 3, features: int = 16, seed: int = 0,
+                       device=None):
+    """The fixed random filters of ``perceptual_distance``: JAX's draws from
+    ``jax.random.PRNGKey(seed)``, scaled by ``1/sqrt(9 * in_channels)``,
+    read from ``training/data/perceptual_filters.npz``. Only the JAX
+    defaults (3 levels of 16 filters from seed 0 over one input channel)
+    were carried over; others raise ``ConfigurationError``."""
+    if (levels, features, seed) != (3, 16, 0):
+        raise ConfigurationError(
+            f"perceptual filters carried over from JAX: levels=3, "
+            f"features=16, seed=0 only, got {(levels, features, seed)}")
+    with np.load(PERCEPTUAL_FILTERS) as z:
+        return [torch.as_tensor(z[f"level{i}"], device=device)
+                for i in range(levels)]
+
+
+def _perceptual_pyramid(img, filters):
+    """Random-conv feature pyramid (stride-2 ``SAME`` conv + ReLU per level,
+    channels unit-normalised as LPIPS does)."""
+    feats = []
+    x = img
+    for w in filters:
+        x = F.relu(same_conv2d(x, w, stride=2))
+        feats.append(x / (torch.linalg.vector_norm(x, dim=1, keepdim=True)
+                          + 1e-8))
+    return feats
+
+
+def perceptual_distance(pred, target, levels: int = 3, features: int = 16,
+                        seed: int = 0, filters=None):
+    """LPIPS-style distance with fixed random features. Inputs
+    ``(B, 1, H, W)`` in [0, 1]; ``filters`` defaults to
+    ``perceptual_filters(levels, features, seed)`` (pass them in to read
+    the file once)."""
+    if filters is None:
+        filters = perceptual_filters(levels, features, seed, pred.device)
+    with no_tf32():
+        fp = _perceptual_pyramid(pred, filters)
+        ft = _perceptual_pyramid(target, filters)
+    return sum(torch.mean((a - b) ** 2) for a, b in zip(fp, ft)) / len(fp)
+
+
+def reconstruction_loss(pred, target, lpips_weight: float = 0.0,
+                        mse_weight: float = 0.0,
+                        filters: Optional[Sequence[torch.Tensor]] = None):
+    """E2VID supervision: L1, plus ``mse_weight`` times the squared error
+    and ``lpips_weight`` times ``perceptual_distance``."""
+    loss = torch.mean(torch.abs(pred - target))
+    if mse_weight:
+        loss = loss + mse_weight * torch.mean(torch.square(pred - target))
+    if lpips_weight:
+        loss = loss + lpips_weight * perceptual_distance(pred, target,
+                                                         filters=filters)
+    return loss

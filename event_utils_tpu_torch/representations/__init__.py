@@ -14,8 +14,10 @@ from .image import (  # noqa: F401
 )
 from .voxel_grid import (  # noqa: F401
     events_to_neg_pos_voxel,
+    events_to_neg_pos_voxel_segments,
     events_to_neg_pos_voxel_torch,
     events_to_voxel,
+    events_to_voxel_segments,
     events_to_voxel_tiled,
     events_to_voxel_timesync,
     events_to_voxel_timesync_torch,

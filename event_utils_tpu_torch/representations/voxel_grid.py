@@ -243,6 +243,71 @@ def events_to_neg_pos_voxel_torch(xs, ys, ts, ps, B, device=None, **kw):
     return events_to_neg_pos_voxel(xs, ys, ts, ps, B, device=device, **kw)
 
 
+def events_to_voxel_segments(xs, ys, ts, ps, seg, num_segments: int,
+                             B: int, sensor_size=(180, 240),
+                             impl: Optional[str] = None) -> torch.Tensor:
+    """Voxel grids of many windows in ONE flat scatter:
+    ``(num_segments, B, H, W)``.
+
+    ``seg`` gives each event its window (-1 or ``num_segments`` and above
+    drop it). Each window's grid is what ``events_to_voxel`` (temporally
+    bilinear, integer coordinates) gives on that window's events alone:
+    its ``[t0, t1]`` is the first and last stamp among them. Ids are offset
+    by ``seg * B*H*W``, so the B-element batches and the T x B windows of
+    the trainers take one scatter (one flat-kernel launch under
+    ``'pallas'``) where the JAX package vmaps one per window. All inputs
+    are tensors on one device.
+    """
+    H, W = sensor_size
+    seg = seg.long()
+    live = (seg >= 0) & (seg < num_segments)
+    sid = torch.where(live, seg, 0)
+    ts = ts.to(torch.float32)
+    big = torch.finfo(torch.float32).max
+    t0 = torch.full((num_segments,), big, device=ts.device).scatter_reduce(
+        0, sid, torch.where(live, ts, big), "amin")
+    t1 = torch.full((num_segments,), -big, device=ts.device).scatter_reduce(
+        0, sid, torch.where(live, ts, -big), "amax")
+    t0, t1 = t0[sid], t1[sid]
+    dt = t1 - t0
+    dt = torch.where(dt == 0, 1.0, dt)
+    ixs = torch.trunc(xs.to(torch.float32)).long()
+    iys = torch.trunc(ys.to(torch.float32)).long()
+    ok_px = live & (ixs >= 0) & (ixs < W) & (iys >= 0) & (iys < H)
+    t_norm = (ts - t0) / dt * (B - 1)
+    b0 = torch.floor(t_norm)
+    fb = t_norm - b0
+    ib0 = torch.where(torch.isfinite(b0), b0, -1.0).long()
+    base = sid * (B * H * W) + iys * W + ixs
+    ids, ws = [], []
+    for ib, wb in ((ib0, 1.0 - fb), (ib0 + 1, fb)):
+        ok = ok_px & (ib >= 0) & (ib < B)
+        ids.append(torch.where(ok, base + ib * (H * W), -1))
+        ws.append(ps.to(torch.float32) * wb)
+    flat = scatter_add_flat(torch.cat(ids), torch.cat(ws),
+                            num_segments * B * H * W, impl=impl)
+    return flat.view(num_segments, B, H, W)
+
+
+def events_to_neg_pos_voxel_segments(xs, ys, ts, ps, seg, num_segments: int,
+                                     B: int, sensor_size=(180, 240),
+                                     combined: bool = False,
+                                     impl: Optional[str] = None
+                                     ) -> torch.Tensor:
+    """``events_to_voxel_segments`` split by polarity into the trainers'
+    channel layout: ``(num_segments, 2B, H, W)``, positive (``ps > 0``)
+    bins first, then negative (``ps <= 0``), as
+    ``events_to_neg_pos_voxel`` and a concatenation give; two scatters.
+    ``combined``: one ``(num_segments, B, H, W)`` grid of ``ps``."""
+    kw = dict(sensor_size=sensor_size, impl=impl)
+    if combined:
+        return events_to_voxel_segments(xs, ys, ts, ps, seg, num_segments, B,
+                                        **kw)
+    return torch.cat([events_to_voxel_segments(
+        xs, ys, ts, sel.to(torch.float32), seg, num_segments, B, **kw)
+        for sel in (ps > 0, ps <= 0)], 1)
+
+
 def events_to_voxel_timesync(xs, ys, ts, ps, B: int, t0, t1, np_ts=None,
                              sensor_size=(180, 240),
                              temporal_bilinear: bool = True,

@@ -568,3 +568,104 @@ def test_background_activity_filter_on_the_card_matches_the_cpu(cuda, gen):
         for dev in ("cpu", "cuda")}
     assert torch.equal(keep["cuda"], keep["cpu"])
     assert 0 < int(keep["cpu"].sum()) < n
+
+
+# the training path's flat scatters: the flow loss's splat (8 x 4 taps x
+# 65536 events into 8 x 128 x 128), one polarity grid of a flow batch
+# (2 x 8 x 65536 into 8 x 5 x 128 x 128) and of an E2VID batch (2 x 4 x
+# 294912 into 24 x 4 x 5 x 128 x 128)
+TRAIN_FLAT_SHAPES = [(8 * 4 * 65536, 8 * 128 * 128),
+                     (2 * 8 * 65536, 8 * 5 * 128 * 128),
+                     (2 * 4 * 294912, 24 * 4 * 5 * 128 * 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,num_buckets", TRAIN_FLAT_SHAPES)
+def test_flat_kernel_forward_and_gradient_at_training_shapes(
+        cuda, gen, n, num_buckets):
+    """``scatter_add_flat_cuda`` (D = 1, the direct route) against the plain
+    version, forward, and its autograd adjoint against the plain gather;
+    ids -1 (dropped taps) mixed in."""
+    idx = torch.as_tensor(gen.integers(-1, num_buckets, n),
+                          dtype=torch.int32, device=cuda)
+    w = torch.as_tensor(gen.normal(size=n), dtype=torch.float32,
+                        device=cuda).requires_grad_(True)
+    assert cs.flat_route(1, n, num_buckets) == "direct"
+    before = cs.launch_counts()["flat_scatter:direct"]
+    out = cs.scatter_add_flat_cuda(idx, w, num_buckets)
+    assert cs.launch_counts()["flat_scatter:direct"] == before + 1
+    assert_rel(out, cs.flat_scatter_plain(idx, w.detach()[None],
+                                          num_buckets)[0])
+    g = torch.randn(num_buckets, device=cuda)
+    out.backward(g)
+    ok = idx >= 0
+    assert torch.equal(w.grad, torch.where(ok, g[torch.where(ok, idx, 0)
+                                                 .long()], 0.0))
+
+
+@pytest.mark.cuda
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    """Each trainer at 32x32 on one simulated batch, under 'pallas' on the
+    card and on the CPU, from the same weights: the first step's gradients
+    leaf by leaf (cosine >= 0.9999, 1e-3 of the leaf's scale, as
+    ``chip_smoke.py``'s ``STEP_GRAD_*``), then two
+    steps: losses to 1e-4 relative, every weight within twice the summed
+    learning rate (Adam turns the card's rounding on a zero or near-zero
+    gradient into a step of up to ~lr: ``chip_smoke.py``'s
+    ``STEP_PARAM_*``). Each flow step launches ``flat_scatter:direct``
+    once (its loss), each batch's grids twice."""
+    from event_utils_tpu_torch._device import no_tf32
+    from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
+    from event_utils_tpu_torch.training import (FlowTrainer,
+                                                ReconstructionTrainer)
+    from event_utils_tpu_torch.training import in_the_loop as itl
+    prev = get_default_impl()
+    set_default_impl("pallas")
+    try:
+        ev, mask, gt = itl.simulate_flow_batch(
+            1, 0, 2, (32, 32), 4096, omega_max=6.0, s_max=0.6, burn_in=1,
+            device=cuda)
+        before = cs.launch_counts()["flat_scatter:direct"]
+        vox = itl.voxelize_batch(ev, mask, 5, (32, 32))
+        assert cs.launch_counts()["flat_scatter:direct"] == before + 2
+        voxels, frames = itl.simulate_recon_batch(1, 0, 2, (32, 32), 20000,
+                                                  3, device=cuda)
+        batches = ((vox, ev, mask, itl.dense_gt(gt, (32, 32))),
+                   (voxels, frames))
+        kw = {"base_features": 8, "recurrent_levels": 3}
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            flow = FlowTrainer((32, 32), learning_rate=1e-3,
+                               supervised_weight=1.0, device=dev)
+            recon = ReconstructionTrainer((32, 32), learning_rate=1e-3,
+                                          lpips_weight=0.1, burn_in=1,
+                                          model_kwargs=kw, ema_decay=0.9,
+                                          device=dev)
+            fb, rb = ([a.to(dev) for a in b] for b in batches)
+            with no_tf32():
+                flow.loss(*fb).backward()
+                recon.sequence_loss(*rb, burn_in=1)[0].backward()
+            grads = [{k: p.grad.cpu() for k, p in t.model.named_parameters()}
+                     for t in (flow, recon)]
+            before = cs.launch_counts()["flat_scatter:direct"]
+            losses = [flow.train_batch(*fb) for _ in range(2)]
+            assert cs.launch_counts()["flat_scatter:direct"] == before + (
+                2 if dev == "cuda" else 0)
+            losses += [recon.train_sequence(*rb) for _ in range(2)]
+            runs[dev] = (losses, grads, flow.model.state_dict(),
+                         recon.ema_model.state_dict())
+    finally:
+        set_default_impl(prev)
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for got, ref in zip(runs["cuda"][1], runs["cpu"][1]):
+        for k, b in ref.items():
+            a, b = got[k].reshape(-1).double(), b.reshape(-1).double()
+            if b.abs().max() > 0:
+                assert float(torch.nn.functional.cosine_similarity(
+                    a, b, dim=0)) >= 0.9999, k
+                assert float((a - b).abs().max()) <= 1e-3 * float(
+                    b.abs().max()), k
+    for i in (2, 3):
+        d = max(float((a.cpu() - runs["cpu"][i][k]).abs().max())
+                for k, a in runs["cuda"][i].items())
+        assert d <= 2.0 * 2e-3, d

@@ -59,11 +59,11 @@ def float_events(rng, n=2000, sensor=SENSOR, margin=2.0):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, the ROI-bucketed, serving and simulation
-    paths' entry points and ``chip_smoke`` import without jax or the JAX
-    package, and without the packages the card machine lacks (h5py,
-    matplotlib, flax, orbax: each is imported only by the function that
-    needs it)."""
+    """Every module of the port, the ROI-bucketed, serving, simulation and
+    training paths' entry points and ``chip_smoke`` import without jax or
+    the JAX package, and without the packages the card machine lacks
+    (h5py, matplotlib, flax, orbax: each is imported only by the function
+    that needs it)."""
     code = ("import sys, pkgutil, importlib, event_utils_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -76,8 +76,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "from event_utils_tpu_torch.ops.cuda_scatter import (\n"
             "    voxel_tiles_scatter, voxel_tiles_scatter_plain)\n"
             "from event_utils_tpu_torch.cli import (\n"
-            "    eval_cmax, infer_flow, reconstruct, simulate)\n"
-            "for cli in (eval_cmax, infer_flow, reconstruct, simulate):\n"
+            "    eval_cmax, infer_flow, reconstruct, simulate, train_flow,\n"
+            "    train_reconstruction)\n"
+            "for cli in (eval_cmax, infer_flow, reconstruct, simulate,\n"
+            "            train_flow, train_reconstruction):\n"
             "    assert callable(cli.main)\n"
             "from event_utils_tpu_torch.ops import (\n"
             "    background_activity_filter, filter_background_activity)\n"
@@ -93,7 +95,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "    DynamicH5Dataset, MemMapDataset, NpyDataset)\n"
             "from event_utils_tpu_torch.models import E2VID, EVFlowNet\n"
             "from event_utils_tpu_torch.training import (\n"
-            "    FlowTrainer, ReconstructionTrainer)\n"
+            "    FlowTrainer, ReconstructionTrainer, cosine_decay_schedule,\n"
+            "    simulate_flow_batch, simulate_recon_batch,\n"
+            "    train_flow_in_the_loop, train_reconstruction_in_the_loop)\n"
+            "from event_utils_tpu_torch.training.checkpointing import (\n"
+            "    load_params_npz, save_params_npz, save_trainer_checkpoint)\n"
+            "from event_utils_tpu_torch.models import (\n"
+            "    contrast_flow_loss, perceptual_distance,\n"
+            "    reconstruction_loss)\n"
             "from event_utils_tpu_torch.transforms import warp_events_flow\n"
             "from event_utils_tpu_torch.utils import (\n"
             "    average_endpoint_error, flow2bgr_np, psnr, write_gray_png)\n"
