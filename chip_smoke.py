@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   ``event_utils_tpu_torch/csrc`` and prints the build time.
+   ``event_utils_tpu_torch/csrc`` and, beside them, the native ingest
+   runtime (``g++``, ``csrc/evio.cpp``), and prints the build times.
 2. Holds each kernel, by route, against its plain PyTorch version at the
    main path's shapes, and times the kernel, the plain version and one
    PyTorch library call on the device (CUDA events around CUDA-graph
@@ -131,18 +132,47 @@
    version and its adjoint against the plain gather (exact), and warm
    timings: forward+backward device ms, one flow step, one E2VID batch
    generation and one segment step with their device idle shares.
-7. Times the tiled route and its host bucketing alone, warm, and prints
-   the bucketing's share of the route's wall.
+7. The streaming path, with the launch counts set to 0 again first,
+   everything under ``set_default_impl('pallas')`` (``g++`` built the
+   native runtime, ``csrc/evio.cpp``, in step 1): the port's ``simulate``
+   CLI writes a DAVIS240 recording on the card (a texture translating at
+   (30, -20) px/s for 1.5 s: 17 windows of 20,000 events);
+   ``stream_flow`` streams it at the JAX CLI's defaults (k = 20,000, 20x20
+   ROIs, 30 iterations, ``--pyramid_first``), every window's field held
+   to the ground truth (the median's error and the median ROI error each
+   within 21 px/s: limits from the CPU port's reading) and windows 0-1 to
+   the CPU port's solve of the same inputs (medians within 0.5 px/s, or,
+   where they part by more, the CPU's summed loss at the card's field
+   within 1e-3 of its own: the cold pyramid solve is ill-conditioned);
+   ``train_flow`` on the recording at 184x240, batch 8 (finite losses, a
+   checkpoint at the last step); ``FlowTrainer.fit`` from the committed
+   flow weights, 2 steps on the card and on the CPU over the same batches
+   (losses to 1e-4 relative, gradients and weights by the training
+   phase's rules). Every launch of the phase must be one that the
+   dispatch rules name for a call's shape. After the counts are read:
+   ``fill_padded_batches`` (8 x 32768) and ``bucket_fill`` (the first
+   window into 108 ROIs; 720p tiled) equal their plain versions exactly,
+   with host times; the pinned prefetch hands a consumer that lags every
+   copy batches equal to their host batches; each route the phase
+   launched, at the largest shape it was sent, against its plain version;
+   and warm ``fit`` steps through the pinned prefetch and through
+   pageable copies, in turns: wall, the device's idle share and the share
+   of the copy time under kernels (``torch.profiler`` trace).
+8. Times the tiled route and its host bucketing alone (now the native
+   bucket fill), warm, and prints the bucketing's share of the route's
+   wall.
 
 Prints a ``{"serving": {...}}`` JSON line, a ``{"simulated_anchors":
 {...}}`` line (the gated numbers, walls and windows/s), a ``{"training":
 {...}}`` line (gated numbers, steps/s, Mev/s, the simulator's share,
-timings), a ``{"kernels": [...]}`` line (one entry per route;
-``launches`` counts the contrast-maximisation path, ``launches_serving``
-the serving path, ``launches_sim`` the simulated anchors,
-``launches_train`` the training path), then the card line, and last
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-so does a machine without a CUDA device.
+timings), a ``{"streaming": {...}}`` line (the stream's errors, Mev/s and
+windows/s, card vs CPU, the native runtime's times, the fit timings), a
+``{"kernels": [...]}`` line (one entry per route; ``launches`` counts the
+contrast-maximisation path, ``launches_serving`` the serving path,
+``launches_sim`` the simulated anchors, ``launches_train`` the training
+path, ``launches_stream`` the streaming path), then the card line, and
+last ``{"ok": true, "device": {...}}``. Any failure raises and exits
+non-zero; so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -302,6 +332,43 @@ GRAD_REL = 1e-4
 CLI_FLOW_AEE = (56.87, 57.47)
 CLI_RECON_PSNR = (25.10, 25.30)
 CLI_RECON_SSIM = (0.8487, 0.8547)
+# The streaming path: a DAVIS240 recording of a texture translating at a
+# uniform (30, -20) px/s (the example velocity of the JAX package's
+# cli/eval_cmax.py:11, simulate's default fps), written by the port's
+# simulate CLI; 1.5 s, so that it holds 17 windows of stream_flow's default
+# 20,000 events (352,151 events on the CPU).
+STREAM_SIM = ["--sensor", "180", "240", "--scene", "translate", "--velocity",
+              "30", "-20", "--duration", "1.5", "--c_pos", "0.15", "--c_neg",
+              "0.15", "--octaves", "3", "--seed", "7", "--format", "memmap"]
+STREAM_GT = (30.0, -20.0)     # px/s, everywhere
+STREAM_ARGS = ["--k", "20000", "--roi_size", "20", "20", "--maxiter", "30",
+               "--pyramid_first"]
+STREAM_WINDOWS = 16           # at least
+# Limits fixed from the CPU port's reading of the same command before the
+# first card run (PERF.md section 2): |median(field) - GT| of each window
+# (CPU max 19.99 px/s) and the median over ROIs of |v_roi - GT| of each
+# window (CPU max 20.12). The warm start carries the solver towards vy = 0
+# after 8-10 windows in both packages and on the card, at a window that
+# the last bits decide (PERF.md section 6), so these two only catch a
+# field far off; a field that lost vy reads 20 px/s and passes them.
+STREAM_MEDIAN_ERR = 21.0
+STREAM_ROI_ERR = 21.0
+# ... and before the drift, limits that such a field fails: windows 0-4,
+# |median(field) - GT| (CPU port 1.39-6.57 px/s, JAX 3.22-6.19), and the
+# cold solve of window 0, its median ROI error (CPU port 5.61, JAX 5.52).
+# The drift has begun as early as window 7 on the card (PERF.md section 6).
+STREAM_EARLY_WINDOWS = 5
+STREAM_EARLY_MEDIAN_ERR = 8.0
+STREAM_FIRST_ROI_ERR = 7.0
+STREAM_CPU_TOL = 0.5          # px/s per component: windows 0-1, card vs CPU
+# JAX's stream_flow on the same recording on the CPU: the medians of
+# windows 0 and 1, and the largest and mean errors as above
+STREAM_JAX = {"medians_0_1": [[28.803, -17.015], [27.874, -15.494]],
+              "median_err_max": 20.031, "median_err_mean": 10.220,
+              "roi_err_max": 20.458}
+TRAIN_STREAM = ["--sensor", "184", "240", "--k", "20000", "--batch_size", "8",
+                "--num_bins", "5", "--epochs", "1"]
+FIT_PARITY_STEPS = 2
 SRC = "event_utils_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
     "voxel_scatter": "event_utils_tpu/ops/pallas_scatter.py:113",
@@ -1811,57 +1878,105 @@ def baf_scene(torch):
 
 
 @contextlib.contextmanager
-def patch_calls(cs):
-    """Inside, the first call of every distinct (route, K, P, C, PH, PW)
-    that the patch losses of ``grid_cmax_batched`` send to the patch splat
-    keeps a copy of its inputs: yields ``{shape: (x, y, w, order)}``, where
-    ``order`` counts the splat calls before it. The calls themselves run
-    unchanged."""
+def route_calls(cs):
+    """Inside, every call of the flat, bilinear and patch splat wrappers on
+    card tensors counts one call of the route its shape is dispatched to,
+    and the call with the most inputs of each (route, output shape) keeps a
+    copy of them: yields ``{"calls": {route: n}, "kept": {(route, shape):
+    (inputs, size)}}``. The calls themselves run unchanged."""
     from event_utils_tpu_torch.contrast_max import events_cmax as ec
-    seen, calls = {}, [0]
-    splat = ec.bilinear_patches_scatter
+    out = {"calls": {}, "kept": {}}
+    flat, bil, patches = (cs.flat_scatter, cs.bilinear_scatter,
+                          ec.bilinear_patches_scatter)
 
-    def capture(x, y, w, P, C, PH, PW, route=None):
-        key = (route or cs.bilinear_patches_route(P, PH, PW), w.shape[0], P,
-               C, PH, PW)
-        if key not in seen:
-            seen[key] = tuple(a.detach().clone() for a in (x, y, w)) + (
-                calls[0],)
-        calls[0] += 1
-        return splat(x, y, w, P, C, PH, PW, route=route)
+    def note(route, shape, inputs, size):
+        # calls on the card only (the CPU runs the plain versions), and
+        # none of an empty input, for which a wrapper launches nothing
+        if inputs[0].device.type != "cuda" or size == 0:
+            return
+        out["calls"][route] = out["calls"].get(route, 0) + 1
+        if size > out["kept"].get((route, shape), (None, -1))[1]:
+            out["kept"][(route, shape)] = (
+                tuple(a.detach().clone() for a in inputs), size)
 
-    ec.bilinear_patches_scatter = capture
+    def flat_(idx, w, num_buckets, route=None):
+        D, n = w.shape
+        note("flat_scatter:" + (route or cs.flat_route(D, n, num_buckets)),
+             (D, num_buckets), (idx, w), n if D and num_buckets else 0)
+        return flat(idx, w, num_buckets, route=route)
+
+    def bil_(x, y, w, H, W, route=None):
+        K, n = w.shape
+        note("bilinear_scatter:" + (route or cs.bilinear_route(K, H, W, n)),
+             (K, H, W), (x, y, w), n if K else 0)
+        return bil(x, y, w, H, W, route=route)
+
+    def patches_(x, y, w, P, C, PH, PW, route=None):
+        r = route or cs.bilinear_patches_route(P, PH, PW)
+        note("bilinear_patches_scatter" + ("" if r == "patch" else f":{r}"),
+             (w.shape[0], P, C, PH, PW), (x, y, w),
+             P * C if w.shape[0] else 0)
+        return patches(x, y, w, P, C, PH, PW, route=route)
+
+    cs.flat_scatter, cs.bilinear_scatter = flat_, bil_
+    ec.bilinear_patches_scatter = patches_
     try:
-        yield seen
+        yield out
     finally:
-        ec.bilinear_patches_scatter = splat
+        cs.flat_scatter, cs.bilinear_scatter = flat, bil
+        ec.bilinear_patches_scatter = patches
 
 
-def patch_path_cases(torch, cs, records, seen, label):
-    """The patch splat on each shape of ``seen`` (``patch_calls``), on the
-    route the path took: against the plain version, timed beside it, the
-    library call and the bound, and added to the route's record as a
-    case. Returns the cases."""
+def route_cases(torch, cs, records, seen, label, extra=None):
+    """Every (route, shape) kept by ``route_calls``, on its route, against
+    its plain version: timed beside it, the library call and the bound,
+    and added to the route's record as a case, with what ``extra(name,
+    shape, inputs)`` returns (a dict) when given. Returns the cases."""
     slow = dict(calls=2, reps=5)
     cases = []
-    for (route, K, P, C, PH, PW), (x, y, w, order) in seen.items():
-        name = "bilinear_patches_scatter" + (
-            "" if route == "patch" else f":{route}")
-        shape = (f"K={K}, {P} patches x {C} slots into ({PH}, {PW}) "
-                 f"({label}, splat call {order})")
-        kernel = lambda: cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW,
-                                                     route=route)
-        plain = lambda: cs.bilinear_patches_scatter_plain(x, y, w, P, C, PH,
-                                                          PW)
-        case = as_case(dict(
-            shape=shape,
-            max_abs_err=check_close(f"{name} ({shape})", kernel(), plain()),
-            ms=time_ms(kernel, torch),
-            plain_ms=time_ms(plain, torch, **slow),
-            library_ms=patches_library_ms(torch, x, y, w, P, C, PH, PW,
-                                          **slow),
-            bound=bilinear_bound(x, y, K, PH, PW, P)))
-        log(f"  timed: {name} {case['ms']:.4f} ms, plain "
+    for (name, shape), (args, _) in sorted(seen["kept"].items()):
+        route = name.split(":")[1] if ":" in name else None
+        if name.startswith("flat_scatter"):
+            idx, w = args
+            case = flat_case(torch, cs, label, idx, w, shape[1],
+                             {})[route]
+        elif name.startswith("bilinear_scatter"):
+            x, y, w = args
+            K, H, W = shape
+            bi, bv = live_taps(torch, x, y, w, H, W)
+            ref = cs.bilinear_scatter_plain(x, y, w, H, W)
+            case = dict(
+                shape=f"K={K}, {len(x)} events ({label}) into {H}x{W}",
+                max_abs_err=check_close(
+                    f"{name} ({label})",
+                    cs.bilinear_scatter(x, y, w, H, W, route=route), ref),
+                ms=time_ms(lambda: cs.bilinear_scatter(x, y, w, H, W,
+                                                       route=route), torch),
+                plain_ms=time_ms(lambda: cs.bilinear_scatter_plain(
+                    x, y, w, H, W), torch),
+                library_ms=time_ms(lambda: torch.zeros(
+                    K * H * W, device=x.device).index_put_(
+                        (bi,), bv, accumulate=True), torch),
+                bound=bilinear_bound(x, y, K, H, W))
+        else:
+            x, y, w = args
+            K, P, C, PH, PW = shape
+            kernel = lambda: cs.bilinear_patches_scatter(
+                x, y, w, P, C, PH, PW, route=route or "patch")
+            plain = lambda: cs.bilinear_patches_scatter_plain(x, y, w, P, C,
+                                                              PH, PW)
+            case = dict(
+                shape=f"K={K}, {P} patches x {C} slots into ({PH}, {PW}) "
+                      f"({label})",
+                max_abs_err=check_close(f"{name} ({label})", kernel(),
+                                        plain()),
+                ms=time_ms(kernel, torch), plain_ms=time_ms(plain, torch,
+                                                            **slow),
+                library_ms=patches_library_ms(torch, x, y, w, P, C, PH, PW,
+                                              **slow),
+                bound=bilinear_bound(x, y, K, PH, PW, P))
+        case = as_case(case, **(extra(name, shape, args) if extra else {}))
+        log(f"  {name} at {case['shape']}: {case['ms']:.4f} ms, plain "
             f"{case['plain_ms']:.4f} ms, index_put_ {case['library_ms']:.4f}"
             f" ms, bound {case['bound_ms']:.5f} ms")
         rec = records[name]
@@ -2007,7 +2122,7 @@ def simulated_anchors_phase(torch, cs, records, work):
                 ssim=m["ssim"])
 
         before = cs.launch_counts()
-        with patch_calls(cs) as seen:
+        with route_calls(cs) as seen:
             m, wall = synced(torch, lambda: eval_cmax.main(
                 [recs["flow91"], "--max_windows", str(CMAX_WINDOWS),
                  "--device", "cuda"]))
@@ -2018,11 +2133,9 @@ def simulated_anchors_phase(torch, cs, records, work):
             f"launches {routes}")
         within("eval_cmax median AEE", m["median_aee_px_s"], CMAX_MEDIAN,
                CMAX_REL_TOL * CMAX_MEDIAN)
-        kept = {"bilinear_patches_scatter"
-                + ("" if r == "patch" else f":{r}") for r, *_ in seen}
-        if not routes or set(routes) != kept:
-            raise AssertionError(f"eval_cmax launched {routes}; inputs "
-                                 f"kept for {sorted(kept)}")
+        if not routes or routes != seen["calls"]:
+            raise AssertionError(f"eval_cmax launched {routes}; its calls' "
+                                 f"shapes dispatch to {seen['calls']}")
         out["eval_cmax"] = {"median_aee_px_s": m["median_aee_px_s"],
                             "num_rois": m["num_rois"], "wall_s": wall,
                             "windows": CMAX_WINDOWS,
@@ -2045,8 +2158,8 @@ def simulated_anchors_phase(torch, cs, records, work):
     log(f"simulated-anchors launches: "
         f"{ {k: v for k, v in launches.items() if v} }")
     # the kernels at this path's shapes, after the counts are read
-    out["patch_cases"] = patch_path_cases(
-        torch, cs, records, seen, "eval_cmax on flow91")
+    out["patch_cases"] = route_cases(torch, cs, records, seen,
+                                     "eval_cmax on flow91")
     out["flat_cases"] = [window_flat_case(
         torch, cs, records, f"densest {name} window's positive grid", ev,
         128, 128) for name, ev in windows.items()]
@@ -2056,26 +2169,6 @@ def simulated_anchors_phase(torch, cs, records, work):
 # ---------------------------------------------------------------------------
 # Training: the trainers on simulated scenes, gated on the eval anchors
 # ---------------------------------------------------------------------------
-
-@contextlib.contextmanager
-def flat_calls(cs):
-    """Inside, the call with the most ids for each bucket count sent to the
-    flat kernel's wrapper keeps a copy of its inputs: yields
-    ``{num_buckets: (idx, w)}``. The calls run unchanged."""
-    seen = {}
-    flat = cs.flat_scatter
-
-    def capture(idx, w, num_buckets, route=None):
-        if idx.shape[0] > seen.get(num_buckets, (idx[:0],))[0].shape[0]:
-            seen[num_buckets] = (idx.detach().clone(), w.detach().clone())
-        return flat(idx, w, num_buckets, route=route)
-
-    cs.flat_scatter = capture
-    try:
-        yield seen
-    finally:
-        cs.flat_scatter = flat
-
 
 def flat_gradient_case(torch, cs, idx, w, num_buckets):
     """The flat kernel under autograd against the plain adjoint (a gather
@@ -2185,7 +2278,7 @@ def training_phase(torch, cs, records, work):
         return res
 
     try:
-        with no_tf32(), flat_calls(cs) as seen:
+        with no_tf32(), route_calls(cs) as seen:
             # 1. the eval anchors
             fa, ra = anchors["flow"], anchors["recon"]
             fc, rc = fa["config"], ra["config"]
@@ -2352,22 +2445,18 @@ def training_phase(torch, cs, records, work):
                                         cosine_decay_schedule)
     finally:
         set_default_impl(prev_impl)
-    # 4. the flat kernel at this path's shapes, after the counts are read
-    cases, grads = [], []
-    rec_direct = records[direct]
-    for nb, (idx, w) in sorted(seen.items()):
-        n = idx.shape[0]
-        case = as_case(flat_case(torch, cs, "training path", idx, w, nb,
-                                 {})["direct"])
-        case["grad_max_abs_err"] = flat_gradient_case(torch, cs, idx, w, nb)
-        if case["grad_max_abs_err"] != 0.0:
-            raise AssertionError(f"flat adjoint at {n} ids: "
-                                 f"{case['grad_max_abs_err']}")
-        rec_direct["cases"].append(case)
-        rec_direct["max_abs_err"] = max(rec_direct["max_abs_err"],
-                                        case["max_abs_err"])
-        cases.append(case)
-    out["flat_cases"] = cases
+    # 4. the flat kernel at this path's shapes, after the counts are read,
+    # its adjoint against the plain gather too (exact)
+    def adjoint(name, shape, inputs):
+        idx, w = inputs
+        err = flat_gradient_case(torch, cs, idx, w, shape[1])
+        if err != 0.0:
+            raise AssertionError(f"flat adjoint at {idx.shape[0]} ids: "
+                                 f"{err}")
+        return {"grad_max_abs_err": err}
+
+    out["flat_cases"] = route_cases(torch, cs, records, seen,
+                                    "training path", extra=adjoint)
     out["timings"] = training_timings(torch, itl, FlowTrainer,
                                       ReconstructionTrainer, work)
     return launches, out
@@ -2546,6 +2635,419 @@ def training_timings(torch, itl, FlowTrainer, ReconstructionTrainer, work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Streaming: the native window runtime, pinned prefetch, stream_flow, fit
+# ---------------------------------------------------------------------------
+
+def stream_errors(out_dir, n, roi_size, sensor):
+    """Per window: the dense field's median (px/s), |median - GT| and the
+    median over ROIs of |v_roi - GT| (one sample of the piecewise-constant
+    field per ROI)."""
+    gt = np.asarray(STREAM_GT)
+    meds, med_err, roi_err = [], [], []
+    for i in range(n):
+        f = np.load(os.path.join(out_dir, f"flow_{i:04d}.npy"))
+        if f.shape != (2,) + tuple(sensor) or not np.isfinite(f).all():
+            raise AssertionError(f"flow_{i:04d}: {f.shape}, finite "
+                                 f"{np.isfinite(f).all()}")
+        m = np.median(f.reshape(2, -1), axis=1)
+        rois = f[:, ::roi_size[0], ::roi_size[1]].reshape(2, -1)
+        meds.append(m.tolist())
+        med_err.append(float(np.linalg.norm(m - gt)))
+        roi_err.append(float(np.median(np.linalg.norm(
+            rois - gt[:, None], axis=0))))
+    return meds, med_err, roi_err
+
+
+def host_ms(fn, reps=5):
+    """Median host wall of ``fn`` in ms (warm)."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t)
+    return float(np.median(walls)) * 1e3
+
+
+def native_cases(torch, rec, rng):
+    """The native runtime at this path's shapes against its plain versions,
+    exactly: a batch of 8 windows of 20,000 events at capacity 32768 from
+    the recording, the bucket fill of the first window into the 108 ROIs
+    of stream_flow, and the 720p tiled case (2^21 events into 80 tiles of
+    (96, 128)). Host times and Mev/s of each."""
+    from event_utils_tpu_torch import native
+    from event_utils_tpu_torch.contrast_max import events_cmax as ec
+    from event_utils_tpu_torch.data_formats.read_events import \
+        read_memmap_events
+    d = read_memmap_events(rec)
+    t, xy, p = (np.asarray(d[k]) for k in ("t", "xy", "p"))
+    t, p = t.reshape(-1), p.reshape(-1)
+    windows = native.k_event_windows(d["num_events"], 20000)[:8]
+    out = {}
+
+    def case(name, fn, plain, n):
+        got, ref = fn(), plain()
+        for a, b in zip(got, ref):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                raise AssertionError(f"native {name} differs from its plain "
+                                     "version")
+        ms, plain_ms = host_ms(fn), host_ms(plain, reps=2)
+        out[name] = {"events": n, "ms": ms, "plain_ms": plain_ms,
+                     "mev_per_s": n / ms / 1e3,
+                     "plain_mev_per_s": n / plain_ms / 1e3}
+        log(f"  native {name}: equal to the plain version; {ms:.2f} ms "
+            f"({n / ms / 1e3:.1f} Mev/s), plain {plain_ms:.2f} ms")
+
+    # into persistent buffers, as the loaders fill (fresh ones pay their
+    # first-touch page faults on every call)
+    bufs = (np.zeros((8, 32768, 4), np.float32),
+            np.zeros((8, 32768), np.float32))
+    case("fill_padded_batches (8 x 32768)",
+         lambda: native.fill_padded_batches(t, xy, p, windows, 32768,
+                                            out=bufs),
+         lambda: native.fill_padded_batches_plain(t, xy, p, windows, 32768),
+         int((windows[:, 1] - windows[:, 0]).sum()))
+    s, e = windows[0]
+    xs, ys = (np.asarray(xy[s:e, i], np.float32) for i in (0, 1))
+    ts = t[s:e].astype(np.float32)
+    ps = np.where(p[s:e] > 0, 1.0, -1.0).astype(np.float32)
+    # grid_cmax_batched's capacity: the largest ROI, a power of two, <= 2048
+    rid, ny, nx = ec._roi_ids(xs, ys, SENSOR, (20, 20))
+    cap = min(int(2 ** np.ceil(np.log2(np.bincount(rid).max()))), 2048)
+    args = (xs, ys, ts, ps, (20, 20), (ny, nx), cap)
+    case(f"bucket_fill (20,000 events into {ny * nx} ROIs x {cap})",
+         lambda: native.bucket_fill(*args),
+         lambda: native.bucket_fill_plain(*args), len(xs))
+    H, W = TILED_SENSORS["720p"]
+    vx, vy, vt, vp = voxel_events(rng, (H, W))
+    ny, nx = -(-H // TILE[0]), -(-W // TILE[1])
+    counts = np.bincount((vy.astype(np.int64) // TILE[0]) * nx
+                         + vx.astype(np.int64) // TILE[1], minlength=ny * nx)
+    cap = int(2 ** np.ceil(np.log2(counts.max())))
+    args = (vx, vy, vt, vp, TILE, (ny, nx), cap)
+    case(f"bucket_fill (720p, {len(vx)} events into {ny * nx} tiles x "
+         f"{cap})", lambda: native.bucket_fill(*args),
+         lambda: native.bucket_fill_plain(*args), len(vx))
+    return out
+
+
+def prefetch_slow_consumer(torch, rec):
+    """Pinned prefetch of every batch of the recording (8 windows of 20,000
+    events, depth 3, more batches than the loader's pool of 4) to a
+    consumer whose stream lags each copy: every device batch must equal
+    the host batch it was copied from."""
+    from event_utils_tpu_torch.data_loaders import (NativeWindowedLoader,
+                                                    device_prefetch)
+    kw = dict(k=20000, batch_size=2, shuffle=False)
+    want = [{k: np.array(v) for k, v in b.items()}
+            for b in NativeWindowedLoader(rec, **kw)]
+    n = 0
+    for got, ref in zip(device_prefetch(NativeWindowedLoader(rec, **kw),
+                                        prefetch_depth=3, device="cuda"),
+                        want):
+        torch.cuda._sleep(5_000_000)  # the consumer lags the copy stream
+        time.sleep(0.005)
+        for k, v in ref.items():
+            if not np.array_equal(got[k].cpu().numpy(), v):
+                raise AssertionError(f"pinned prefetch: batch {n} {k} "
+                                     "differs from its host batch")
+        n += 1
+    if n != len(want) or n <= 4:
+        raise AssertionError(f"pinned prefetch gave {n} of {len(want)} "
+                             "batches")
+    log(f"  pinned prefetch under a slow consumer: {n} batches, each equal "
+        "to its host batch")
+    return n
+
+
+def gpu_intervals(path):
+    """(copies, compute) device intervals in us of a Chrome trace: the
+    host-to-device copies, and the kernels and memsets."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    copies, compute = [], []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        cat = e.get("cat", "")
+        iv = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+        if cat == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+            copies.append(iv)
+        elif cat in ("kernel", "gpu_memset"):
+            compute.append(iv)
+    return copies, compute
+
+
+def union_length(ivs):
+    total, end = 0.0, -np.inf
+    for a, b in sorted(ivs):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def overlap_length(ivs, others):
+    """Length of ``ivs`` covered by the union of ``others``."""
+    merged = []
+    for a, b in sorted(others):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = 0.0
+    for a, b in ivs:
+        for c, d in merged:
+            total += max(0.0, min(b, d) - max(a, c))
+    return total
+
+
+def fit_timings(torch, batches, work):
+    """Warm ``FlowTrainer.fit`` over ``batches`` on the card through the
+    pinned prefetch and through pageable copies (``torch.as_tensor`` to
+    the card, no staging), in turns: wall per step, and from a
+    ``torch.profiler`` trace (written under ``work``) the device's busy
+    time and how much of the host-to-device copy time overlaps kernels."""
+    from event_utils_tpu_torch.data_loaders import prefetch
+    from event_utils_tpu_torch.training import FlowTrainer
+    from event_utils_tpu_torch.utils import profiling
+    pinned = prefetch.device_prefetch
+
+    def pageable(loader, prefetch_depth=2, device=None, keys=None):
+        for b in loader:
+            yield {k: torch.as_tensor(v, device="cuda")
+                   if keys is None or k in keys else v
+                   for k, v in b.items()}
+
+    t = FlowTrainer((184, 240), num_bins=5, device="cuda")
+    t.load_params(FLOW_PARAMS)
+    steps = len(batches)
+    out = {}
+    for name, mover in (("pinned", pinned), ("pageable", pageable),
+                        ("pinned_again", pinned)):
+        prefetch.device_prefetch = mover
+        try:
+            run = lambda: t.fit(batches, log_every=0)
+            synced(torch, run)  # warm
+            walls = [synced(torch, run)[1] for _ in range(3)]
+            with profiling.trace(os.path.join(work, f"trace_{name}")) as path:
+                run()
+            copies, compute = gpu_intervals(path)
+        finally:
+            prefetch.device_prefetch = pinned
+        wall = float(np.median(walls)) / steps
+        busy = union_length(copies + compute) * 1e-6 / steps
+        copy = union_length(copies)
+        out[name] = {"step_wall_s": wall, "device_busy_s": busy,
+                     "idle_share": max(0.0, 1.0 - busy / wall),
+                     "copy_ms": copy * 1e-3 / steps,
+                     "copy_overlap_share": overlap_length(copies, compute)
+                     / max(copy, 1e-9)}
+        log(f"  fit step, {name} copies: wall {wall:.4f} s, busy "
+            f"{busy:.4f} s, idle {out[name]['idle_share']:.3f}; copies "
+            f"{out[name]['copy_ms']:.3f} ms a step, "
+            f"{out[name]['copy_overlap_share']:.3f} of it under kernels")
+    return out
+
+
+def streaming_phase(torch, cs, records, work):
+    """The streaming path: the native runtime built and held against its
+    plain versions, a DAVIS240 recording made by the simulate CLI, the
+    stream_flow CLI on it (gated on the ground truth and on the CPU port),
+    train_flow on it, FlowTrainer.fit card against CPU, the pinned prefetch
+    under a slow consumer, and every kernel route the phase launched held
+    against its plain version at the shapes it was sent. Returns the
+    phase's launch counts and what it measured."""
+    from event_utils_tpu_torch import native
+    from event_utils_tpu_torch._device import no_tf32
+    from event_utils_tpu_torch.cli import simulate, stream_flow, train_flow
+    from event_utils_tpu_torch.contrast_max import events_cmax as ec
+    from event_utils_tpu_torch.data_loaders import NativeWindowedLoader
+    from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
+    from event_utils_tpu_torch.training import FlowTrainer
+    from event_utils_tpu_torch.training.in_the_loop import voxelize_batch
+    out = {"card": card_line(), "evio_build_s": native.build_log.get(
+        "seconds")}  # built by main beside the CUDA kernels
+    log(f"streaming: libevio built with g++ in {out['evio_build_s']} s")
+    rec = os.path.join(work, "davis30")
+    summary, wall = synced(torch, lambda: simulate.main(
+        [rec, "--device", "cuda"] + STREAM_SIM))
+    out["recording"] = {"events": summary["events"], "wall_s": wall}
+    log(f"  simulated DAVIS240 recording: {summary['events']} events in "
+        f"{wall:.2f} s (352,151 on the CPU)")
+
+    prev_impl = get_default_impl()
+    cs.reset_launch_counts()
+    set_default_impl("pallas")
+    solves, depth = [], [0]
+    solve = ec.grid_cmax_batched
+
+    def keep(*a, **kw):  # the CLI's own solves, with inputs and answers
+        depth[0] += 1
+        try:
+            res = solve(*a, **kw)
+        finally:
+            depth[0] -= 1
+        if depth[0] == 0:
+            solves.append((a, dict(kw), res))
+        return res
+
+    sf_out = os.path.join(work, "stream")
+    ck = os.path.join(work, "ck")
+    try:
+        with route_calls(cs) as seen:
+            ec.grid_cmax_batched = keep
+            try:
+                metrics, wall = synced(torch, lambda: stream_flow.main(
+                    [rec, "--output_dir", sf_out, "--device", "cuda"]
+                    + STREAM_ARGS))
+            finally:
+                ec.grid_cmax_batched = solve
+            stream_launches = cs.launch_counts()
+            stream_calls = dict(seen["calls"])
+            res, twall = synced(torch, lambda: train_flow.main(
+                [rec] + TRAIN_STREAM + ["--ckpt_dir", ck, "--device",
+                                        "cuda"]))
+            train_calls = dict(seen["calls"])
+            # fit, card against CPU, on the first batches of one loader
+            batches = [{k: np.array(v) for k, v in b.items()}
+                       for b in NativeWindowedLoader(rec, k=20000,
+                                                     batch_size=8)]
+            nets = {}
+            for key, dev in (("card", "cuda"), ("host", "cpu")):
+                tr = FlowTrainer((184, 240), num_bins=5, learning_rate=1e-4,
+                                 device=dev)
+                tr.load_params(FLOW_PARAMS)
+                ev = torch.as_tensor(batches[0]["events"], device=dev)
+                mk = torch.as_tensor(batches[0]["events_mask"], device=dev)
+                with no_tf32():
+                    vox = voxelize_batch(ev, mk, 5, (184, 240))
+                nets[key] = (tr, (vox, ev, mk, None))
+            init = {k: v.clone() for k, v in
+                    nets["host"][0].model.state_dict().items()}
+            with no_tf32():
+                grads = check_grads(torch, "fit's first batch", nets,
+                                    lambda t, b: t.loss(*b))
+            losses = {k: nets[k][0].fit(batches[:FIT_PARITY_STEPS],
+                                        log_every=0) for k in nets}
+        torch.cuda.synchronize()
+    finally:
+        set_default_impl(prev_impl)
+    launches = cs.launch_counts()
+    log(f"streaming launches: { {k: v for k, v in launches.items() if v} }; "
+        f"by the dispatch rules: {seen['calls']} (stream_flow "
+        f"{stream_calls}, then with train_flow {train_calls})")
+    if {k: v for k, v in launches.items() if v} != seen["calls"]:
+        raise AssertionError(f"streaming launches {launches} differ from "
+                             f"the routes the calls dispatch to "
+                             f"{seen['calls']}")
+    if not launches["flat_scatter:direct"] or not (
+            launches["bilinear_patches_scatter"]
+            or launches["bilinear_patches_scatter:direct"]):
+        raise AssertionError(f"streaming launches {launches}")
+
+    # stream_flow: the windows against the ground truth and the CPU port
+    n = metrics["num_windows"]
+    meds, med_err, roi_err = stream_errors(sf_out, n, (20, 20), SENSOR)
+    log(f"  stream_flow: {n} windows, {metrics['mevs_sustained']} Mev/s "
+        f"sustained, {metrics['windows_per_s']} windows/s, {wall:.2f} s; "
+        f"launches {dict((k, v) for k, v in stream_launches.items() if v)}")
+    log(f"  |median - GT| per window {np.round(med_err, 3).tolist()} (max "
+        f"{max(med_err):.3f}, mean {np.mean(med_err):.3f}; JAX on the CPU "
+        f"{STREAM_JAX['median_err_max']}, {STREAM_JAX['median_err_mean']}); "
+        f"ROI error {np.round(roi_err, 3).tolist()} (JAX max "
+        f"{STREAM_JAX['roi_err_max']})")
+    if n < STREAM_WINDOWS or len(solves) != n:
+        raise AssertionError(f"stream_flow: {n} windows, {len(solves)} "
+                             "solves")
+    # the gates after the launch checks are read together and raised at
+    # the end of the phase, so that one run reports every reading
+    fails = []
+    if not (max(med_err) <= STREAM_MEDIAN_ERR
+            and max(roi_err) <= STREAM_ROI_ERR):
+        fails.append(f"stream_flow errors: {med_err}, {roi_err}")
+    early = med_err[:STREAM_EARLY_WINDOWS]
+    if not (max(early) <= STREAM_EARLY_MEDIAN_ERR
+            and roi_err[0] <= STREAM_FIRST_ROI_ERR):
+        fails.append(f"stream_flow before the drift: |median - GT| of "
+                     f"windows 0-{STREAM_EARLY_WINDOWS - 1} {early} (limit "
+                     f"{STREAM_EARLY_MEDIAN_ERR}), window 0's ROI error "
+                     f"{roi_err[0]} (limit {STREAM_FIRST_ROI_ERR})")
+    cpu_meds = []
+    for i in range(2):  # the CPU port's solve of the card's inputs
+        a, kw, _ = solves[i]
+        p, _, _, v = ec.grid_cmax_batched(*a, **dict(kw, device="cpu"))
+        f = stream_flow.roi_params_to_dense_flow(p.numpy(), v.numpy(),
+                                                 (20, 20), SENSOR)
+        cpu_meds.append(np.median(f.reshape(2, -1), axis=1).tolist())
+        d = float(np.abs(np.asarray(meds[i]) - cpu_meds[-1]).max())
+        if d > STREAM_CPU_TOL:
+            fails.append(f"stream_flow window {i}: card vs CPU medians "
+                         f"{meds[i]} and {cpu_meds[-1]}, {d} px/s apart")
+    diff = np.abs(np.asarray(meds[:2]) - np.asarray(cpu_meds))
+    log(f"  windows 0-1 medians: card {np.round(meds[:2], 3).tolist()}, "
+        f"CPU {np.round(cpu_meds, 3).tolist()}, JAX "
+        f"{STREAM_JAX['medians_0_1']}; card - CPU {diff.max():.4f} px/s")
+    a, kw, _ = solves[2]
+    warm = lambda: solve(*a, **kw)
+    walls = [synced(torch, warm)[1] for _ in range(4)][1:]
+    busy, top = device_busy(torch, warm)
+    w = float(np.median(walls))
+    out["stream_flow"] = {
+        "windows": n, "wall_s": wall,
+        "mevs_sustained": metrics["mevs_sustained"],
+        "windows_per_s": metrics["windows_per_s"], "medians": meds,
+        "median_err": med_err, "roi_err": roi_err,
+        "cpu_medians_0_1": cpu_meds, "card_vs_cpu_max": float(diff.max()),
+        "warm_window": {"wall_s": w, "device_busy_s": busy,
+                        "idle_share": max(0.0, 1.0 - busy / w),
+                        "top_device": top},
+        "launches": {k: v for k, v in stream_launches.items() if v}}
+    log(f"  a warm window (window 2's solve): wall {w:.4f} s, busy "
+        f"{busy:.4f} s, idle {out['stream_flow']['warm_window']['idle_share']:.3f}")
+
+    # train_flow on the recording, and fit card against CPU
+    tl = np.asarray(res["losses"])
+    steps = len(tl)
+    if not (steps and np.isfinite(tl).all()
+            and os.path.exists(os.path.join(ck, f"step_{steps}.pt"))):
+        fails.append(f"train_flow: losses {tl}, checkpoints "
+                     f"{os.listdir(ck)}")
+    out["train_flow"] = {"steps": steps, "wall_s": twall,
+                         "fit_wall_s": res["wall_s"],
+                         "steps_per_s": steps / res["wall_s"],
+                         "mev_per_s": res["events"] / res["wall_s"] / 1e6,
+                         "losses": tl.tolist()}
+    log(f"  train_flow: {steps} steps, losses {tl.round(5).tolist()}, "
+        f"{out['train_flow']['steps_per_s']:.2f} steps/s, "
+        f"{out['train_flow']['mev_per_s']:.3f} Mev/s ingested; checkpoint "
+        f"step_{steps}.pt")
+    log(f"  fit, card vs CPU losses: {losses['card']} / {losses['host']}")
+    if not all(abs(a_ - b_) <= STEP_LOSS_REL * abs(b_)
+               for a_, b_ in zip(losses["card"], losses["host"])):
+        fails.append(f"fit step losses: {losses}")
+    lr = nets["card"][0].opt.lr
+    out["fit_parity"] = {
+        "losses": [losses["card"], losses["host"]], "grads": grads,
+        "weights": check_weights(
+            "fit", nets["card"][0].model.state_dict(),
+            nets["host"][0].model.state_dict(), init,
+            sum(lr(c) for c in range(FIT_PARITY_STEPS)))}
+
+    # the native runtime, the pinned prefetch, the routes, the timings
+    out["native"] = native_cases(torch, rec, np.random.default_rng(SEED))
+    out["prefetch_batches"] = prefetch_slow_consumer(torch, rec)
+    out["route_cases"] = route_cases(torch, cs, records, seen,
+                                     "streaming path")
+    with no_tf32():  # 6 steps: the copy of each batch but the first
+        #              can run under the previous step's kernels
+        out["fit_timings"] = fit_timings(torch, batches[:2] * 3, work)
+    if fails:
+        raise AssertionError("streaming: " + "; ".join(fails))
+    return launches, out
+
+
 def bucketing_share(torch, rng):
     """Share of the tiled voxel route's wall that the host bucketing takes:
     warm medians over TILED_REPS calls of each, alternated, at VGA and
@@ -2593,10 +3095,16 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from event_utils_tpu_torch import native
     t0 = time.perf_counter()
-    build.build_all()
+    with ThreadPoolExecutor(1) as ex:  # g++ builds libevio beside nvcc
+        evio = ex.submit(native.library)
+        build.build_all()
+        evio.result()
     log(f"build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {build.build_log})")
+        f"(nvcc {build.build_log}; g++ libevio {native.build_log})")
 
     rng = np.random.default_rng(SEED)
     records = {}
@@ -2623,6 +3131,8 @@ def main() -> int:
         sim_launches, anchors = simulated_anchors_phase(torch, cs, records,
                                                         work)
         train_launches, training = training_phase(torch, cs, records, work)
+        stream_launches, streaming = streaming_phase(torch, cs, records,
+                                                     work)
     bucketing_share(torch, rng)
 
     kernels = []
@@ -2635,6 +3145,7 @@ def main() -> int:
             "launches_serving": serving_launches[name],
             "launches_sim": sim_launches[name],
             "launches_train": train_launches[name],
+            "launches_stream": stream_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": rec["library_ms"],
@@ -2642,6 +3153,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"simulated_anchors": anchors}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"streaming": streaming}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,16 @@
                                                      from the simulator
 - ``python -m event_utils_tpu_torch.cli.eval_cmax``    ``grid_cmax_batched``
                                                      flow against ground truth
+- ``python -m event_utils_tpu_torch.cli.stream_flow``  streaming dense flow:
+                                                     native ingest into
+                                                     warm-started
+                                                     ``grid_cmax_batched``
 - ``python -m event_utils_tpu_torch.cli.train_flow``   EV-FlowNet training
-                                                     (``--simulate``)
+                                                     (on a recording, or
+                                                     ``--simulate``)
 - ``python -m event_utils_tpu_torch.cli.train_reconstruction``  E2VID
                                                      training
 
-The JAX package's other CLIs are not ported yet.
+Still to port: ``augment_demo``, ``cmax_demo``, the ``visualize*`` CLIs
+and the data-format converters (``ROADMAP.md`` queue 1).
 """

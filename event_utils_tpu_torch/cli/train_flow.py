@@ -1,5 +1,11 @@
 """EV-FlowNet training CLI (port of ``event_utils_tpu.cli.train_flow``).
 
+The file route trains on a recording (``FlowTrainer.fit``, ``--epochs``
+passes of ``--k``-event windows): a memmap directory streams through a
+shuffled ``NativeWindowedLoader``, an ``.h5`` file through an
+``H5WindowedLoader`` (sequential slabs), and a directory of ``.h5`` files
+through a ``ChainLoader`` of them that share one capacity.
+
 The ``--simulate`` route trains in the loop on scenes simulated on the
 device every step, with the JAX CLI's flags: the similarity family
 (``--omega_max``, ``--s_max``), ``--burn_in``, ``--fresh_prob``,
@@ -17,9 +23,10 @@ Differences from the JAX CLI:
   parameters (``training/data/flow_eval_scenes.npz`` is stage 9's);
 - ``--ckpt_dir`` holds the port's own checkpoint format
   (``training.checkpointing``), not orbax's;
-- the file route (a recording) needs the streaming loaders and
-  ``--data_parallel`` a multi-card mesh, neither ported yet: both raise
-  ``ConfigurationError`` (``ROADMAP.md`` queue 1 items 2 and 6).
+- a memmap directory is shuffled with a generator seeded by ``--seed``
+  (JAX's is unseeded);
+- ``--data_parallel`` needs a multi-card mesh, not ported yet: it raises
+  ``ConfigurationError`` (``ROADMAP.md`` queue 1 item 6).
 
 Example (the stage-9 recipe of ``runs/flow128_similarity``):
     python -m event_utils_tpu_torch.cli.train_flow --simulate \\
@@ -33,14 +40,16 @@ Example (the stage-9 recipe of ``runs/flow128_similarity``):
 from __future__ import annotations
 
 import argparse
+import time
 
 
 def build_parser():
     parser = argparse.ArgumentParser(
-        description="Train EV-FlowNet self-supervised on simulated scenes")
+        description="Train EV-FlowNet self-supervised on an event file or "
+                    "on simulated scenes")
     parser.add_argument("path", nargs="?", default=None,
-                        help="memmap dir or H5 file: not supported by the "
-                             "port yet (pass --simulate)")
+                        help="memmap dir, H5 file or a directory of H5 "
+                             "files; omit with --simulate")
     parser.add_argument("--simulate", action="store_true",
                         help="training in the loop: simulate fresh scenes "
                              "on the device every step (no files)")
@@ -77,7 +86,8 @@ def build_parser():
                         help="per-scene age jitter in seconds: the rotation/"
                              "scale clock starts at U[0, age_max]")
     parser.add_argument("--seed", type=int, default=0,
-                        help="scene seed (vary across resumed stages)")
+                        help="scene seed (vary across resumed stages); the "
+                             "window order of a memmap recording")
     parser.add_argument("--eval_seed", type=int, default=None,
                         help="seed of the held-out batch (default --seed)")
     parser.add_argument("--eval_scenes", default=None,
@@ -89,7 +99,11 @@ def build_parser():
     parser.add_argument("--sensor", nargs=2, type=int, default=(64, 64),
                         help="sensor H W (multiples of 8)")
     parser.add_argument("--num_bins", type=int, default=5)
+    parser.add_argument("--k", type=int, default=20000,
+                        help="events per window (recordings)")
     parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--epochs", type=int, default=1,
+                        help="passes over a recording")
     parser.add_argument("--lr", type=float, default=1e-4)
     parser.add_argument("--lr_end", type=float, default=None,
                         help="cosine-decay the learning rate from --lr to "
@@ -162,7 +176,9 @@ def resume(trainer, args) -> None:
 def main(argv=None):
     """Run the CLI; returns ``{"losses", "aee_curve", "steps", "wall_s",
     "sim_s", "events", "params_out", "trainer"}`` (the loop's ``stats``
-    and the trained ``FlowTrainer``)."""
+    and the trained ``FlowTrainer``; the file route has no ``aee_curve``
+    or ``sim_s``, and its ``wall_s`` and ``events`` are those of the
+    ``fit`` call)."""
     args = build_parser().parse_args(argv)
     if args.resume and args.resume_params:
         raise SystemExit("--resume (checkpoint) and --resume_params (npz "
@@ -179,11 +195,7 @@ def main(argv=None):
             "--data_parallel needs a multi-card mesh, which the port does "
             "not have yet (ROADMAP.md queue 1 item 6)")
     if not args.simulate:
-        raise ConfigurationError(
-            "training on a recording needs the streaming loaders "
-            "(NativeWindowedLoader, H5WindowedLoader, ChainLoader), which "
-            "are not ported yet (ROADMAP.md queue 1 item 2); pass "
-            "--simulate")
+        return train_on_recording(args)
 
     trainer = FlowTrainer(sensor_size=tuple(args.sensor),
                           num_bins=args.num_bins,
@@ -220,6 +232,101 @@ def main(argv=None):
     print(f"final loss: {np.mean(losses[-10:]):.5f} over {len(losses)} steps"
           + (f"; final AEE {aee[-1][1]:.2f} px/s" if aee else ""))
     return {"losses": losses, "aee_curve": aee,
+            "params_out": args.params_out, "trainer": trainer, **stats}
+
+
+def recording_loader(args):
+    """The streaming loader of ``args.path`` (JAX ``cli/train_flow.py:
+    207-240``)."""
+    import os
+
+    import numpy as np
+
+    from ..data_loaders import (ChainLoader, H5WindowedLoader,
+                                NativeWindowedLoader)
+
+    if os.path.isdir(args.path) and not os.path.exists(
+            os.path.join(args.path, "t.npy")):
+        # a directory of .h5 recordings (simulate --num_sequences): one slab
+        # loader per file, one shared capacity, so every batch has one shape
+        h5s = sorted(os.path.join(args.path, f)
+                     for f in os.listdir(args.path) if f.endswith(".h5"))
+        if not h5s:
+            raise SystemExit(f"{args.path} has neither t.npy (memmap) nor "
+                             ".h5 recordings")
+        cap = 1 << max(int(np.ceil(np.log2(max(args.k, 1)))), 0)
+        loader = ChainLoader([
+            H5WindowedLoader(p, method="k_events", k=args.k,
+                             batch_size=args.batch_size, capacity=cap)
+            for p in h5s])
+        print(f"training over {len(h5s)} recordings "
+              f"({len(loader)} batches/epoch)")
+        return loader
+    if os.path.isdir(args.path):
+        return NativeWindowedLoader(args.path, method="k_events", k=args.k,
+                                    batch_size=args.batch_size, shuffle=True,
+                                    rng=np.random.default_rng(args.seed))
+    # HDF5: sequential slabs (shuffling would defeat the sequential chunk
+    # reads; convert to memmap for shuffled epochs)
+    return H5WindowedLoader(args.path, method="k_events", k=args.k,
+                            batch_size=args.batch_size)
+
+
+class _Counted:
+    """``loader``, counting the real (unmasked) events of the batches it
+    yields, for the route's Mev/s."""
+
+    def __init__(self, loader):
+        self.loader, self.events = loader, 0
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        import numpy as np
+        for batch in self.loader:
+            self.events += int(np.count_nonzero(batch["events_mask"]))
+            yield batch
+
+
+def train_on_recording(args):
+    """The file route: ``FlowTrainer.fit`` over the recording's loader.
+    Returns ``{"losses", "steps", "wall_s", "events", "params_out",
+    "trainer"}``."""
+    import numpy as np
+
+    from ..training import FlowTrainer
+    from ..training.checkpointing import save_params_npz
+
+    if args.path is None:
+        raise SystemExit("path is required unless --simulate is given")
+    if args.supervised_weight:
+        raise SystemExit("--supervised_weight needs --simulate (recordings "
+                         "carry no per-window ground-truth flow here)")
+    loader = recording_loader(args)
+    try:
+        if len(loader) == 0:
+            raise SystemExit(
+                "No full batches: reduce --batch_size or --k "
+                f"(windows of {args.k} events)")
+        trainer = FlowTrainer(sensor_size=tuple(args.sensor),
+                              num_bins=args.num_bins,
+                              learning_rate=args.lr, device=args.device)
+        resume(trainer, args)
+        counted = _Counted(loader)
+        t0 = time.perf_counter()
+        losses = trainer.fit(counted, epochs=args.epochs,
+                             ckpt_dir=args.ckpt_dir)
+        stats = {"wall_s": time.perf_counter() - t0,
+                 "events": counted.events}
+    finally:
+        if hasattr(loader, "close"):
+            loader.close()
+    if args.params_out:
+        save_params_npz(trainer, args.params_out)
+        print(f"final params saved to {args.params_out}")
+    print(f"final loss: {np.mean(losses[-10:]):.5f} over {len(losses)} steps")
+    return {"losses": losses, "steps": len(losses),
             "params_out": args.params_out, "trainer": trainer, **stats}
 
 

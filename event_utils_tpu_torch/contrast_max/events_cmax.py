@@ -24,9 +24,7 @@ does by default. (The JAX host path used the exact XLA scatter; on the card
 that would be ``index_add_``, which computes the same f32 sums.) On CPU
 tensors 'matmul' is the kernel's plain f32 version.
 
-Not ported: the JAX package's ``native.bucket_fill`` shortcut of the
-bucketing (the numpy fill computes the same arrays) and
-``draw_objective_function`` (a matplotlib plot).
+Not ported: ``draw_objective_function`` (a matplotlib plot).
 """
 
 from __future__ import annotations
@@ -40,6 +38,7 @@ import scipy.optimize as sciopt
 import torch
 import torch.nn.functional as F
 
+from .. import native
 from .._device import as_f32, as_tensor, no_tf32, pick_device, to_numpy
 from ..errors import ConfigurationError
 from ..models.objectives import (OBJECTIVE_REGISTRY, get_iwe,
@@ -701,8 +700,8 @@ def bucket_events_by_roi(xs, ys, ts, ps, resolution, roi_size,
                          capacity_cap: Optional[int] = 2048,
                          rng: Optional[np.random.Generator] = None,
                          return_counts: bool = False, device=None):
-    """Bucket events into fixed-capacity per-ROI batches (host numpy, as in
-    JAX ``events_cmax.py:722-814``).
+    """Bucket events into fixed-capacity per-ROI batches on the host (JAX
+    ``events_cmax.py:722-814``).
 
     Returns ``(bx, by, bt, bp, bmask, roi_origins, overflow)``: each ``b*``
     an (R, capacity) float32 tensor on ``device`` (default: the inputs'
@@ -714,6 +713,10 @@ def bucket_events_by_roi(xs, ys, ts, ps, resolution, roi_size,
     capacity: the max ROI count rounded up to a power of two, clipped to
     ``capacity_cap``. ``return_counts=True`` appends the true per-ROI
     counts (numpy, (R,)).
+
+    When no ROI overflows, the native runtime's counting-sort
+    ``native.bucket_fill`` fills the batches in one O(n) pass (JAX
+    ``events_cmax.py:756-771``); the same arrays as the numpy fill.
     """
     dev = pick_device(xs, ys, ts, ps, device=device)
     xs, ys, ts, ps = map(to_numpy, (xs, ys, ts, ps))
@@ -725,6 +728,15 @@ def bucket_events_by_roi(xs, ys, ts, ps, resolution, roi_size,
         capacity = max(1, int(2 ** np.ceil(np.log2(max(capacity, 1)))))
         if capacity_cap is not None:
             capacity = min(capacity, capacity_cap)
+    if counts.max(initial=0) <= capacity:
+        *packed, _ = native.bucket_fill(xs, ys, ts, ps, roi_size, (ny, nx),
+                                        capacity)
+        oy, ox = np.divmod(np.arange(R), nx)
+        origins = np.stack([oy * roi_size[0], ox * roi_size[1]], axis=-1)
+        # torch.tensor copies: the fill's buffers rotate
+        out = tuple(torch.tensor(a, device=dev) for a in packed) + (
+            torch.tensor(origins, dtype=torch.int64, device=dev), 0)
+        return out + (counts,) if return_counts else out
     # every ROI, in row-major order: the same fill and the same draws
     *packed, origins, overflow = _pack_roi_subset(
         xs, ys, ts, ps, resolution, roi_size, np.arange(R), capacity, R,

@@ -14,22 +14,28 @@ applied (``cosine_decay_schedule``, optax's formula), so the first update
 uses ``schedule(0)``; loading weights (``load_params``) starts a fresh
 optimiser and so a fresh count, as in JAX.
 
-Not ported: the mesh (``--data_parallel``, ``ROADMAP.md`` queue 1 item 6)
-and ``fit`` over the streaming loaders, which waits for them (queue 1 item
-2). The orbax checkpoint is replaced by the port's own ``ckpt_dir`` format
+``fit`` drives the streaming loaders through ``device_prefetch`` and
+voxelizes each batch of B padded windows in one pair of flat scatters (one
+with ``combined_channels``), where JAX vmaps a grid per window.
+
+Not ported: the mesh (``--data_parallel``, ``ROADMAP.md`` queue 1 item 6).
+The orbax checkpoint is replaced by the port's own ``ckpt_dir`` format
 (``training.checkpointing``).
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable, Optional, Union
 
 import torch
 
 from .._device import as_f32, no_tf32, resolve_device
+from ..data_loaders import prefetch
 from ..errors import ConfigurationError
 from ..models.networks import EVFlowNet, contrast_flow_loss
+from .in_the_loop import voxelize_batch
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -188,12 +194,46 @@ class FlowTrainer:
         from .checkpointing import restore_trainer_checkpoint
         return restore_trainer_checkpoint(self, ckpt_dir, step)
 
-    def fit(self, loader, *args, **kwargs):
-        """Training over the streaming loaders is not ported: it needs
-        ``NativeWindowedLoader``, ``H5WindowedLoader``, ``ChainLoader`` and
-        ``device_prefetch`` (``ROADMAP.md`` queue 1 item 2). Use
-        ``train_flow_in_the_loop``."""
-        raise ConfigurationError(
-            "FlowTrainer.fit needs the streaming loaders, which are not "
-            "ported yet (ROADMAP.md queue 1 item 2); train on simulated "
-            "scenes with training.train_flow_in_the_loop")
+    def fit(self, loader, epochs: int = 1, log_every: int = 10,
+            ckpt_dir: Optional[str] = None, ckpt_every: int = 500,
+            prefetch_depth: int = 2, log_fn: Callable[[str], None] = print):
+        """Train over a streaming loader (``NativeWindowedLoader``,
+        ``H5WindowedLoader``, ``ChainLoader`` or ``EventDataLoader`` batches
+        with ``events`` and ``events_mask``) for ``epochs`` passes, logging
+        Mev/s ingested every ``log_every`` steps and saving a checkpoint
+        every ``ckpt_every`` steps and at the end. Returns the losses.
+
+        Batches reach the card through ``device_prefetch``, which stages
+        each one into pinned memory at once; so unlike JAX's ``fit``, which
+        clamps ``prefetch_depth`` to 2 to protect the loaders' rotating
+        buffers from an upload still in flight, any depth is safe here.
+        Losses stay on the device until a log point.
+        """
+        losses = []
+        for epoch in range(epochs):
+            t0 = time.perf_counter()
+            n_epoch = torch.zeros((), dtype=torch.float64,
+                                  device=self.device)
+            pending = []  # device losses awaiting a log point
+            for i, batch in enumerate(prefetch.device_prefetch(
+                    loader, prefetch_depth=prefetch_depth,
+                    device=self.device, keys=("events", "events_mask"))):
+                events = as_f32(batch["events"], self.device)
+                mask = as_f32(batch["events_mask"], self.device)
+                voxel = voxelize_batch(events, mask, self.num_bins,
+                                       self.sensor_size,
+                                       combined=self.combined_channels)
+                pending.append(self.train_batch_async(voxel, events, mask))
+                n_epoch += mask.sum(dtype=torch.float64)
+                if log_every and (i + 1) % log_every == 0:
+                    losses.extend(float(x) for x in pending)
+                    pending = []
+                    rate = float(n_epoch) / (time.perf_counter() - t0) / 1e6
+                    log_fn(f"epoch {epoch} step {self.step}: loss "
+                           f"{losses[-1]:.5f}, {rate:.1f} Mev/s ingested")
+                if ckpt_dir and self.step % ckpt_every == 0:
+                    self.save_checkpoint(ckpt_dir)
+            losses.extend(float(x) for x in pending)
+        if ckpt_dir:
+            self.save_checkpoint(ckpt_dir)
+        return losses

@@ -1,5 +1,6 @@
 """Event utilities (masks, clipping, windowing, search, hot pixels), crop
-geometry, JSON and PNG helpers, and the image-quality metrics."""
+geometry, JSON and PNG helpers, the image-quality metrics, and throughput
+meters, structured logging and profiler traces (``profiling``)."""
 
 from .event_util import (  # noqa: F401
     binary_search_array,
@@ -21,6 +22,7 @@ from .util import (  # noqa: F401
     flow2bgr_np,
     format_power,
     gray_levels,
+    hsv_to_rgb,
     inf_loop,
     normalize_image,
     optimal_crop_size,
@@ -30,5 +32,13 @@ from .util import (  # noqa: F401
     save_image,
     write_gray_png,
     write_json,
+    write_rgb_png,
 )
 from .metrics import average_endpoint_error, psnr, ssim  # noqa: F401
+from .profiling import (  # noqa: F401
+    ThroughputMeter,
+    log_metrics,
+    logger,
+    timed,
+    trace,
+)

@@ -1,11 +1,13 @@
 """General utilities: JSON IO, crop geometry, image plotting, flow coloring,
-and an 8-bit grayscale PNG writer.
+and 8-bit grayscale and RGB PNG writers.
 
 Port of ``event_utils_tpu.utils.util``. Host-side numpy; ``CropParameters``
 also pads tensors (on their own device). matplotlib is imported only by
 the functions that draw (``plot_image``, ``save_image``,
-``plot_image_grid``, ``flow2bgr_np``): the serving path writes its frames
-with ``write_gray_png``, which needs only the standard library.
+``plot_image_grid``): the serving and streaming paths write their frames
+and flow renderings with ``write_gray_png`` and ``write_rgb_png``, and
+``flow2bgr_np`` colors with ``hsv_to_rgb``, which need only numpy and the
+standard library.
 """
 
 from __future__ import annotations
@@ -180,8 +182,6 @@ def flow2bgr_np(disp_x, disp_y, max_magnitude=None):
     """Color-code a dense flow field (Zhu/EV-FlowNet convention;
     reference util.py:188-228): hue = direction, value = magnitude.
     Returns uint8 [H, W, 3] in BGR channel order like the reference."""
-    from matplotlib.colors import hsv_to_rgb
-
     disp_x = np.asarray(disp_x)
     disp_y = np.asarray(disp_y)
     assert disp_x.shape == disp_y.shape
@@ -198,12 +198,65 @@ def flow2bgr_np(disp_x, disp_y, max_magnitude=None):
     return rgb[..., ::-1]  # BGR
 
 
+def hsv_to_rgb(hsv) -> np.ndarray:
+    """``matplotlib.colors.hsv_to_rgb`` in numpy (the same arithmetic, in
+    the input's float type, at least float32), so that flow renderings need
+    no matplotlib. ``hsv`` is (..., 3) with every value in [0, 1]."""
+    hsv = np.asarray(hsv)
+    if hsv.shape[-1] != 3:
+        raise ValueError(f"hsv_to_rgb needs (..., 3), got {hsv.shape}")
+    hsv = hsv.astype(np.promote_types(hsv.dtype, np.float32), copy=False)
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    i = (h * 6.0).astype(int)
+    f = (h * 6.0) - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    # sector i % 6 -> (r, g, b); zero saturation is grey
+    sectors = [(v, t, p), (q, v, p), (p, v, t), (p, q, v), (t, p, v),
+               (v, p, q)]
+    rgb = [np.where(s == 0, v, np.choose(i % 6, [sec[c] for sec in sectors]))
+           for c in range(3)]
+    return np.stack(rgb, axis=-1).astype(hsv.dtype, copy=False)
+
+
 def gray_levels(img) -> np.ndarray:
     """uint8 levels of an image in [0, 1], as matplotlib's 256-entry gray
     colormap quantizes it (``plt.imsave(cmap="gray", vmin=0, vmax=1)``):
     ``floor(v * 256)`` clipped to [0, 255]; NaN maps to 0."""
     v = np.nan_to_num(np.asarray(img, np.float64), nan=0.0)
     return np.clip(np.floor(v * 256.0), 0, 255).astype(np.uint8)
+
+
+def _png(path, levels: np.ndarray, color_type: int) -> None:
+    """An 8-bit PNG of ``levels`` ((H, W) gray or (H, W, 3) RGB uint8):
+    standard library only (``zlib`` + ``struct``)."""
+    H, W = levels.shape[:2]
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    # IHDR: width, height, bit depth 8, color type, deflate, adaptive
+    # filtering, no interlace; every scanline uses filter 0
+    header = struct.pack(">IIBBBBB", W, H, 8, color_type, 0, 0, 0)
+    rows = levels.reshape(H, -1)
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def write_rgb_png(path, rgb) -> None:
+    """Write a (H, W, 3) uint8 RGB image as an 8-bit RGB PNG with the
+    standard library, where matplotlib is not installed (``plt.imsave`` of
+    the same array writes RGBA with the same levels)."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.ndim != 3 or rgb.shape[2] != 3 or rgb.dtype != np.uint8:
+        raise ValueError(f"write_rgb_png needs a (H, W, 3) uint8 image, got "
+                         f"{rgb.shape} {rgb.dtype}")
+    _png(path, rgb, 2)
 
 
 def write_gray_png(path, img) -> None:
@@ -218,17 +271,4 @@ def write_gray_png(path, img) -> None:
     if levels.ndim != 2:
         raise ValueError(f"write_gray_png needs a (H, W) image, got "
                          f"{levels.shape}")
-    H, W = levels.shape
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    # IHDR: width, height, bit depth 8, color type 0 (gray), deflate,
-    # adaptive filtering, no interlace; every scanline uses filter 0
-    header = struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0)
-    raw = np.concatenate([np.zeros((H, 1), np.uint8), levels], axis=1)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                + chunk(b"IEND", b""))
+    _png(path, levels, 0)

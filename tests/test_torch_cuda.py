@@ -669,3 +669,88 @@ def test_train_steps_on_the_card_match_the_cpu(cuda):
         d = max(float((a.cpu() - runs["cpu"][i][k]).abs().max())
                 for k, a in runs["cuda"][i].items())
         assert d <= 2.0 * 2e-3, d
+
+
+def window_recording(path, n=40_000, H=32, W=48, seed=3):
+    """A memmap recording of ``n`` random events (the port's packager)."""
+    from event_utils_tpu_torch.data_formats import memmap_packager
+
+    g = np.random.default_rng(seed)
+    mp = memmap_packager(path)
+    mp.package_events(g.integers(0, W, n), g.integers(0, H, n),
+                      np.sort(g.uniform(0, 1, n)), g.choice([-1.0, 1.0], n))
+    mp.add_metadata(n, 0, 0, 1.0, 0.0, 1.0, 0, 0, sensor_size=(H, W))
+    return path
+
+
+@pytest.mark.cuda
+def test_pinned_prefetch_under_a_slow_consumer(cuda, tmp_path):
+    """Every device batch equals the host batch it was copied from, though
+    the consumer lags and the loader rotates only four host buffers."""
+    import time
+
+    from event_utils_tpu_torch.data_loaders import (NativeWindowedLoader,
+                                                    device_prefetch)
+
+    rec = window_recording(str(tmp_path / "mm"))
+    kw = dict(k=1000, batch_size=2)
+    want = [{k: np.array(v) for k, v in b.items()}
+            for b in NativeWindowedLoader(rec, **kw)]
+    got = []
+    for b in device_prefetch(NativeWindowedLoader(rec, **kw),
+                             prefetch_depth=3, device=cuda):
+        assert b["events"].is_cuda and b["events"].dtype == torch.float32
+        torch.cuda._sleep(2_000_000)  # the consumer's stream lags the copies
+        time.sleep(0.002)
+        got.append({k: v.cpu().numpy() for k, v in b.items()})
+    assert len(got) == len(want) == 20
+    for g, w in zip(got, want):
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_native_fill_into_pinned_memory_matches_the_device_batch(cuda):
+    from event_utils_tpu_torch import native
+
+    g = np.random.default_rng(1)
+    n = 300_000
+    t = np.sort(g.uniform(0, 2, n))
+    xy = g.integers(0, 240, (n, 2)).astype(np.int16)
+    p = g.integers(0, 2, n).astype(np.uint8)
+    windows = native.k_event_windows(n, 20_000, 0)[:8]
+    events = torch.empty((8, 32768, 4), pin_memory=True)
+    mask = torch.empty((8, 32768), pin_memory=True)
+    native.fill_padded_batches(t, xy, p, windows, 32768,
+                               out=(events.numpy(), mask.numpy()))
+    dev = events.to(cuda, non_blocking=True), mask.to(cuda, non_blocking=True)
+    ref = native.fill_padded_batches_plain(t, xy, p, windows, 32768)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(dev[0].cpu().numpy(), ref[0])
+    np.testing.assert_array_equal(dev[1].cpu().numpy(), ref[1])
+
+
+@pytest.mark.cuda
+def test_fit_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    from event_utils_tpu_torch.data_loaders import NativeWindowedLoader
+    from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
+    from event_utils_tpu_torch.training import FlowTrainer
+
+    rec = window_recording(str(tmp_path / "mm"), H=32, W=32)
+    prev = get_default_impl()
+    set_default_impl("pallas")
+    try:
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            t = FlowTrainer((32, 32), learning_rate=1e-3, seed=4, device=dev)
+            before = cs.launch_counts()["flat_scatter:direct"]
+            losses[dev] = t.fit(NativeWindowedLoader(rec, k=2000,
+                                                     batch_size=4),
+                                epochs=1, log_every=0)[:2]
+            if dev == "cuda":
+                # 5 steps: two grids and the loss's splat each
+                assert cs.launch_counts()["flat_scatter:direct"] == \
+                    before + 15
+    finally:
+        set_default_impl(prev)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

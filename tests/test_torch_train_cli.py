@@ -16,6 +16,11 @@ initialised (``--resume_params``), for 2 steps:
 Every ``--params_out`` is read back by JAX's ``load_params_npz`` and by a
 fresh port trainer (bit-identical output); the refused routes raise
 ``ConfigurationError`` naming their ``ROADMAP.md`` item.
+
+``train_flow`` on a recording (a memmap directory, an HDF5 file, a
+directory of HDF5 files) runs both packages' CLIs from the same weights:
+final losses to 1e-4 relative and the ``--params_out`` weights within the
+bounds above.
 """
 
 import json
@@ -191,8 +196,78 @@ def test_train_reconstruction_on_an_hdf5_recording(jax_init, recording,
     np.testing.assert_allclose(got, ref, rtol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def h5_recordings(tmp_path_factory):
+    """The recording's scene as one HDF5 file, and a directory of two HDF5
+    recordings (``--num_sequences``)."""
+    d = tmp_path_factory.mktemp("h5rec")
+    h5 = str(d / "rec32.h5")
+    simulate.main([h5] + SIM_ARGS)
+    seqs = str(d / "seqs")
+    simulate.main([seqs] + SIM_ARGS + ["--num_sequences", "2"])
+    return h5, seqs
+
+
+def final_loss(text):
+    return float(re.findall(r"final loss: ([-\d.]+) over (\d+) steps",
+                            text)[-1][0])
+
+
+@pytest.mark.parametrize("route", ["memmap", "h5", "h5_dir"])
+def test_train_flow_on_a_recording_matches_jax_cli(
+        route, jax_init, recording, h5_recordings, tmp_path, capsys):
+    """The file route of both CLIs from the same JAX-initialised weights:
+    a shuffled memmap directory (its 7 windows make one batch, so the
+    order of the windows, which JAX draws unseeded, moves only the sums'
+    order), an HDF5 file (3 sequential batches) and a ChainLoader over a
+    directory of two. The printed final losses and the ``--params_out``
+    weights agree within the bounds of ``tests/test_torch_training.py``."""
+    from event_utils_tpu.cli import train_flow as j_train_flow
+
+    path, args = {
+        "memmap": (recording, ["--batch_size", "8", "--epochs", "2"]),
+        "h5": (h5_recordings[0], ["--batch_size", "3"]),
+        "h5_dir": (h5_recordings[1], ["--batch_size", "3"]),
+    }[route]
+    args = [path, "--sensor", "32", "32", "--k", "1000", "--lr", "1e-3",
+            "--resume_params", jax_init[0]] + args
+    jout, pout = str(tmp_path / "j.npz"), str(tmp_path / "p.npz")
+    j_train_flow.main(args + ["--params_out", jout])
+    jl = final_loss(capsys.readouterr().out)
+    res = train_flow.main(args + ["--params_out", pout, "--device", "cpu"])
+    pl = final_loss(capsys.readouterr().out)
+    steps = {"memmap": 2, "h5": 3, "h5_dir": 6}[route]
+    assert res["steps"] == len(res["losses"]) == steps
+    assert abs(pl - jl) <= 1e-4 * abs(jl) + 1e-5, (pl, jl)
+    # the events trained on: every real event of every batch, per epoch
+    loader = train_flow.recording_loader(train_flow.build_parser()
+                                         .parse_args(args))
+    epochs = 2 if route == "memmap" else 1
+    assert res["events"] == epochs * sum(
+        int(np.count_nonzero(b["events_mask"])) for b in loader) > 0
+    assert res["wall_s"] > 0
+    with np.load(jout) as j, np.load(pout) as p:
+        assert set(j.files) == set(p.files)
+        assert int(p["__step__"]) == int(j["__step__"]) == steps
+        d = np.concatenate([np.abs(p[k] - j[k]).ravel() for k in j.files
+                            if not k.startswith("__")])
+        scale = max(float(np.abs(j[k]).max()) for k in j.files
+                    if not k.startswith("__"))
+    assert np.quantile(d, 0.999) <= 1e-5 * scale
+    assert d.max() <= 0.05 * steps * 1e-3
+
+
+def test_train_flow_file_route_refusals(recording, tmp_path):
+    with pytest.raises(SystemExit, match="--supervised_weight"):
+        train_flow.main([recording, "--supervised_weight", "1.0",
+                         "--device", "cpu"])
+    with pytest.raises(SystemExit, match="neither t.npy"):
+        train_flow.main([str(tmp_path), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="path is required"):
+        train_flow.main(["--device", "cpu"])
+
+
 @pytest.mark.parametrize("cli,argv,item", [
-    (train_flow, ["some_recording"], "item 2"),
     (train_flow, ["--simulate", "--data_parallel"], "item 6"),
     (train_reconstruction, ["--simulate", "--data_parallel"], "item 6"),
 ])
