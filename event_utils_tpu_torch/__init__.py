@@ -5,13 +5,17 @@ A second package beside the JAX one, for an NVIDIA H100. It imports
 contrast-maximisation path over dense event representations, the
 learned-model serving path (recording -> dataset -> voxel grid ->
 EV-FlowNet / E2VID with the JAX package's weights), the event simulator
-with its consumers, training, and streaming ingest (the native window
-runtime, pinned-memory device prefetch, ``stream_flow``).
+with its consumers, training, streaming ingest (the native window
+runtime, pinned-memory device prefetch, ``stream_flow``), and the
+augmentation path (the data-format converters, host and device
+augmentation with the nearly-sorted densify sort, ``augment_demo``).
 
 - ``ops``             scatter-add, gather, scipy-parity Gaussian blur, the
-                      background-activity filter, and
-                      the hand-written CUDA accumulation kernels
+                      background-activity filter, the nearly-sorted time
+                      sorts, and the hand-written CUDA accumulation kernels
                       (``csrc/scatter_kernels.cu``) with their plain versions
+- ``augmentation``    host (numpy) and device (torch) event augmentation,
+                      the 2x densify with its packed sort
 - ``utils``           event masks / clipping / windowing / lifespan cuts,
                       crop geometry, JSON and PNG helpers, PSNR/SSIM/AEE,
                       throughput meters and profiler traces
@@ -22,7 +26,8 @@ runtime, pinned-memory device prefetch, ``stream_flow``).
 - ``models``          parametric warp models + contrast objectives, and the
                       EV-FlowNet / E2VID networks
 - ``contrast_max``    scipy-driven and whole-solve optimizers, grid search
-- ``data_formats``    HDF5 / memmap / npy readers and packagers
+- ``data_formats``    HDF5 / memmap / npy readers and packagers, and the
+                      converters (ECD text, HDF5 <-> memmap, rosbag)
 - ``data_loaders``    windowed voxel datasets, transforms, collation, the
                       streaming window loaders and ``device_prefetch``
 - ``transforms``      dense-flow event warping
@@ -30,9 +35,10 @@ runtime, pinned-memory device prefetch, ``stream_flow``).
                       recordings
 - ``simulation``      the ESIM-style event simulator and its scenes, with
                       the JAX package's textures as data
+- ``visualization``   3-D event-cloud and voxel renders (matplotlib)
 - ``cli``             ``infer_flow``, ``reconstruct``, ``simulate``,
-                      ``eval_cmax``, ``stream_flow``, ``train_flow`` and
-                      ``train_reconstruction``
+                      ``eval_cmax``, ``stream_flow``, ``train_flow``,
+                      ``train_reconstruction`` and ``augment_demo``
 - ``convert``         warps/objectives from JAX instances, and JAX
                       ``params.npz`` weights into the networks
 
@@ -47,3 +53,4 @@ from . import errors  # noqa: F401
 from . import ops, utils, representations, models, contrast_max  # noqa: F401
 from . import data_formats, data_loaders, transforms, training  # noqa: F401
 from . import simulation, convert, native  # noqa: F401
+from . import augmentation, visualization  # noqa: F401

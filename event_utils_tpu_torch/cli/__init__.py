@@ -16,7 +16,11 @@
                                                      ``--simulate``)
 - ``python -m event_utils_tpu_torch.cli.train_reconstruction``  E2VID
                                                      training
+- ``python -m event_utils_tpu_torch.cli.augment_demo`` augmentation figures
+                                                     (needs matplotlib)
 
-Still to port: ``augment_demo``, ``cmax_demo``, the ``visualize*`` CLIs
-and the data-format converters (``ROADMAP.md`` queue 1).
+The data-format converters have their ``main`` in ``data_formats``
+(``txt_events``, ``h5_to_memmap``, ``memmap_to_h5``, ``rosbag_to_h5``,
+``add_hdf5_attribute``). Still to port: ``cmax_demo`` and the
+``visualize*`` CLIs (``ROADMAP.md`` queue 1).
 """

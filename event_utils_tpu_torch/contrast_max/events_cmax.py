@@ -1136,6 +1136,22 @@ def _warm_roi_solver(warp, obj, resolution, roi_size, blur_sigma, maxiter,
                               with_x0=True, trust_radius="traced")
 
 
+def _roi_patch(roi_size):
+    """The patch window of a ROI solve: it encloses the ROI with warp
+    margin."""
+    return (max(PATCH_DEFAULT[0], -(-(roi_size[0] + 32) // 8) * 8),
+            max(PATCH_DEFAULT[1], -(-(roi_size[1] + 32) // 128) * 128))
+
+
+def _roi_patch_loss(warp, obj, resolution, roi_size, blur_sigma):
+    """The batched patch loss ``(p, ex, ey, et, ep, emask, origin) -> (R,)``
+    that ``make_roi_solve_one`` minimises for a patch objective."""
+    return make_patch_loss(warp, roi_size, obj, patch=_roi_patch(roi_size),
+                           blur_sigma=blur_sigma,
+                           full_pixels=(resolution[0] + 1)
+                           * (resolution[1] + 1))
+
+
 def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
                        solver="gd", gd_lr=4.0, with_x0: bool = False,
                        trust_radius=None):
@@ -1159,13 +1175,10 @@ def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
     if solver not in ("gd", "bfgs"):
         raise ConfigurationError(f"unknown solver {solver!r}")
     use_patch = obj.name in PATCH_OBJECTIVES
-    # the patch window must enclose the ROI with warp margin
-    patch = (max(PATCH_DEFAULT[0], -(-(roi_size[0] + 32) // 8) * 8),
-             max(PATCH_DEFAULT[1], -(-(roi_size[1] + 32) // 128) * 128))
+    patch = _roi_patch(roi_size)
     if use_patch:
-        patch_loss = make_patch_loss(
-            warp, roi_size, obj, patch=patch, blur_sigma=blur_sigma,
-            full_pixels=(resolution[0] + 1) * (resolution[1] + 1))
+        patch_loss = _roi_patch_loss(warp, obj, resolution, roi_size,
+                                     blur_sigma)
     else:  # custom objectives: the full-frame loss, one ROI at a time
         full_loss = make_objective_loss(obj, warp, resolution, blur_sigma,
                                         iwe_impl=DEFAULT_IWE_IMPL)

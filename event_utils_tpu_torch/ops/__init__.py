@@ -1,6 +1,7 @@
 """Device kernels: scatter-add, gather, Gaussian blur, the background-
-activity filter, and the hand-written CUDA accumulation kernels with their
-plain versions."""
+activity filter, the hand-written CUDA accumulation kernels with their
+plain versions, the full-frame bilinear scatter of the matmul signature,
+and the nearly-sorted time sorts (``ops.sort``)."""
 
 from .scatter import (  # noqa: F401
     bilinear_gather,
@@ -16,6 +17,7 @@ from .denoise import (  # noqa: F401
     background_activity_filter,
     filter_background_activity,
 )
+from .matmul_scatter import bilinear_scatter_matmul  # noqa: F401
 from .cuda_scatter import (  # noqa: F401
     bilinear_matmul,
     image_matmul,

@@ -754,3 +754,76 @@ def test_fit_step_on_the_card_matches_the_cpu(cuda, tmp_path):
     finally:
         set_default_impl(prev)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def densify_events(gen, n, H=180, W=240):
+    xs = gen.integers(0, W, n).astype(np.int32)
+    ys = gen.integers(0, H, n).astype(np.int32)
+    ts = np.sort(gen.uniform(0, 0.5, n))
+    ps = gen.choice(np.array([-1.0, 1.0]), n)
+    return xs, ys, ts, ps
+
+
+def assert_streams_equal(a, b, valid_only=True):
+    a = [np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v) for v in a]
+    b = [np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v) for v in b]
+    np.testing.assert_array_equal(a[4], b[4])
+    sel = a[4] != 0 if valid_only else slice(None)
+    for u, v in zip(a[:4], b[:4]):
+        np.testing.assert_array_equal(u[sel], v[sel])
+
+
+@pytest.mark.cuda
+def test_densify_routes_agree_on_the_card(cuda, gen):
+    """Integer and float coordinates, 'auto' and the global sort give one
+    stream from the same draws on the card, and the CPU port's core gives
+    it too from those draws, on every slot."""
+    from event_utils_tpu_torch.augmentation import event_augmentation as ea
+    n = 200_000
+    xs, ys, ts, ps = densify_events(gen, n)
+    mask = (np.arange(n) < n - 1000).astype(np.float32)
+    z = torch.randn((3, n), generator=torch.Generator(device=cuda)
+                    .manual_seed(0), device=cuda)
+    outs = {}
+    for name, (x, y, blk) in {
+            "int, auto": (xs, ys, "auto"),
+            "float, auto": (xs.astype(np.float32), ys.astype(np.float32),
+                            "auto"),
+            "int, global": (xs, ys, None)}.items():
+        outs[name] = ea._densify_core(x, y, ts, ps, mask, *z, sort_block=blk,
+                                      device=cuda)
+    for name in ("float, auto", "int, global"):
+        assert_streams_equal(outs[name], outs["int, auto"])
+    cpu = ea._densify_core(xs, ys, ts, ps, mask, *z.cpu(), device="cpu")
+    assert_streams_equal(cpu, outs["int, auto"], valid_only=False)
+    t = torch.as_tensor(outs["int, auto"][2])
+    m = outs["int, auto"][4].cpu() != 0
+    assert bool((t[m][1:] >= t[m][:-1]).all())
+
+
+@pytest.mark.cuda
+def test_densified_grids_launch_their_kernels(cuda, gen):
+    """The voxel grid (B=5, masked) and the event image of a densified
+    stream of 2^20 slots launch ``voxel_scatter:vector`` and
+    ``flat_scatter:direct`` once each, and match the CPU port's."""
+    from event_utils_tpu_torch.augmentation import event_augmentation as ea
+    from event_utils_tpu_torch.representations import (events_to_image,
+                                                       events_to_voxel)
+    n = 1 << 19
+    xs, ys, ts, ps = densify_events(gen, n)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cx, cy, ct, cp, cm = ea.add_correlated_events_torch(
+        xs, ys, ts, ps, generator=g)
+    before = cs.launch_counts()
+    vox = events_to_voxel(cx, cy, ct, cp, 5, mask=cm, impl="matmul")
+    img = events_to_image(cx, cy, cp, mask=cm, impl="matmul")
+    after = cs.launch_counts()
+    diff = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert diff == {"voxel_scatter:vector": 1, "flat_scatter:direct": 1}
+    host = [np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+            for a in (cx, cy, ct, cp, cm)]
+    assert_rel(vox.cpu(), events_to_voxel(*host[:4], 5, mask=host[4],
+                                          impl="matmul", device="cpu"))
+    assert_rel(img.cpu(), events_to_image(host[0], host[1], host[3],
+                                          mask=host[4], impl="matmul",
+                                          device="cpu"))

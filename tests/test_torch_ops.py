@@ -59,8 +59,9 @@ def float_events(rng, n=2000, sensor=SENSOR, margin=2.0):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, the ROI-bucketed, serving, simulation and
-    training paths' entry points and ``chip_smoke`` import without jax or
+    """Every module of the port, the ROI-bucketed, serving, simulation,
+    training and augmentation paths' entry points and ``chip_smoke`` import
+    without jax or
     the JAX package, and without the packages the card machine lacks
     (h5py, matplotlib, flax, orbax: each is imported only by the function
     that needs it)."""
@@ -106,6 +107,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "from event_utils_tpu_torch.transforms import warp_events_flow\n"
             "from event_utils_tpu_torch.utils import (\n"
             "    average_endpoint_error, flow2bgr_np, psnr, write_gray_png)\n"
+            "from event_utils_tpu_torch.augmentation import (\n"
+            "    add_correlated_events, add_correlated_events_torch,\n"
+            "    add_random_events, flip_events_x_torch, jitter_events_torch,\n"
+            "    remove_events_mask_torch, rotate_events_torch)\n"
+            "from event_utils_tpu_torch.ops.sort import (\n"
+            "    nearly_sorted_sort, sort_block_for, time_sort)\n"
+            "from event_utils_tpu_torch.ops import bilinear_scatter_matmul\n"
+            "from event_utils_tpu_torch.data_formats import (\n"
+            "    BagExtractor, add_attribute, extract_rosbag, h5_to_memmap,\n"
+            "    memmap_to_h5, read_txt_events, txt_to_h5, write_txt_events)\n"
+            "from event_utils_tpu_torch.visualization import (\n"
+            "    crop_to_size, parse_crop, plot_between_frames, plot_events,\n"
+            "    plot_events_sliding, plot_voxel_grid)\n"
+            "from event_utils_tpu_torch.cli import augment_demo\n"
+            "assert callable(augment_demo.main)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'event_utils_tpu.')) or "
             "m == 'event_utils_tpu' or m.split('.')[0] in "
