@@ -182,23 +182,59 @@
    matplotlib where that is missing); warm times in turns: the densify
    with integer and float coordinates and unsorted, in M input events/s,
    the voxel and image calls, and the pipeline's idle share.
-9. Times the tiled route and its host bucketing alone (now the native
-   bucket fill), warm, and prints the bucketing's share of the route's
-   wall.
+9. The multi-card path (``parallel``), with the launch counts set to 0
+   again first around a world of one: this process joins a one-rank
+   NCCL group (``file://`` store in the work directory) and
+   ``make_mesh(1)`` spans it; ``sharded_events_to_voxel`` (2^21 events,
+   DAVIS240, B=5), ``sharded_iwe`` and
+   ``sharded_events_to_timestamp_image`` (the 200k-event planted scene),
+   3 steps of ``make_sharded_cmax_train_step`` with ``normalize_grad`` on
+   and off, and ``sharded_grid_cmax`` on the rotating scene: each
+   against its single-card counterpart (grids and params within 1e-5 of
+   their scale; the flow error within 4.5 px/s), every launch one that
+   the dispatch rules name, with the sharded calls' ms beside their
+   ``all_reduce``'s. Then two ranks spawned on the one card
+   (``torch.multiprocessing``, gloo, which stages CUDA tensors through
+   the host) run the same suite: every rank's results identical, each
+   within 1e-5 of the world of one's, the ROI solve's flow error within
+   4.5 px/s and each ROI's reported loss within 1e-4 of the single
+   card's loss at its answer (the answers' distances logged). Then
+   ``python -m torch.distributed.run --nproc_per_node 2`` runs this file
+   as ``train_flow --simulate --data_parallel`` ranks (gloo, 3 steps at
+   128x128, batch 8, from the committed flow weights; ``DP_FLAG``): its
+   losses within 1e-5 relative of a one-rank run, its weights' 99%
+   quantile by the training phase's rule (the max is logged: the two
+   runs can step a near-zero-gradient coordinate opposite ways), and
+   steps/s of each.
+10. The remaining host-side modules' device halves (``visualization``),
+    counted: ``draw_objective_function``'s landscape (20x20 samples at
+    20 px/s over +-200 px/s on 15,000 events of the planted scene; within
+    1e-4 of the CPU port, its peak within one cell of the planted
+    velocity), ``cmax_demo.run`` on the same events (each objective's
+    loss at the card's and at the CPU's argmax, card vs CPU within
+    1e-4), ``motion_compensate`` of 20,000 events of the streaming
+    recording at its ground-truth flow (card vs CPU within 1e-5; the
+    PNG it writes decodes to its levels) and the 2-D visualizers' images
+    under ``'pallas'`` (card vs CPU within 1e-5).
+11. Times the tiled route and its host bucketing alone (now the native
+    bucket fill), warm, and prints the bucketing's share of the route's
+    wall.
 
 Prints a ``{"serving": {...}}`` JSON line, a ``{"simulated_anchors":
 {...}}`` line (the gated numbers, walls and windows/s), a ``{"training":
 {...}}`` line (gated numbers, steps/s, Mev/s, the simulator's share,
 timings), a ``{"streaming": {...}}`` line (the stream's errors, Mev/s and
 windows/s, card vs CPU, the native runtime's times, the fit timings), an
-``{"augmentation": {...}}`` line, a ``{"kernels": [...]}`` line (one
+``{"augmentation": {...}}`` line, a ``{"parallel": {...}}`` and a
+``{"visualization": {...}}`` line, a ``{"kernels": [...]}`` line (one
 entry per route; ``launches`` counts the contrast-maximisation path,
 ``launches_serving`` the serving path, ``launches_sim`` the simulated
 anchors, ``launches_train`` the training path, ``launches_stream`` the
-streaming path, ``launches_aug`` the augmentation path), then the card
-line, and
-last ``{"ok": true, "device": {...}}``. Any failure raises and exits
-non-zero; so does a machine without a CUDA device.
+streaming path, ``launches_aug`` the augmentation path,
+``launches_parallel`` the world of one of the multi-card path,
+``launches_vis`` the visualization phase), then the card line, and last
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -2262,10 +2298,12 @@ def flat_gradient_case(torch, cs, idx, w, num_buckets):
     return float((wg.grad.reshape(ref.shape) - ref).abs().max())
 
 
-def check_weights(name, card_state, cpu_state, init_state, lr_sum):
-    """Card against CPU weights after the parity steps, from the same
-    ``init_state``: the 99% quantile of |diff| over the coordinates the CPU
-    run moved and the max over all, against the summed learning rate."""
+def check_weights(name, card_state, cpu_state, init_state, lr_sum,
+                  what="card vs CPU", max_share=STEP_PARAM_MAX):
+    """Card against CPU weights after the parity steps (or two runs named
+    by ``what``), from the same ``init_state``: the 99% quantile of |diff|
+    over the coordinates the CPU run moved and (unless ``max_share`` is
+    None) the max over all, against the summed learning rate."""
     d, moved = [], []
     for k, x in card_state.items():
         ref = cpu_state[k].cpu()
@@ -2273,10 +2311,11 @@ def check_weights(name, card_state, cpu_state, init_state, lr_sum):
         moved.append((ref != init_state[k].cpu()).reshape(-1).numpy())
     d, moved = np.concatenate(d), np.concatenate(moved)
     q, mx = float(np.quantile(d[moved], 0.99)), float(d.max())
-    log(f"  {name}: card vs CPU weights, 99% of |diff| where the CPU moved "
+    log(f"  {name}: {what} weights, 99% of |diff| where the second moved "
         f"({moved.mean():.4f} of them) {q:.3e}, max {mx:.3e} (summed lr "
         f"{lr_sum:.2e})")
-    if not (q <= STEP_PARAM_Q99 * lr_sum and mx <= STEP_PARAM_MAX * lr_sum):
+    if not (q <= STEP_PARAM_Q99 * lr_sum
+            and (max_share is None or mx <= max_share * lr_sum)):
         raise AssertionError(f"{name}: card and CPU weights part: {q}, {mx}")
     return {"q99_abs_diff_moved": q, "max_abs_diff": mx,
             "moved_share": float(moved.mean()), "lr_sum": lr_sum}
@@ -3532,6 +3571,560 @@ def augmentation_phase(torch, cs, records, work):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# The multi-card path: parallel/sharding.py and data-parallel training
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 3                 # sharded train steps, each normalisation
+PAR_LR = 0.5
+PAR_P0 = (40.0, -20.0)        # px/s, the train steps' start
+PAR_REL = 1e-5                # grids of the scale, params relative
+PAR_ROI_LOSS_REL = 1e-4       # per-ROI loss at the answers
+PAR_CARD = "cuda:0"           # both ranks of the two-rank runs
+DP_FLAG = "--data-parallel-rank"
+DP_ARGS = TRAIN_FLOW + ["--steps", "3", "--eval_every", "0", "--lr", "5e-6",
+                        "--seed", str(TRAIN_SEED)]
+DP_LOSS_REL = 1e-5
+
+
+def sync_ms(torch, dev, fn, reps=5):
+    """Median wall ms of ``fn`` (warm), the card synchronised around each
+    call: a sharded call's host work and collectives count."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ms))
+
+
+def par_inputs():
+    """The phase's streams, from fixed seeds (every rank makes its own)."""
+    return {"voxel": voxel_events(np.random.default_rng(SEED + 10)),
+            "planted": planted_scene(np.random.default_rng(SEED + 11)),
+            "rotating": rotating_scene(SEED)}
+
+
+def sharded_suite(torch, mesh, dev, timed=True):
+    """Every function of ``parallel`` on the phase's inputs over ``mesh``:
+    ``({name: tensor}, {name: ms})``, the ms beside the ms of the
+    ``all_reduce`` alone of the call's output."""
+    from event_utils_tpu_torch import parallel as par
+    from event_utils_tpu_torch.models import linvel_warp, variance_objective
+    from event_utils_tpu_torch.parallel.sharding import all_reduce
+    inp = par_inputs()
+    out, ms = {}, {}
+    vx, vy, vt, vp = inp["voxel"]
+    px, py, pt, pp = inp["planted"]
+    calls = {
+        "voxel": lambda: par.sharded_events_to_voxel(
+            mesh, vx, vy, vt, vp, B, sensor_size=SENSOR, impl="matmul"),
+        "iwe": lambda: par.sharded_iwe(
+            mesh, np.float32(VELOCITY), px, py, pt, pp, linvel_warp(),
+            SENSOR).detach(),
+        "tsimg": lambda: torch.stack(par.sharded_events_to_timestamp_image(
+            mesh, px, py, pt, pp, sensor_size=SENSOR, impl="matmul")),
+    }
+    for name, fn in calls.items():
+        out[name] = fn()
+        if timed:
+            buf = out[name].clone()
+            ms[name] = sync_ms(torch, dev, fn)
+            ms[name + "_all_reduce"] = sync_ms(
+                torch, dev, lambda: all_reduce(buf, mesh))
+    shards = par.shard_events(mesh, px, py, pt, pp)
+    for norm in (True, False):
+        step = par.make_sharded_cmax_train_step(
+            mesh, variance_objective(), linvel_warp(), SENSOR, lr=PAR_LR,
+            normalize_grad=norm)
+        p = torch.tensor(PAR_P0, device=dev)
+        m = torch.zeros(2, device=dev)
+        hist = []
+        for _ in range(PAR_STEPS):
+            p, m, loss = step(p, m, *shards)
+            hist.append(torch.cat([p, m, loss[None]]))
+        out[f"step_{int(norm)}"] = torch.stack(hist)
+        if timed:
+            ms[f"step_{int(norm)}"] = sync_ms(
+                torch, dev, lambda: step(p, m, *shards))
+    sx, sy, st, sp = inp["rotating"]
+    kw = dict(roi_size=ROT_ROI, img_size=ROT_SENSOR, maxiter=ROT_MAXITER,
+              capacity=ROT_CAPACITY)
+    t = time.perf_counter()
+    res = par.sharded_grid_cmax(mesh, sx, sy, st, sp, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    ms["grid_cmax"] = (time.perf_counter() - t) * 1e3
+    for k, v in zip(("grid_params", "grid_rois", "grid_f", "grid_valid"),
+                    res):
+        out[k] = v
+    return out, ms
+
+
+def parallel_rank(rank, world, work):
+    """One rank of the two-rank run on one card (gloo, ``file://`` store):
+    the suite, each rank's results and times to ``par2_rank<r>.npz``."""
+    import torch
+    import torch.distributed as dist
+    from event_utils_tpu_torch.parallel import make_mesh
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        work, "par2_store"), rank=rank, world_size=world)
+    mesh = make_mesh(world, device=PAR_CARD)
+    out, ms = sharded_suite(torch, mesh, torch.device(PAR_CARD))
+    np.savez(os.path.join(work, f"par2_rank{rank}.npz"),
+             **{k: v.cpu().numpy() for k, v in out.items()},
+             **{"ms/" + k: np.float64(v) for k, v in ms.items()})
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_rank_main(argv):
+    """A rank of ``torchrun ... chip_smoke.py --data-parallel-rank OUT
+    ARGS``: ``train_flow ARGS --data_parallel``; rank 0 writes its losses,
+    steps and walls to OUT (json)."""
+    import torch
+    from event_utils_tpu_torch.cli import train_flow
+    res = train_flow.main(argv[1:] + ["--data_parallel"])
+    if int(os.environ.get("RANK", 0)) == 0:
+        with open(argv[0], "w") as f:
+            json.dump({k: res[k] for k in ("losses", "steps", "wall_s",
+                                           "sim_s", "events")}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def reference_cmax_step(torch, p, m, xs, ys, ts, ps, norm):
+    """The single-card train step the sharded one stands for: autograd
+    through one IWE of the whole stream (the bilinear kernel)."""
+    from event_utils_tpu_torch.models import (get_iwe, linvel_warp,
+                                              variance_objective)
+    from event_utils_tpu_torch.ops.blur import gaussian_filter
+    p = p.detach().clone().requires_grad_(True)
+    iwe, _ = get_iwe(p, xs, ys, ts, ps, linvel_warp(), SENSOR,
+                     impl="matmul")
+    loss = variance_objective().loss_fn(gaussian_filter(iwe, 1.0))
+    (g,) = torch.autograd.grad(loss, p)
+    if norm:
+        g = g / (torch.linalg.vector_norm(g) + 1e-12)
+    m = 0.9 * m + g
+    return (p - PAR_LR * m).detach(), m, loss.detach()
+
+
+def check_steps(name, got, ref):
+    """Train-step histories ``(steps, 5)``: params, momentum, loss."""
+    p_err = float((got[:, :2] - ref[:, :2]).abs().max())
+    p_scale = float(ref[:, :2].abs().max())
+    l_err = float(((got[:, 4] - ref[:, 4]).abs()
+                   / ref[:, 4].abs().clamp(min=1e-12)).max())
+    log(f"  {name}: params max|diff| {p_err:.3e} of {p_scale:.3e}, loss "
+        f"rel {l_err:.3e}; last params {got[-1, :2].tolist()}")
+    if not (p_err <= PAR_REL * p_scale and l_err <= PAR_REL):
+        raise AssertionError(f"{name}: params {p_err}, loss {l_err}")
+    return {"params_max_abs_diff": p_err, "loss_max_rel_diff": l_err}
+
+
+def roi_losses_at(torch, params, dev):
+    """The rotating scene's per-ROI patch loss (the ROI solver's own,
+    variance, blur 1) at ``params``, single card."""
+    from event_utils_tpu_torch.contrast_max import events_cmax as ec
+    from event_utils_tpu_torch.models import linvel_warp, variance_objective
+    sx, sy, st, sp = rotating_scene(SEED)
+    bx, by, bt, bp, bm, org, _ = ec.bucket_events_by_roi(
+        sx, sy, st, sp, ROT_SENSOR, ROT_ROI, ROT_CAPACITY, device=dev)
+    loss = ec._roi_patch_loss(linvel_warp(), variance_objective(),
+                              ROT_SENSOR, ROT_ROI, 1.0)
+    with torch.no_grad():
+        return loss(torch.as_tensor(params, device=dev), bx, by, bt, bp, bm,
+                    org.float())
+
+
+def parallel_phase(torch, cs, records, work):
+    """The multi-card path on the one card: a world of one in this process
+    (NCCL, ``file://`` store in ``work``), each sharded function against
+    its single-card counterpart, counted; two ranks spawned on the card
+    (gloo) against the world of one; ``torchrun`` of ``train_flow
+    --simulate --data_parallel`` on two ranks against one rank. Returns the
+    phase's launch counts and what it measured."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from event_utils_tpu_torch.cli import train_flow
+    from event_utils_tpu_torch.contrast_max import grid_cmax_batched
+    from event_utils_tpu_torch.models import get_iwe, linvel_warp
+    from event_utils_tpu_torch.parallel import make_mesh
+    from event_utils_tpu_torch.representations import (
+        events_to_timestamp_image, events_to_voxel)
+    dev = torch.device("cuda", 0)
+    out = {"card": card_line()}
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        init_method="file://" + os.path.join(work, "par1_store"), rank=0,
+        world_size=1)
+    try:
+        mesh = make_mesh(1, device=dev)
+        cs.reset_launch_counts()
+        with route_calls(cs) as seen:
+            one, ms = synced(torch, lambda: sharded_suite(torch, mesh, dev,
+                                                          timed=False))[0]
+            torch.cuda.synchronize()
+        launches = cs.launch_counts()
+        got = {k: v for k, v in launches.items() if v}
+        log(f"parallel launches (world of one): {got}; by the dispatch "
+            f"rules {seen['calls']}")
+        if got != seen["calls"] or not any(
+                k.startswith("voxel_scatter") for k in got) or not any(
+                k.startswith("bilinear_scatter") for k in got) or not any(
+                k.startswith("bilinear_patches") for k in got):
+            raise AssertionError(f"parallel launches {got}, dispatch "
+                                 f"{seen['calls']}")
+        _, ms = sharded_suite(torch, mesh, dev)
+
+        # the world of one against the single-card functions
+        inp = par_inputs()
+        vx, vy, vt, vp = inp["voxel"]
+        px, py, pt, pp = inp["planted"]
+        single = {
+            "voxel": events_to_voxel(vx, vy, vt, vp, B, sensor_size=SENSOR,
+                                     impl="matmul", device=dev),
+            "iwe": get_iwe(np.float32(VELOCITY), px, py, pt, pp,
+                           linvel_warp(), SENSOR, impl="matmul",
+                           device=dev)[0],
+            "tsimg": torch.stack(events_to_timestamp_image(
+                px, py, pt, pp, sensor_size=SENSOR, impl="matmul",
+                device=dev))}
+        errs = {k: check_close(f"world of one: sharded {k} vs single card",
+                               one[k], v, rel=PAR_REL)
+                for k, v in single.items()}
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                        device=dev)
+        ev = [f32(a) for a in inp["planted"]]
+        for norm in (1, 0):
+            p = torch.tensor(PAR_P0, device=dev)
+            m = torch.zeros(2, device=dev)
+            hist = []
+            for _ in range(PAR_STEPS):
+                p, m, loss = reference_cmax_step(torch, p, m, *ev, norm)
+                hist.append(torch.cat([p, m, loss[None]]))
+            errs[f"step_{norm}"] = check_steps(
+                f"world of one: {PAR_STEPS} sharded train steps, "
+                f"normalize_grad={bool(norm)}, vs single card",
+                one[f"step_{norm}"], torch.stack(hist))
+        err1, n1 = flow_error(one["grid_params"], one["grid_rois"],
+                              one["grid_valid"])
+        sx, sy, st, sp = inp["rotating"]
+        ref = grid_cmax_batched(sx, sy, st, sp, roi_size=ROT_ROI,
+                                img_size=ROT_SENSOR, maxiter=ROT_MAXITER,
+                                capacity=ROT_CAPACITY, device=dev)
+        d1 = float((one["grid_params"] - ref[0]).norm(dim=1).max())
+        log(f"  world of one: sharded_grid_cmax median flow error "
+            f"{err1:.3f} px/s over {n1} ROIs (limit {FLOW_ERR_LIMIT}); "
+            f"grid_cmax_batched's answers within {d1:.3f} px/s")
+        if not err1 <= FLOW_ERR_LIMIT:
+            raise AssertionError(f"sharded_grid_cmax: {err1} px/s")
+        out["world_one"] = {"errors": errs, "flow_error": err1,
+                            "vs_grid_cmax_batched_max": d1, "ms": ms}
+        for k in ("voxel", "iwe", "tsimg"):
+            log(f"  world of one (NCCL): sharded {k} {ms[k]:.3f} ms, its "
+                f"all_reduce {ms[k + '_all_reduce']:.3f} ms (share "
+                f"{ms[k + '_all_reduce'] / ms[k]:.3f}); {out['card']}")
+        log(f"  world of one: train step {ms['step_1']:.3f} ms, "
+            f"sharded_grid_cmax {ms['grid_cmax']:.1f} ms (cold)")
+
+        # two ranks on the card (gloo): the same suite, spawned
+        t = time.perf_counter()
+        mp.start_processes(parallel_rank, args=(2, work), nprocs=2,
+                           start_method="spawn")
+        wall2 = time.perf_counter() - t
+        ranks = []
+        for r in range(2):
+            with np.load(os.path.join(work, f"par2_rank{r}.npz")) as z:
+                ranks.append({k: z[k] for k in z.files})
+        two = {k: torch.as_tensor(v, device=dev) for k, v in ranks[0].items()
+               if not k.startswith("ms/")}
+        same = all(np.array_equal(ranks[1][k], v) for k, v in
+                   ranks[0].items() if not k.startswith("ms/"))
+        if not same:
+            raise AssertionError("two ranks: the ranks' results differ")
+        errs2 = {k: check_close(f"two ranks vs world of one: {k}", two[k],
+                                one[k], rel=PAR_REL)
+                 for k in ("voxel", "iwe", "tsimg")}
+        for norm in (1, 0):
+            errs2[f"step_{norm}"] = check_steps(
+                f"two ranks vs world of one: train steps, normalize_grad="
+                f"{bool(norm)}", two[f"step_{norm}"], one[f"step_{norm}"])
+        err2, n2 = flow_error(two["grid_params"], two["grid_rois"],
+                              two["grid_valid"])
+        at = roi_losses_at(torch, two["grid_params"], dev)
+        lrel = float(((two["grid_f"] - at).abs()
+                      / at.abs().clamp(min=1e-12)).max())
+        d2 = (two["grid_params"] - one["grid_params"]).norm(dim=1)
+        log(f"  two ranks: sharded_grid_cmax median flow error {err2:.3f} "
+            f"px/s over {n2} ROIs; each ROI's loss against the single card's"
+            f" loss at its answer: max rel {lrel:.3e} (limit "
+            f"{PAR_ROI_LOSS_REL}); answers vs world of one: median "
+            f"{float(d2.median()):.4f}, max {float(d2.max()):.4f} px/s "
+            f"({int((d2 > 0.5).sum())} ROIs over 0.5)")
+        if not (err2 <= FLOW_ERR_LIMIT and lrel <= PAR_ROI_LOSS_REL
+                and bool((two["grid_rois"] == one["grid_rois"]).all())
+                and bool((two["grid_valid"] == one["grid_valid"]).all())):
+            raise AssertionError(f"two ranks sharded_grid_cmax: {err2}, "
+                                 f"{lrel}")
+        ms2 = {k[3:]: float(v) for k, v in ranks[0].items()
+               if k.startswith("ms/")}
+        for k in ("voxel", "iwe", "tsimg"):
+            log(f"  two ranks (gloo, one card): sharded {k} {ms2[k]:.3f} "
+                f"ms, its all_reduce {ms2[k + '_all_reduce']:.3f} ms (share "
+                f"{ms2[k + '_all_reduce'] / ms2[k]:.3f})")
+        out["two_ranks"] = {"errors": errs2, "flow_error": err2,
+                            "roi_loss_rel": lrel,
+                            "answers_vs_world_one_max": float(d2.max()),
+                            "ms": ms2, "wall_s": wall2}
+
+        # data-parallel training: torchrun on two ranks against one rank
+        init = os.path.join(work, "dp_init.npz")
+        import shutil
+        shutil.copyfile(FLOW_PARAMS, init)
+        args = DP_ARGS + ["--resume_params", init]
+        one_out = os.path.join(work, "dp1.npz")
+        (res1, wall1) = synced(torch, lambda: train_flow.main(
+            args + ["--device", "cuda", "--data_parallel", "--params_out",
+                    one_out]))
+        two_out, two_json = (os.path.join(work, "dp2.npz"),
+                             os.path.join(work, "dp2.json"))
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+               "--master_port", str(free_port()),
+               os.path.abspath(__file__), DP_FLAG, two_json] + args + [
+               "--device", "cuda", "--params_out", two_out]
+        t = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600, cwd=ROOT)
+        dp_wall = time.perf_counter() - t
+        if run.returncode != 0:
+            raise AssertionError(f"torchrun train_flow: {run.returncode}\n"
+                                 f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        if "data-parallel over 2 devices" not in run.stdout:
+            raise AssertionError(f"torchrun: no JAX line: {run.stdout}")
+        with open(two_json) as f:
+            res2 = json.load(f)
+        l1, l2 = np.array(res1["losses"]), np.array(res2["losses"])
+        lrel = float(np.abs(l2 - l1).max() / np.abs(l1).max())
+        with np.load(init) as zi, np.load(one_out) as z1, \
+                np.load(two_out) as z2:
+            keys = [k for k in zi.files if not k.startswith("__")]
+            wq = check_weights(
+                "torchrun two ranks vs one rank",
+                {k: torch.as_tensor(z2[k]) for k in keys},
+                {k: torch.as_tensor(z1[k]) for k in keys},
+                {k: torch.as_tensor(zi[k]) for k in keys}, 3 * 5e-6,
+                # both runs step a near-zero-gradient coordinate by up to
+                # the rate, in opposite directions where the ranks' summed
+                # gradient flips its sign: the max reaches the two runs'
+                # whole travel, so only the quantile is a check
+                what="two ranks vs one rank", max_share=None)
+        log(f"  train_flow --data_parallel: one rank losses {l1.tolist()}, "
+            f"two ranks {l2.tolist()} (max rel {lrel:.3e}, limit "
+            f"{DP_LOSS_REL}); two ranks {res2['steps'] / res2['wall_s']:.3f}"
+            f" steps/s in the loop ({res2['wall_s']:.2f} s for "
+            f"{res2['steps']}; torchrun wall {dp_wall:.1f} s), one rank "
+            f"{res1['steps'] / res1['wall_s']:.3f} steps/s; {out['card']}")
+        if not (len(l1) == len(l2) == 3 and lrel <= DP_LOSS_REL):
+            raise AssertionError(f"data parallel losses: {l1} vs {l2}")
+        out["data_parallel"] = {
+            "losses_one": l1.tolist(), "losses_two": l2.tolist(),
+            "loss_max_rel": lrel, "weights": wq,
+            "steps_per_s_two": res2["steps"] / res2["wall_s"],
+            "steps_per_s_one": res1["steps"] / res1["wall_s"],
+            "torchrun_wall_s": dp_wall}
+        route_cases(torch, cs, records, seen, "parallel")
+    finally:
+        dist.destroy_process_group()
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# Visualization: the objective landscape, cmax_demo, motion compensation
+# ---------------------------------------------------------------------------
+
+VIS_EVENTS = 15_000           # of the planted scene
+VIS_RES = 20                  # px/s a cell, +-200 px/s: a 20x20 grid
+VIS_GRID = 20
+VIS_LAND_REL = 1e-4           # card vs CPU, of the normalised range
+VIS_LOSS_REL = 1e-4           # cmax_demo: card vs CPU at the same argmax
+VIS_IMG_REL = 1e-5
+VIS_WINDOW = 20_000           # events of the streaming recording
+
+
+def png_gray_levels(path) -> np.ndarray:
+    """The (H, W) uint8 levels of an 8-bit grayscale PNG with filter 0 on
+    every row (what ``write_gray_png`` writes), decoded with zlib."""
+    import struct
+    import zlib
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, W, H = 8, b"", 0, 0
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            W, H, depth, color = struct.unpack(">IIBB", body[:10])
+            if (depth, color) != (8, 0):
+                raise AssertionError(f"{path}: not 8-bit gray")
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, W + 1)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: filtered rows")
+    return rows[:, 1:]
+
+
+def visualization_phase(torch, cs, records, work):
+    """The remaining host-side modules' device halves: the landscape of
+    ``draw_objective_function`` on the planted scene, ``cmax_demo.run`` on
+    the same events, ``motion_compensate`` of the streaming recording with
+    its ground-truth flow (and the PNG it writes) and the 2-D visualizers'
+    images, counted, each card against the CPU port. Returns the phase's
+    launch counts and what it measured."""
+    from event_utils_tpu_torch.cli import cmax_demo
+    from event_utils_tpu_torch.contrast_max import events_cmax as ec
+    from event_utils_tpu_torch.contrast_max import (linvel_warp,
+                                                    variance_objective)
+    from event_utils_tpu_torch.data_formats import read_memmap_events
+    from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
+    from event_utils_tpu_torch.utils.util import gray_levels, normalize_image
+    from event_utils_tpu_torch.visualization import (get_visualizer,
+                                                     motion_compensate)
+    dev = torch.device("cuda")
+    cpu = torch.device("cpu")
+    out = {"card": card_line()}
+    xs, ys, ts, ps = (a[:VIS_EVENTS] for a in planted_scene(
+        np.random.default_rng(SEED + 20)))
+    rec = read_memmap_events(os.path.join(work, "davis30"),
+                             return_events=True)
+    n = len(rec["t"])
+    s = n // 2 - VIS_WINDOW // 2
+    win = (rec["xy"][s:s + VIS_WINDOW, 0].astype(np.float32),
+           rec["xy"][s:s + VIS_WINDOW, 1].astype(np.float32),
+           np.asarray(rec["t"]).reshape(-1)[s:s + VIS_WINDOW],
+           np.asarray(rec["p"]).reshape(-1)[s:s + VIS_WINDOW] * 2.0 - 1.0)
+    H, W = SENSOR                  # the streaming recording's DAVIS240
+    gt_flow = np.broadcast_to(np.float32(STREAM_GT)[:, None, None],
+                              (2, H, W)).copy()
+    png = os.path.join(work, "motion_compensated.png")
+    data = {"events": np.stack([xs.astype(np.int64), ys.astype(np.int64),
+                                ts, ps], 1).astype(np.float64)}
+    lkw = dict(resolution=VIS_RES, img_size=SENSOR)
+
+    def drive(device, fname=None):
+        land = ec._objective_landscape(xs, ys, ts, ps, variance_objective(
+            minimum_events=1), linvel_warp(), device=device, **lkw)
+        demo = cmax_demo.run(xs, ys, ts, ps, gt=VELOCITY, img_size=SENSOR,
+                             device=device)
+        mc = motion_compensate(*win, gt_flow, fname=fname, device=device)
+        prev = get_default_impl()
+        set_default_impl("pallas")
+        try:
+            imgs = {name: get_visualizer(name, SENSOR, device=device)
+                    .image(data) for name in ("event_image", "voxel_image",
+                                              "ts_image")}
+        finally:
+            set_default_impl(prev)
+        return land, demo, mc, imgs
+
+    cs.reset_launch_counts()
+    with route_calls(cs) as seen:
+        (land, demo, mc, imgs), wall = synced(torch, lambda: drive(dev, png))
+    launches = cs.launch_counts()
+    got = {k: v for k, v in launches.items() if v}
+    n_bil = sum(v for k, v in got.items() if k.startswith("bilinear_scatter"))
+    log(f"visualization launches: {got}; by the dispatch rules "
+        f"{seen['calls']} ({wall:.1f} s)")
+    if got != seen["calls"] or n_bil < VIS_GRID * VIS_GRID + 1 or not any(
+            k.startswith("flat_scatter") for k in got):
+        raise AssertionError(f"visualization launches {got}, dispatch "
+                             f"{seen['calls']}")
+    t = time.perf_counter()
+    land_c, demo_c, mc_c, imgs_c = drive(cpu)
+    cpu_s = time.perf_counter() - t
+
+    # the landscape: card vs CPU, and its peak at the planted velocity
+    land_err = float((land.cpu() - land_c).abs().max())
+    iy, ix = np.unravel_index(int(torch.argmax(land).cpu()), land.shape)
+    peak = (float(ix * VIS_RES - 200.0), float(iy * VIS_RES - 200.0))
+    log(f"  landscape {tuple(land.shape)}: card vs CPU max|diff| "
+        f"{land_err:.3e} of its [0, 1] range (limit {VIS_LAND_REL}); peak "
+        f"at {peak} px/s, planted {VELOCITY}")
+    if not (land.shape == (VIS_GRID, VIS_GRID) and land_err <= VIS_LAND_REL
+            and abs(peak[0] - VELOCITY[0]) <= VIS_RES
+            and abs(peak[1] - VELOCITY[1]) <= VIS_RES):
+        raise AssertionError(f"landscape: {land_err}, peak {peak}")
+    land_ms = sync_ms(torch, dev, lambda: ec._objective_landscape(
+        xs, ys, ts, ps, variance_objective(minimum_events=1), linvel_warp(),
+        device=dev, **lkw), reps=3)
+
+    # cmax_demo: each objective's loss at its argmax, card vs CPU
+    demo_out = {}
+    for name, r in demo.items():
+        obj = ec.OBJECTIVE_REGISTRY[name]()
+        rc = demo_c[name]
+        at_card_cpu = obj.evaluate_function(r["argmax"], xs, ys, ts, ps,
+                                            linvel_warp(), img_size=SENSOR,
+                                            device=cpu)
+        at_cpu_card = obj.evaluate_function(rc["argmax"], xs, ys, ts, ps,
+                                            linvel_warp(), img_size=SENSOR,
+                                            device=dev)
+        rel = max(abs(r["loss"] - at_card_cpu) / max(abs(at_card_cpu), 1e-9),
+                  abs(rc["loss"] - at_cpu_card) / max(abs(rc["loss"]), 1e-9),
+                  abs(r["gt_loss"] - rc["gt_loss"])
+                  / max(abs(rc["gt_loss"]), 1e-9))
+        d = float(np.abs(r["argmax"] - rc["argmax"]).max())
+        log(f"  cmax_demo {name}: card argmax {np.round(r['argmax'], 3)} "
+            f"loss {r['loss']:.6g}, CPU {np.round(rc['argmax'], 3)} "
+            f"{rc['loss']:.6g} (argmax apart {d:.3f} px/s); loss at the "
+            f"same argmax, card vs CPU, max rel {rel:.2e}")
+        if not rel <= VIS_LOSS_REL:
+            raise AssertionError(f"cmax_demo {name}: {rel}")
+        demo_out[name] = {"argmax": r["argmax"].tolist(), "loss": r["loss"],
+                          "cpu_argmax": rc["argmax"].tolist(),
+                          "cpu_loss": rc["loss"], "loss_rel": rel}
+
+    # motion compensation and its PNG; the visualizers' images
+    mc_err = float(np.abs(mc - mc_c).max())
+    levels = png_gray_levels(png)
+    png_ok = np.array_equal(levels, gray_levels(normalize_image(mc)))
+    log(f"  motion_compensate: {VIS_WINDOW} events of the streaming "
+        f"recording at its ground truth {STREAM_GT} px/s: card vs CPU "
+        f"max|diff| {mc_err:.3e}; PNG {levels.shape} decodes to its levels:"
+        f" {png_ok}; sharpness (variance) {float(mc.var()):.5f}")
+    if not (mc_err <= VIS_IMG_REL and png_ok):
+        raise AssertionError(f"motion_compensate: {mc_err}, PNG {png_ok}")
+    for name, img in imgs.items():
+        check_close(f"visualizer {name}, card vs CPU", torch.as_tensor(img),
+                    torch.as_tensor(imgs_c[name]), rel=VIS_IMG_REL)
+    out.update(landscape={"max_abs_diff": land_err, "peak": peak,
+                          "ms": land_ms},
+               cmax_demo=demo_out, motion_compensate_err=mc_err,
+               wall_s=wall, cpu_s=cpu_s)
+    log(f"  landscape {land_ms:.2f} ms warm ({VIS_GRID * VIS_GRID} "
+        f"samples); the phase's drive {wall:.1f} s on the card, "
+        f"{cpu_s:.1f} s on the CPU; {out['card']}")
+    route_cases(torch, cs, records, seen, "visualization")
+    return launches, out
+
+
 def turns_ms(torch, fns, reps):
     """Median device ms of each of ``fns`` ({name: fn}), one call of each
     in turns per round, each between two CUDA events, after a warm call of
@@ -3642,6 +4235,9 @@ def main() -> int:
                                                      work)
         aug_launches, augmentation = augmentation_phase(torch, cs, records,
                                                         work)
+        par_launches, parallel = parallel_phase(torch, cs, records, work)
+        vis_launches, visualization = visualization_phase(torch, cs, records,
+                                                          work)
     bucketing_share(torch, rng)
 
     kernels = []
@@ -3656,6 +4252,8 @@ def main() -> int:
             "launches_train": train_launches[name],
             "launches_stream": stream_launches[name],
             "launches_aug": aug_launches[name],
+            "launches_parallel": par_launches[name],
+            "launches_vis": vis_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": rec["library_ms"],
@@ -3665,6 +4263,8 @@ def main() -> int:
     print(json.dumps({"training": training}))
     print(json.dumps({"streaming": streaming}))
     print(json.dumps({"augmentation": augmentation}))
+    print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"visualization": visualization}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -3674,4 +4274,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == DP_FLAG:   # a torchrun rank
+        sys.exit(dp_rank_main(sys.argv[2:]))
     sys.exit(main())

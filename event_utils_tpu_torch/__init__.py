@@ -1,14 +1,16 @@
 """event_utils_tpu_torch — the PyTorch/CUDA port of event_utils_tpu.
 
 A second package beside the JAX one, for an NVIDIA H100. It imports
-``torch`` and never ``jax`` or ``event_utils_tpu``. Ported so far: the
-contrast-maximisation path over dense event representations, the
-learned-model serving path (recording -> dataset -> voxel grid ->
-EV-FlowNet / E2VID with the JAX package's weights), the event simulator
-with its consumers, training, streaming ingest (the native window
-runtime, pinned-memory device prefetch, ``stream_flow``), and the
-augmentation path (the data-format converters, host and device
-augmentation with the nearly-sorted densify sort, ``augment_demo``).
+``torch`` and never ``jax`` or ``event_utils_tpu``, and has a counterpart
+of every module of the JAX package: the contrast-maximisation path over
+dense event representations, the learned-model serving path (recording
+-> dataset -> voxel grid -> EV-FlowNet / E2VID with the JAX package's
+weights), the event simulator with its consumers, training (also
+data-parallel), streaming ingest (the native window runtime,
+pinned-memory device prefetch, ``stream_flow``), the augmentation path
+(the data-format converters, host and device augmentation with the
+nearly-sorted densify sort, ``augment_demo``), multi-card sharding on
+``torch.distributed`` and visualization.
 
 - ``ops``             scatter-add, gather, scipy-parity Gaussian blur, the
                       background-activity filter, the nearly-sorted time
@@ -35,10 +37,16 @@ augmentation with the nearly-sorted densify sort, ``augment_demo``).
                       recordings
 - ``simulation``      the ESIM-style event simulator and its scenes, with
                       the JAX package's textures as data
-- ``visualization``   3-D event-cloud and voxel renders (matplotlib)
+- ``visualization``   3-D event-cloud, voxel and flow renders, motion
+                      compensation, the visualizer registry (matplotlib
+                      and mayavi imported when drawing)
 - ``cli``             ``infer_flow``, ``reconstruct``, ``simulate``,
                       ``eval_cmax``, ``stream_flow``, ``train_flow``,
-                      ``train_reconstruction`` and ``augment_demo``
+                      ``train_reconstruction``, ``augment_demo``,
+                      ``cmax_demo`` and the ``visualize*`` renderers
+- ``parallel``        multi-card meshes on ``torch.distributed``:
+                      event-sharded images, the sharded train step,
+                      ROI-sharded ``grid_cmax``
 - ``convert``         warps/objectives from JAX instances, and JAX
                       ``params.npz`` weights into the networks
 
@@ -53,4 +61,4 @@ from . import errors  # noqa: F401
 from . import ops, utils, representations, models, contrast_max  # noqa: F401
 from . import data_formats, data_loaders, transforms, training  # noqa: F401
 from . import simulation, convert, native  # noqa: F401
-from . import augmentation, visualization  # noqa: F401
+from . import augmentation, parallel, visualization  # noqa: F401

@@ -18,9 +18,17 @@
                                                      training
 - ``python -m event_utils_tpu_torch.cli.augment_demo`` augmentation figures
                                                      (needs matplotlib)
+- ``python -m event_utils_tpu_torch.cli.cmax_demo``    every objective on an
+                                                     event slice
+- ``python -m event_utils_tpu_torch.cli.visualize``    dataset renders
+                                                     through a visualizer
+- ``python -m event_utils_tpu_torch.cli.visualize_events``  3-D event renders
+- ``python -m event_utils_tpu_torch.cli.visualize_voxel``   3-D voxel renders
+- ``python -m event_utils_tpu_torch.cli.visualize_flow``    events over dense
+                                                     flow frames
 
-The data-format converters have their ``main`` in ``data_formats``
-(``txt_events``, ``h5_to_memmap``, ``memmap_to_h5``, ``rosbag_to_h5``,
-``add_hdf5_attribute``). Still to port: ``cmax_demo`` and the
-``visualize*`` CLIs (``ROADMAP.md`` queue 1).
+Both trainers take ``--data_parallel`` (alone a world of one; under
+``torchrun --nproc_per_node N``, N ranks). The data-format converters have
+their ``main`` in ``data_formats`` (``txt_events``, ``h5_to_memmap``,
+``memmap_to_h5``, ``rosbag_to_h5``, ``add_hdf5_attribute``).
 """

@@ -24,9 +24,19 @@ Differences from the JAX CLI:
 - ``--ckpt_dir`` holds the port's own checkpoint format
   (``training.checkpointing``), not orbax's;
 - a memmap directory is shuffled with a generator seeded by ``--seed``
-  (JAX's is unseeded);
-- ``--data_parallel`` needs a multi-card mesh, not ported yet: it raises
-  ``ConfigurationError`` (``ROADMAP.md`` queue 1 item 6).
+  (JAX's is unseeded), so every rank of ``--data_parallel`` reads the
+  same order;
+- ``--data_parallel`` runs one process per card (SPMD on
+  ``torch.distributed``, ``parallel.make_mesh``) where JAX runs one
+  controller over a device mesh: alone it is a world of one; under
+  ``torchrun --nproc_per_node N`` it trains on N ranks, each on its slice
+  of every batch (each simulating only its own scenes with ``--simulate``);
+  only rank 0 writes checkpoints, ``--params_out``, ``--metrics_out`` and
+  logs. Several ranks on one card pass ``--device cuda:0`` (gloo).
+
+Data-parallel on two ranks (one card each, NCCL):
+    torchrun --nproc_per_node 2 -m event_utils_tpu_torch.cli.train_flow \
+        --simulate --data_parallel --sensor 128 128 --batch_size 8 --steps 3
 
 Example (the stage-9 recipe of ``runs/flow128_similarity``):
     python -m event_utils_tpu_torch.cli.train_flow --simulate \\
@@ -119,8 +129,8 @@ def build_parser():
                         help="warm-start weights from a params .npz "
                              "(optimizer state re-initialized)")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="shard the batch over all devices: not "
-                             "supported by the port yet")
+                        help="shard the batch over the ranks of the "
+                             "process group (torchrun; alone: one rank)")
     parser.add_argument("--device", default="cuda",
                         help="torch device: 'cuda' (default; raises "
                              "without a card) or 'cpu'")
@@ -164,13 +174,34 @@ def write_json_atomic(path: str, payload: dict) -> None:
 
 def resume(trainer, args) -> None:
     """``--resume`` from ``--ckpt_dir`` or ``--resume_params``."""
+    say = _say(trainer.mesh)
     if args.resume and args.ckpt_dir:
         step = trainer.restore_checkpoint(args.ckpt_dir)
-        print(f"resumed from step {step}")
+        say(f"resumed from step {step}")
     elif args.resume_params:
         step = trainer.load_params(args.resume_params)
-        print(f"warm-started weights from {args.resume_params} "
-              f"(step {step}; fresh optimizer state)")
+        say(f"warm-started weights from {args.resume_params} "
+            f"(step {step}; fresh optimizer state)")
+
+
+def make_data_parallel_mesh(args, simulate: bool):
+    """The ``--data_parallel`` mesh over the process group (a world of one
+    without ``torchrun``), or ``None``; prints JAX's line."""
+    if not args.data_parallel:
+        return None
+    from ..parallel import make_mesh
+
+    mesh = make_mesh(axis_name="batch", device=args.device)
+    _say(mesh)(f"data-parallel over {mesh.size()} devices"
+               + (" (sharded in-the-loop simulation)" if simulate else ""))
+    return mesh
+
+
+def _say(mesh):
+    """``print`` on the rank that logs (rank 0), a no-op on the others."""
+    from ..parallel.sharding import is_writer
+
+    return print if is_writer(mesh) else (lambda *a, **k: None)
 
 
 def main(argv=None):
@@ -186,27 +217,26 @@ def main(argv=None):
 
     import numpy as np
 
-    from ..errors import ConfigurationError
     from ..training import FlowTrainer, train_flow_in_the_loop
     from ..training.checkpointing import save_params_npz
 
-    if args.data_parallel:
-        raise ConfigurationError(
-            "--data_parallel needs a multi-card mesh, which the port does "
-            "not have yet (ROADMAP.md queue 1 item 6)")
     if not args.simulate:
         return train_on_recording(args)
 
+    mesh = make_data_parallel_mesh(args, simulate=True)
+    say = _say(mesh)
     trainer = FlowTrainer(sensor_size=tuple(args.sensor),
                           num_bins=args.num_bins,
                           learning_rate=learning_rate(args),
                           supervised_weight=args.supervised_weight,
-                          device=args.device)
+                          mesh=mesh, device=args.device)
     resume(trainer, args)
 
     def write_metrics(losses, aee):
         # rewritten after every eval (atomic), so an interrupted run keeps
         # its curve and weights up to the last eval
+        if not trainer.is_writer:
+            return
         if args.metrics_out:
             write_json_atomic(args.metrics_out, {
                 "losses": [round(float(x), 5) for x in losses],
@@ -228,16 +258,17 @@ def main(argv=None):
         else None, stats=stats)
     write_metrics(losses, aee)
     if args.params_out:
-        print(f"final params saved to {args.params_out}")
-    print(f"final loss: {np.mean(losses[-10:]):.5f} over {len(losses)} steps"
-          + (f"; final AEE {aee[-1][1]:.2f} px/s" if aee else ""))
+        say(f"final params saved to {args.params_out}")
+    say(f"final loss: {np.mean(losses[-10:]):.5f} over {len(losses)} steps"
+        + (f"; final AEE {aee[-1][1]:.2f} px/s" if aee else ""))
     return {"losses": losses, "aee_curve": aee,
             "params_out": args.params_out, "trainer": trainer, **stats}
 
 
-def recording_loader(args):
+def recording_loader(args, say=print):
     """The streaming loader of ``args.path`` (JAX ``cli/train_flow.py:
-    207-240``)."""
+    207-240``); ``--data_parallel`` drops the last partial batch, as JAX
+    does."""
     import os
 
     import numpy as np
@@ -257,19 +288,22 @@ def recording_loader(args):
         cap = 1 << max(int(np.ceil(np.log2(max(args.k, 1)))), 0)
         loader = ChainLoader([
             H5WindowedLoader(p, method="k_events", k=args.k,
-                             batch_size=args.batch_size, capacity=cap)
+                             batch_size=args.batch_size, capacity=cap,
+                             drop_last=args.data_parallel)
             for p in h5s])
-        print(f"training over {len(h5s)} recordings "
-              f"({len(loader)} batches/epoch)")
+        say(f"training over {len(h5s)} recordings "
+            f"({len(loader)} batches/epoch)")
         return loader
     if os.path.isdir(args.path):
         return NativeWindowedLoader(args.path, method="k_events", k=args.k,
                                     batch_size=args.batch_size, shuffle=True,
-                                    rng=np.random.default_rng(args.seed))
+                                    rng=np.random.default_rng(args.seed),
+                                    drop_last=args.data_parallel)
     # HDF5: sequential slabs (shuffling would defeat the sequential chunk
     # reads; convert to memmap for shuffled epochs)
     return H5WindowedLoader(args.path, method="k_events", k=args.k,
-                            batch_size=args.batch_size)
+                            batch_size=args.batch_size,
+                            drop_last=args.data_parallel)
 
 
 class _Counted:
@@ -303,7 +337,9 @@ def train_on_recording(args):
     if args.supervised_weight:
         raise SystemExit("--supervised_weight needs --simulate (recordings "
                          "carry no per-window ground-truth flow here)")
-    loader = recording_loader(args)
+    mesh = make_data_parallel_mesh(args, simulate=False)
+    say = _say(mesh)
+    loader = recording_loader(args, say)
     try:
         if len(loader) == 0:
             raise SystemExit(
@@ -311,7 +347,8 @@ def train_on_recording(args):
                 f"(windows of {args.k} events)")
         trainer = FlowTrainer(sensor_size=tuple(args.sensor),
                               num_bins=args.num_bins,
-                              learning_rate=args.lr, device=args.device)
+                              learning_rate=args.lr, mesh=mesh,
+                              device=args.device)
         resume(trainer, args)
         counted = _Counted(loader)
         t0 = time.perf_counter()
@@ -322,10 +359,10 @@ def train_on_recording(args):
     finally:
         if hasattr(loader, "close"):
             loader.close()
-    if args.params_out:
+    if args.params_out and trainer.is_writer:
         save_params_npz(trainer, args.params_out)
-        print(f"final params saved to {args.params_out}")
-    print(f"final loss: {np.mean(losses[-10:]):.5f} over {len(losses)} steps")
+        say(f"final params saved to {args.params_out}")
+    say(f"final loss: {np.mean(losses[-10:]):.5f} over {len(losses)} steps")
     return {"losses": losses, "steps": len(losses),
             "params_out": args.params_out, "trainer": trainer, **stats}
 

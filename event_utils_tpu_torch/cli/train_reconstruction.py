@@ -16,9 +16,11 @@ Two routes, with the JAX CLI's flags:
   ``--shuffle``d (``iter_sequences_cached``).
 
 It runs on the card unless ``--device cpu`` is passed. ``--ckpt_dir``
-holds the port's own checkpoint format (``training.checkpointing``);
-``--data_parallel`` raises ``ConfigurationError`` (``ROADMAP.md`` queue 1
-item 6).
+holds the port's own checkpoint format (``training.checkpointing``).
+``--data_parallel`` shards the batch axis over the ranks of the process
+group, as ``cli.train_flow``'s does (a world of one alone, N ranks under
+``torchrun --nproc_per_node N``; only rank 0 writes and logs), on both
+routes: JAX's shards only ``--simulate``.
 
 Example (the stage-8 recipe of ``runs/recon128v2``):
     python -m event_utils_tpu_torch.cli.train_reconstruction --simulate \\
@@ -114,7 +116,8 @@ def build_parser():
                              "(optimizer state re-initialized)")
     parser.add_argument("--max_steps", type=int, default=None)
     parser.add_argument("--data_parallel", action="store_true",
-                        help="not supported by the port yet")
+                        help="shard the batch over the ranks of the "
+                             "process group (torchrun; alone: one rank)")
     parser.add_argument("--cache_windows", action="store_true",
                         help="materialize every (voxel, frame) window once "
                              "per recording into a sidecar .npz")
@@ -220,14 +223,17 @@ def _source_stamp(src_path):
     return st.st_mtime_ns, st.st_size
 
 
-def materialize_windows(dataset, cache_path=None, src_path=None):
+def materialize_windows(dataset, cache_path=None, src_path=None,
+                        save: bool = True):
     """Every between-frames window of ``dataset`` once: ``(N, C, H, W)``
     voxels + ``(N, 1, H, W)`` frames (HW padded to /8).
 
     With ``cache_path`` the stacks are saved to and loaded from a sidecar
     ``.npz``, keyed on the source recording's (mtime_ns, size) via
     ``src_path`` (the JAX package's file and key: the two packages share
-    it); a regenerated recording at the same path rebuilds it."""
+    it); a regenerated recording at the same path rebuilds it. ``save=False``
+    reads the sidecar but never writes it (the ranks but 0 of
+    ``--data_parallel``)."""
     import os
 
     import numpy as np
@@ -239,10 +245,11 @@ def materialize_windows(dataset, cache_path=None, src_path=None):
             if stamp is None or ("src_stamp" in z
                                  and np.array_equal(z["src_stamp"], stamp)):
                 return z["voxels"], z["frames"]
-        print(f"window cache stale ({cache_path}); rebuilding")
+        if save:
+            print(f"window cache stale ({cache_path}); rebuilding")
     voxels, frames = zip(*(_window(dataset[i]) for i in range(len(dataset))))
     voxels, frames = np.stack(voxels), np.stack(frames)
-    if cache_path:
+    if cache_path and save:
         payload = {"voxels": voxels, "frames": frames}
         if stamp is not None:
             payload["src_stamp"] = stamp
@@ -278,7 +285,7 @@ def iter_sequences_cached(voxels, frames, seq_len, batch_size, rng=None):
                frames[idx].transpose(1, 0, 2, 3, 4))
 
 
-def _trainer(args, sensor_size, learning_rate, model_kwargs):
+def _trainer(args, sensor_size, learning_rate, model_kwargs, mesh):
     from ..training.reconstruction import ReconstructionTrainer
 
     return ReconstructionTrainer(
@@ -286,7 +293,7 @@ def _trainer(args, sensor_size, learning_rate, model_kwargs):
         combined_channels=args.combined_channels,
         learning_rate=learning_rate, lpips_weight=args.lpips_weight,
         model_kwargs=model_kwargs, burn_in=args.burn_in,
-        mse_weight=args.mse_weight, ema_decay=args.ema_decay,
+        mse_weight=args.mse_weight, ema_decay=args.ema_decay, mesh=mesh,
         device=args.device)
 
 
@@ -295,11 +302,14 @@ def _simulate(args):
 
     from ..training import train_reconstruction_in_the_loop
     from ..training.checkpointing import save_params_npz
-    from .train_flow import learning_rate, resume, write_json_atomic
+    from .train_flow import (_say, learning_rate, make_data_parallel_mesh,
+                             resume, write_json_atomic)
 
+    mesh = make_data_parallel_mesh(args, simulate=True)
+    say = _say(mesh)
     model_kwargs = _model_kwargs(args)
     trainer = _trainer(args, tuple(args.sensor), learning_rate(args),
-                       model_kwargs)
+                       model_kwargs, mesh)
     resume(trainer, args)
     config = {"sensor": list(args.sensor), "num_bins": args.num_bins,
               "seq_len": args.seq_len, "batch_size": args.batch_size,
@@ -315,6 +325,8 @@ def _simulate(args):
               "resume_params": args.resume_params, "device": args.device}
 
     def write_metrics(losses, curve):
+        if not trainer.is_writer:
+            return
         if args.metrics_out:
             write_json_atomic(args.metrics_out, {
                 "losses": [round(float(x), 5) for x in losses],
@@ -337,15 +349,15 @@ def _simulate(args):
         else None, stats=stats)
     write_metrics(losses, curve)
     if args.params_out:
-        print(f"final params saved to {args.params_out}")
-    print(f"final loss: {np.mean(losses[-10:]):.5f} over {len(losses)} steps"
-          + (f"; final PSNR {curve[-1][1]:.2f} dB / SSIM {curve[-1][2]:.3f}"
-             if curve else ""))
+        say(f"final params saved to {args.params_out}")
+    say(f"final loss: {np.mean(losses[-10:]):.5f} over {len(losses)} steps"
+        + (f"; final PSNR {curve[-1][1]:.2f} dB / SSIM {curve[-1][2]:.3f}"
+           if curve else ""))
     return {"losses": losses, "psnr_curve": curve,
             "params_out": args.params_out, "trainer": trainer, **stats}
 
 
-def _datasets(args):
+def _datasets(args, say=print):
     import os
 
     from ..data_loaders import DynamicH5Dataset, MemMapDataset
@@ -365,7 +377,7 @@ def _datasets(args):
         if not h5s:
             raise SystemExit(f"{args.path} has neither t.npy (memmap) nor "
                              ".h5 recordings")
-        print(f"training over {len(h5s)} recordings")
+        say(f"training over {len(h5s)} recordings")
         return [(p, DynamicH5Dataset(p, **kwargs)) for p in h5s]
     if os.path.isdir(args.path):
         return [(args.path.rstrip("/"), MemMapDataset(args.path, **kwargs))]
@@ -378,9 +390,11 @@ def _recordings(args):
     import numpy as np
 
     from ..training.checkpointing import save_params_npz
-    from .train_flow import resume
+    from .train_flow import _say, make_data_parallel_mesh, resume
 
-    datasets = _datasets(args)
+    mesh = make_data_parallel_mesh(args, simulate=False)
+    say = _say(mesh)
+    datasets = _datasets(args, say)
     try:
         usable = [(p, d) for p, d in datasets
                   if len(d) >= args.seq_len * args.batch_size]
@@ -392,7 +406,7 @@ def _recordings(args):
             raise SystemExit(f"recordings disagree on sensor size: {sizes}")
         H, W = usable[0][1].sensor_resolution
         trainer = _trainer(args, (H + (-H) % 8, W + (-W) % 8), args.lr,
-                           _model_kwargs(args))
+                           _model_kwargs(args), mesh)
         resume(trainer, args)
         if args.shuffle and not args.cache_windows:
             raise SystemExit("--shuffle needs --cache_windows")
@@ -400,7 +414,9 @@ def _recordings(args):
             tag = f"b{args.num_bins}" + ("c" if args.combined_channels
                                          else "")
             stacks = [materialize_windows(d, f"{p}.wincache_{tag}.npz",
-                                          src_path=p) for p, d in usable]
+                                          src_path=p,
+                                          save=trainer.is_writer)
+                      for p, d in usable]
         rng = np.random.default_rng(args.seed) if args.shuffle else None
 
         def batches():
@@ -418,17 +434,17 @@ def _recordings(args):
         for epoch, voxels, frames in itertools.islice(
                 batches(), args.max_steps or None):
             losses.append(trainer.train_sequence(voxels, frames))
-            print(f"epoch {epoch} step {trainer.step} loss {losses[-1]:.4f}",
-                  flush=True)
+            say(f"epoch {epoch} step {trainer.step} loss {losses[-1]:.4f}",
+                flush=True)
     finally:
         for _, dataset in datasets:
             dataset.close()
     if args.ckpt_dir:
         trainer.save_checkpoint(args.ckpt_dir)
-        print(f"checkpoint saved to {args.ckpt_dir} at step {trainer.step}")
-    if args.params_out:
+        say(f"checkpoint saved to {args.ckpt_dir} at step {trainer.step}")
+    if args.params_out and trainer.is_writer:
         save_params_npz(trainer, args.params_out)
-        print(f"final params saved to {args.params_out}")
+        say(f"final params saved to {args.params_out}")
     return {"losses": losses, "steps": len(losses),
             "params_out": args.params_out, "trainer": trainer}
 
@@ -442,11 +458,6 @@ def main(argv=None):
     if args.resume and args.resume_params:
         raise SystemExit("--resume (checkpoint) and --resume_params (npz "
                          "snapshot) are alternatives; pass one")
-    if args.data_parallel:
-        from ..errors import ConfigurationError
-        raise ConfigurationError(
-            "--data_parallel needs a multi-card mesh, which the port does "
-            "not have yet (ROADMAP.md queue 1 item 6)")
     if args.simulate:
         return _simulate(args)
     if args.path is None:

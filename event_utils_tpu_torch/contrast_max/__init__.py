@@ -35,6 +35,7 @@ from .events_cmax import (  # noqa: F401
     OVERFLOW_CAP_MAX,
     PATCH_DEFAULT,
     bucket_events_by_roi,
+    draw_objective_function,
     find_new_range,
     fit_global_motion,
     get_hsv_shifted,

@@ -24,7 +24,8 @@ does by default. (The JAX host path used the exact XLA scatter; on the card
 that would be ``index_add_``, which computes the same f32 sums.) On CPU
 tensors 'matmul' is the kernel's plain f32 version.
 
-Not ported: ``draw_objective_function`` (a matplotlib plot).
+``draw_objective_function`` samples its landscape on the device
+(``_objective_landscape``) and only then imports matplotlib to plot it.
 """
 
 from __future__ import annotations
@@ -1298,6 +1299,77 @@ def segmentation_mask_from_d_iwe(d_iwe, th=None):
     imgx = (d_iwe[0] > thx).astype(int) + (d_iwe[0] < -thx).astype(int)
     imgy = (d_iwe[1] > thy).astype(int) + (d_iwe[1] < -thy).astype(int)
     return np.clip(imgx + imgy, 0, 1)
+
+
+def _objective_landscape(xs, ys, ts, ps, objective, warpfunc,
+                         x_range=(-200, 200), y_range=(-200, 200),
+                         resolution: float = 20, img_size=(180, 240),
+                         norm_min=None, norm_max=None, device=None):
+    """The 2-DoF landscape ``draw_objective_function`` plots: ``-loss`` on
+    the ``imshape`` grid of JAX's ``events_cmax.py:1551-1567`` (rows
+    ``v_y``, columns ``v_x``, ``resolution`` px/s apart from the ranges'
+    lower ends), unblurred, normalised to [0, 1] by ``norm_min`` /
+    ``norm_max`` (default the image's own). The samples are queued on the
+    device back to back, each one IWE through the bilinear kernel on the
+    card, and read once. Returns a float32 tensor on the device."""
+    width = x_range[1] - x_range[0]
+    height = y_range[1] - y_range[0]
+    imshape = (int(height / resolution + 0.5), int(width / resolution + 0.5))
+    vys, vxs = np.meshgrid(np.arange(imshape[0]), np.arange(imshape[1]),
+                           indexing="ij")
+    coords = np.stack([vxs.ravel() * resolution + x_range[0],
+                       vys.ravel() * resolution + y_range[0]], axis=-1)
+    dev, events = _events(xs, ys, ts, ps, device)
+    loss = make_objective_loss(objective, warpfunc, tuple(img_size), 0.0,
+                               iwe_impl=DEFAULT_IWE_IMPL)
+    cs = torch.as_tensor(coords, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        img = -torch.stack([loss(c, *events) for c in cs]).reshape(imshape)
+    lo = img.min() if norm_min is None else norm_min
+    hi = img.max() if norm_max is None else norm_max
+    return (img - lo) / ((hi - lo) + 1e-6)
+
+
+def draw_objective_function(xs, ys, ts, ps, objective=None, warpfunc=None,
+                            x_range=(-200, 200), y_range=(-200, 200),
+                            gt=(0, 0), show_gt: bool = True,
+                            resolution: float = 20, img_size=(180, 240),
+                            show_axes: bool = True, norm_min=None,
+                            norm_max=None, show: bool = True,
+                            save_path: Optional[str] = None, device=None):
+    """Sample a 2-DoF objective landscape into a heatmap (reference
+    events_cmax.py:103-160; JAX ``events_cmax.py:1534``): the samples on
+    the device (``_objective_landscape``), then a matplotlib plot with the
+    ground truth's cross-hair. Returns the normalised image (numpy)."""
+    objective = (variance_objective(minimum_events=1) if objective is None
+                 else objective)
+    warpfunc = linvel_warp() if warpfunc is None else warpfunc
+    img = to_numpy(_objective_landscape(
+        xs, ys, ts, ps, objective, warpfunc, x_range=x_range,
+        y_range=y_range, resolution=resolution, img_size=img_size,
+        norm_min=norm_min, norm_max=norm_max, device=device))
+
+    import matplotlib.pyplot as plt
+
+    width = x_range[1] - x_range[0]
+    height = y_range[1] - y_range[0]
+    plt.imshow(img, interpolation="bilinear", cmap="viridis")
+    if not show_axes:
+        plt.xticks([])
+        plt.yticks([])
+    else:
+        plt.xlabel("$v_x$")
+        plt.ylabel("$v_y$")
+    if show_gt:
+        xloc = ((gt[0] - x_range[0]) / width) * img.shape[1]
+        yloc = ((gt[1] - y_range[0]) / height) * img.shape[0]
+        plt.axhline(y=yloc, color="r", linestyle="--")
+        plt.axvline(x=xloc, color="r", linestyle="--")
+    if save_path is not None:
+        plt.savefig(save_path)
+    if show:
+        plt.show()
+    return img
 
 
 def get_hsv_shifted():

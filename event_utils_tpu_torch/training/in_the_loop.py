@@ -21,6 +21,12 @@ Frames are rendered at the stamps ``jnp.linspace`` gives in float32
 simulated one after the other; their voxel grids take one pair of flat
 scatters per batch (``representations.events_to_neg_pos_voxel_segments``):
 two flat-kernel launches under ``set_default_impl('pallas')``.
+
+Under a trainer's mesh, rank r simulates only the elements ``[r B/N,
+(r+1) B/N)`` of each step, each from its own ``(seed, step, element)``
+draws, so the global batch holds the same scenes, bit for bit, as a run
+in one process; the eval batches are sharded alike, and the logged and
+returned numbers (losses, evals, event counts) are the global batch's.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 
 from .._device import resolve_device
 from ..errors import ConfigurationError
+from ..parallel import sharding
 from ..representations.voxel_grid import events_to_neg_pos_voxel_segments
 from ..simulation.esim import (SimulatorConfig, _sample_wrap,
                                simulate_events_device, smooth_texture)
@@ -109,8 +116,10 @@ def _scene_generator(seed: int, step: int, element: int) -> torch.Generator:
 def draw_scenes(seed: int, step: int, batch_size: int,
                 sensor_size: Tuple[int, int], v_max: float = 40.0,
                 octaves: int = 3, omega_max: float = 0.0, s_max: float = 0.0,
-                age_max: float = 0.0, fresh_prob: float = 0.0) -> dict:
-    """Scene parameters of one batch, drawn on the CPU: ``texture`` (B, H,
+                age_max: float = 0.0, fresh_prob: float = 0.0,
+                elements: Optional[range] = None) -> dict:
+    """Scene parameters of one batch (of the ``elements`` of a batch of
+    ``batch_size``, all by default), drawn on the CPU: ``texture`` (B, H,
     W) from ``smooth_texture``, ``v`` (B, 2) uniform in ``[-v_max,
     v_max]``, ``ws`` (B, 2) = ``(omega, s)`` uniform in ``[-omega_max,
     omega_max] x [-s_max, s_max]`` (zeros for pure translation), ``age``
@@ -120,7 +129,7 @@ def draw_scenes(seed: int, step: int, batch_size: int,
     similarity = bool(omega_max or s_max)
     caps = torch.tensor([omega_max, s_max], dtype=torch.float32)
     out = {k: [] for k in ("texture", "v", "ws", "age", "fresh")}
-    for b in range(batch_size):
+    for b in range(batch_size) if elements is None else elements:
         g = _scene_generator(seed, step, b)
         out["texture"].append(smooth_texture(g, sensor_size, octaves=octaves,
                                              device="cpu"))
@@ -224,14 +233,16 @@ def simulate_flow_batch(seed: int, step: int, batch_size: int,
                         omega_max: float = 0.0, s_max: float = 0.0,
                         return_saturation: bool = False, burn_in: int = 0,
                         fresh_prob: float = 0.0, age_max: float = 0.0,
-                        device=None):
+                        elements: Optional[range] = None, device=None):
     """One fresh supervised flow batch: ``draw_scenes(seed, step, ...)``
-    then ``simulate_flow_scenes``. ``fresh_prob`` needs ``burn_in``; see
-    JAX's ``simulate_flow_batch`` for the diet each option gives."""
+    then ``simulate_flow_scenes`` (of ``elements`` only, when given).
+    ``fresh_prob`` needs ``burn_in``; see JAX's ``simulate_flow_batch`` for
+    the diet each option gives."""
     scenes = draw_scenes(seed, step, batch_size, sensor_size, v_max=v_max,
                          octaves=octaves, omega_max=omega_max, s_max=s_max,
                          age_max=age_max,
-                         fresh_prob=fresh_prob if burn_in else 0.0)
+                         fresh_prob=fresh_prob if burn_in else 0.0,
+                         elements=elements)
     return simulate_flow_scenes(scenes, capacity, window_t=window_t,
                                 num_frames=num_frames, c_pos=c_pos,
                                 c_neg=c_neg, burn_in=burn_in,
@@ -312,11 +323,13 @@ def simulate_recon_batch(seed: int, step: int, batch_size: int,
                          combined: bool = False, octaves: int = 3,
                          c_pos: float = 0.15, c_neg: float = 0.15,
                          omega_max: float = 0.0, s_max: float = 0.0,
-                         return_saturation: bool = False, device=None):
+                         return_saturation: bool = False,
+                         elements: Optional[range] = None, device=None):
     """One fresh E2VID sequence batch: ``draw_scenes(seed, step, ...)``
-    then ``simulate_recon_scenes``."""
+    then ``simulate_recon_scenes`` (of ``elements`` only, when given)."""
     scenes = draw_scenes(seed, step, batch_size, sensor_size, v_max=v_max,
-                         octaves=octaves, omega_max=omega_max, s_max=s_max)
+                         octaves=octaves, omega_max=omega_max, s_max=s_max,
+                         elements=elements)
     return simulate_recon_scenes(
         scenes, capacity, seq_len, window_t=window_t,
         sim_steps_per_window=sim_steps_per_window, num_bins=num_bins,
@@ -337,14 +350,43 @@ def dense_gt(gt, sensor_size) -> torch.Tensor:
     return gt
 
 
+def _mesh(trainer):
+    return getattr(trainer, "mesh", None)
+
+
+def _elements(trainer, batch_size: int) -> range:
+    """The elements of a ``batch_size`` batch this rank simulates (all of
+    them without a mesh)."""
+    sl = sharding.shard_slice(_mesh(trainer), batch_size)
+    return range(sl.start, sl.stop)
+
+
+def _shard_scenes(trainer, scenes: dict) -> dict:
+    """This rank's scenes of a ``draw_scenes`` / ``load_scenes`` dict."""
+    sl = sharding.shard_slice(_mesh(trainer), scenes["v"].shape[0])
+    return {k: v if k == "similarity" else v[sl] for k, v in scenes.items()}
+
+
+def _over_mesh(trainer, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced over the trainer's mesh (itself without one)."""
+    return sharding.all_reduce(t.detach().clone(), _mesh(trainer), op)
+
+
+def _logger(trainer, log_fn):
+    """``log_fn`` on the rank that logs, a no-op on the others."""
+    return log_fn if sharding.is_writer(_mesh(trainer)) else (lambda s: None)
+
+
 def flow_eval(trainer, voxel, gt) -> Tuple[float, float]:
     """Held-out ``(AEE, zero-flow AEE)`` in px/s of ``trainer``'s flow on a
-    voxel batch against its ground truth."""
+    voxel batch against its ground truth (under a mesh: this rank's shard
+    of the batch, the means taken over the whole batch)."""
     with torch.no_grad():
         flow = trainer.predict(voxel)
         aee = torch.linalg.vector_norm(flow - dense_gt(gt, flow.shape[-2:]),
                                        dim=1).mean()
         zero = torch.linalg.vector_norm(gt, dim=1).mean()
+        aee, zero = (_over_mesh(trainer, v, "mean") for v in (aee, zero))
     return float(aee), float(zero)
 
 
@@ -352,7 +394,8 @@ def recon_eval(trainer, voxels, frames) -> Tuple[float, float, float, float]:
     """Held-out PSNR (dB) and SSIM of ``trainer.reconstruct`` on a ``(T, B,
     C, H, W)`` sequence against its frames: over all windows, then over the
     steady windows ``t >= max(burn_in, T // 2)``, where the state has
-    history. Each window's value is the mean over the batch."""
+    history. Each window's value is the mean over the batch (under a
+    mesh: over every rank's shard)."""
     from ..utils.metrics import psnr, ssim
 
     imgs, _ = trainer.reconstruct(voxels)
@@ -363,6 +406,10 @@ def recon_eval(trainer, voxels, frames) -> Tuple[float, float, float, float]:
                                for b in range(B)]) for t in range(T)])
     per_s = np.array([np.mean([float(ssim(imgs[t, b, 0], frames[t, b, 0]))
                                for b in range(B)]) for t in range(T)])
+    if _mesh(trainer) is not None:   # the batch's mean over the ranks
+        per_p, per_s = _over_mesh(trainer, torch.as_tensor(
+            np.stack([per_p, per_s]), device=trainer.device),
+            "mean").cpu().numpy()
     t0 = max(int(getattr(trainer, "burn_in", 0)), T // 2)
     return (float(per_p.mean()), float(per_s.mean()),
             float(per_p[t0:].mean()), float(per_s[t0:].mean()))
@@ -416,8 +463,10 @@ def train_reconstruction_in_the_loop(trainer, steps: int,
     """
     H, W = trainer.sensor_size
     dev = trainer.device
+    log_fn = _logger(trainer, log_fn)
     carry_segments = max(int(carry_segments), 1)
     T = seq_len * carry_segments
+    elements = _elements(trainer, batch_size)
     kw = dict(sim_steps_per_window=sim_steps_per_window,
               num_bins=trainer.num_bins, combined=trainer.combined_channels,
               return_saturation=True, device=dev)
@@ -425,19 +474,21 @@ def train_reconstruction_in_the_loop(trainer, steps: int,
     def gen(s):
         return simulate_recon_batch(
             seed, s, batch_size, (H, W), capacity, T, v_max=v_max,
-            window_t=window_t, omega_max=omega_max, s_max=s_max, **kw)
+            window_t=window_t, omega_max=omega_max, s_max=s_max,
+            elements=elements, **kw)
 
     if eval_every:
         if eval_scenes is not None:
             scenes = (load_scenes(eval_scenes)
                       if isinstance(eval_scenes, str) else eval_scenes)
             eval_voxels, eval_frames, _ = simulate_recon_scenes(
-                scenes, capacity, T, window_t=window_t, **kw)
+                _shard_scenes(trainer, scenes), capacity, T,
+                window_t=window_t, **kw)
         else:
             eval_voxels, eval_frames, _ = simulate_recon_batch(
                 seed if eval_seed is None else eval_seed, -1, batch_size,
                 (H, W), capacity, T, v_max=v_max, window_t=window_t,
-                omega_max=omega_max, s_max=s_max, **kw)
+                omega_max=omega_max, s_max=s_max, elements=elements, **kw)
 
     losses, psnr_curve, pending = [], [], []
     n_sat = torch.zeros((), dtype=torch.int64, device=dev)
@@ -461,17 +512,18 @@ def train_reconstruction_in_the_loop(trainer, steps: int,
         lo, hi = seg * seq_len, (seg + 1) * seq_len
         pending.append(trainer.train_sequence_async(
             voxels[lo:hi], frames[lo:hi],
-            state0=None if seg == 0 else trainer.final_state))
+            state0=None if seg == 0 else trainer.final_state, sharded=True))
         if log_every and (i + 1) % log_every == 0:
             losses.extend(float(x) for x in pending)
             pending = []
             sps = (i + 1) / (time.perf_counter() - t0)
             log_fn(f"step {trainer.step}: loss {losses[-1]:.5f} "
                    f"({sps:.2f} steps/s)")
-            if not sat_warned and int(n_sat) > 0:
+            sat_all = int(_over_mesh(trainer, n_sat))
+            if not sat_warned and sat_all > 0:
                 sat_warned = True
                 log_fn(_saturation_warning(
-                    int(n_sat), n_elems, capacity,
+                    sat_all, n_elems, capacity,
                     "late windows under-populated vs full-window targets"))
         if eval_every and (i + 1) % eval_every == 0:
             p, s, p_ss, s_ss = recon_eval(trainer, eval_voxels, eval_frames)
@@ -486,7 +538,7 @@ def train_reconstruction_in_the_loop(trainer, steps: int,
     losses.extend(float(x) for x in pending)
     if stats is not None:
         stats.update(steps=steps, wall_s=time.perf_counter() - t0,
-                     sim_s=sim_s, events=float(n_events))
+                     sim_s=sim_s, events=float(_over_mesh(trainer, n_events)))
     if ckpt_dir:
         trainer.save_checkpoint(ckpt_dir)
     return losses, psnr_curve
@@ -522,7 +574,9 @@ def train_flow_in_the_loop(trainer, steps: int, batch_size: int = 8,
     """
     H, W = trainer.sensor_size
     dev = trainer.device
+    log_fn = _logger(trainer, log_fn)
     num_bins, combined = trainer.num_bins, trainer.combined_channels
+    elements = _elements(trainer, batch_size)
     sim_kw = dict(window_t=window_t, num_frames=num_frames, burn_in=burn_in,
                   return_saturation=True, device=dev)
 
@@ -534,12 +588,12 @@ def train_flow_in_the_loop(trainer, steps: int, batch_size: int = 8,
             scenes = (load_scenes(eval_scenes)
                       if isinstance(eval_scenes, str) else eval_scenes)
             eval_ev, eval_mask, eval_gt, _ = simulate_flow_scenes(
-                scenes, capacity, **sim_kw)
+                _shard_scenes(trainer, scenes), capacity, **sim_kw)
         else:
             eval_ev, eval_mask, eval_gt, _ = simulate_flow_batch(
                 seed if eval_seed is None else eval_seed, -1, batch_size,
                 (H, W), capacity, v_max=v_max, omega_max=omega_max,
-                s_max=s_max, **sim_kw)
+                s_max=s_max, elements=elements, **sim_kw)
         eval_voxel = voxelize(eval_ev, eval_mask)
 
     losses, aee_curve, pending = [], [], []
@@ -553,26 +607,28 @@ def train_flow_in_the_loop(trainer, steps: int, batch_size: int = 8,
         ev, mask, gt_v, sat = simulate_flow_batch(
             seed, i, batch_size, (H, W), capacity, v_max=v_max,
             omega_max=omega_max, s_max=s_max, fresh_prob=fresh_prob,
-            age_max=age_max, **sim_kw)
+            age_max=age_max, elements=elements, **sim_kw)
         if stats is not None and dev.type == "cuda":
             torch.cuda.synchronize(dev)
         sim_s += time.perf_counter() - ts
         voxel = voxelize(ev, mask)
-        pending.append(trainer.train_batch_async(voxel, ev, mask,
-                                                 dense_gt(gt_v, (H, W))))
+        pending.append(trainer.train_batch_async(
+            voxel, ev, mask, dense_gt(gt_v, (H, W)), sharded=True))
         n_events = n_events + mask.sum()
         n_sat = n_sat + sat.sum()
         n_elems += batch_size
         if log_every and (i + 1) % log_every == 0:
             losses.extend(float(x) for x in pending)
             pending = []
-            rate = float(n_events) / (time.perf_counter() - t0) / 1e6
+            rate = float(_over_mesh(trainer, n_events)) / (
+                time.perf_counter() - t0) / 1e6
             log_fn(f"step {trainer.step}: loss {losses[-1]:.5f}, "
                    f"{rate:.2f} Mev/s simulated+trained")
-            if not sat_warned and int(n_sat) > 0:
+            sat_all = int(_over_mesh(trainer, n_sat))
+            if not sat_warned and sat_all > 0:
                 sat_warned = True
                 log_fn(_saturation_warning(
-                    int(n_sat), n_elems, capacity,
+                    sat_all, n_elems, capacity,
                     "late voxel bins under-populated vs full-window GT"))
         if eval_every and (i + 1) % eval_every == 0:
             aee, zero = flow_eval(trainer, eval_voxel, eval_gt)
@@ -586,7 +642,7 @@ def train_flow_in_the_loop(trainer, steps: int, batch_size: int = 8,
     losses.extend(float(x) for x in pending)
     if stats is not None:
         stats.update(steps=steps, wall_s=time.perf_counter() - t0,
-                     sim_s=sim_s, events=float(n_events))
+                     sim_s=sim_s, events=float(_over_mesh(trainer, n_events)))
     if ckpt_dir:
         trainer.save_checkpoint(ckpt_dir)
     return losses, aee_curve

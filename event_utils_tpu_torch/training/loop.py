@@ -18,7 +18,18 @@ optimiser and so a fresh count, as in JAX.
 voxelizes each batch of B padded windows in one pair of flat scatters (one
 with ``combined_channels``), where JAX vmaps a grid per window.
 
-Not ported: the mesh (``--data_parallel``, ``ROADMAP.md`` queue 1 item 6).
+Data parallelism (``mesh=``, a ``parallel.make_mesh`` mesh): the model is
+wrapped in ``DistributedDataParallel`` over the mesh's group, so the
+weights and the Adam state stay replicated, and each rank trains on its
+slice ``[r B/N, (r+1) B/N)`` of every global batch. DDP's mean of the
+ranks' gradients is the gradient of the global batch, because every loss
+of ``models.networks`` is a mean over equal shards and no network keeps
+batch statistics. Every rank gets the global batch (or, with
+``sharded=True``, its own slice), computes the same update, and reports
+the global loss (the ranks' mean). A batch that does not divide over the
+mesh raises ``ConfigurationError`` (JAX's sharding raises ``ValueError``).
+Only rank 0 writes checkpoints and logs.
+
 The orbax checkpoint is replaced by the port's own ``ckpt_dir`` format
 (``training.checkpointing``).
 """
@@ -35,6 +46,7 @@ from .._device import as_f32, no_tf32, resolve_device
 from ..data_loaders import prefetch
 from ..errors import ConfigurationError
 from ..models.networks import EVFlowNet, contrast_flow_loss
+from ..parallel import sharding
 from .in_the_loop import voxelize_batch
 
 Schedule = Union[float, Callable[[int], float]]
@@ -95,14 +107,26 @@ class AdamStep:
         self.optimizer.step()
 
 
+def data_parallel(model: torch.nn.Module, mesh):
+    """``model`` as it is called in training: itself, or wrapped in
+    ``DistributedDataParallel`` over ``mesh``'s group."""
+    if mesh is None:
+        return model
+    group, _, _ = sharding._axis(mesh, None)
+    return torch.nn.parallel.DistributedDataParallel(model,
+                                                     process_group=group)
+
+
 class FlowTrainer:
     """Self-supervised EV-FlowNet trainer over padded event/voxel batches
-    on one device.
+    on one device, or data-parallel over a mesh.
 
     @param sensor_size (H, W) — divisible by 2^depth (pad with
         ``utils.util.CropParameters`` otherwise)
     @param learning_rate A float or a schedule (``cosine_decay_schedule``)
     @param seed Seed of the random initial weights (loading replaces them)
+    @param mesh A ``parallel.make_mesh`` mesh: train data-parallel over its
+        ranks, on this rank's device (``device`` is then not used)
     @param device Where the model runs: ``None`` means the card and raises
         ``DeviceUnavailableError`` without one; pass ``"cpu"`` for the host.
     """
@@ -111,8 +135,10 @@ class FlowTrainer:
                  combined_channels: bool = False,
                  learning_rate: Schedule = 1e-4, seed: int = 0,
                  smoothness_weight: float = 0.5,
-                 supervised_weight: float = 0.0, device=None):
-        self.device = resolve_device(device)
+                 supervised_weight: float = 0.0, mesh=None, device=None):
+        self.mesh = mesh
+        self.device = (sharding.mesh_device(mesh) if mesh is not None
+                       else resolve_device(device))
         self.sensor_size = tuple(sensor_size)
         self.num_bins = num_bins
         self.combined_channels = combined_channels
@@ -122,8 +148,19 @@ class FlowTrainer:
         channels = num_bins if combined_channels else 2 * num_bins
         self.model = EVFlowNet(in_channels=channels, seed=seed).to(
             self.device).eval()
+        self.net = data_parallel(self.model, mesh)
         self.opt = AdamStep(self.model.parameters(), learning_rate)
         self.step = 0
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints and logs (rank 0)."""
+        return sharding.is_writer(self.mesh)
+
+    def shard(self, batch):
+        """This rank's slice of a global batch (all of it without a
+        mesh)."""
+        return batch[sharding.shard_slice(self.mesh, batch.shape[0])]
 
     @property
     def optimizer(self) -> torch.optim.Adam:
@@ -136,7 +173,7 @@ class FlowTrainer:
 
     def loss(self, voxel, events, mask, gt_flow):
         """The training loss on one batch (differentiable; no step)."""
-        flow = self.model(voxel)
+        flow = self.net(voxel)
         loss = contrast_flow_loss(flow, events, mask, self.sensor_size,
                                   smoothness_weight=self.smoothness_weight)
         if self.supervised_weight:
@@ -145,15 +182,23 @@ class FlowTrainer:
                 torch.linalg.vector_norm(flow - gt_flow, dim=1))
         return loss
 
-    def train_batch_async(self, voxel, events, mask, gt_flow=None):
+    def train_batch_async(self, voxel, events, mask, gt_flow=None,
+                          sharded: bool = False):
         """One optimisation step on a ``(B, C, H, W)`` voxel batch and its
         raw padded events ``(B, N, 4)`` / mask ``(B, N)``. Returns the loss
         as a 0-d tensor on the device without waiting for it: convert with
         ``float()`` only where the value is needed.
 
         ``gt_flow`` (B, 2, H, W) feeds the supervised term; it is required
-        when ``supervised_weight > 0`` and ignored (zeros) otherwise."""
+        when ``supervised_weight > 0`` and ignored (zeros) otherwise.
+        Under a mesh the inputs are the global batch, of which this rank
+        trains on its slice, or with ``sharded=True`` that slice already;
+        the loss returned is the global batch's."""
         dev = self.device
+        if not sharded:
+            voxel, events, mask = map(self.shard, (voxel, events, mask))
+            if gt_flow is not None:
+                gt_flow = self.shard(gt_flow)
         voxel = as_f32(voxel, dev)
         if gt_flow is None:
             if self.supervised_weight:
@@ -166,7 +211,7 @@ class FlowTrainer:
                              as_f32(gt_flow, dev))
             self.opt.minimize(loss)
         self.step += 1
-        return loss.detach()
+        return sharding.all_reduce(loss.detach().clone(), self.mesh, "mean")
 
     def train_batch(self, voxel, events, mask, gt_flow=None) -> float:
         """Synchronous ``train_batch_async`` (returns the loss float)."""
@@ -186,9 +231,10 @@ class FlowTrainer:
 
     def save_checkpoint(self, ckpt_dir: str):
         """Save model, optimiser and step under ``ckpt_dir`` (a second save
-        of the same step does nothing)."""
+        of the same step does nothing; under a mesh rank 0 saves)."""
         from .checkpointing import save_trainer_checkpoint
-        save_trainer_checkpoint(self, ckpt_dir)
+        if self.is_writer:
+            save_trainer_checkpoint(self, ckpt_dir)
 
     def restore_checkpoint(self, ckpt_dir: str, step: Optional[int] = None):
         from .checkpointing import restore_trainer_checkpoint
@@ -208,29 +254,40 @@ class FlowTrainer:
         clamps ``prefetch_depth`` to 2 to protect the loaders' rotating
         buffers from an upload still in flight, any depth is safe here.
         Losses stay on the device until a log point.
+
+        Under a mesh every rank iterates the same loader (the same seed
+        gives the same order) and uploads only its slice of each batch; the
+        losses are the global batches', the rate counts every rank's
+        events, and only rank 0 logs and saves.
         """
+        keys = ("events", "events_mask")
         losses = []
         for epoch in range(epochs):
+            batches = loader if self.mesh is None else (
+                {k: self.shard(b[k]) for k in keys} for b in loader)
             t0 = time.perf_counter()
             n_epoch = torch.zeros((), dtype=torch.float64,
                                   device=self.device)
             pending = []  # device losses awaiting a log point
             for i, batch in enumerate(prefetch.device_prefetch(
-                    loader, prefetch_depth=prefetch_depth,
-                    device=self.device, keys=("events", "events_mask"))):
+                    batches, prefetch_depth=prefetch_depth,
+                    device=self.device, keys=keys)):
                 events = as_f32(batch["events"], self.device)
                 mask = as_f32(batch["events_mask"], self.device)
                 voxel = voxelize_batch(events, mask, self.num_bins,
                                        self.sensor_size,
                                        combined=self.combined_channels)
-                pending.append(self.train_batch_async(voxel, events, mask))
+                pending.append(self.train_batch_async(voxel, events, mask,
+                                                      sharded=True))
                 n_epoch += mask.sum(dtype=torch.float64)
                 if log_every and (i + 1) % log_every == 0:
                     losses.extend(float(x) for x in pending)
                     pending = []
-                    rate = float(n_epoch) / (time.perf_counter() - t0) / 1e6
-                    log_fn(f"epoch {epoch} step {self.step}: loss "
-                           f"{losses[-1]:.5f}, {rate:.1f} Mev/s ingested")
+                    n = sharding.all_reduce(n_epoch.clone(), self.mesh)
+                    rate = float(n) / (time.perf_counter() - t0) / 1e6
+                    if self.is_writer:
+                        log_fn(f"epoch {epoch} step {self.step}: loss "
+                               f"{losses[-1]:.5f}, {rate:.1f} Mev/s ingested")
                 if ckpt_dir and self.step % ckpt_every == 0:
                     self.save_checkpoint(ckpt_dir)
             losses.extend(float(x) for x in pending)

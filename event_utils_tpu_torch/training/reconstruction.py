@@ -17,6 +17,12 @@ windows (truncated BPTT). Supervision is the time-synchronised frames
   it, as in JAX.
 - Optimiser and schedule as ``training.loop.FlowTrainer``; forward and
   backward run with TF32 off.
+- ``mesh=``: data-parallel as ``FlowTrainer``. The layout is ``(T, B)``
+  with the batch axis sharded: each rank trains on its slice of the B
+  sequences, and its recurrent state (``final_state``) is its own batch
+  shard. The module is called T times before one backward, which
+  ``DistributedDataParallel`` takes (its gradient hooks fire once per
+  backward); its mean of the ranks' gradients is the global batch's.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ import torch
 from .._device import as_f32, no_tf32, resolve_device
 from ..errors import ConfigurationError
 from ..models.networks import E2VID, perceptual_filters, reconstruction_loss
-from .loop import AdamStep, Schedule
+from ..parallel import sharding
+from .loop import AdamStep, Schedule, data_parallel
 
 
 def _detach(state):
@@ -40,7 +47,8 @@ def _detach(state):
 
 class ReconstructionTrainer:
     """Supervised E2VID trainer over ``(T, B, C, H, W)`` voxel sequences
-    and ``(T, B, 1, H, W)`` target frames on one device.
+    and ``(T, B, 1, H, W)`` target frames on one device, or data-parallel
+    over a ``parallel.make_mesh`` mesh (``mesh=``; this rank's device).
 
     ``model_kwargs`` go to ``models.networks.E2VID`` (``recurrent_levels``,
     ``num_res_blocks``, ``base_features``, ``depth``) and are recorded in
@@ -54,8 +62,10 @@ class ReconstructionTrainer:
                  learning_rate: Schedule = 1e-4, lpips_weight: float = 0.0,
                  seed: int = 0, model_kwargs: Optional[dict] = None,
                  burn_in: int = 0, mse_weight: float = 0.0,
-                 ema_decay: float = 0.0, device=None):
-        self.device = resolve_device(device)
+                 ema_decay: float = 0.0, mesh=None, device=None):
+        self.mesh = mesh
+        self.device = (sharding.mesh_device(mesh) if mesh is not None
+                       else resolve_device(device))
         self.sensor_size = tuple(sensor_size)
         self.num_bins = num_bins
         self.combined_channels = combined_channels
@@ -67,6 +77,7 @@ class ReconstructionTrainer:
         channels = num_bins if combined_channels else 2 * num_bins
         self.model = E2VID(in_channels=channels, seed=seed,
                            **self.model_kwargs).to(self.device).eval()
+        self.net = data_parallel(self.model, mesh)
         self.opt = AdamStep(self.model.parameters(), learning_rate)
         self.ema_model = None
         self.reset_ema()
@@ -80,6 +91,16 @@ class ReconstructionTrainer:
     @property
     def optimizer(self) -> torch.optim.Adam:
         return self.opt.optimizer
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints and logs (rank 0)."""
+        return sharding.is_writer(self.mesh)
+
+    def shard(self, seq):
+        """This rank's slice of the batch axis (1) of a ``(T, B, ...)``
+        sequence (all of it without a mesh)."""
+        return seq[:, sharding.shard_slice(self.mesh, seq.shape[1])]
 
     def reset_ema(self):
         """Restart the EMA from the current weights (when enabled)."""
@@ -112,19 +133,25 @@ class ReconstructionTrainer:
                                           voxels.shape[-1], voxels.device)
         losses = []
         for vox, frame in zip(voxels, frames):
-            pred, state = self.model(vox, state)
+            pred, state = self.net(vox, state)
             losses.append(reconstruction_loss(
                 pred, frame, lpips_weight=self.lpips_weight,
                 mse_weight=self.mse_weight, filters=self.filters))
         return torch.stack(losses)[burn_in:].mean(), state
 
-    def train_sequence_async(self, voxels, frames, state0=None):
+    def train_sequence_async(self, voxels, frames, state0=None,
+                             sharded: bool = False):
         """One truncated-BPTT step; returns the loss as a 0-d tensor on the
         device without waiting for it.
 
         ``state0``: the previous segment's ``final_state`` when ``voxels``
         continues the same scenes (no burn-in then); default zero state
-        with the configured ``burn_in``. ``final_state`` is refreshed."""
+        with the configured ``burn_in``. ``final_state`` is refreshed.
+        Under a mesh ``voxels`` and ``frames`` are the global batch (or,
+        with ``sharded=True``, this rank's slice of it), ``state0`` and
+        ``final_state`` this rank's shard, and the loss the global one."""
+        if not sharded:
+            voxels, frames = self.shard(voxels), self.shard(frames)
         dev = self.device
         voxels = as_f32(voxels, dev)
         frames = as_f32(frames, dev)
@@ -142,7 +169,7 @@ class ReconstructionTrainer:
                     e.mul_(d).add_(p, alpha=1.0 - d)
         self.final_state = _detach(state)
         self.step += 1
-        return loss.detach()
+        return sharding.all_reduce(loss.detach().clone(), self.mesh, "mean")
 
     def train_sequence(self, voxels, frames, state0=None) -> float:
         """Synchronous ``train_sequence_async`` (returns a float)."""
@@ -174,7 +201,8 @@ class ReconstructionTrainer:
 
     def save_checkpoint(self, ckpt_dir: str):
         from .checkpointing import save_trainer_checkpoint
-        save_trainer_checkpoint(self, ckpt_dir)
+        if self.is_writer:
+            save_trainer_checkpoint(self, ckpt_dir)
 
     def restore_checkpoint(self, ckpt_dir: str, step: Optional[int] = None):
         from .checkpointing import restore_trainer_checkpoint

@@ -1,8 +1,7 @@
-"""Visualization: 3-D event-cloud and voxel renders (matplotlib, imported
-inside the functions that draw) and their crop helpers. Port of the part of
-``event_utils_tpu.visualization`` that ``augment_demo`` draws with; the
-flow and plane renderers and the visualizer registry are not ported yet
-(``ROADMAP.md`` queue 1)."""
+"""Visualization: 3-D event/voxel/flow renderers and the visualizer registry
+(port of ``event_utils_tpu.visualization``). matplotlib and mayavi are
+imported only by the functions that draw; the arrays they draw are
+computed on the device."""
 
 from .draw_event_stream import (  # noqa: F401
     plot_between_frames,
@@ -10,4 +9,25 @@ from .draw_event_stream import (  # noqa: F401
     plot_events_sliding,
     plot_voxel_grid,
 )
-from .visualization_utils import crop_to_size, parse_crop  # noqa: F401
+from .draw_flow import (  # noqa: F401
+    motion_compensate,
+    plot_flow_and_events,
+)
+from .visualization_utils import (  # noqa: F401
+    crop_to_size,
+    ensure_dir,
+    frame_stamps_to_start_end,
+    get_frame_indices,
+    parse_crop,
+)
+from .visualizers import (  # noqa: F401
+    EventImageVisualizer,
+    EventsVisualizer,
+    TimeStampImageVisualizer,
+    VISUALIZER_REGISTRY,
+    Visualizer,
+    VoxelImageVisualizer,
+    VoxelVisualizer,
+    get_visualizer,
+)
+from .draw_plane import draw_plane_figure  # noqa: F401

@@ -290,7 +290,8 @@ def test_converter_mains(rng, tmp_path, capsys):
 
 def test_console_scripts_name_the_ports_mains():
     """Every ``event-utils-tpu-torch-*`` console script of pyproject.toml
-    resolves to a ``main`` of the port, one for each CLI and converter."""
+    resolves to a ``main`` of the port, one for each CLI and converter:
+    one beside each of the JAX package's."""
     import importlib
     import tomllib
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -298,7 +299,10 @@ def test_console_scripts_name_the_ports_mains():
         scripts = tomllib.load(f)["project"]["scripts"]
     ours = {k: v for k, v in scripts.items()
             if k.startswith("event-utils-tpu-torch-")}
-    assert len(ours) == 13
+    assert len(ours) == 18
+    jax_names = {k[len("event-utils-tpu-"):] for k in scripts
+                 if not k.startswith("event-utils-tpu-torch-")}
+    assert {k[len("event-utils-tpu-torch-"):] for k in ours} == jax_names
     for target in ours.values():
         mod, fn = target.split(":")
         assert mod.startswith("event_utils_tpu_torch.")

@@ -119,8 +119,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "    memmap_to_h5, read_txt_events, txt_to_h5, write_txt_events)\n"
             "from event_utils_tpu_torch.visualization import (\n"
             "    crop_to_size, parse_crop, plot_between_frames, plot_events,\n"
-            "    plot_events_sliding, plot_voxel_grid)\n"
-            "from event_utils_tpu_torch.cli import augment_demo\n"
+            "    plot_events_sliding, plot_voxel_grid, motion_compensate,\n"
+            "    get_visualizer, draw_plane_figure, draw_event_stream_mayavi)\n"
+            "from event_utils_tpu_torch.parallel import (\n"
+            "    make_mesh, sharded_events_to_voxel, sharded_grid_cmax)\n"
+            "from event_utils_tpu_torch.contrast_max import (\n"
+            "    draw_objective_function)\n"
+            "from event_utils_tpu_torch.cli import (augment_demo, cmax_demo,\n"
+            "    visualize, visualize_events, visualize_flow, visualize_voxel)\n"
             "assert callable(augment_demo.main)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'event_utils_tpu.')) or "

@@ -14,8 +14,8 @@ initialised (``--resume_params``), for 2 steps:
   memmap does.
 
 Every ``--params_out`` is read back by JAX's ``load_params_npz`` and by a
-fresh port trainer (bit-identical output); the refused routes raise
-``ConfigurationError`` naming their ``ROADMAP.md`` item.
+fresh port trainer (bit-identical output). ``--data_parallel`` without
+``torchrun`` (a world of one) trains as the plain run on every route.
 
 ``train_flow`` on a recording (a memmap directory, an HDF5 file, a
 directory of HDF5 files) runs both packages' CLIs from the same weights:
@@ -38,7 +38,6 @@ from event_utils_tpu.training.checkpointing import (
     load_params_npz as j_load_params_npz, save_params_npz as j_save_params)
 from event_utils_tpu_torch.cli import simulate, train_flow, \
     train_reconstruction
-from event_utils_tpu_torch.errors import ConfigurationError
 from event_utils_tpu_torch.training import FlowTrainer, ReconstructionTrainer
 from event_utils_tpu_torch.training import in_the_loop as itl
 
@@ -267,10 +266,47 @@ def test_train_flow_file_route_refusals(recording, tmp_path):
         train_flow.main(["--device", "cpu"])
 
 
-@pytest.mark.parametrize("cli,argv,item", [
-    (train_flow, ["--simulate", "--data_parallel"], "item 6"),
-    (train_reconstruction, ["--simulate", "--data_parallel"], "item 6"),
-])
-def test_refused_routes_name_their_roadmap_item(cli, argv, item):
-    with pytest.raises(ConfigurationError, match=item):
-        cli.main(argv + ["--device", "cpu"])
+DP_CASES = {
+    "flow_simulate": (train_flow, FLOW_ARGS + ["--steps", "2",
+                                               "--eval_every", "2"]),
+    "recon_simulate": (train_reconstruction, [
+        "--simulate", "--sensor", "32", "32", "--steps", "2",
+        "--batch_size", "2", "--seq_len", "3", "--carry_segments", "2",
+        "--capacity", "20000", "--eval_every", "2", "--seed", "3"]
+        + RECON_ARGS),
+    "flow_recording": (train_flow, ["REC", "--sensor", "32", "32", "--k",
+                                    "2000", "--batch_size", "1",
+                                    "--device", "cpu"]),
+    "recon_recording": (train_reconstruction, [
+        "REC", "--seq_len", "3", "--batch_size", "2", "--max_steps",
+        "2"] + RECON_ARGS),
+}
+
+
+@pytest.mark.parametrize("case", list(DP_CASES))
+def test_data_parallel_at_world_one_is_the_plain_run(case, jax_init,
+                                                     recording, tmp_path,
+                                                     capsys):
+    """``--data_parallel`` without ``torchrun`` runs a world of one (JAX's
+    line names it) and trains exactly as the plain run: the same losses and
+    the same ``--params_out`` weights."""
+    cli, argv = DP_CASES[case]
+    init = jax_init[0] if cli is train_flow else jax_init[1]
+    argv = [recording if a == "REC" else a for a in argv]
+    argv += ["--resume_params", init]
+    outs = {}
+    for mode in ("plain", "dp"):
+        out = str(tmp_path / f"{mode}.npz")
+        extra = ["--data_parallel"] if mode == "dp" else []
+        outs[mode] = cli.main(argv + extra + ["--params_out", out])
+        text = capsys.readouterr().out
+        assert ("data-parallel over 1 devices" in text) == (mode == "dp")
+    assert len(outs["dp"]["losses"]) >= 2
+    np.testing.assert_allclose(outs["dp"]["losses"], outs["plain"]["losses"],
+                               rtol=1e-6)
+    with np.load(tmp_path / "plain.npz") as a, \
+            np.load(tmp_path / "dp.npz") as b:
+        assert set(a.files) == set(b.files)
+        for k in a.files:
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-6, atol=1e-9,
+                                       err_msg=k)
