@@ -26,6 +26,16 @@
      ~2k events into 21x21 and 181x241 (the one-block form of the private
      kernel, which no shape is sent to, against direct), NaN, +-1e30 and
      all-out-of-frame coordinates on every route, and autograd gradients;
+   - batched bilinear (``jax.vmap`` of the TPU kernel): one grid level
+     (25 velocity samples of the 200k planted scene, per-sample masked
+     weights, K=1: the private route, also forced onto the direct one),
+     S = 1, one chunk of the loss (83 samples), S at and across the
+     samples one launch takes (65535, 65536: one launch, two), a sample
+     wholly off the image and NaN, +-inf and huge coordinates on both
+     routes, zhu's K=4 stack (direct), each against its plain version in
+     float64 within a per-pixel limit that scales with the pixel's f32
+     sums (``splat_limits``) and against S single ``bilinear_scatter``
+     launches;
    - bilinear patches: one batched ``grid_cmax_batched`` loss evaluation
      (108 ROIs x 25 samples x 2048 slots into (64, 128) patches) at K=1 and
      K=4, against the plain version and against the atlas route it
@@ -55,7 +65,21 @@
    Every route that some shape is sent to must have launched during this
    phase, and each voxel and flat call must have taken the route that
    ``voxel_route`` / ``flat_route`` name for its shape.
-4. The serving path, with the launch counts set to 0 again first: a
+4. The batched solves (``batched``), with the launch counts set to 0 again
+   first: ``optimize_contrast_jit(grid_search_init=True)``,
+   ``grid_search_optimisation`` and ``optimize_contrast`` on the 200k
+   planted scene, one ``grid_search_initial`` level of zhu's objective,
+   the 20x20 landscape on 15,000 events and on all 200k, and
+   ``grid_cmax_batched(solver='bfgs')`` and a full-frame objective's ROI
+   solve on the rotating scene. Every grid level and landscape must launch
+   ``bilinear_scatter_batched`` once per chunk of samples and no single
+   splat; the ROI BFGS must be one batched solve; the answers are held to
+   the planted velocity (4 px/s) and the rotation field (4.5 px/s), the
+   landscapes card vs CPU and batched vs the per-sample loop (1e-4 of
+   their range), the BFGS field card vs CPU (medians within 0.5 px/s).
+   Then warm walls, device busy and idle shares, and each shape the phase
+   sent the batched splat against its plain version.
+5. The serving path, with the launch counts set to 0 again first: a
    recording made here from ``SEED`` (128x128, the sensor of the committed
    weights; 2 s of a textured plane under the similarity motion of the
    seed-91 flow recording, v = (24, -15) px/s, omega = 4 rad/s, divergence
@@ -80,7 +104,7 @@
    each with the flat kernel and with ``index_add_`` in turns, the
    networks' device ms per batch (CUDA events), and each CLI's device idle
    share (``torch.profiler`` busy time over the unprofiled warm wall).
-5. The published serving anchors, with the launch counts set to 0 again
+6. The published serving anchors, with the launch counts set to 0 again
    first, everything under ``set_default_impl('pallas')``: the port's
    ``simulate`` CLI makes the three recordings of the JAX simulator on the
    card from the committed textures (seed 91, similarity, 2 s: 746,962
@@ -104,7 +128,7 @@
    ``eval_cmax`` sent to the patch splat (grid-search evaluations and
    descent steps, kept during the run), and ``flat_scatter:direct`` on
    the densest window's positive grid of each served recording.
-6. The training path, with the launch counts set to 0 again first,
+7. The training path, with the launch counts set to 0 again first,
    everything under ``set_default_impl('pallas')`` and TF32 off: JAX's
    two pinned eval batches (stage 9 of ``runs/flow128_similarity``,
    stage 8 of ``runs/recon128v2``) rebuilt on the card from the committed
@@ -132,7 +156,7 @@
    version and its adjoint against the plain gather (exact), and warm
    timings: forward+backward device ms, one flow step, one E2VID batch
    generation and one segment step with their device idle shares.
-7. The streaming path, with the launch counts set to 0 again first,
+8. The streaming path, with the launch counts set to 0 again first,
    everything under ``set_default_impl('pallas')`` (``g++`` built the
    native runtime, ``csrc/evio.cpp``, in step 1): the port's ``simulate``
    CLI writes a DAVIS240 recording on the card (a texture translating at
@@ -161,7 +185,7 @@
    and warm ``fit`` steps through the pinned prefetch and through
    pageable copies, in turns: wall, the device's idle share and the share
    of the copy time under kernels (``torch.profiler`` trace).
-8. The augmentation path, with the launch counts set to 0 again first
+9. The augmentation path, with the launch counts set to 0 again first
    around its drive: the slider-like scene of
    ``benchmarks/bench_configs.py:36-50`` (2^20 draws at 180x240, 0.5 s,
    600 points at (70, 30) px/s, floored to pixels) written as ECD text by
@@ -182,7 +206,7 @@
    matplotlib where that is missing); warm times in turns: the densify
    with integer and float coordinates and unsorted, in M input events/s,
    the voxel and image calls, and the pipeline's idle share.
-9. The multi-card path (``parallel``), with the launch counts set to 0
+10. The multi-card path (``parallel``), with the launch counts set to 0
    again first around a world of one: this process joins a one-rank
    NCCL group (``file://`` store in the work directory) and
    ``make_mesh(1)`` spans it; ``sharded_events_to_voxel`` (2^21 events,
@@ -206,7 +230,7 @@
    quantile by the training phase's rule (the max is logged: the two
    runs can step a near-zero-gradient coordinate opposite ways), and
    steps/s of each.
-10. The remaining host-side modules' device halves (``visualization``),
+11. The remaining host-side modules' device halves (``visualization``),
     counted: ``draw_objective_function``'s landscape (20x20 samples at
     20 px/s over +-200 px/s on 15,000 events of the planted scene; within
     1e-4 of the CPU port, its peak within one cell of the planted
@@ -216,11 +240,12 @@
     recording at its ground-truth flow (card vs CPU within 1e-5; the
     PNG it writes decodes to its levels) and the 2-D visualizers' images
     under ``'pallas'`` (card vs CPU within 1e-5).
-11. Times the tiled route and its host bucketing alone (now the native
+12. Times the tiled route and its host bucketing alone (now the native
     bucket fill), warm, and prints the bucketing's share of the route's
     wall.
 
-Prints a ``{"serving": {...}}`` JSON line, a ``{"simulated_anchors":
+Prints a ``{"batched": {...}}`` JSON line (the phase's levels, answers,
+walls and idle shares), a ``{"serving": {...}}`` JSON line, a ``{"simulated_anchors":
 {...}}`` line (the gated numbers, walls and windows/s), a ``{"training":
 {...}}`` line (gated numbers, steps/s, Mev/s, the simulator's share,
 timings), a ``{"streaming": {...}}`` line (the stream's errors, Mev/s and
@@ -228,7 +253,8 @@ windows/s, card vs CPU, the native runtime's times, the fit timings), an
 ``{"augmentation": {...}}`` line, a ``{"parallel": {...}}`` and a
 ``{"visualization": {...}}`` line, a ``{"kernels": [...]}`` line (one
 entry per route; ``launches`` counts the contrast-maximisation path,
-``launches_serving`` the serving path, ``launches_sim`` the simulated
+``launches_batched`` the batched solves, ``launches_serving`` the serving
+path, ``launches_sim`` the simulated
 anchors, ``launches_train`` the training path, ``launches_stream`` the
 streaming path, ``launches_aug`` the augmentation path,
 ``launches_parallel`` the world of one of the multi-card path,
@@ -271,6 +297,16 @@ ROT_CAPACITY = 2048
 ROT_MAXITER = 30
 FLOW_ERR_LIMIT = 4.5         # px/s, all-ROI median against the field
 TILED_REPS = 5               # warm calls timed per route for the share
+# the batched splat against its plain version in float64, per pixel:
+# SPLAT_ROUNDING x sqrt(m) x eps32 x sum|terms| over the pixel's m terms
+# (splat_limits); against S single launches twice that
+SPLAT_ROUNDING = 8.0
+BATCH_CPU_MED_TOL = 0.5       # px/s, the all-ROI median, card vs CPU
+BATCH_CORNER = (60, 80)       # the rotating scene's corner solved on both
+# px/s, the full-frame objective's ROI solve on the rotating scene: the CPU
+# port reads 4.389 (the patch solve's limit sits ~0.55 above its readings)
+FULL_FRAME_ERR_LIMIT = 5.0
+BATCH_REPS = 3                # warm synchronised walls (median)
 # The serving scene: the motion of the seed-91 similarity recording that
 # scores the committed flow weights (runs/flow128_similarity/README.md)
 SERVE_SENSOR = (128, 128)    # the sensor both committed models were trained on
@@ -463,6 +499,9 @@ REPLACES = {
     "flat_scatter": "event_utils_tpu/ops/pallas_scatter.py:496",
     "bilinear_scatter": "event_utils_tpu/ops/pallas_scatter.py:576",
     "bilinear_patches_scatter": "event_utils_tpu/ops/pallas_scatter.py:576",
+    # under jax.vmap (grid_search_initial, events_cmax.py:348; the refine,
+    # :451; draw_objective_function, :1557): the call at :732 batched
+    "bilinear_scatter_batched": "event_utils_tpu/ops/pallas_scatter.py:576",
 }
 
 
@@ -802,6 +841,216 @@ def as_case(rec, **extra):
     return dict({k: rec[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                      "max_abs_err")},
                 bound_ms=rec["bound"][0], **extra)
+
+
+def batched_bound(x, y, w, H: int, W: int):
+    """Bound of one batched splat on this run's coordinates: x and y read
+    for every slot; weights read once where the samples share them, else
+    for the slots with a tap inside their image; the S images written
+    once. No memset is counted."""
+    S, n = x.shape
+    K = w.shape[-2]
+    x0, y0 = x.floor(), y.floor()
+    live = int(((x0 >= -1) & (x0 < W) & (y0 >= -1) & (y0 < H)).sum())
+    w_bytes = K * n * 4 if w.dim() == 2 else live * K * 4
+    return bound(S * n * 8 + w_bytes + S * K * H * W * 4, live * K * 20)
+
+
+def batched_library_ms(torch, x, y, w, H, W, **counts):
+    """Time of one ``index_put_(accumulate=True)`` over the S x 4 x N flat
+    ids (live taps only) of a batched splat of all K channels."""
+    S, n = x.shape
+    K = w.shape[-2]
+    wk = (w[:, None, :].expand(K, S, n) if w.dim() == 2
+          else w.transpose(0, 1)).reshape(K, S * n)
+    base = torch.arange(S, device=x.device).repeat_interleave(n) * (H * W)
+    bi, bv = live_taps(torch, x.reshape(-1), y.reshape(-1), wk, H, W, base,
+                       S * H * W)
+    return time_ms(lambda: torch.zeros(K * S * H * W, device=x.device)
+                   .index_put_((bi,), bv, accumulate=True), torch, **counts)
+
+
+def splat_limits(torch, x, y, w, H: int, W: int):
+    """Per-pixel limit of a batched splat's f32 rounding against its
+    float64 plain version: SPLAT_ROUNDING x sqrt(m) x eps32 x sum|terms|,
+    where m counts the pixel's terms ``w*wx*wy`` (non-zero weights, taps
+    inside the image). Each term is rounded twice, within eps32 |term|;
+    m terms summed in any order (shared memory, then the L2's atomics)
+    err by at most (m-1)/2 x eps32 x sum|terms|, which the limit covers up
+    to m = 254, and by ~sqrt(m) of that in the random orders of atomics
+    beyond. A pixel that gets no term must stay exactly zero, and a lost or
+    misplaced term misses the limit by orders of magnitude."""
+    S, n = x.shape
+    K = w.shape[-2]
+    f64 = torch.float64
+    x, y = x.double(), y.double()
+    x0, y0 = x.floor(), y.floor()
+    wabs = w.abs().to(f64).expand(S, K, n)
+    live = wabs != 0
+    mag = torch.zeros((S, K, H * W), dtype=f64, device=x.device)
+    cnt = torch.zeros_like(mag)
+    for oy, wy in ((0, 1 - (y - y0)), (1, y - y0)):
+        for ox, wx in ((0, 1 - (x - x0)), (1, x - x0)):
+            ok = ((x0 + ox >= 0) & (x0 + ox < W) & (y0 + oy >= 0)
+                  & (y0 + oy < H))
+            pix = torch.where(ok, (y0 + oy) * W + x0 + ox, 0.0).long()
+            pix = pix[:, None, :].expand(S, K, n)
+            on = ok[:, None, :] & live
+            mag.scatter_add_(-1, pix, torch.where(
+                on, wabs * (wx * wy)[:, None, :], 0.0))
+            cnt.scatter_add_(-1, pix, on.to(f64))
+    eps = torch.finfo(torch.float32).eps
+    return (SPLAT_ROUNDING * eps * cnt.sqrt() * mag).view(S, K, H, W)
+
+
+def check_splat(name, got, ref, limit):
+    """Every pixel of ``got`` within its ``limit`` of ``ref``. Returns the
+    max |err| and the largest share of a pixel's limit used."""
+    err = (got.double() - ref.double()).abs()
+    over = err > limit
+    share = float((err / limit.clamp_min(1e-300)).max())
+    worst = float(err.max())
+    log(f"  {name}: max|err| {worst:.3e} of scale "
+        f"{float(ref.abs().max()):.3e}, {share:.3e} of a pixel's limit")
+    if bool(over.any()):
+        raise AssertionError(f"{name}: kernel disagrees with plain version "
+                             f"at {int(over.sum())} pixels (max|err| "
+                             f"{worst}, {share} of a pixel's limit)")
+    return worst, share
+
+
+def batched_case(torch, cs, label, x, y, w, H, W, route, single=True):
+    """One batched splat on ``route`` against its plain version and, with
+    ``single``, against S single ``bilinear_scatter`` launches; its time
+    beside the plain version's, ``index_put_``'s and the bound."""
+    S, n = x.shape
+    K = w.shape[-2]
+    slow = dict(calls=2, reps=5)
+    kernel = lambda: cs.bilinear_scatter_batched(x, y, w, H, W, route=route)
+    shape = f"S={S} x {n} events, K={K} ({label}) into {H}x{W}"
+    before = cs.launch_counts()[f"bilinear_scatter_batched:{route}"]
+    got = kernel()
+    chunks = -(-S // cs.BATCH_MAX_SAMPLES)
+    if cs.launch_counts()[f"bilinear_scatter_batched:{route}"] != (
+            before + chunks):
+        raise AssertionError(f"{shape}: not {chunks} launches")
+    limit = splat_limits(torch, x, y, w, H, W)
+    err, share = check_splat(
+        f"bilinear_scatter_batched:{route} ({shape}), against the plain "
+        f"version in float64", got, cs.bilinear_scatter_batched_plain(
+            x.double(), y.double(), w.double(), H, W), limit)
+    if single:
+        e1, s1 = check_splat(
+            f"bilinear_scatter_batched:{route} vs {S} single launches "
+            f"({shape})", got, torch.stack([cs.bilinear_scatter(
+                x[s], y[s], w if w.dim() == 2 else w[s], H, W)
+                for s in range(S)]), 2.0 * limit)
+        err, share = max(err, e1), max(share, s1)
+    del limit
+    case = dict(shape=shape, max_abs_err=err, limit_share=share,
+                ms=time_ms(kernel, torch),
+                plain_ms=time_ms(lambda: cs.bilinear_scatter_batched_plain(
+                    x, y, w, H, W), torch, **slow),
+                library_ms=batched_library_ms(torch, x, y, w, H, W, **slow),
+                bound=batched_bound(x, y, w, H, W))
+    log(f"  timed: {case['ms']:.4f} ms ({chunks} launch"
+        f"{'es' if chunks > 1 else ''}), plain {case['plain_ms']:.4f} ms, "
+        f"index_put_ {case['library_ms']:.4f} ms, bound "
+        f"{case['bound'][0]:.5f} ms")
+    return case
+
+
+def grid_samples(v, dims=2):
+    """(S, dims) velocity samples of one grid level: a 5-point axis each."""
+    return np.stack(np.meshgrid(*[v] * dims, indexing="ij"),
+                    -1).reshape(-1, dims)
+
+
+def batched_kernel_cases(torch, cs, rng, records):
+    """The batched splat's routes at the grid searches' shapes against
+    their plain version and against S single splats: one grid level (25
+    velocity samples of the 200k planted scene warped, per-sample masked
+    weights, K = 1: private), S = 1, one chunk of the loss (83 samples of
+    200k events), S at and across the samples one launch takes (65535 and
+    65536, one launch and two) on both routes, a sample wholly off the
+    image and one with NaN, +-inf and huge coordinates on both routes, and
+    zhu's K = 4 stack (direct). Each is held per pixel within
+    ``splat_limits`` of the plain version in float64. Fills both routes'
+    records."""
+    from event_utils_tpu_torch.contrast_max import events_cmax as ec
+    dev = torch.device("cuda")
+    H, W = SENSOR[0] + 1, SENSOR[1] + 1
+    sx, sy, st, sp = planted_scene(np.random.default_rng(SEED))
+    t = torch.as_tensor(st - st[-1], dtype=torch.float32, device=dev)
+    ex = torch.as_tensor(sx, dtype=torch.float32, device=dev)
+    ey = torch.as_tensor(sy, dtype=torch.float32, device=dev)
+    ep = torch.as_tensor(sp, dtype=torch.float32, device=dev)
+
+    def warped(v):
+        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        x = (ex - t * v[:, 0:1]).contiguous()
+        y = (ey - t * v[:, 1:2]).contiguous()
+        valid = (x > 0) & (x < W - 1) & (y > 0) & (y < H - 1)
+        return x, y, (ep * valid)[:, None, :].contiguous()
+
+    level = grid_samples(np.linspace(-150.0, 150.0, 5))
+    x, y, w = warped(level)
+    chunk = ec.batch_chunk(len(sx), SENSOR)
+    log(f"batched splat: {len(level)} samples x {len(sx)} events into "
+        f"{H}x{W} (the loss's chunks: {chunk} samples)")
+    priv = [batched_case(torch, cs, "one grid level", x, y, w, H, W,
+                         "private")]
+    forced = batched_case(torch, cs, "one grid level", x, y, w, H, W,
+                          "direct", single=False)
+    priv.append(batched_case(torch, cs, "S = 1", x[:1], y[:1], w[:1], H, W,
+                             "private"))
+    xb, yb, wb = warped(rng.uniform(-150, 150, (chunk, 2)))
+    priv.append(batched_case(torch, cs, "one chunk of the loss", xb, yb, wb,
+                             H, W, "private", single=False))
+    del xb, yb, wb
+    # at and across the samples one launch takes (the grid's y extent):
+    # one launch and two, 4 events a sample into 6x8
+    edge = []
+    for S in (cs.BATCH_MAX_SAMPLES, cs.BATCH_MAX_SAMPLES + 1):
+        xe, ye = (torch.as_tensor(rng.uniform(-1, hi, (S, 4)),
+                                  dtype=torch.float32, device=dev)
+                  for hi in (9, 7))
+        we = torch.as_tensor(rng.normal(size=(1, 4)), dtype=torch.float32,
+                             device=dev)
+        for r in ("private", "direct"):
+            (priv if r == "private" else edge).append(batched_case(
+                torch, cs, f"{S} samples", xe, ye, we, 6, 8, r,
+                single=False))
+    xo, yo = x[:4].clone(), y[:4].clone()
+    xo[1] = -1000.0                                 # every tap off
+    odd = torch.as_tensor([np.nan, np.inf, -np.inf, 1e30, -1e30, 2.0 ** 31],
+                          dtype=torch.float32, device=dev)
+    xo[2, ::5] = odd[torch.arange(len(xo[2, ::5]), device=dev) % 6]
+    yo[3, 3::7] = odd[torch.arange(len(yo[3, 3::7]), device=dev) % 6]
+    odd_cases = {r: batched_case(torch, cs, "odd coordinates", xo, yo,
+                                 w[:4].contiguous(), H, W, r)
+                 for r in ("private", "direct")}
+    for r in ("private", "direct"):
+        if float(cs.bilinear_scatter_batched(xo, yo, w[:4].contiguous(), H,
+                                             W, route=r)[1].abs().max()):
+            raise AssertionError(f"bilinear_scatter_batched:{r}: a sample "
+                                 f"off the image left a mark")
+    # zhu's timestamp stack: K = 4 per-sample weights past 227 KB
+    tn = (t - t.min()) / (t.max() - t.min())
+    pos, neg = (ep > 0).float(), (ep <= 0).float()
+    w4 = (torch.stack([tn * pos, pos, tn * neg, neg])[None]
+          * (w[:, 0:1] != 0)).contiguous()
+    if cs.bilinear_batched_route(4, H, W) != "direct":
+        raise AssertionError("K=4 at 181x241 must take the direct route")
+    k4 = batched_case(torch, cs, "zhu's stack", x, y, w4, H, W, "direct")
+    for route, cases in (("private", priv + [odd_cases["private"]]),
+                         ("direct", [k4, forced, odd_cases["direct"]]
+                          + edge)):
+        rec = dict(cases[0])
+        rec["cases"] = [as_case(c, limit_share=c["limit_share"])
+                        for c in cases]
+        rec["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+        records[f"bilinear_scatter_batched:{route}"] = rec
 
 
 def odd_coordinates(torch, cs, rng):
@@ -1336,6 +1585,8 @@ def kernel_phase(torch, cs, rng, records):
     records["bilinear_scatter:direct"]["max_abs_err"] = max(
         [records["bilinear_scatter:direct"]["max_abs_err"], err_k4]
         + err_grad)
+
+    batched_kernel_cases(torch, cs, rng, records)
 
     patches_phase(torch, cs, rng, records)
 
@@ -1977,16 +2228,17 @@ def route_calls(cs):
     (inputs, size)}}``. The calls themselves run unchanged."""
     from event_utils_tpu_torch.contrast_max import events_cmax as ec
     out = {"calls": {}, "kept": {}}
-    vox, flat, bil, patches = (cs.voxel_scatter, cs.flat_scatter,
-                               cs.bilinear_scatter,
-                               ec.bilinear_patches_scatter)
+    vox, flat, bil, bat, patches = (cs.voxel_scatter, cs.flat_scatter,
+                                    cs.bilinear_scatter,
+                                    cs.bilinear_scatter_batched,
+                                    ec.bilinear_patches_scatter)
 
-    def note(route, shape, inputs, size):
+    def note(route, shape, inputs, size, launches=1):
         # calls on the card only (the CPU runs the plain versions), and
         # none of an empty input, for which a wrapper launches nothing
         if inputs[0].device.type != "cuda" or size == 0:
             return
-        out["calls"][route] = out["calls"].get(route, 0) + 1
+        out["calls"][route] = out["calls"].get(route, 0) + launches
         if size > out["kept"].get((route, shape), (None, -1))[1]:
             out["kept"][(route, shape)] = (
                 tuple(a.detach().clone() for a in inputs), size)
@@ -2009,6 +2261,13 @@ def route_calls(cs):
              (K, H, W), (x, y, w), n if K else 0)
         return bil(x, y, w, H, W, route=route)
 
+    def bat_(x, y, w, H, W, route=None):
+        (S, n), K = x.shape, w.shape[-2]
+        note("bilinear_scatter_batched:"
+             + (route or cs.bilinear_batched_route(K, H, W)), (S, K, H, W),
+             (x, y, w), S * n * K, -(-S // cs.BATCH_MAX_SAMPLES))
+        return bat(x, y, w, H, W, route=route)
+
     def patches_(x, y, w, P, C, PH, PW, route=None):
         r = route or cs.bilinear_patches_route(P, PH, PW)
         note("bilinear_patches_scatter" + ("" if r == "patch" else f":{r}"),
@@ -2017,11 +2276,13 @@ def route_calls(cs):
         return patches(x, y, w, P, C, PH, PW, route=route)
 
     cs.voxel_scatter, cs.flat_scatter, cs.bilinear_scatter = vox_, flat_, bil_
+    cs.bilinear_scatter_batched = bat_
     ec.bilinear_patches_scatter = patches_
     try:
         yield out
     finally:
         cs.voxel_scatter, cs.flat_scatter, cs.bilinear_scatter = vox, flat, bil
+        cs.bilinear_scatter_batched = bat
         ec.bilinear_patches_scatter = patches
 
 
@@ -2053,6 +2314,10 @@ def route_cases(torch, cs, records, seen, label, extra=None):
             idx, w = args
             case = flat_case(torch, cs, label, idx, w, shape[1],
                              {})[route]
+        elif name.startswith("bilinear_scatter_batched"):
+            x, y, w = args
+            case = batched_case(torch, cs, label, x, y, w, *shape[2:], route,
+                                single=False)
         elif name.startswith("bilinear_scatter"):
             x, y, w = args
             K, H, W = shape
@@ -4049,10 +4314,14 @@ def visualization_phase(torch, cs, records, work):
         (land, demo, mc, imgs), wall = synced(torch, lambda: drive(dev, png))
     launches = cs.launch_counts()
     got = {k: v for k, v in launches.items() if v}
-    n_bil = sum(v for k, v in got.items() if k.startswith("bilinear_scatter"))
+    # the landscape's 400 samples: one batched launch; cmax_demo's solves
+    # and motion_compensate: single splats
+    n_bil = sum(v for k, v in got.items() if k.startswith("bilinear_scatter:"))
     log(f"visualization launches: {got}; by the dispatch rules "
         f"{seen['calls']} ({wall:.1f} s)")
-    if got != seen["calls"] or n_bil < VIS_GRID * VIS_GRID + 1 or not any(
+    chunks = -(-VIS_GRID ** 2 // ec.batch_chunk(VIS_EVENTS, SENSOR))
+    if got != seen["calls"] or not n_bil or got.get(
+            "bilinear_scatter_batched:private") != chunks or not any(
             k.startswith("flat_scatter") for k in got):
         raise AssertionError(f"visualization launches {got}, dispatch "
                              f"{seen['calls']}")
@@ -4123,6 +4392,277 @@ def visualization_phase(torch, cs, records, work):
         f"{cpu_s:.1f} s on the CPU; {out['card']}")
     route_cases(torch, cs, records, seen, "visualization")
     return launches, out
+
+
+
+
+def full_frame_variance():
+    """A variance objective under a name the patch loss does not know, as
+    a user's own objective would be: the ROI solvers take the full-frame
+    loss."""
+    from event_utils_tpu_torch.contrast_max import variance_objective
+    obj = variance_objective()
+    obj.name = "variance_full_frame"
+    return obj
+
+
+def batched_phase(torch, cs, records):
+    """The solves that JAX batches, on the batched splat and the batched
+    BFGS, counted: ``optimize_contrast_jit(grid_search_init=True)`` and
+    ``grid_search_optimisation`` on the 200k planted scene (every grid
+    level one batched launch per chunk, no single splat), one
+    ``grid_search_initial`` level of zhu's objective (K = 4: the direct
+    route), the 20x20 landscape on the visualization phase's 15,000 events
+    (card vs CPU) and on all 200k (5 chunks; against the per-sample loop on
+    the card), ``grid_cmax_batched(solver='bfgs')`` on the rotating scene
+    (one batched BFGS over its ROIs; flow error, card vs CPU) and a
+    full-frame objective's ROI solve there. Then warm walls, device busy
+    and idle shares, and each kept shape on its route against its plain
+    version. Returns the phase's launch counts and what it measured."""
+    from event_utils_tpu_torch.contrast_max import events_cmax as ec
+    from event_utils_tpu_torch.contrast_max import (
+        grid_cmax_batched, grid_search_initial, grid_search_optimisation,
+        linvel_warp, optimize_contrast, optimize_contrast_jit,
+        variance_objective, zhu_timestamp_objective)
+    dev = torch.device("cuda")
+    out = {"card": card_line()}
+    sx, sy, st, sp = planted_scene(np.random.default_rng(SEED))
+    n = len(sx)
+    vx, vy, vt, vp = (a[:VIS_EVENTS] for a in planted_scene(
+        np.random.default_rng(SEED + 20)))
+    rx, ry, rt, rp = rotating_scene()
+    single = [r for r in cs.ROUTES if r.startswith("bilinear_scatter:")]
+    levels = {}      # grid function: [samples of each level, launches]
+
+    def add_level(label, sizes, d):
+        rec = levels.setdefault(label, [[], {}])
+        rec[0].extend(sizes)
+        for k, v in d.items():
+            rec[1][k] = rec[1].get(k, 0) + v
+
+    def delta(before):
+        after = cs.launch_counts()
+        return {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+
+    real_refine, real_initial = ec.grid_search_refine, ec.grid_search_initial
+
+    def refine_(loss_fn, dims, *a, **kw):
+        sizes = []
+
+        def counted(P):
+            sizes.append(P.shape[0])
+            return loss_fn(P)
+
+        before = cs.launch_counts()
+        res = real_refine(counted, dims, *a, **kw)
+        torch.cuda.synchronize()
+        add_level("grid_search_refine", sizes, delta(before))
+        return res
+
+    def initial_(xs, *a, **kw):
+        before = cs.launch_counts()
+        res = real_initial(xs, *a, **kw)
+        torch.cuda.synchronize()
+        add_level("grid_search_initial", [len(res["params"])],
+                  delta(before))
+        return res
+
+    bfgs_calls = []
+    real_bfgs = ec.minimize_bfgs
+
+    def bfgs_(vg, x0, **kw):
+        bfgs_calls.append(tuple(x0.shape))
+        return real_bfgs(vg, x0, **kw)
+
+    lkw = dict(resolution=VIS_RES, img_size=SENSOR)
+    rkw = dict(roi_size=ROT_ROI, img_size=ROT_SENSOR, maxiter=ROT_MAXITER,
+               capacity=ROT_CAPACITY)
+    drives = {
+        "optimize_contrast_jit": lambda: optimize_contrast_jit(
+            sx, sy, st, sp, linvel_warp(), variance_objective(),
+            img_size=SENSOR, grid_search_init=True),
+        "grid_search_optimisation": lambda: grid_search_optimisation(
+            sx, sy, st, sp, linvel_warp(), variance_objective(), SENSOR,
+            device=dev),
+        "optimize_contrast": lambda: optimize_contrast(
+            sx, sy, st, sp, linvel_warp(), variance_objective(),
+            blur_sigma=1.0, img_size=SENSOR, grid_search_init=True),
+        "grid_search_initial(zhu)": lambda: grid_search_initial(
+            sx, sy, st, sp, linvel_warp(), zhu_timestamp_objective(), SENSOR,
+            device=dev),
+        "landscape": lambda: ec._objective_landscape(
+            vx, vy, vt, vp, variance_objective(minimum_events=1),
+            linvel_warp(), device=dev, **lkw),
+        "landscape, 200k events": lambda: ec._objective_landscape(
+            sx, sy, st, sp, variance_objective(minimum_events=1),
+            linvel_warp(), device=dev, **lkw),
+        "grid_cmax_batched(solver='bfgs')": lambda: grid_cmax_batched(
+            rx, ry, rt, rp, solver="bfgs", device=dev, **rkw),
+        "grid_cmax_batched(full-frame objective)": lambda: grid_cmax_batched(
+            rx, ry, rt, rp, obj=full_frame_variance(), device=dev, **rkw)}
+    res, launches_of, walls = {}, {}, {}
+    ec.grid_search_refine, ec.grid_search_initial = refine_, initial_
+    ec.minimize_bfgs = bfgs_
+    cs.reset_launch_counts()
+    try:
+        with route_calls(cs) as seen:
+            for label, fn in drives.items():
+                before = cs.launch_counts()
+                res[label], walls[label] = synced(torch, fn)
+                launches_of[label] = delta(before)
+                log(f"  {label}: {walls[label]:.3f} s cold, launches "
+                    f"{launches_of[label]}")
+    finally:
+        ec.grid_search_refine, ec.grid_search_initial = (real_refine,
+                                                         real_initial)
+        ec.minimize_bfgs = real_bfgs
+    launches = cs.launch_counts()
+    got = {k: v for k, v in launches.items() if v}
+    log(f"batched launches: {got}; by the dispatch rules {seen['calls']}")
+    if got != seen["calls"]:
+        raise AssertionError(f"batched launches {got}, dispatch "
+                             f"{seen['calls']}")
+
+    # every grid level: one batched launch per chunk, no single splat
+    for label, (sizes, d) in levels.items():
+        want = sum(-(-S // ec.batch_chunk(n, SENSOR)) for S in sizes)
+        n_single = sum(d.get(r, 0) for r in single)
+        n_batched = sum(v for k, v in d.items()
+                        if k.startswith("bilinear_scatter_batched"))
+        log(f"  {label}: {len(sizes)} levels of {sizes[0]} samples, "
+            f"batched launches {n_batched} (levels x chunks {want}), single "
+            f"{n_single}")
+        if n_single or n_batched != want:
+            raise AssertionError(f"{label}: {d}, want {want} batched")
+    for label, S, n_ev in (("landscape", VIS_GRID ** 2, VIS_EVENTS),
+                           ("landscape, 200k events", VIS_GRID ** 2, n)):
+        d = launches_of[label]
+        want = {"bilinear_scatter_batched:private":
+                -(-S // ec.batch_chunk(n_ev, SENSOR))}
+        if d != want:
+            raise AssertionError(f"{label}: launches {d}, want {want}")
+    for label in drives:
+        if "grid_cmax" in label and any(launches_of[label].get(r)
+                                        for r in single):
+            raise AssertionError(f"{label}: single splats "
+                                 f"{launches_of[label]}")
+    if launches_of["grid_search_initial(zhu)"] != {
+            "bilinear_scatter_batched:direct": 1}:
+        raise AssertionError(f"zhu's level: "
+                             f"{launches_of['grid_search_initial(zhu)']}")
+    # optimize_contrast_jit's single problem, then the ROI solve: one BFGS
+    # over all R ROIs and, where ROIs overflow the capacity, one over the
+    # overflow tier's rows (as JAX vmaps each tier's solver)
+    R = len(res["grid_cmax_batched(solver='bfgs')"][0])
+    if not (bfgs_calls[:2] == [(2,), (R, 2)] and len(bfgs_calls) <= 3
+            and all(c[0] > 1 for c in bfgs_calls[1:])):
+        raise AssertionError(f"BFGS calls {bfgs_calls}: want one for "
+                             f"optimize_contrast_jit and one batched solve "
+                             f"per tier of the ROI solve")
+
+    # answers
+    v_jit = np.asarray(res["optimize_contrast_jit"], np.float64)
+    v_host = np.asarray(res["optimize_contrast"], np.float64)
+    for label, v in (("optimize_contrast_jit", v_jit),
+                     ("optimize_contrast", v_host)):
+        err = float(np.abs(v - np.array(VELOCITY)).max())
+        log(f"  {label}: v={v.tolist()} |err|max={err:.3f} px/s")
+        if not err <= 4.0:
+            raise AssertionError(f"{label} missed the planted velocity")
+    land = res["landscape"]
+    land_c = ec._objective_landscape(vx, vy, vt, vp, variance_objective(
+        minimum_events=1), linvel_warp(), device="cpu", **lkw)
+    land_err = float((land.cpu() - land_c).abs().max())
+    big = res["landscape, 200k events"]
+    loop = make_landscape_loop(torch, ec, sx, sy, st, sp, dev)
+    big_err = float((big - loop).abs().max())
+    peaks = []
+    for img in (land, big):
+        iy, ix = np.unravel_index(int(torch.argmax(img).cpu()), img.shape)
+        peaks.append((float(ix * VIS_RES - 200.0), float(iy * VIS_RES
+                                                          - 200.0)))
+    log(f"  landscape: card vs CPU {land_err:.3e}; 200k events: batched vs "
+        f"the per-sample loop on the card {big_err:.3e} (limit "
+        f"{VIS_LAND_REL} of the [0, 1] range); peaks {peaks}, planted "
+        f"{VELOCITY}")
+    if not (land_err <= VIS_LAND_REL and big_err <= VIS_LAND_REL and all(
+            abs(p[0] - VELOCITY[0]) <= VIS_RES
+            and abs(p[1] - VELOCITY[1]) <= VIS_RES for p in peaks)):
+        raise AssertionError(f"landscapes: {land_err}, {big_err}, {peaks}")
+    rois = {}
+    for label, limit in (("grid_cmax_batched(solver='bfgs')", FLOW_ERR_LIMIT),
+                         ("grid_cmax_batched(full-frame objective)",
+                          FULL_FRAME_ERR_LIMIT)):
+        params, r_, _, valid = res[label]
+        err, n_valid = flow_error(params, r_, valid)
+        rois[label] = {"flow_err": err, "valid": n_valid}
+        log(f"  {label}: median flow error {err:.3f} px/s over {n_valid} "
+            f"ROIs (limit {limit})")
+        if not (bool(torch.isfinite(params).all()) and err <= limit):
+            raise AssertionError(f"{label}: flow error {err}")
+    # card vs CPU on one corner of the scene (12 ROIs): the CPU solves the
+    # whole scene's 108 in ~2 min
+    corner = (rx < BATCH_CORNER[1]) & (ry < BATCH_CORNER[0])
+    ckw = dict(rkw, img_size=BATCH_CORNER)
+    cev = (rx[corner], ry[corner], rt[corner], rp[corner])
+    p_card, _, _, v_card = grid_cmax_batched(*cev, solver="bfgs", device=dev,
+                                             **ckw)
+    t = time.perf_counter()
+    p_cpu, _, _, v_cpu = grid_cmax_batched(*cev, solver="bfgs",
+                                           device="cpu", **ckw)
+    cpu_s = time.perf_counter() - t
+    med = np.median(p_card.cpu().numpy()[v_card.cpu().numpy()], axis=0)
+    med_c = np.median(p_cpu.numpy()[v_cpu.numpy()], axis=0)
+    d_med = float(np.abs(med - med_c).max())
+    log(f"  BFGS ROI solve on a {BATCH_CORNER} corner ({len(p_cpu)} ROIs): "
+        f"median card {med.tolist()}, CPU {med_c.tolist()} ({d_med:.3f} "
+        f"px/s apart, limit {BATCH_CPU_MED_TOL}; CPU {cpu_s:.1f} s)")
+    if not d_med <= BATCH_CPU_MED_TOL:
+        raise AssertionError(f"BFGS ROI solve: card vs CPU {d_med}")
+    rois["grid_cmax_batched(solver='bfgs')"].update(
+        median=med.tolist(), cpu_median=med_c.tolist(), cpu_s=cpu_s)
+
+    # warm walls; device busy and idle shares of the short drives (the
+    # ROI solves' thousands of launches are not profiled: one warm wall)
+    timings = {}
+    for label, fn in drives.items():
+        roi = "grid_cmax" in label
+        wall = float(np.median([synced(torch, fn)[1]
+                                for _ in range(1 if roi else BATCH_REPS)]))
+        timings[label] = {"wall_s": wall, "launches": launches_of[label]}
+        if roi:
+            log(f"  {label}: warm {wall:.4f} s; launches "
+                f"{launches_of[label]}")
+            continue
+        busy, top = device_busy(torch, fn)
+        timings[label].update(busy_s=busy, idle=1.0 - busy / wall, top=top)
+        log(f"  {label}: warm {wall:.4f} s, busy {busy:.4f} s, idle "
+            f"{1.0 - busy / wall:.3f}; launches {launches_of[label]}")
+    out.update(levels=levels,
+               landscape={"card_vs_cpu": land_err, "vs_loop_200k": big_err,
+                          "peaks": peaks}, rois=rois, timings=timings,
+               bfgs_calls=[list(c) for c in bfgs_calls])
+    route_cases(torch, cs, records, seen, "batched")
+    return launches, out
+
+
+def make_landscape_loop(torch, ec, xs, ys, ts, ps, dev):
+    """The landscape as this port evaluated it before it was batched: one
+    loss, one single splat, per sample, on the card."""
+    from event_utils_tpu_torch.contrast_max import (linvel_warp,
+                                                    variance_objective)
+    loss = ec.make_objective_loss(variance_objective(minimum_events=1),
+                                  linvel_warp(), SENSOR, 0.0,
+                                  iwe_impl="matmul")
+    ev = tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+               for a in (xs, ys, ts, ps))
+    g = np.arange(VIS_GRID) * VIS_RES - 200.0
+    with torch.no_grad():
+        img = -torch.stack([loss(torch.tensor([vx, vy], device=dev), *ev)
+                            for vy in g for vx in g]).reshape(VIS_GRID,
+                                                              VIS_GRID)
+    return (img - img.min()) / ((img.max() - img.min()) + 1e-6)
 
 
 def turns_ms(torch, fns, reps):
@@ -4217,15 +4757,19 @@ def main() -> int:
     launches = cs.launch_counts()
     log(f"main-path launches: {launches}")
     # every route that some shape is sent to; the one-block form of the
-    # private bilinear kernel is sent none (see kernel_phase)
+    # private bilinear kernel is sent none (see kernel_phase), and the
+    # batched direct route (an image past 227 KB a sample: zhu's K = 4
+    # stack) is the batched phase's
     routed = set(launches) - {"bilinear_scatter:single"}
-    missing = sorted(k for k in routed if launches[k] == 0)
+    missing = sorted(k for k in routed - {"bilinear_scatter_batched:direct"}
+                     if launches[k] == 0)
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
     if set(records) != routed:
         raise AssertionError(f"routes not held against their plain "
                              f"version: {routed ^ set(records)}")
+    batched_launches, batched = batched_phase(torch, cs, records)
     serving_launches, serving = serving_phase(torch, cs, records)
     with tempfile.TemporaryDirectory(prefix=".smoke_sim_", dir=ROOT) as work:
         sim_launches, anchors = simulated_anchors_phase(torch, cs, records,
@@ -4247,6 +4791,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SRC,
             "replaces": REPLACES[name.split(":")[0]],
             "launches": launches[name],
+            "launches_batched": batched_launches[name],
             "launches_serving": serving_launches[name],
             "launches_sim": sim_launches[name],
             "launches_train": train_launches[name],
@@ -4258,6 +4803,7 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": rec["library_ms"],
             **{k: rec[k] for k in ("shape", "cases") if k in rec}})
+    print(json.dumps({"batched": batched}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"simulated_anchors": anchors}))
     print(json.dumps({"training": training}))
@@ -4273,7 +4819,44 @@ def main() -> int:
     return 0
 
 
+ROI_WALLS_FLAG = "--roi-bfgs-walls"
+
+
+def roi_bfgs_walls(reps: int = 2) -> int:
+    """``python3 chip_smoke.py --roi-bfgs-walls``: cold and warm walls of
+    ``grid_cmax_batched(solver='bfgs')`` on the rotating scene on the
+    card, with its launches and flow error, for the package beside this
+    file; a copy of this file placed at the root of another checkout times
+    that checkout (compare two in one call: A, B, B, A). Prints one JSON
+    line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from event_utils_tpu_torch.contrast_max import grid_cmax_batched
+    from event_utils_tpu_torch.ops import cuda_scatter as cs
+    rx, ry, rt, rp = rotating_scene()
+    dev = torch.device("cuda")
+
+    def solve():
+        return grid_cmax_batched(
+            rx, ry, rt, rp, solver="bfgs", device=dev, roi_size=ROT_ROI,
+            img_size=ROT_SENSOR, maxiter=ROT_MAXITER, capacity=ROT_CAPACITY)
+
+    cs.reset_launch_counts()
+    (params, rois, _, valid), cold = synced(torch, solve)
+    launches = {k: v for k, v in cs.launch_counts().items() if v}
+    warm = [synced(torch, solve)[1] for _ in range(reps)]
+    err, n_valid = flow_error(params, rois, valid)
+    print(json.dumps({"roi_bfgs_walls": {
+        "root": ROOT, "cold_s": cold, "warm_s": warm, "launches": launches,
+        "flow_err": err, "valid": n_valid, "card": card_line()}}))
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == DP_FLAG:   # a torchrun rank
         sys.exit(dp_rank_main(sys.argv[2:]))
+    if sys.argv[1:] == [ROI_WALLS_FLAG]:
+        sys.exit(roi_bfgs_walls())
     sys.exit(main())

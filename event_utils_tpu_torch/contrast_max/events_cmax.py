@@ -15,7 +15,14 @@ Three paths, as in the JAX package:
   (R, capacity) batches on the host; ``grid_cmax_batched`` solves every
   ROI at once, each evaluation one batched ``make_patch_loss`` (one launch
   of the CUDA bilinear kernel for all ROIs and grid samples), where JAX
-  vmaps a per-ROI solver. ``fit_global_motion`` seeds its pyramid.
+  vmaps a per-ROI solver; its BFGS is one batched solve over the ROIs.
+  ``fit_global_motion`` seeds its pyramid.
+
+Where JAX vmaps a loss over parameter samples (the grid searches, the
+landscape, the ROI solvers' full-frame loss), the port evaluates
+``make_objective_loss`` at (S, dims) samples: the warps of all samples
+splat in one launch of the batched bilinear kernel per chunk of
+``batch_chunk`` samples.
 
 Divergence from the JAX package: the scipy driver and the SOFAS grid search
 form the IWE with the 'matmul' route (``DEFAULT_IWE_IMPL``), the
@@ -53,6 +60,24 @@ from .bfgs import minimize_bfgs
 
 DEFAULT_IWE_IMPL = "matmul"
 
+# What one chunk of a batched loss evaluation may hold: its samples' warped
+# coordinates (S x N slots; 2 x 64 MB of f32 at the cap) and their images.
+# A sample's images are counted as 4 planes of (H+1) x (W+1) f32: zhu's
+# timestamp stack, or an IWE with its blur's copies. 400 landscape samples
+# of 200k events take 5 chunks; a full-frame ROI solve at 640x480 takes
+# ~200 rows a chunk, at 1280x720 ~70.
+BATCH_MAX_SLOTS = 1 << 24
+BATCH_MAX_IMAGE_BYTES = 1 << 30
+
+
+def batch_chunk(n: int, img_size: Tuple[int, int]) -> int:
+    """Samples of ``n`` events into ``img_size`` images that one chunk of a
+    batched loss evaluation takes: within both ``BATCH_MAX_SLOTS`` and
+    ``BATCH_MAX_IMAGE_BYTES``, at least one."""
+    image_bytes = 16 * (img_size[0] + 1) * (img_size[1] + 1)
+    return max(1, min(BATCH_MAX_SLOTS // max(n, 1),
+                      BATCH_MAX_IMAGE_BYTES // image_bytes))
+
 
 def make_objective_loss(objective: objective_function,
                         warpfunc: warp_function,
@@ -63,24 +88,59 @@ def make_objective_loss(objective: objective_function,
     pair (the autograd path). ``iwe_impl='matmul'`` forms the IWE with the
     CUDA bilinear kernel.
 
+    ``params`` (dims,) gives the scalar loss; (S, dims) parameter samples
+    give (S,) losses: JAX's ``jax.vmap(loss, in_axes=(0, None, ...))``
+    (``_compiled_vmap_loss``) with the sample axis written out. The events
+    and ``mask`` are then (N,), shared by the samples, or (S, N), a row per
+    sample. (R, S, dims) params give (R, S) losses with (R, N) events, row
+    r shared by its S samples (the ROI solvers' full-frame loss: a row per
+    ROI). The warp gives (S, N) coordinates and one batched bilinear splat
+    forms all S IWEs; each image is blurred over its own axes and reduced
+    by ``torch.func.vmap`` of the objective's own reduction. The samples
+    run in chunks of ``batch_chunk`` samples (with 'matmul', one CUDA
+    launch each), which bounds the coordinates and images held at once; a
+    row's samples stay in one chunk.
+
     Objectives that are not plain IWE reductions define ``make_event_loss``
-    (zhu's timestamp-image loss) and get their true loss here. Objectives
-    whose exact loss has zero gradient almost everywhere define
-    ``soft_loss_fn`` (isoa's sigmoid surrogate), which is optimized here;
-    report parity-exact values via ``objective.evaluate_function``.
+    (zhu's timestamp-image loss, batched the same way) and get their true
+    loss here. Objectives whose exact loss has zero gradient almost
+    everywhere define ``soft_loss_fn`` (isoa's sigmoid surrogate), which is
+    optimized here; report parity-exact values via
+    ``objective.evaluate_function``.
     """
     if hasattr(objective, "make_event_loss"):
-        return objective.make_event_loss(warpfunc, img_size, blur_sigma,
-                                         impl=iwe_impl)
-    reduce_fn = getattr(objective, "soft_loss_fn", objective.loss_fn)
+        one = objective.make_event_loss(warpfunc, img_size, blur_sigma,
+                                        impl=iwe_impl)
+    else:
+        reduce_fn = getattr(objective, "soft_loss_fn", objective.loss_fn)
+
+        def one(params, xs, ys, ts, ps, mask=None):
+            iwe, _ = get_iwe(params, xs, ys, ts, ps, warpfunc, img_size,
+                             use_polarity=objective.use_polarity, mask=mask,
+                             impl=iwe_impl)
+            if blur_sigma and blur_sigma > 0:
+                iwe = gaussian_filter(iwe, blur_sigma, axes=(-2, -1))
+            return (torch.func.vmap(reduce_fn) if iwe.dim() == 3
+                    else reduce_fn)(iwe)
 
     def loss(params, xs, ys, ts, ps, mask=None):
-        iwe, _ = get_iwe(params, xs, ys, ts, ps, warpfunc, img_size,
-                         use_polarity=objective.use_polarity, mask=mask,
-                         impl=iwe_impl)
-        if blur_sigma and blur_sigma > 0:
-            iwe = gaussian_filter(iwe, blur_sigma)
-        return reduce_fn(iwe)
+        if np.ndim(params) < 2:
+            return one(params, xs, ys, ts, ps, mask)
+        lead = params.shape[:-1]
+        reps = math.prod(lead[1:])
+        step = max(1, batch_chunk(xs.shape[-1], img_size) // reps)
+        flat = params.reshape(lead[0], reps, params.shape[-1])
+
+        def rows(a, i):  # chunk i's event rows, one per sample
+            if a is None or a.dim() < 2:
+                return a
+            a = a[i:i + step]
+            return a if reps == 1 else a[:, None].expand(
+                -1, reps, -1).reshape(-1, a.shape[-1])
+
+        return torch.cat([one(flat[i:i + step].reshape(-1, flat.shape[-1]),
+                              *(rows(a, i) for a in (xs, ys, ts, ps, mask)))
+                          for i in range(0, lead[0], step)]).reshape(lead)
 
     return loss
 
@@ -91,16 +151,17 @@ def _events(xs, ys, ts, ps, device):
     return dev, tuple(as_f32(a, dev) for a in (xs, ys, ts, ps))
 
 
-def _value_and_grad(loss, dev):
-    """Host-tensor ``value_and_grad`` for ``minimize_bfgs``: moves the
-    parameters to ``dev``, runs ``loss`` and its autograd backward there,
-    and brings the value and gradient back."""
+def _value_and_grad(loss):
+    """``value_and_grad`` for ``minimize_bfgs`` on the parameters' device:
+    ``loss`` at (dims,) params or at (R, dims) rows, and its gradient by
+    autograd. The rows are independent problems, so the gradient of the
+    summed loss is each row's own."""
 
     def vg(p):
-        p = p.detach().to(dev).requires_grad_(True)
+        p = p.detach().requires_grad_(True)
         f = loss(p)
-        (g,) = torch.autograd.grad(f, p)
-        return f.detach().to("cpu", torch.float32), g.to("cpu", torch.float32)
+        (g,) = torch.autograd.grad(f.sum(), p)
+        return f.detach(), g
 
     return vg
 
@@ -215,8 +276,10 @@ def optimize_contrast_jit(xs, ys, ts, ps, warpfunc, objective, x0=None,
 
     warp → CUDA bilinear scatter (``iwe_impl='matmul'``) → blur → loss,
     differentiated by autograd and iterated by ``contrast_max.bfgs`` with
-    JAX's line search, ``maxiter`` and ``gtol=1e-6``. Returns the optimal
-    parameters as a float32 host tensor.
+    JAX's line search, ``maxiter`` and ``gtol=1e-6``, its state on the
+    device. The grid search evaluates each level's samples as one batched
+    loss, as JAX vmaps it. Returns the optimal parameters as a float32
+    host tensor.
     """
     loss = make_objective_loss(objective, warpfunc, img_size, blur_sigma,
                                iwe_impl=iwe_impl)
@@ -248,9 +311,9 @@ def optimize_contrast_jit(xs, ys, ts, ps, warpfunc, objective, x0=None,
                                     init_range=init_range, device=dev)[0]
         else:
             x0 = torch.zeros((warpfunc.dims,), dtype=torch.float32)
-    res = minimize_bfgs(_value_and_grad(loss_p, dev), as_f32(x0, dev),
+    res = minimize_bfgs(_value_and_grad(loss_p), as_f32(x0, dev),
                         maxiter=maxiter, gtol=1e-6)
-    return res.x_k
+    return res.x_k.cpu()
 
 
 # ---------------------------------------------------------------------------
@@ -285,10 +348,12 @@ def grid_search_initial(xs, ys, ts, ps, warp_function, objective_function,
                         num_samples_per_param: int = 5, device=None):
     """One level of SOFAS grid search (reference events_cmax.py:241-311).
 
-    The ``num_samples^dims`` sample losses (blur 1.0) are queued on the
-    device back to back and read once. Divergence kept from the JAX
-    package: the true argmin is returned (the reference's ``best_eval = 0``
-    start never selects a positive-loss optimum).
+    The ``num_samples^dims`` sample losses (blur 1.0) are one batched
+    evaluation of ``make_objective_loss`` (one batched splat launch per
+    ``batch_chunk`` samples), as JAX vmaps them, and are read once.
+    Divergence kept from the JAX package: the true argmin is returned (the
+    reference's ``best_eval = 0`` start never selects a positive-loss
+    optimum).
     """
     if num_samples_per_param % 2 != 1:
         raise ConfigurationError(
@@ -306,7 +371,7 @@ def grid_search_initial(xs, ys, ts, ps, warp_function, objective_function,
                                iwe_impl=DEFAULT_IWE_IMPL)
     cs = torch.as_tensor(coords, dtype=torch.float32, device=dev)
     with torch.no_grad():
-        evals = torch.stack([loss(c, dxs, dys, dts, dps) for c in cs])
+        evals = loss(cs, dxs, dys, dts, dps)
     evals = to_numpy(evals).astype(np.float64)
 
     best = int(np.argmin(evals))
@@ -381,10 +446,12 @@ def grid_search_refine(loss_fn: Callable, dims: int, init_range=150.0,
     """Coarse-to-fine grid search with every step on the device.
 
     Each of ``iters`` levels samples ``num_samples^dims`` parameter vectors
-    about the current best, evaluates ``loss_fn`` on each (the JAX
-    package's ``vmap`` becomes a loop whose launches queue back to back),
-    and re-centres each axis on the best sample with half the previous
-    step. No value is read back inside the loop. Returns
+    about the current best, evaluates them all in one call of ``loss_fn``,
+    which maps (S, dims) samples to (S,) losses (the JAX package's
+    ``jax.vmap(loss_fn)`` with the sample axis written out, as a
+    ``make_objective_loss`` loss does), and re-centres each axis on the best
+    sample (the first of equal minima, as ``jnp.argmin``) with half the
+    previous step. No value is read back inside the loop. Returns
     ``(best_params, best_eval)`` as tensors on ``device``.
     """
     del th0
@@ -392,7 +459,7 @@ def grid_search_refine(loss_fn: Callable, dims: int, init_range=150.0,
     r0 = torch.as_tensor(init_range, dtype=torch.float32, device=dev)
 
     def batched_loss(coords):  # (1, S, dims) -> (1, S)
-        return torch.stack([loss_fn(c) for c in coords[0]])[None]
+        return loss_fn(coords[0])[None]
 
     best_p, best_e = grid_search_refine_batched(
         batched_loss, dims, r0.reshape(1), num_samples_per_param, log_scale,
@@ -561,11 +628,10 @@ def make_patch_loss(warpfunc, roi_size, objective=None, patch=PATCH_DEFAULT,
         # empty ROIs (all-zero mask): pin t0 to 0 for a finite zero-IWE loss
         t0 = torch.where(any_valid,
                          torch.where(on, et, -torch.inf).amax(-1), 0.0)
-        # warp_fn indexes params[d]: put the parameter axis first so that
-        # each (R, S, 1) slice broadcasts against the (R, 1, C) events
-        xw, yw = warpfunc.warp_fn(params.movedim(-1, 0)[..., None],
-                                  ex[:, None], ey[:, None], et[:, None],
-                                  t0[:, None, None])
+        # warp_fn takes params[..., d, None]: each (R, S, 1) slice
+        # broadcasts against the (R, 1, C) events
+        xw, yw = warpfunc.warp_fn(params, ex[:, None], ey[:, None],
+                                  et[:, None], t0[:, None, None])
         px = xw - (origin_yx[:, 1] + rw / 2.0 - PW / 2.0)[:, None, None]
         py = yw - (origin_yx[:, 0] + rh / 2.0 - PH / 2.0)[:, None, None]
         w_pol = ep if use_polarity else torch.abs(ep)
@@ -894,9 +960,9 @@ def fit_global_motion(xs, ys, ts, ps, img_size, obj=None,
     inf = torch.tensor(torch.inf, device=dev)
     qmax = torch.stack([inf, inf, 0.4 / dt_w * r0, 1.0 / dt_w * r0])
 
-    q0_t, _ = grid_search_refine(lambda v2: f_q(torch.cat([v2, zeros2])), 2,
-                                 init_range=150.0, num_samples_per_param=5,
-                                 iters=6, device=dev)
+    q0_t, _ = grid_search_refine(
+        lambda V: f_q(torch.cat([V, zeros2.expand(V.shape[0], 2)], -1)), 2,
+        init_range=150.0, num_samples_per_param=5, iters=6, device=dev)
     q0 = torch.cat([q0_t, zeros2])[None]
     best_q, best_v = _normalized_descent(
         lambda q: f_q(q[0])[None], q0, maxiter, gd_lr,
@@ -971,7 +1037,7 @@ def grid_cmax_batched(xs, ys, ts, ps, roi_size=(20, 20), warp=None,
       event sets in a second, power-of-two-sized batch, warm-started from
       tier 1.
     - ``solver``: ``'gd'`` (normalised-gradient descent) or ``'bfgs'``
-      (the port's BFGS, one ROI after another).
+      (the port's BFGS, one batched solve over all ROIs).
 
     Returns ``(params (R, dims), rois (R, 4), f_evals (R,), valid (R,))``
     as tensors on ``device`` (default: the inputs' device, else the card).
@@ -1170,8 +1236,13 @@ def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
 
     ``solver='gd'``: fixed-``maxiter`` normalised-gradient descent, every
     ROI in each batched step. ``solver='bfgs'``: the port's BFGS
-    (``contrast_max.bfgs``, a port of ``jax.scipy.optimize.minimize``), run
-    for one ROI after another (JAX vmaps it).
+    (``contrast_max.bfgs``, a port of ``jax.scipy.optimize.minimize``), one
+    batched solve over the R ROIs, each row walking its own path as under
+    JAX's vmap.
+
+    Objectives outside ``PATCH_OBJECTIVES`` use the full-frame loss
+    (``make_objective_loss``), one batched evaluation over a row per ROI
+    (and per grid sample), each row the ROI's events.
     """
     if solver not in ("gd", "bfgs"):
         raise ConfigurationError(f"unknown solver {solver!r}")
@@ -1180,7 +1251,7 @@ def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
     if use_patch:
         patch_loss = _roi_patch_loss(warp, obj, resolution, roi_size,
                                      blur_sigma)
-    else:  # custom objectives: the full-frame loss, one ROI at a time
+    else:  # custom objectives: the full-frame loss, a row per ROI (sample)
         full_loss = make_objective_loss(obj, warp, resolution, blur_sigma,
                                         iwe_impl=DEFAULT_IWE_IMPL)
 
@@ -1195,29 +1266,19 @@ def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
                     and margin > 2.0)
 
     def _losses(ex, ey, et, ep, emask, origin):
-        """(f_masked, f, f_row) for a batch of ROIs: ``f_masked(p, m)``
-        over every ROI, ``f(p)`` with the full masks, and ``f_row(p, r, m)``
-        of ROI r alone at (dims,) params — the one definition of the
-        patch-vs-full loss shared by the cold and warm solvers."""
-        def f_row(p, r, m):
-            if use_patch:
-                return patch_loss(p, ex[r], ey[r], et[r], ep[r], m[r],
-                                  origin[r])
-            return full_loss(p, ex[r], ey[r], et[r], ep[r], m[r])
-
+        """(f_masked, f) for a batch of ROIs: ``f_masked(p, m)`` at (R,
+        dims) or (R, S, dims) params, ``f(p)`` with the full masks — the
+        one definition of the patch-vs-full loss shared by the cold and warm
+        solvers."""
         def f_masked(p, m):
             if use_patch:
                 return patch_loss(p, ex, ey, et, ep, m, origin)
-            if p.dim() == 2:
-                return torch.stack([f_row(p[r], r, m)
-                                    for r in range(p.shape[0])])
-            return torch.stack([f_masked(p[:, s], m)
-                                for s in range(p.shape[1])], -1)
+            return full_loss(p, ex, ey, et, ep, m)
 
-        return f_masked, lambda p: f_masked(p, emask), f_row
+        return f_masked, lambda p: f_masked(p, emask)
 
     def _finish(et, emask, x0, losses, trust=None):
-        f_masked, f, f_row = losses
+        f_masked, f = losses
         refine_mask = emask
         if adaptive:
             # trim each ROI's window to pixel_crossings/|v| seconds (a mask
@@ -1230,11 +1291,9 @@ def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
             refine_mask = torch.where(enough[:, None], refine_mask, emask)
 
         if solver == "bfgs":
-            dev = x0.device
-            best = torch.stack([minimize_bfgs(
-                _value_and_grad(lambda p, r=r: f_row(p, r, refine_mask), dev),
-                x0[r], maxiter=maxiter, gtol=1e-6).x_k
-                for r in range(x0.shape[0])]).to(dev)
+            best = minimize_bfgs(
+                _value_and_grad(lambda p: f_masked(p, refine_mask)), x0,
+                maxiter=maxiter, gtol=1e-6).x_k
             with torch.no_grad():
                 return best, f(best)
 
@@ -1309,9 +1368,10 @@ def _objective_landscape(xs, ys, ts, ps, objective, warpfunc,
     the ``imshape`` grid of JAX's ``events_cmax.py:1551-1567`` (rows
     ``v_y``, columns ``v_x``, ``resolution`` px/s apart from the ranges'
     lower ends), unblurred, normalised to [0, 1] by ``norm_min`` /
-    ``norm_max`` (default the image's own). The samples are queued on the
-    device back to back, each one IWE through the bilinear kernel on the
-    card, and read once. Returns a float32 tensor on the device."""
+    ``norm_max`` (default the image's own). All samples are one batched
+    evaluation (``make_objective_loss``: one batched splat launch
+    per ``batch_chunk`` samples), as JAX vmaps them, read once. Returns a
+    float32 tensor on the device."""
     width = x_range[1] - x_range[0]
     height = y_range[1] - y_range[0]
     imshape = (int(height / resolution + 0.5), int(width / resolution + 0.5))
@@ -1324,7 +1384,7 @@ def _objective_landscape(xs, ys, ts, ps, objective, warpfunc,
                                iwe_impl=DEFAULT_IWE_IMPL)
     cs = torch.as_tensor(coords, dtype=torch.float32, device=dev)
     with torch.no_grad():
-        img = -torch.stack([loss(c, *events) for c in cs]).reshape(imshape)
+        img = -loss(cs, *events).reshape(imshape)
     lo = img.min() if norm_min is None else norm_min
     hi = img.max() if norm_max is None else norm_max
     return (img - lo) / ((hi - lo) + 1e-6)

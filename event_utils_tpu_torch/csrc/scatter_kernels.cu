@@ -14,7 +14,10 @@
 //   bilinear_scatter     <- _bilinear_kernel (bilinear_matmul /
 //                           _bilinear_core), whole images and, as
 //                           bilinear_patches_scatter, runs of slots that
-//                           each own one patch
+//                           each own one patch; as bilinear_scatter_batched,
+//                           the same kernel under jax.vmap, which Pallas
+//                           batches by adding a grid axis (one launch for
+//                           all parameter samples of a grid search)
 //
 // Three designs live here.
 //
@@ -63,10 +66,13 @@
 //     in shared memory, shared atomics, one 1-D bulk store (cp.async.bulk,
 //     pointer + byte count: no tensor map). The output needs no memset and
 //     sees no global atomic.
-//   - bilinear_private: a whole (K, H, W) image that fits 227 KB. G blocks
-//     each splat a contiguous share of the events into a private copy and
-//     add its non-zero pixels to the zeroed output. With one block the copy
-//     is stored like a patch.
+//   - bilinear_private: whole (K, H, W) images that fit 227 KB, S samples
+//     of them (blockIdx.y = s; one image is S = 1). G blocks a sample each
+//     splat a contiguous share of its events into a private copy and add
+//     its non-zero pixels to the zeroed output, G * S within the card's 132
+//     SMs where the events allow. With one block a sample the copy is
+//     stored like a patch. The direct route, bilinear_scatter_kernel, has
+//     the same sample axis and serves images past 227 KB (K = 4).
 //   - voxel_tiles_private: one block per (tile, bin) owns that bin plane in
 //     its shared memory and stores it once. Every block reads t_norm of all
 //     slots of its tile and keeps the taps of its own bin.
@@ -314,20 +320,21 @@ __global__ void flat_transpose_kernel(const float* __restrict__ scratch,
 }
 
 // (K, H, W) 4-tap bilinear splat of K weight channels sharing the float
-// coordinates (x, y). Tap (y0+oy, x0+ox) gets w*wx*wy with
-// wx in {1-dx, dx}, wy in {1-dy, dy}; taps outside the image are dropped.
-__global__ void bilinear_scatter_kernel(const float* __restrict__ x,
-                                        const float* __restrict__ y,
-                                        const float* __restrict__ w,
-                                        long long n, int K, int H, int W,
-                                        float* __restrict__ out) {
+// coordinates (x, y), events first, first + stride, ... < n, with global
+// atomics into out. Tap (y0+oy, x0+ox) gets w*wx*wy with wx in {1-dx, dx},
+// wy in {1-dy, dy}; taps outside the image are dropped. Channel k's weights
+// are w[k * n + i].
+__device__ __forceinline__ void splat_global(const float* __restrict__ x,
+                                             const float* __restrict__ y,
+                                             const float* __restrict__ w,
+                                             long long n, int K, int H,
+                                             int W, float* __restrict__ out,
+                                             long long first,
+                                             long long stride) {
   const long long plane = static_cast<long long>(H) * W;
   const float fW = static_cast<float>(W);
   const float fH = static_cast<float>(H);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
+  for (long long i = first; i < n; i += stride) {
     const float xf = x[i];
     const float yf = y[i];
     const float x0 = floorf(xf);
@@ -358,6 +365,24 @@ __global__ void bilinear_scatter_kernel(const float* __restrict__ x,
       }
     }
   }
+}
+
+// (S, K, H, W): S samples of n events each (x, y: (S, n)), each splatted by
+// splat_global, with the sample as a grid axis (blockIdx.y = s), as the
+// batching rule of the TPU kernel adds one. The weights are
+// w + s * w_stride: w_stride = 0 for (K, n) weights that all samples share,
+// K * n for (S, K, n). One image is S = 1. out is zeroed.
+__global__ void bilinear_scatter_kernel(const float* __restrict__ x,
+                                        const float* __restrict__ y,
+                                        const float* __restrict__ w,
+                                        long long n, long long w_stride,
+                                        int K, int H, int W,
+                                        float* __restrict__ out) {
+  const long long s = blockIdx.y;
+  splat_global(x + s * n, y + s * n, w + s * w_stride, n, K, H, W,
+               out + s * K * static_cast<long long>(H) * W,
+               static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x,
+               static_cast<long long>(gridDim.x) * blockDim.x);
 }
 
 
@@ -559,36 +584,45 @@ __global__ void bilinear_patches_direct_kernel(const float* __restrict__ x,
   }
 }
 
-// (K, H, W) image that fits one block's shared memory. Each of the gridDim.x
-// blocks splats a contiguous share of the events into a private copy of the
-// whole image. One block: the copy is the result and is stored into out,
-// which needs no memset. Several: each adds the non-zero pixels of its copy
-// to the zeroed out (an image of warped events is mostly zeros).
+// (S, K, H, W) images that each fit one block's shared memory, with the
+// sample as the grid's y axis (one image is S = 1). Each of the gridDim.x
+// blocks of sample s (x, y: row s of (S, n); weights at w + s * w_stride,
+// as in bilinear_scatter_kernel) splats a contiguous share of its events
+// into a private copy of its image. One block a sample: the copy is the
+// result and is stored into out, which needs no memset. Several: each adds
+// the non-zero pixels of its copy to the zeroed out (an image of warped
+// events is mostly zeros).
 //
-// What bounds it: 8 + 4K B per event and the image written once; above that
-// bound it pays for zeroing and flushing gridDim.x copies of the image.
+// What bounds it: 8 B of coordinates per slot, 4K B per weight read (once
+// for all samples where they share the weights) and S images written once;
+// above that bound it pays for zeroing and flushing gridDim.x copies of
+// each image.
 __global__ void __launch_bounds__(kImageThreads)
 bilinear_private_kernel(const float* __restrict__ x,
                         const float* __restrict__ y,
-                        const float* __restrict__ w, long long n, int K,
-                        int H, int W, float* __restrict__ out) {
+                        const float* __restrict__ w, long long n,
+                        long long w_stride, int K, int H, int W,
+                        float* __restrict__ out) {
   extern __shared__ __align__(16) float img[];
+  const long long s = blockIdx.y;
   const int total = K * H * W;
   zero_shared(img, total);
   __syncthreads();
   const long long share = (n + gridDim.x - 1) / gridDim.x;
   const long long lo = blockIdx.x * share;
   const long long hi = lo + share < n ? lo + share : n;
-  splat_range(img, H * W, K, H, W, x, y, w, n, lo, hi);
+  splat_range(img, H * W, K, H, W, x + s * n, y + s * n, w + s * w_stride,
+              n, lo, hi);
   fence_async_proxy();
   __syncthreads();
+  float* o = out + s * total;
   if (gridDim.x == 1) {
-    store_start(out, img, total);
+    store_start(o, img, total);
     store_wait();
   } else {
     for (int i = threadIdx.x; i < total; i += blockDim.x) {
       const float v = img[i];
-      if (v != 0.0f) atomicAdd(out + i, v);
+      if (v != 0.0f) atomicAdd(o + i, v);
     }
   }
 }
@@ -756,17 +790,6 @@ int voxel_scatter_vector(const void* xs, const void* ys, const void* t_norm,
   return static_cast<int>(cudaGetLastError());
 }
 
-int bilinear_scatter(const void* x, const void* y, const void* w, long long n,
-                     int K, int H, int W, void* out, void* stream) {
-  if (n > 0 && K > 0) {
-    bilinear_scatter_kernel<<<grid_for(n), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<const float*>(w), n, K, H, W, static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 int bilinear_patches_scatter(const void* x, const void* y, const void* w,
                              long long P, long long C, int K, int PH, int PW,
                              void* out, void* stream) {
@@ -797,21 +820,65 @@ int bilinear_patches_scatter_direct(const void* x, const void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// blocks == 1 stores the image (out may hold anything); blocks > 1 add
-// their private images to out, which must be zeroed.
-int bilinear_scatter_private(const void* x, const void* y, const void* w,
-                             long long n, int K, int H, int W, void* out,
-                             int blocks, void* stream) {
+// S samples (x, y: (S, n)) into (S, K, H, W); w is (K, n) shared
+// (w_stride 0) or (S, K, n) (w_stride K * n). At most 65535 samples (the
+// grid's y extent): the wrapper launches larger batches in chunks.
+// Direct: out zeroed.
+int bilinear_scatter_batched(const void* x, const void* y, const void* w,
+                             long long S, long long n, long long w_stride,
+                             int K, int H, int W, void* out, void* stream) {
+  if (S > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (S > 0 && n > 0 && K > 0) {
+    long long bx = (n + kThreads - 1) / kThreads;
+    const long long cap = (kMaxBlocks + S - 1) / S;  // ~kMaxBlocks in all
+    if (bx > cap) bx = cap;
+    const dim3 grid(static_cast<unsigned int>(bx),
+                    static_cast<unsigned int>(S));
+    bilinear_scatter_kernel<<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const float*>(w), n, w_stride, K, H, W,
+        static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One image: the batched direct kernel at S = 1. out zeroed.
+int bilinear_scatter(const void* x, const void* y, const void* w, long long n,
+                     int K, int H, int W, void* out, void* stream) {
+  return bilinear_scatter_batched(x, y, w, 1, n, 0, K, H, W, out, stream);
+}
+
+// Private: blocks per sample; 1 stores each image (out may hold anything),
+// more add their private images to out, which must be zeroed.
+int bilinear_scatter_batched_private(const void* x, const void* y,
+                                     const void* w, long long S, long long n,
+                                     long long w_stride, int K, int H, int W,
+                                     void* out, int blocks, void* stream) {
   static const cudaError_t attr = allow_max_shared(bilinear_private_kernel);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  if (K > 0 && blocks > 0) {
-    bilinear_private_kernel<<<blocks, kImageThreads,
+  if (S > 65535 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (S > 0 && K > 0) {
+    const dim3 grid(static_cast<unsigned int>(blocks),
+                    static_cast<unsigned int>(S));
+    bilinear_private_kernel<<<grid, kImageThreads,
                               sizeof(float) * K * H * W,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<const float*>(w), n, K, H, W, static_cast<float*>(out));
+        static_cast<const float*>(w), n, w_stride, K, H, W,
+        static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One image: the batched private kernel at S = 1. blocks == 1 stores the
+// image (out may hold anything); blocks > 1 add their private images to
+// out, which must be zeroed.
+int bilinear_scatter_private(const void* x, const void* y, const void* w,
+                             long long n, int K, int H, int W, void* out,
+                             int blocks, void* stream) {
+  return bilinear_scatter_batched_private(x, y, w, 1, n, 0, K, H, W, out,
+                                          blocks, stream);
 }
 
 int voxel_tiles_scatter_private(const void* bx, const void* by,

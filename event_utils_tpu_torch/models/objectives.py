@@ -48,6 +48,12 @@ def iwe_validity_mask(xw, yw, img_size, mask=None):
 
 
 def _last_valid_t(ts, mask):
+    """The last valid timestamp: a scalar, or (S, 1) where ``ts`` or
+    ``mask`` has a row per sample."""
+    if ts.dim() == 2 or (mask is not None and mask.dim() == 2):
+        if mask is None:
+            return ts[..., -1:]
+        return torch.where(mask != 0, ts, -torch.inf).amax(-1, keepdim=True)
     if mask is None:
         return ts[-1]
     return torch.where(mask != 0, ts, -torch.inf).max()
@@ -62,6 +68,12 @@ def get_iwe(params, xs, ys, ts, ps, warpfunc, img_size,
 
     Returns ``(iwe, d_iwe[, (x', y')][, per_event_contrast])``; ``iwe`` is
     ``(H+1, W+1)`` like the reference's padded bilinear image.
+
+    Batched: ``params`` (S, dims) warps the events once per sample, and the
+    S IWEs ``(S, H+1, W+1)`` form in one batched splat (JAX vmaps this
+    function). The events and ``mask`` are then (N,), shared by every
+    sample, or (S, N), one row per sample; ``t0`` defaults to each row's
+    last valid timestamp. ``compute_gradient`` is per image only.
 
     Divergence kept from the JAX package: the reference forgets to forward
     ``img_size`` to ``events_to_image_drv`` (objectives.py:191); here the
@@ -374,8 +386,13 @@ class zhu_timestamp_objective(objective_function):
         """Differentiable zhu loss straight from events: the timestamp
         images are bilinear scatters of the warped coordinates, so autograd
         flows end to end. ``impl='matmul'`` builds all 4 accumulations in
-        one launch of the CUDA bilinear kernel."""
+        one launch of the CUDA bilinear kernel. (S, dims) params give (S,)
+        losses from one batched K=4 launch (the events as in ``get_iwe``),
+        each image blurred over its own axes."""
         sigma = self.default_blur if blur_sigma is None else blur_sigma
+
+        def reduce(pos, neg):
+            return torch.sum(pos * pos) + torch.sum(neg * neg)
 
         def loss(params, xs, ys, ts, ps, mask=None):
             ts = as_f32(ts, pick_device(xs, ys, ts, ps, mask))
@@ -387,9 +404,10 @@ class zhu_timestamp_objective(objective_function):
                 xw, yw, ts, ps, sensor_size=tuple(img_size), mask=valid,
                 impl=impl)
             if sigma and sigma > 0:
-                pos = gaussian_filter(pos, sigma)
-                neg = gaussian_filter(neg, sigma)
-            return torch.sum(pos * pos) + torch.sum(neg * neg)
+                pos = gaussian_filter(pos, sigma, axes=(-2, -1))
+                neg = gaussian_filter(neg, sigma, axes=(-2, -1))
+            return (torch.func.vmap(reduce) if pos.dim() == 3 else reduce)(
+                pos, neg)
 
         return loss
 

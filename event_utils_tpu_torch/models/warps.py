@@ -5,6 +5,11 @@ on tensors — differentiable by autograd, and ``torch.func.jacfwd`` derives
 the Jacobians a subclass does not write out — wrapped in a small class with
 ``name``/``dims`` and the reference's ``warp(xs, ys, ts, ps, t0, params,
 compute_grad)`` signature.
+
+``params`` may be (S, dims), S parameter samples (JAX vmaps the warp over
+them): ``params[..., i, None]`` broadcasts against (N,) or (S, N) events,
+so the warped coordinates are (S, N), and ``t0`` is a scalar or (S, 1).
+(dims,) params give the (N,) warp.
 """
 
 from __future__ import annotations
@@ -71,7 +76,7 @@ class linvel_warp(warp_function):
 
     def warp_fn(self, params, xs, ys, ts, t0):
         dt = ts - t0
-        return xs - dt * params[0], ys - dt * params[1]
+        return xs - dt * params[..., 0, None], ys - dt * params[..., 1, None]
 
     def jacobian(self, params, xs, ys, ts, t0):
         # dx'/dvx = -(t - t0); dy'/dvy = -(t - t0)
@@ -93,7 +98,7 @@ class xyztheta_warp(warp_function):
 
     def warp_fn(self, params, xs, ys, ts, t0):
         dt = ts - t0
-        vx, vy, s, w = params[0], params[1], params[2], params[3]
+        vx, vy, s, w = (params[..., i, None] for i in range(4))
         return (xs - dt * (vx + s * xs - w * ys),
                 ys - dt * (vy + s * ys + w * xs))
 
@@ -118,7 +123,7 @@ class pure_rotation_warp(warp_function):
         super().__init__("pure_rotation_warp", 3)
 
     def warp_fn(self, params, xs, ys, ts, t0):
-        cx, cy, w = params[0], params[1], params[2]
+        cx, cy, w = (params[..., i, None] for i in range(3))
         a = w * (ts - t0)
         ca, sa = torch.cos(a), torch.sin(a)
         rx = xs - cx
@@ -128,7 +133,7 @@ class pure_rotation_warp(warp_function):
 
 def linvel_warp_fn(params, xs, ys, ts, t0):
     dt = ts - t0
-    return xs - dt * params[0], ys - dt * params[1]
+    return xs - dt * params[..., 0, None], ys - dt * params[..., 1, None]
 
 
 WARP_REGISTRY = {

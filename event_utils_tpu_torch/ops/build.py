@@ -51,6 +51,10 @@ SIGNATURES = {
         "bilinear_patches_scatter_direct": (_P, _P, _P, _L, _L, _I, _I, _I,
                                             _P, _P),
         "bilinear_scatter_private": (_P, _P, _P, _L, _I, _I, _I, _P, _I, _P),
+        "bilinear_scatter_batched": (_P, _P, _P, _L, _L, _L, _I, _I, _I, _P,
+                                     _P),
+        "bilinear_scatter_batched_private": (_P, _P, _P, _L, _L, _L, _I, _I,
+                                             _I, _P, _I, _P),
         "voxel_tiles_scatter_private": (_P, _P, _P, _P, _L, _L, _I, _I, _I,
                                         _P, _P),
     },

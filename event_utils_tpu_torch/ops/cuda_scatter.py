@@ -16,6 +16,8 @@ kernel wrapper (this module)      TPU kernel it replaces (pallas_scatter.py)
                                   ``scatter_add_flat_pallas``
 ``bilinear_scatter``,             ``_bilinear_kernel`` via
 ``bilinear_patches_scatter``      ``bilinear_matmul``
+``bilinear_scatter_batched``      ``_bilinear_kernel`` under ``jax.vmap``
+                                  (the grid searches' samples)
 ================================  =========================================
 
 Every wrapper has several kernels, called routes. A route is chosen from
@@ -56,6 +58,12 @@ the events are many; below that the direct kernels win.
   the direct route at every shape tried (one SM zeroing and storing the
   image costs more than a memset node), so no shape is sent to it; it stays
   selectable for measurement.
+- ``bilinear_scatter_batched:private`` / ``:direct`` — S samples of N
+  events each in one launch (up to 65535 samples) with the sample as the
+  grid's y axis (Pallas batches ``_bilinear_kernel`` under ``vmap`` by adding
+  a grid axis): the private kernel per sample where ``K*H*W*4`` bytes fit
+  227 KB, else the direct one. ``bilinear_scatter:private`` and ``:direct``
+  are these kernels at S = 1.
 - ``bilinear_patches_scatter`` — run ``q`` of ``C`` consecutive slots
   splats into patch ``q`` only (the batched patch loss of the ROI solvers):
   one block owns each patch in shared memory and stores it once into an
@@ -85,8 +93,8 @@ which lies inside each of those precision classes. The VMEM planning of the
 JAX wrappers (``_fit_chunk``, ``SensorLimitError``, the oversized-sensor
 fallbacks) has no counterpart: the card has no such limit.
 
-Gradients: ``voxel_matmul``, ``bilinear_matmul`` and
-``bilinear_patches_scatter`` are ``torch.autograd.Function``s whose backward
+Gradients: ``voxel_matmul``, ``bilinear_matmul``,
+``bilinear_matmul_batched`` and ``bilinear_patches_scatter`` are ``torch.autograd.Function``s whose backward
 is the plain-torch gather of ``_voxel_core_bwd`` / ``_bilinear_core_bwd``
 (plain jnp in the JAX package, so plain torch here); the flat scatter's
 backward is a gather too.
@@ -148,7 +156,8 @@ ROUTES = ("voxel_scatter:vector", "voxel_scatter:direct",
           "voxel_tiles_scatter:private", "voxel_tiles_scatter:direct",
           "flat_scatter:vector", "flat_scatter:direct",
           "bilinear_scatter:direct", "bilinear_scatter:private",
-          "bilinear_scatter:single", "bilinear_patches_scatter",
+          "bilinear_scatter:single", "bilinear_scatter_batched:private",
+          "bilinear_scatter_batched:direct", "bilinear_patches_scatter",
           "bilinear_patches_scatter:direct")
 _launches = dict.fromkeys(ROUTES, 0)
 
@@ -716,18 +725,22 @@ def bilinear_scatter(x, y, w, H: int, W: int, route=None):
 def _bilinear_vjp(g, dx, dy, taps, w):
     """Gather VJP of a bilinear splat (``_bilinear_core_bwd``,
     pallas_scatter.py:749): ``g`` is the output's cotangent flattened to
-    (K, pixels), ``taps`` as ``_bilinear_taps`` returns them. Cotangents of
-    x, y and w."""
-    tap = {(oy, ox): torch.where(ok[None, :], g[:, pix], 0.0)
-           for oy, ox, ok, pix in taps}
+    (..., K, pixels), ``taps`` as ``_bilinear_taps`` returns them for
+    (..., N) coordinates, ``w`` (..., K, N) or broadcast to it; the leading
+    axes are the batched splat's samples. Cotangents of x, y and w."""
+    def gather(ok, pix):
+        idx = pix.unsqueeze(-2).expand(*g.shape[:-1], pix.shape[-1])
+        return torch.where(ok.unsqueeze(-2), torch.gather(g, -1, idx), 0.0)
+
+    tap = {(oy, ox): gather(ok, pix) for oy, ox, ok, pix in taps}
     g00, g01 = tap[(0, 0)], tap[(0, 1)]
     g10, g11 = tap[(1, 0)], tap[(1, 1)]
-    g_w = (((1 - dx) * (1 - dy))[None] * g00 + (dx * (1 - dy))[None] * g01
-           + ((1 - dx) * dy)[None] * g10 + (dx * dy)[None] * g11)
-    g_x = torch.sum(w * ((1 - dy)[None] * (g01 - g00)
-                         + dy[None] * (g11 - g10)), dim=0)
-    g_y = torch.sum(w * ((1 - dx)[None] * (g10 - g00)
-                         + dx[None] * (g11 - g01)), dim=0)
+    dx = dx.unsqueeze(-2)
+    dy = dy.unsqueeze(-2)
+    g_w = (((1 - dx) * (1 - dy)) * g00 + (dx * (1 - dy)) * g01
+           + ((1 - dx) * dy) * g10 + (dx * dy) * g11)
+    g_x = torch.sum(w * ((1 - dy) * (g01 - g00) + dy * (g11 - g10)), dim=-2)
+    g_y = torch.sum(w * ((1 - dx) * (g10 - g00) + dx * (g11 - g01)), dim=-2)
     return g_x, g_y, g_w
 
 
@@ -748,6 +761,147 @@ class _BilinearCore(torch.autograd.Function):
         dx, dy, taps = _bilinear_taps(x, y, H, W)
         return (*_bilinear_vjp(g.reshape(g.shape[0], H * W), dx, dy, taps, w),
                 None, None)
+
+
+# ---------------------------------------------------------------------------
+# Batched bilinear splat (replaces _bilinear_kernel under jax.vmap: Pallas
+# adds a grid axis for the batch, pallas_scatter.py:576 / call :732)
+# ---------------------------------------------------------------------------
+
+# Samples that one batched launch takes: the grid's y extent, one sample a
+# row. How many samples a caller materialises at once (their coordinates
+# and images) is the caller's choice: ``events_cmax.batch_chunk``.
+BATCH_MAX_SAMPLES = 65535
+
+
+def bilinear_batched_route(K: int, H: int, W: int) -> str:
+    """Route of a batched (S, K, H, W) splat: 'private' where one sample's
+    ``K*H*W*4`` bytes fit 227 KB of shared memory (181x241 at K = 1), else
+    'direct' (K = 4 there)."""
+    return "private" if K * H * W * 4 <= SHARED_MAX_BYTES else "direct"
+
+
+def bilinear_scatter_batched_plain(x, y, w, H: int, W: int):
+    """Plain version of ``bilinear_scatter_batched``: each tap of every
+    sample's events summed with one ``index_add_`` over ids offset by the
+    sample's and the channel's image, ``(w * wx) * wy`` as the kernel forms
+    it; each image receives its terms in ``bilinear_scatter_plain``'s
+    order. It computes in ``w``'s type (float64 inputs give a reference
+    for the kernel's own rounding)."""
+    S, n = x.shape
+    K = w.shape[-2]
+    dx, dy, taps = _bilinear_taps(x, y, H, W)
+    wx = (1.0 - dx, dx)
+    wy = (1.0 - dy, dy)
+    base = torch.arange(S * K, device=x.device).view(S, K, 1) * (H * W)
+    out = torch.zeros(S * K * H * W, dtype=w.dtype, device=x.device)
+    for oy, ox, ok, pix in taps:
+        val = (w * wx[ox][:, None, :]) * wy[oy][:, None, :]
+        ids = base + pix[:, None, :]
+        out.index_add_(0, ids.reshape(-1),
+                       torch.where(ok[:, None, :], val, 0.0).reshape(-1))
+    return out.view(S, K, H, W)
+
+
+def bilinear_scatter_batched(x, y, w, H: int, W: int, route=None):
+    """(S, K, H, W) bilinear splats of S samples: plane ``s`` is
+    ``bilinear_scatter(x[s], y[s], w or w[s], H, W)``.
+
+    ``x``, ``y`` f32 (S, N), one warped copy of the events per sample;
+    ``w`` f32 (K, N), shared by every sample, or (S, K, N); all contiguous.
+    Out-of-image, NaN and huge taps are dropped (bounds tested in float).
+    CUDA tensors launch a kernel once per ``BATCH_MAX_SAMPLES`` samples
+    (the grid's y extent), with the sample as the grid's y axis; CPU
+    tensors run ``bilinear_scatter_batched_plain``.
+
+    Routes, by shape alone (``bilinear_batched_route``). 'private' where
+    one sample's image fits 227 KB of shared memory: G blocks of 1024
+    threads per sample, each with a private image, where G is what the
+    card's 132 SMs leave per sample (at most one per 1024 events); with
+    G = 1 each block stores its image into an uninitialised output, else
+    the blocks add their non-zero pixels to a zeroed one. 'direct'
+    otherwise: one thread per slot, global atomics into the zeroed output.
+    ``route`` forces one of the routes the shape allows.
+    """
+    dev = _check("bilinear_scatter_batched", (x, y, w), (_F32, _F32, _F32))
+    if (x.dim() != 2 or y.shape != x.shape or w.dim() not in (2, 3)
+            or w.shape[-1] != x.shape[1]
+            or (w.dim() == 3 and w.shape[0] != x.shape[0])):
+        raise ConfigurationError(
+            f"bilinear_scatter_batched: x, y must be (S, N) and w (K, N) or "
+            f"(S, K, N), got {tuple(x.shape)}, {tuple(y.shape)}, "
+            f"{tuple(w.shape)}")
+    S, n = x.shape
+    K = w.shape[-2]
+    fits = K * H * W * 4 <= SHARED_MAX_BYTES
+    route = _pick("bilinear_scatter_batched", route,
+                  bilinear_batched_route(K, H, W),
+                  {"direct", "private"} if fits else {"direct"})
+    if dev.type == "cpu":
+        return bilinear_scatter_batched_plain(x, y, w, H, W)
+    if S == 0 or n == 0 or K == 0:
+        return torch.zeros((S, K, H, W), dtype=_F32, device=dev)
+    chunk = BATCH_MAX_SAMPLES
+    w_stride = K * n if w.dim() == 3 else 0
+    blocks = max(1, min(-(-n // PRIVATE_EVENTS_PER_BLOCK),
+                        PRIVATE_MAX_BLOCKS // min(S, chunk)))
+    alloc = torch.empty if route == "private" and blocks == 1 else torch.zeros
+    out = alloc((S, K, H, W), dtype=_F32, device=dev)
+    lib = build.library()
+    for s0 in range(0, S, chunk):
+        s1 = min(S, s0 + chunk)
+        ptrs = (x[s0:s1].data_ptr(), y[s0:s1].data_ptr(),
+                (w[s0:s1] if w_stride else w).data_ptr(), s1 - s0, n,
+                w_stride, K, H, W, out[s0:s1].data_ptr())
+        if route == "private":
+            rc = lib.bilinear_scatter_batched_private(*ptrs, blocks,
+                                                      _stream())
+        else:
+            rc = lib.bilinear_scatter_batched(*ptrs, _stream())
+        build.check(rc, f"bilinear_scatter_batched:{route}")
+        _launches[f"bilinear_scatter_batched:{route}"] += 1
+    return out
+
+
+class _BilinearBatchedCore(torch.autograd.Function):
+    """Batched splat with the gather VJP of ``_bilinear_core_bwd``
+    (pallas_scatter.py:749) extended by the sample axis: differentiable in
+    x, y and w (shared weights get the sum over samples)."""
+
+    @staticmethod
+    def forward(ctx, x, y, w, H, W):
+        ctx.save_for_backward(x, y, w)
+        ctx.dims = (H, W)
+        return bilinear_scatter_batched(x, y, w, H, W)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, w = ctx.saved_tensors
+        H, W = ctx.dims
+        dx, dy, taps = _bilinear_taps(x, y, H, W)
+        g_x, g_y, g_w = _bilinear_vjp(g.reshape(*g.shape[:2], H * W), dx, dy,
+                                      taps, w)
+        return g_x, g_y, g_w.sum(0) if w.dim() == 2 else g_w, None, None
+
+
+def bilinear_matmul_batched(x, y, w, shape: Tuple[int, int], mask=None,
+                            precision: str = "hilo"):
+    """(S, K, H, W) bilinear splats of S parameter samples through the
+    batched CUDA kernel: ``bilinear_matmul`` under ``jax.vmap`` over the
+    warped coordinates.
+
+    ``x``, ``y`` (S, N); ``w`` (K, N), shared by the samples, or (S, K, N);
+    ``mask`` (N,) or (S, N) multiplies the weights. Differentiable in ``x``,
+    ``y`` and ``w``.
+    """
+    _check_precision(precision)
+    H, W = shape
+    x = x.to(_F32).contiguous()
+    y = y.to(_F32).contiguous()
+    w = w.to(_F32)
+    if mask is not None:
+        w = w * torch.as_tensor(mask, device=w.device).to(_F32).unsqueeze(-2)
+    return _BilinearBatchedCore.apply(x, y, w.contiguous(), H, W)
 
 
 # ---------------------------------------------------------------------------
@@ -912,6 +1066,8 @@ KERNEL_WRAPPERS = {
     "bilinear_scatter:direct": bilinear_scatter,
     "bilinear_scatter:private": bilinear_scatter,
     "bilinear_scatter:single": bilinear_scatter,
+    "bilinear_scatter_batched:private": bilinear_scatter_batched,
+    "bilinear_scatter_batched:direct": bilinear_scatter_batched,
     "bilinear_patches_scatter": bilinear_patches_scatter,
     "bilinear_patches_scatter:direct": bilinear_patches_scatter,
 }

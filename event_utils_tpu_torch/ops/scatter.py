@@ -178,6 +178,9 @@ def bilinear_scatter(x, y, w, shape: Tuple[int, int], *, mask=None,
 
     Differentiable in ``x``, ``y`` and ``w``; out-of-image taps are dropped.
     ``impl='matmul'`` (and its aliases) runs the CUDA bilinear kernel.
+    (S, N) coordinates are S samples (the warps of S parameter vectors):
+    the result is (S, H, W), ``w`` and ``mask`` are (N,) or (S, N), and the
+    splat is ``_bilinear_samples``'s.
     """
     impl = impl or _DEFAULT_IMPL
     dev = pick_device(x, y, w, mask, device=device)
@@ -186,6 +189,8 @@ def bilinear_scatter(x, y, w, shape: Tuple[int, int], *, mask=None,
     w = as_tensor(w, dev)
     if mask is not None:
         mask = as_tensor(mask, dev)
+    if x.dim() == 2:
+        return _bilinear_samples(x, y, w, shape, mask, impl)
     if impl in _MATMUL_IMPLS:
         return cuda_scatter.bilinear_matmul(x, y, w, shape, mask=mask,
                                             precision=_matmul_precision(impl))
@@ -193,6 +198,27 @@ def bilinear_scatter(x, y, w, shape: Tuple[int, int], *, mask=None,
     idxs, ws = _bilinear_taps(x, y, w, shape, mask)
     img = scatter_add_flat(torch.cat(idxs), torch.cat(ws), H * W, impl=impl)
     return img.view(H, W)
+
+
+def _bilinear_samples(x, y, w, shape: Tuple[int, int], mask, impl: str):
+    """(S, H, W) splats of S samples of (S, N) coordinates, all in one
+    batched call (JAX vmaps the splat). 'matmul' and 'pallas' launch the
+    batched CUDA kernel (``cuda_scatter.bilinear_matmul_batched``); 'xla'
+    and 'sort' scatter the taps of every sample at once into S stacked
+    images through ``scatter_add_flat``."""
+    if impl in _MATMUL_IMPLS + ("pallas",):
+        return cuda_scatter.bilinear_matmul_batched(
+            x, y, w.unsqueeze(-2), shape, mask=mask,
+            precision=_matmul_precision(impl))[:, 0]
+    H, W = shape
+    S = x.shape[0]
+    idxs, ws = _bilinear_taps(x, y, w, shape, mask)
+    off = torch.arange(S, device=x.device)[:, None] * (H * W)
+    ids = [torch.where(i >= 0, i + off, -1).reshape(-1) for i in idxs]
+    img = scatter_add_flat(torch.cat(ids),
+                           torch.cat([v.expand(S, -1).reshape(-1)
+                                      for v in ws]), S * H * W, impl=impl)
+    return img.view(S, H, W)
 
 
 def bilinear_scatter_derivative(x, y, jx, jy, w, shape: Tuple[int, int], *,

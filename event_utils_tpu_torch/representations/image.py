@@ -24,7 +24,7 @@ from ..ops.scatter import (
     bilinear_scatter_derivative,
     scatter_add_2d,
 )
-from ..ops.cuda_scatter import bilinear_matmul
+from ..ops.cuda_scatter import bilinear_matmul, bilinear_matmul_batched
 
 _MATMUL_IMPLS = ("matmul", "matmul_hilo", "matmul_bf16")
 
@@ -167,6 +167,9 @@ def events_to_image_drv(xn, yn, pn, jacobian_xn, jacobian_yn,
 
     Returns ``(iwe, d_iwe)``; ``d_iwe`` is ``(D, H+1, W+1)`` (``None`` if
     ``compute_gradient=False``). Differentiable through the scatter.
+    (S, N) coordinates (the events warped by S parameter samples; ``pn``
+    and ``mask`` (N,) or (S, N)) give S images in one batched splat, the
+    IWE ``(S, H+1, W+1)``; the dIWE stack is per image only.
     """
     H, W = sensor_size
     dev = pick_device(xn, yn, pn, mask, device=device)
@@ -227,8 +230,9 @@ def _timestamp_weight_sums(xs, ys, normalized_ts, ps, mask, img_size,
                            impl):
     """The four raw accumulations behind the timestamp image,
     ``(ts*pos, pos, ts*neg, neg)`` as a (4, H', W') stack, before the count
-    division. The kernel routes build all four in ONE bilinear launch
-    (K=4 channels sharing the coordinates)."""
+    division; (S, 4, H', W') for (S, N) coordinates. The kernel routes
+    build all four in ONE bilinear launch (K=4 channels sharing the
+    coordinates; for S samples one batched K=4 launch)."""
     pos_mask = (ps > 0).to(torch.float32)
     neg_mask = (ps <= 0).to(torch.float32)
     if mask is not None:
@@ -251,17 +255,19 @@ def _timestamp_weight_sums(xs, ys, normalized_ts, ps, mask, img_size,
               if clip_out_of_range else None)
         gx, gy = xs, ys
 
-    weights = torch.stack([normalized_ts * pos_mask, pos_mask,
-                           normalized_ts * neg_mask, neg_mask])
+    samples = gx.dim() == 2
+    weights = torch.stack(torch.broadcast_tensors(
+        normalized_ts * pos_mask, pos_mask, normalized_ts * neg_mask,
+        neg_mask), dim=-2)
     if gm is not None:
-        weights = weights * gm.to(weights.dtype)[None, :]
+        weights = weights * gm.to(weights.dtype).unsqueeze(-2)
 
     if impl in _MATMUL_IMPLS:
-        return bilinear_matmul(gx, gy, weights, img_size,
-                               precision="bf16" if impl == "matmul_bf16"
-                               else "hilo")
+        splat = bilinear_matmul_batched if samples else bilinear_matmul
+        return splat(gx, gy, weights, img_size,
+                     precision="bf16" if impl == "matmul_bf16" else "hilo")
     return torch.stack([bilinear_scatter(gx, gy, w, img_size, impl=impl)
-                        for w in weights])
+                        for w in weights.unbind(-2)], dim=-3)
 
 
 def events_to_timestamp_image(xn, yn, ts, pn, sensor_size=(180, 240),
@@ -278,7 +284,9 @@ def events_to_timestamp_image(xn, yn, ts, pn, sensor_size=(180, 240),
     ``interpolation`` only selects the clip bounds: events always splat
     bilinearly, as in the reference. Count images start at *ones*, so the
     average is ``Σ(t·w) / (1 + Σw)``. Returns ``(img_pos, img_neg)``,
-    padded ``(H+1, W+1)`` when ``padding``.
+    padded ``(H+1, W+1)`` when ``padding``. (S, N) coordinates (S warps of
+    the events; ``ts``, ``pn`` and ``mask`` (N,) or (S, N)) give (S, H', W')
+    images, each sample's timestamps normalised over its own valid events.
     """
     H, W = sensor_size
     dev = pick_device(xn, yn, ts, pn, mask, device=device)
@@ -294,10 +302,16 @@ def events_to_timestamp_image(xn, yn, ts, pn, sensor_size=(180, 240),
         clipx, clipy = img_size[1], img_size[0]
 
     eps = 1e-6
-    if mask is None:
+    big = torch.finfo(torch.float32).max
+    if xs.dim() == 2:  # per sample: (S, 1)
+        if mask is None:
+            t_first, t_last = ts[..., :1], ts[..., -1:]
+        else:
+            t_first = torch.where(mask != 0, ts, big).amin(-1, keepdim=True)
+            t_last = torch.where(mask != 0, ts, -big).amax(-1, keepdim=True)
+    elif mask is None:
         t_first, t_last = ts[0], ts[-1]
     else:
-        big = torch.finfo(torch.float32).max
         t_first = torch.where(mask != 0, ts, big).min()
         t_last = torch.where(mask != 0, ts, -big).max()
     if timestamp_reverse:
@@ -312,9 +326,9 @@ def events_to_timestamp_image(xn, yn, ts, pn, sensor_size=(180, 240),
     stack = _timestamp_weight_sums(xs, ys, normalized_ts, ps, mask, img_size,
                                    clipx, clipy, clip_out_of_range,
                                    legacy_mask, impl)
-    img_pos, img_neg = stack[0], stack[2]
-    img_pos_cnt = 1.0 + stack[1]
-    img_neg_cnt = 1.0 + stack[3]
+    img_pos, img_neg = stack[..., 0, :, :], stack[..., 2, :, :]
+    img_pos_cnt = 1.0 + stack[..., 1, :, :]
+    img_neg_cnt = 1.0 + stack[..., 3, :, :]
     img_pos = img_pos / torch.where(img_pos_cnt == 0, 1.0, img_pos_cnt)
     img_neg = img_neg / torch.where(img_neg_cnt == 0, 1.0, img_neg_cnt)
     return img_pos, img_neg

@@ -265,14 +265,16 @@ def test_grid_search_refine_parity(ev):
     jl = J.contrast_max.make_objective_loss(J.models.variance_objective(),
                                             J.models.linvel_warp(), SENSOR,
                                             1.0)
-    pl = P.contrast_max.make_objective_loss(P.models.variance_objective(),
-                                            P.models.linvel_warp(), SENSOR,
-                                            1.0)
+    # the port's loss_fn takes the whole level's (S, dims) samples at once:
+    # JAX's jax.vmap(loss_fn) written out
+    pl = P.contrast_max.make_objective_loss(
+        P.models.variance_objective(), P.models.linvel_warp(), SENSOR, 1.0)
     jp, je = jax.jit(lambda: J.contrast_max.grid_search_refine(
         lambda p: jl(p, xs, ys, ts, ps), 2, iters=6))()
     t = lambda a: torch.as_tensor(a)
     pp, pe = P.contrast_max.grid_search_refine(
-        lambda p: pl(p, t(xs), t(ys), t(ts), t(ps)), 2, iters=6, device=CPU)
+        lambda P_: pl(P_, t(xs), t(ys), t(ts), t(ps)), 2, iters=6,
+        device=CPU)
     np.testing.assert_allclose(pp.numpy(), np.asarray(jp), atol=PARAM_ATOL)
     assert abs(float(pe) - float(je)) <= 3e-5 * abs(float(je))
 

@@ -827,3 +827,77 @@ def test_densified_grids_launch_their_kernels(cuda, gen):
     assert_rel(img.cpu(), events_to_image(host[0], host[1], host[3],
                                           mask=host[4], impl="matmul",
                                           device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# The batched splat (the grid searches' samples in one launch)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,K,shared,H,W", [
+    (1, 50_000, 1, True, 181, 241), (25, 20_000, 1, True, 181, 241),
+    (7, 3001, 3, False, 37, 53), (5, 20_000, 4, False, 181, 241),
+    (9, 777, 4, True, 181, 241)])
+def test_batched_bilinear_matches_plain_and_single_launches(
+        cuda, gen, S, n, K, shared, H, W):
+    """Every route against its plain version and against S single
+    splats; NaN, huge and wholly-off samples drop their taps."""
+    x = torch.as_tensor(gen.uniform(-2, W + 1, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(-2, H + 1, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    x[0, ::13] = float("nan")
+    y[0, 5::17] = 1e30
+    if S > 1:
+        x[1] = -50.0
+    w = torch.as_tensor(gen.normal(size=(K, n) if shared else (S, K, n)),
+                        dtype=torch.float32, device=cuda)
+    route = cs.bilinear_batched_route(K, H, W)
+    before = cs.launch_counts()[f"bilinear_scatter_batched:{route}"]
+    got = cs.bilinear_scatter_batched(x, y, w, H, W)
+    assert cs.launch_counts()[f"bilinear_scatter_batched:{route}"] == (
+        before + 1)
+    assert_rel(got, cs.bilinear_scatter_batched_plain(x, y, w, H, W))
+    single = torch.stack([cs.bilinear_scatter(x[s], y[s],
+                                              w if shared else w[s], H, W)
+                          for s in range(S)])
+    assert_rel(got, single)
+    if S > 1:
+        assert float(got[1].abs().max()) == 0.0
+    for r in ({"direct", "private"} if K * H * W * 4 <= cs.SHARED_MAX_BYTES
+              else {"direct"}):
+        assert_rel(cs.bilinear_scatter_batched(x, y, w, H, W, route=r), got)
+
+
+@pytest.mark.cuda
+def test_batched_bilinear_launches_one_chunk_at_a_time(cuda, gen,
+                                                       monkeypatch):
+    """S across the samples one launch takes: one launch per chunk, each
+    chunk's planes written."""
+    S, n, H, W = 11, 4096, 181, 241
+    monkeypatch.setattr(cs, "BATCH_MAX_SAMPLES", 4)
+    x = torch.as_tensor(gen.uniform(0, W, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(0, H, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    w = torch.ones(1, n, device=cuda)
+    before = cs.launch_counts()
+    got = cs.bilinear_scatter_batched(x, y, w, H, W)
+    after = cs.launch_counts()
+    diff = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert diff == {"bilinear_scatter_batched:private": 3}
+    assert_rel(got, cs.bilinear_scatter_batched_plain(x, y, w, H, W))
+
+
+@pytest.mark.cuda
+def test_batched_bilinear_refused_launch_raises(cuda, monkeypatch):
+    """A launch the card refuses (here a grid past 65535 samples) raises:
+    nothing falls back to the plain version or to single splats."""
+    from event_utils_tpu_torch.errors import NativeBuildError
+    monkeypatch.setattr(cs, "BATCH_MAX_SAMPLES", 70_000)
+    x = torch.zeros(70_000, 1, device=cuda)
+    before = cs.launch_counts()
+    with pytest.raises(NativeBuildError):
+        cs.bilinear_scatter_batched(x, x, torch.ones(1, 1, device=cuda), 8,
+                                    8)
+    assert cs.launch_counts() == before
