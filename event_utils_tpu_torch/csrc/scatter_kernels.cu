@@ -69,16 +69,19 @@
 //   - bilinear_private: whole (K, H, W) images that fit 227 KB, S samples
 //     of them (blockIdx.y = s; one image is S = 1). G blocks a sample each
 //     splat a contiguous share of its events into a private copy and add
-//     its non-zero pixels to the zeroed output, G * S within the card's 132
-//     SMs where the events allow. With one block a sample the copy is
-//     stored like a patch. The direct route, bilinear_scatter_kernel, has
-//     the same sample axis and serves images past 227 KB (K = 4).
+//     its non-zero pixels to the zeroed output; G is the wrapper's, by
+//     shape: G * S within the card's 132 SMs for few samples, up to 3 a
+//     sample in waves where one block a sample would leave SMs idle. With
+//     one block a sample the copy is stored like a patch. The direct route,
+//     bilinear_scatter_kernel, has the same sample axis and serves images
+//     past 227 KB (K = 4).
 //   - voxel_tiles_private: one block per (tile, bin) owns that bin plane in
 //     its shared memory and stores it once. Every block reads t_norm of all
 //     slots of its tile and keeps the taps of its own bin.
 // Variants that measured slower on an H100 (taps sent through a cluster's
-// distributed shared memory, cp.reduce.async.bulk of whole private images,
-// several channels per block, other block sizes, one voxel accumulator with
+// distributed shared memory, private copies summed across a cluster through
+// it and stored once, for images and for few patches, cp.reduce.async.bulk
+// of whole private images, several channels per block, other block sizes, one voxel accumulator with
 // scalar reductions for odd first bins, flat ids loaded ahead or one thread
 // per (row, id) element) live with the script that measures them,
 // scripts/tune_scatter_variants.cu.

@@ -62,8 +62,9 @@ the events are many; below that the direct kernels win.
   events each in one launch (up to 65535 samples) with the sample as the
   grid's y axis (Pallas batches ``_bilinear_kernel`` under ``vmap`` by adding
   a grid axis): the private kernel per sample where ``K*H*W*4`` bytes fit
-  227 KB, else the direct one. ``bilinear_scatter:private`` and ``:direct``
-  are these kernels at S = 1.
+  227 KB, else the direct one; ``private_blocks`` gives the private blocks
+  a sample by shape. ``bilinear_scatter:private`` and ``:direct`` are these
+  kernels at S = 1.
 - ``bilinear_patches_scatter`` — run ``q`` of ``C`` consecutive slots
   splats into patch ``q`` only (the batched patch loss of the ROI solvers):
   one block owns each patch in shared memory and stores it once into an
@@ -71,6 +72,11 @@ the events are many; below that the direct kernels win.
   ``bilinear_patches_scatter:direct`` — one thread per slot, global atomics
   into the zeroed patches: fewer patches (their output stays in L2), and
   patches too large for shared memory.
+
+Private copies summed across a thread-block cluster through distributed
+shared memory, each pixel stored once, lost to these kernels on the card
+(``scripts/tune_scatter_variants.cu``): for whole images to more private
+blocks a sample run in waves, for few patches to the direct kernel.
 - ``voxel_tiles_scatter:private`` — one block per ``(tile, bin)`` owns that
   bin plane in shared memory, reads its tile's slots and keeps the taps of
   its bin, and stores the plane once into an uninitialised output.
@@ -667,6 +673,36 @@ def bilinear_scatter_plain(x, y, w, H: int, W: int):
 PRIVATE_MIN_EVENTS = 98304
 PRIVATE_EVENTS_PER_BLOCK = 1024
 PRIVATE_MAX_BLOCKS = 132
+# Blocks a sample where one block a sample leaves SMs idle, in waves: at
+# most 3 (part 9 of the tune script on an H100 at 700 W, 181x241 images:
+# 83 x 200k events 0.293 ms with 1 block a sample, 0.305 with 2, 0.216
+# with 3, 0.248 with 4, 0.234 with 6; 167 x 100k 0.302 / 0.252 / 0.236 /
+# 0.270 / 0.268; 129 x 130k best with 1, 0.199), and only where they cut
+# the waves per block's share of the events to 3/4 of one block's or less:
+# both shapes cut them to 2/3 and gained 22-26%, the flush of the added
+# copies costing 7-11% of the one-block time.
+PRIVATE_WAVE_BLOCKS = 3
+PRIVATE_WAVE_CUT = 0.75
+
+
+def private_blocks(S: int, n: int) -> int:
+    """Blocks a sample of the batched private kernel for S samples of n
+    events, by shape. Up to 66 samples: as many as fill the card's 132 SMs
+    in one wave (at most one per 1024 events). More, with at least 98304
+    events a sample: 1 to ``PRIVATE_WAVE_BLOCKS``, the count that runs the
+    fewest waves of blocks per block's share of the events (the smaller on
+    a tie: each further block adds its copy's flush), where that is at
+    most ``PRIVATE_WAVE_CUT`` of one block's waves. Otherwise one, which
+    stores its image without a memset."""
+    most = max(1, -(-n // PRIVATE_EVENTS_PER_BLOCK))
+    if 2 * S <= PRIVATE_MAX_BLOCKS:
+        return min(most, PRIVATE_MAX_BLOCKS // S)
+    if n < PRIVATE_MIN_EVENTS:
+        return 1
+    share = lambda b: -(-S * b // PRIVATE_MAX_BLOCKS) / b
+    best = min(range(1, min(most, PRIVATE_WAVE_BLOCKS) + 1),
+               key=lambda b: (share(b), b))
+    return best if share(best) <= PRIVATE_WAVE_CUT * share(1) else 1
 
 
 def bilinear_route(K: int, H: int, W: int, n: int) -> str:
@@ -816,9 +852,11 @@ def bilinear_scatter_batched(x, y, w, H: int, W: int, route=None):
 
     Routes, by shape alone (``bilinear_batched_route``). 'private' where
     one sample's image fits 227 KB of shared memory: G blocks of 1024
-    threads per sample, each with a private image, where G is what the
-    card's 132 SMs leave per sample (at most one per 1024 events); with
-    G = 1 each block stores its image into an uninitialised output, else
+    threads per sample, each with a private image (``private_blocks``: for
+    few samples what the card's 132 SMs leave per sample, at most one per
+    1024 events; for more, up to 3 in waves where one a sample would leave
+    SMs idle); with G = 1 each block stores its image into an
+    uninitialised output, else
     the blocks add their non-zero pixels to a zeroed one. 'direct'
     otherwise: one thread per slot, global atomics into the zeroed output.
     ``route`` forces one of the routes the shape allows.
@@ -843,8 +881,7 @@ def bilinear_scatter_batched(x, y, w, H: int, W: int, route=None):
         return torch.zeros((S, K, H, W), dtype=_F32, device=dev)
     chunk = BATCH_MAX_SAMPLES
     w_stride = K * n if w.dim() == 3 else 0
-    blocks = max(1, min(-(-n // PRIVATE_EVENTS_PER_BLOCK),
-                        PRIVATE_MAX_BLOCKS // min(S, chunk)))
+    blocks = private_blocks(min(S, chunk), n)
     alloc = torch.empty if route == "private" and blocks == 1 else torch.zeros
     out = alloc((S, K, H, W), dtype=_F32, device=dev)
     lib = build.library()

@@ -9,7 +9,8 @@ up, then once under ``torch.profiler``:
 - ``optimize_contrast_jit(grid_search_init=True)`` and
   ``optimize_contrast(grid_search_init=True)`` on the planted 200k-event
   DAVIS240 scene;
-- ``grid_cmax_batched`` on the rotating bench scene (the smoke's settings);
+- ``grid_cmax_batched`` on the rotating bench scene (the smoke's settings),
+  with the default descent and with ``solver='bfgs'``;
 - ``events_to_voxel_tiled`` at 720p on 2^21 events;
 - the serving path on the smoke's serving recording (128x128, 20
   ``between_frames`` windows of >= 10^6 events, made by
@@ -113,6 +114,10 @@ def main() -> int:
         rx, ry, rt, rp, roi_size=chip_smoke.ROT_ROI,
         img_size=chip_smoke.ROT_SENSOR, maxiter=chip_smoke.ROT_MAXITER,
         capacity=chip_smoke.ROT_CAPACITY)
+    roi_bfgs = lambda: grid_cmax_batched(
+        rx, ry, rt, rp, solver="bfgs", roi_size=chip_smoke.ROT_ROI,
+        img_size=chip_smoke.ROT_SENSOR, maxiter=chip_smoke.ROT_MAXITER,
+        capacity=chip_smoke.ROT_CAPACITY)
     rng = np.random.default_rng(chip_smoke.SEED)
     big = chip_smoke.TILED_SENSORS["720p"]
     n = chip_smoke.N_VOXEL
@@ -120,8 +125,9 @@ def main() -> int:
     vt, vp = np.sort(rng.uniform(0, 0.5, n)), rng.choice([-1.0, 1.0], n)
     tiled = lambda: events_to_voxel_tiled(vx, vy, vt, vp, chip_smoke.B, big)
     phases = [("optimize_contrast_jit", jit), ("optimize_contrast", host),
-              ("grid_cmax_batched", roi), ("events_to_voxel_tiled 720p",
-                                           tiled)]
+              ("grid_cmax_batched", roi),
+              ("grid_cmax_batched(solver='bfgs')", roi_bfgs),
+              ("events_to_voxel_tiled 720p", tiled)]
     with tempfile.TemporaryDirectory(prefix=".profile_serving_",
                                      dir=chip_smoke.ROOT) as work:
         phases += serving_phases(torch, work)

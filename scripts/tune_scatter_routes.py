@@ -3,8 +3,9 @@
 which launch parameters are fastest.
 
     python3 scripts/tune_scatter_routes.py [--parts 6,7,8] [--out r.jsonl]
+        [--cases chunk,6x8]
 
-The thresholds in ``ops/cuda_scatter.py`` (``PRIVATE_*``,
+The thresholds in ``ops/cuda_scatter.py`` (``PRIVATE_*``, ``private_blocks``,
 ``PATCH_MIN_PATCHES``, ``VECTOR_*``) and the launch parameters fixed in
 ``csrc/scatter_kernels.cu`` come from this script's output. The package
 ships one configuration of each kernel; the others that are measured here
@@ -51,6 +52,32 @@ measurement (with ``--out``, also written to that file):
    4096 to 800k, the D=1 event image up to 2^21 ids, D = 3, 4, 5, 8 at
    200k ids, D=2 into 480x640 buckets; direct and vector, and the variants
    with one thread per (row, id) element and with ids loaded ahead.
+9. The batched private kernel against the cluster variant (private
+   copies summed across a thread-block cluster through distributed shared
+   memory, ``cluster_splat_body`` in the variants' source): how many
+   clusters of each size (1-16 CTAs, non-portable past 8) the card holds
+   at once for a 181x241 image and a (64, 128) patch; then the batched
+   private route at the main path's shapes (a single image of 200k uniform
+   and warped events, a grid level of 25 x 200k, loss chunks of 2^24 // N
+   samples of N events (83 x 200k, 129 x 130k, 167 x 100k), the
+   landscape's 400 x 15k, a stream grid level of 25 x 20k, 2700 ROI rows
+   of 2048 slots, 25 x 200k events all on one pixel, 65535 and 65536
+   samples of 4 events into 6x8) as shipped, with the blocks that fill one
+   wave and, where one block a sample leaves SMs idle, with 1-6 blocks a
+   sample in waves (``private_blocks`` comes from these rows); against the
+   cluster variant over cluster sizes G and clusters a sample, with and
+   without a warp's lanes grouped by pixel; and the few-patch variant (one
+   cluster per patch, grouped or not: a descent step of 108 patches at
+   K = 1 and 4, 1024 slots a patch, all slots on one pixel) against the
+   direct and patch kernels, over G; and each kernel launched with no
+   slots (its fixed cost). ``--cases`` keeps the image cases whose label
+   holds one of its words and skips the patches.
+10. The few-patch route over whole ROI solves: every splat of fewer than
+   768 patches that ``grid_cmax_batched`` makes on the rotating scene
+   (descent and BFGS; and a 20,000-event window at 1024 slots a patch, as
+   ``stream_flow`` cuts them) is kept, and about 40 of them, spread over the
+   solve, are timed on the direct route and on the grouped cluster variant
+   (G = 2): the mean device ms a call on each.
 
 Rows marked "as shipped" time the package's own kernel through its
 wrapper; the others time a variant (the variant with the shipped parameters
@@ -99,6 +126,9 @@ def build_variants(build):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {VARIANTS_SOURCE}:\n"
                            f"{proc.stderr[-6000:]}")
+    # registers, shared memory and spills of the variants' kernels
+    print("\n".join(line for line in proc.stderr.splitlines()
+                    if "ptxas info" in line or "spill" in line), flush=True)
     dll = ctypes.CDLL(lib)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, argtypes in {
@@ -112,6 +142,9 @@ def build_variants(build):
             "voxel_single": [P, P, P, P, L, I, I, I, I, P, P, P],
             "red_probe": [P, L, L, I, P],
             "shared_atomic_probe": [P, I, I, I, I, P],
+            "cluster_wide": [P, P, P, L, L, L, I, I, I, P, I, I, I, P],
+            "patches_cluster": [P, P, P, L, L, I, I, I, P, I, I, P],
+            "cluster_wide_occupancy": [I, I, I, I, P],
     }.items():
         getattr(dll, name).argtypes = argtypes
         getattr(dll, name).restype = I
@@ -143,18 +176,22 @@ def sass_reductions(build, lib_path):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write the JSON lines here")
-    parser.add_argument("--parts", default="1,2,3,4,5,6,7,8",
+    parser.add_argument("--parts", default="1,2,3,4,5,6,7,8,9,10",
                         help="comma-separated parts to run (default: all)")
+    parser.add_argument("--cases", default="",
+                        help="part 9: only the image cases whose label holds "
+                        "one of these comma-separated words (no patches)")
     opts = parser.parse_args()
     try:
-        return run({int(k) for k in opts.parts.split(",")})
+        return run({int(k) for k in opts.parts.split(",")},
+                   [c for c in opts.cases.split(",") if c])
     finally:
         if opts.out:
             with open(opts.out, "w") as f:
                 f.write("\n".join(lines) + "\n")
 
 
-def run(parts) -> int:
+def run(parts, only=()) -> int:
     import torch
     if not torch.cuda.is_available():
         print("tune: no CUDA device", file=sys.stderr)
@@ -582,6 +619,295 @@ def run(parts) -> int:
                             flat_variant(name, idx, wts, buckets), ref)
                 emit(**tag, route=name, ok=ok,
                      ms=T(lambda: flat_variant(name, idx, wts, buckets)))
+
+
+    # ---- 9. the private kernel's blocks, the cluster variant ---------
+    if 9 in parts:
+        I = ctypes.c_int
+
+        def occupancy(G, threads, smem, grouped):
+            active = I(0)
+            build.check(vlib.cluster_wide_occupancy(
+                G, threads, smem, grouped, ctypes.addressof(active)),
+                "occupancy")
+            return active.value
+
+        # the cluster kernel with a 181x241 image, the grouped kernel with a
+        # (64, 128) patch as the few-patch variant runs it
+        for threads, (h, wd), grouped in ((1024, (H, W), 0),
+                                          (256, (64, 128), 1)):
+            emit(part=9, what="clusters resident at once", threads=threads,
+                 plane=[h, wd], grouped=grouped,
+                 active={G: occupancy(G, threads, h * wd * 4, grouped)
+                         for G in range(1, 17)})
+        sx_, sy_, st_, sp_ = chip_smoke.planted_scene(
+            np.random.default_rng(chip_smoke.SEED))
+        tt, ex, ey, ep = t(st_ - st_[-1]), t(sx_), t(sy_), t(sp_)
+
+        def warped(v, m=n):
+            v = t(v)
+            x = (ex[:m] - tt[:m] * v[:, 0:1]).contiguous()
+            y = (ey[:m] - tt[:m] * v[:, 1:2]).contiguous()
+            ok = (x > 0) & (x < W - 1) & (y > 0) & (y < H - 1)
+            return x, y, (ep[:m] * ok)[:, None, :].contiguous()
+
+        level = chip_smoke.grid_samples(np.linspace(-150.0, 150.0, 5))
+        land = chip_smoke.grid_samples(np.arange(-190.0, 200.0, 20.0))
+        crng = np.random.default_rng(9)
+        corner = crng.uniform(0, [W - 21, H - 21], (2700, 1, 2))
+        rows = (t(corner[..., 0] + crng.uniform(0, 20, (2700, 2048))),
+                t(corner[..., 1] + crng.uniform(0, 20, (2700, 2048))),
+                t(crng.choice([-1.0, 1.0], (2700, 1, 2048))))
+        ux, uy, uw = coords["uniform"]
+        pile = torch.full((25, n), 100.5, dtype=f32, device=dev)
+        vrng = np.random.default_rng(3)
+        images = [
+            ("S=1 uniform", ux[None], uy[None], uw),
+            ("S=1 warped scene", *warped(np.array([[vx, vy]]))),
+            ("grid level 25 x 200k", *warped(level)),
+            # a loss chunk holds 2^24 // N samples of N events
+            ("chunk 83 x 200k", *warped(vrng.uniform(-150, 150, (83, 2)))),
+            ("chunk 129 x 130k", *warped(vrng.uniform(-150, 150, (129, 2)),
+                                         130000)),
+            ("chunk 167 x 100k", *warped(vrng.uniform(-150, 150, (167, 2)),
+                                         100000)),
+            ("landscape 400 x 15k", *warped(land, 15000)),
+            ("stream level 25 x 20k", *warped(level, 20000)),
+            ("ROI rows 2700 x 2048", *rows),
+            ("25 x 200k on one pixel", pile, pile * 0.5,
+             uw.abs()[None].expand(25, 1, n).contiguous()),
+        ]
+        # the samples one launch takes and one more (two launches through
+        # the wrapper), 4 events a sample into 6x8, as the smoke's case
+        for S in (cs.BATCH_MAX_SAMPLES, cs.BATCH_MAX_SAMPLES + 1):
+            images.append((f"{S} x 4 into 6x8", *(
+                t(vrng.uniform(-1, hi, (S, 4))) for hi in (9, 7)),
+                t(vrng.normal(size=(1, 4))), (6, 8)))
+        if only:
+            images = [c for c in images if any(k in c[0] for k in only)]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        def within(what, got, x, y, w, h, wd):
+            """The smoke's per-pixel rule (splat_limits) against the plain
+            version in float64; a miss is reported."""
+            try:
+                limit = chip_smoke.splat_limits(torch, x, y, w, h, wd)
+                chip_smoke.check_splat(
+                    what, got, cs.bilinear_scatter_batched_plain(
+                        x.double(), y.double(), w.double(), h, wd), limit)
+                return True
+            except AssertionError as e:
+                failed.append(str(e))
+                return False
+
+        for label, x, y, w, *dims in images:
+            S, m = x.shape
+            K = w.shape[-2]
+            ws = K * m if w.dim() == 3 else 0
+            h, wd = dims[0] if dims else (H, W)
+            tag = dict(part=9, case=label, samples=S, events=m)
+            def cluster(G, c, grouped, slots=m, out=None):
+                alloc = torch.empty if c == 1 else torch.zeros
+                out = alloc((S, K, h, wd), dtype=f32, device=dev) \
+                    if out is None else out
+                build.check(vlib.cluster_wide(
+                    x.data_ptr(), y.data_ptr(), w.data_ptr(), S, slots, ws, K,
+                    h, wd, out.data_ptr(), G, c, grouped, stream()),
+                    f"cluster G={G} c={c}")
+                return out
+
+            def private(blocks, slots=m, out=None):
+                alloc = torch.empty if blocks == 1 else torch.zeros
+                out = alloc((S, K, h, wd), dtype=f32, device=dev) \
+                    if out is None else out
+                build.check(lib.bilinear_scatter_batched_private(
+                    x.data_ptr(), y.data_ptr(), w.data_ptr(), S, slots, ws, K,
+                    h, wd, out.data_ptr(), blocks, stream()), "private")
+                return out
+
+            shipped = lambda: cs.bilinear_scatter_batched(
+                x, y, w, h, wd, route="private")
+            if S > cs.BATCH_MAX_SAMPLES:
+                # one launch takes up to BATCH_MAX_SAMPLES: the wrapper's
+                # two launches, against two of the cluster kernel's (G = 1)
+                c0 = cs.BATCH_MAX_SAMPLES
+
+                def two():
+                    out = torch.empty((S, K, h, wd), dtype=f32, device=dev)
+                    for s0 in (0, c0):
+                        s1 = min(S, s0 + c0)
+                        build.check(vlib.cluster_wide(
+                            x[s0:s1].data_ptr(), y[s0:s1].data_ptr(),
+                            w.data_ptr(), s1 - s0, m, 0, K, h, wd,
+                            out[s0:s1].data_ptr(), 1, 1, 0, stream()),
+                            "two launches")
+                    return out
+
+                emit(**tag, route="private, as shipped",
+                     blocks=cs.private_blocks(c0, m), ms=T(shipped))
+                emit(**tag, route="cluster", G=1, clusters=1, grouped=0,
+                     ms=T(two))
+                continue
+
+            if label in ("S=1 uniform", "grid level 25 x 200k"):
+                # what a launch costs with no slot to splat
+                out0 = torch.zeros((S, K, h, wd), dtype=f32, device=dev)
+                for blocks in (1, 5, 132):
+                    if S * blocks <= 2 * sms:
+                        emit(**tag, route="private kernel, no slots",
+                             blocks=blocks, ms=T(lambda: private(
+                                 blocks, 0, out0)))
+                for G, c in ((1, 1), (1, 5), (4, 1), (8, 1), (1, 132)):
+                    if S * G * c <= 2 * sms:
+                        emit(**tag, route="cluster, no slots", G=G,
+                             clusters=c, ms=T(lambda: cluster(G, c, 0, 0,
+                                                              out0)))
+            blocks = cs.private_blocks(S, m)
+            ok = within(f"private, as shipped {tag}", shipped(), x, y, w, h,
+                        wd)
+            emit(**tag, route="private, as shipped", blocks=blocks, ok=ok,
+                 ms=T(shipped))
+            # the blocks that fill one wave of the SMs (the single image:
+            # 2 .. 132 blocks), and, where one block a sample leaves SMs
+            # idle or a last wave part-full, more blocks a sample in waves
+            wave = max(1, min(-(-m // 1024), sms // S))
+            if S == 1:
+                wave = max(2, min(sms, -(-m // 1024)))
+            tries = {wave}
+            if sms < 2 * S < 4 * sms and m > 20000:
+                tries |= {1, 2, 3, 4, 6}
+            for b in sorted(tries - {blocks}):
+                ok = within(f"private {b} {tag}", private(b), x, y, w, h, wd)
+                emit(**tag, route="private kernel", blocks=b, ok=ok,
+                     ms=T(lambda: private(b)))
+            for G in (1, 2, 3, 4, 5, 8, 16):
+                counts = {1}
+                if S < 66:
+                    counts |= {c for c in (2, 4, 8, 16, 33, 66, 132)
+                               if S * G * c <= 2 * sms}
+                if S >= 400 and G > 2:
+                    continue
+                for c in sorted(counts):
+                    if G == 1 and c == 1 and S < 8 and m > 20000:
+                        continue
+                    for grouped in (2, 1, 0):
+                        ok = within(f"cluster G={G} c={c} grouped={grouped} "
+                                    f"{tag}", cluster(G, c, grouped), x, y, w,
+                                    h, wd)
+                        emit(**tag, route="cluster", G=G, clusters=c,
+                             grouped=grouped, ok=ok,
+                             ms=T(lambda: cluster(G, c, grouped)))
+        torch.cuda.empty_cache()
+        # patches: a descent step (the first 108 patches of one batched
+        # loss evaluation), stream_flow's 1024 slots a patch, K = 4, and
+        # every slot of every patch on one pixel
+        for objective in ("variance", "zhu")[:0 if only else 2]:
+            x, y, w, P, C, PH, PW = chip_smoke.patch_loss_inputs(
+                torch, objective)
+            R = P // 25
+            K = w.shape[0]
+            x, y, w = (x[:R * C].contiguous(), y[:R * C].contiguous(),
+                       w[:, :R * C].contiguous())
+            sets = [("descent step", x, y, w, C)]
+            if K == 1:
+                hc = C // 2
+                sets += [("stream_flow 1024 slots",
+                          x.view(R, C)[:, :hc].reshape(-1).contiguous(),
+                          y.view(R, C)[:, :hc].reshape(-1).contiguous(),
+                          w.view(K, R, C)[..., :hc].reshape(K, -1)
+                          .contiguous(), hc),
+                         ("all slots on one pixel", x * 0 + 60.5,
+                          y * 0 + 30.5, w.abs(), C)]
+            for label, px, py, pw, pc in sets:
+                tag = dict(part=9, case=label, K=K, patches=R, slots=pc,
+                           patch=[PH, PW])
+                for route in ("direct", "patch"):
+                    emit(**tag, route=f"{route}, as shipped", ms=T(
+                        lambda: cs.bilinear_patches_scatter(
+                            px, py, pw, R, pc, PH, PW, route=route)))
+
+                def pcluster(G, grouped):
+                    out = torch.empty((K, R, PH, PW), dtype=f32, device=dev)
+                    build.check(vlib.patches_cluster(
+                        px.data_ptr(), py.data_ptr(), pw.data_ptr(), R, pc, K,
+                        PH, PW, out.data_ptr(), G, grouped, stream()),
+                        "pcluster")
+                    return out
+
+                # each patch a sample of pc slots for the per-pixel rule
+                sx_p, sy_p = px.view(R, pc), py.view(R, pc)
+                sw_p = pw.view(K, R, pc).permute(1, 0, 2).contiguous()
+                if label == "descent step":
+                    # what a launch costs with no slot to splat: zeroing,
+                    # the syncs, the combine and the stores
+                    for G in (1, 2, 4, 8):
+                        out0 = torch.empty((K, R, PH, PW), dtype=f32,
+                                           device=dev)
+                        emit(**tag, route="cluster, no slots", G=G, ms=T(
+                            lambda: build.check(vlib.patches_cluster(
+                                px.data_ptr(), py.data_ptr(), pw.data_ptr(),
+                                R, 0, K, PH, PW, out0.data_ptr(), G, 1,
+                                stream()), "pcluster")))
+                for G in range(1, 9):
+                    for grouped in (1, 0):
+                        ok = within(f"patch cluster G={G} grouped={grouped} "
+                                    f"{tag}", pcluster(G, grouped).permute(
+                                        1, 0, 2, 3), sx_p, sy_p, sw_p, PH, PW)
+                        emit(**tag, route="cluster", G=G, grouped=grouped,
+                             ok=ok, ms=T(lambda: pcluster(G, grouped)))
+
+    # ---- 10. the few-patch route over a whole solve ----------------------
+    if 10 in parts:
+        # every patch splat of fewer than 768 patches that the ROI solvers
+        # make on the rotating scene (the descent's and the BFGS's), kept
+        # and replayed on the direct and the cluster route: what the main
+        # path's own coordinates cost on each
+        from event_utils_tpu_torch.contrast_max import events_cmax as ec
+        kept = []
+        splat = ec.bilinear_patches_scatter
+
+        def keep(x, y, w, P, C, PH, PW, route=None):
+            if cs.bilinear_patches_route(P, PH, PW) != "patch":
+                kept.append((x.detach().clone(), y.detach().clone(),
+                             w.detach().clone(), P, C, PH, PW))
+            return splat(x, y, w, P, C, PH, PW, route=route)
+
+        rx, ry, rt, rp = chip_smoke.rotating_scene()
+        ec.bilinear_patches_scatter = keep
+        try:
+            # the smoke's two solves, and a stream_flow-sized window: its
+            # 20,000 events at 1024 slots a patch
+            for solver, m, cap in (("gd", len(rx), chip_smoke.ROT_CAPACITY),
+                                   ("bfgs", len(rx), chip_smoke.ROT_CAPACITY),
+                                   ("gd", 20000, 1024)):
+                kept.clear()
+                ec.grid_cmax_batched(
+                    rx[:m], ry[:m], rt[:m], rp[:m], solver=solver, device=dev,
+                    roi_size=chip_smoke.ROT_ROI,
+                    img_size=chip_smoke.ROT_SENSOR,
+                    maxiter=chip_smoke.ROT_MAXITER, capacity=cap)
+                picks = kept[::max(1, len(kept) // 40)]
+                totals = {"direct": 0.0, "cluster": 0.0}
+
+                def grouped_cluster(x, y, w, P, C, PH, PW, G=2):
+                    out = torch.empty((w.shape[0], P, PH, PW), dtype=f32,
+                                      device=dev)
+                    build.check(vlib.patches_cluster(
+                        x.data_ptr(), y.data_ptr(), w.data_ptr(), P, C,
+                        w.shape[0], PH, PW, out.data_ptr(), G, 1, stream()),
+                        "patches_cluster")
+                    return out
+
+                for x, y, w, P, C, PH, PW in picks:
+                    totals["direct"] += T(lambda: cs.bilinear_patches_scatter(
+                        x, y, w, P, C, PH, PW, route="direct"))
+                    totals["cluster"] += T(lambda: grouped_cluster(
+                        x, y, w, P, C, PH, PW))
+                emit(part=10, solver=solver, calls=len(kept),
+                     timed=len(picks), shape=list(kept[0][3:]),
+                     **{f"{r}_ms_mean": v / len(picks)
+                        for r, v in totals.items()})
+        finally:
+            ec.bilinear_patches_scatter = splat
 
     print(chip_smoke.card_line(), flush=True)
     if failed:

@@ -30,9 +30,26 @@
 //   red_probe         the L2's rate of reductions: every thread sends one
 //                     scalar, two scalars half a buffer apart, two adjacent
 //                     scalars, one float2 or one float4 to a random place;
-//   shared_atomic_probe  atomicAdd on shared memory, int against float.
+//   shared_atomic_probe  atomicAdd on shared memory, int against float;
+//   cluster_wide,     private copies summed across a thread-block cluster
+//   patches_cluster   through distributed shared memory and stored once
+//                     (cluster_splat_body: a unit's slots split over the
+//                     cluster's CTAs, CTA r sums band r of the copies),
+//                     which lost to the package's private kernel (more
+//                     blocks a sample in waves) for images and to its
+//                     direct patch kernel for few patches: images in
+//                     clusters of up to 16 CTAs (non-portable past 8) and
+//                     several clusters a sample, one cluster per (patch,
+//                     channel), and their occupancy; mode 1 groups a warp's
+//                     lanes by pixel (splat_range_grouped: lanes whose
+//                     events share a pixel sum their taps by shuffles and
+//                     send one shared-memory add); mode 2 sends an event's
+//                     two horizontal taps of a row as one 64-bit
+//                     compare-and-swap where they share a word.
 // With the shipped parameters each computes what the shipped kernel does.
 // The helpers (zero_shared, splat_range, store_wait, ...) are the package's.
+
+#include <climits>
 
 #include <cooperative_groups.h>
 
@@ -41,6 +58,215 @@
 namespace {
 
 namespace cg = cooperative_groups;
+
+// Private planes combined across a thread-block cluster, the design that
+// lost to the package's bilinear_private_kernel (more blocks a sample in
+// waves) and to its direct patch kernel (few patches). A unit is one
+// sample's (K, H, W) image (blockIdx.y = s; one image is S = 1), or one
+// (patch, channel) plane (patches_cluster). Its slots [0, n) are split over the
+// gridDim.x CTAs of the unit, which form gridDim.x / G clusters of G (G =
+// the cluster size, at most 8, the portable limit). Each CTA splats its
+// contiguous share into a private copy of the unit's planes in its own
+// shared memory (splat_range). Then, after cluster.sync(), CTA r of a
+// cluster owns rows [r * K*H / G, (r + 1) * K*H / G) of the (K*H, W) stack:
+// it sums the G copies of that band, its own from its shared memory and
+// its peers' by reads of distributed shared memory (DSMEM), in the fixed
+// order 0 .. G-1, and writes each sum once from registers. DSMEM is only
+// read, once per element per copy; a tap never crosses the cluster. A final
+// cluster.sync() keeps every CTA's shared memory alive until its peers have
+// read it.
+//
+// One cluster a unit (gridDim.x == G): the sums are the unit's planes and
+// are stored into out, which needs no memset and sees no atomic; with G = 1
+// the copy itself is stored by the bulk copy. Several clusters a unit (few
+// samples spread over the card): each cluster adds the non-zero sums of its
+// band to the zeroed out; with G = 1 that is one private image a CTA added
+// to the output, the kernel this one replaced.
+//
+// Weights: channel k of slot i of unit (u, v) is
+// w[u * w_unit + v * w_group + k * wn + i]; coordinates x[u * x_unit + i].
+// out of unit (u, v) starts at out + u * out_unit + v * out_group.
+// splat(img, x, y, w, lo, hi) adds slots [lo, hi) of the unit whose
+// coordinates and weights start at x, y, w to the copy img (splat_range).
+//
+// What bounds it: 8 B of coordinates per slot, 4K B per live weight and the
+// planes written once; above that, the shared-memory atomics of the splat
+// (a CAS loop on this card, ~0.34 T adds/s over 132 SMs: the pace of a
+// grid level), the zeroing of every copy and the DSMEM reads of the
+// combine (each CTA reads K*H*W floats; ~2.5 TB/s over the card).
+template <bool kCluster, typename Splat>
+__device__ __forceinline__ void cluster_splat_body(
+    Splat splat, const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ w, long long n, long long x_unit,
+    long long w_unit, long long w_group, long long out_unit,
+    long long out_group, int K, int H, int W, float* __restrict__ out) {
+  extern __shared__ __align__(16) float img[];
+  const int total = K * H * W;
+  zero_shared(img, total);
+  __syncthreads();
+  const long long u = blockIdx.y;
+  const long long v = blockIdx.z;
+  const long long share = (n + gridDim.x - 1) / gridDim.x;
+  const long long lo = blockIdx.x * share;
+  const long long hi = lo + share < n ? lo + share : n;
+  splat(img, x + u * x_unit, y + u * x_unit, w + u * w_unit + v * w_group,
+        lo, hi);
+  float* o = out + u * out_unit + v * out_group;
+  if (gridDim.x == 1) {
+    fence_async_proxy();
+    __syncthreads();
+    store_start(o, img, total);
+    store_wait();
+    return;
+  }
+  // G = 1 (several single CTAs a unit) is launched without a cluster and
+  // compiled without cluster code: a kernel that has it cost ~1.4 us more
+  // a launch on an H100, in clusters of one too
+  int G = 1;
+  int r = 0;
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    G = static_cast<int>(cluster.num_blocks());
+    r = static_cast<int>(cluster.block_rank());
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+  // copy g of element i (a float4 at i for at4): this CTA's own from its
+  // shared memory, a peer's through DSMEM
+  auto at = [&](int g, int i) -> float {
+    if constexpr (kCluster) {
+      if (g != r) return *cg::this_cluster().map_shared_rank(img + i, g);
+    }
+    return img[i];
+  };
+  auto at4 = [&](int g, int i) -> float4 {
+    if constexpr (kCluster) {
+      if (g != r)
+        return *reinterpret_cast<const float4*>(
+            cg::this_cluster().map_shared_rank(img + i, g));
+    }
+    return *reinterpret_cast<const float4*>(img + i);
+  };
+  const bool store = static_cast<int>(gridDim.x) == G;
+  const int rows = K * H;
+  const int b0 = r * rows / G * W;
+  const int b1 = (r + 1) * rows / G * W;
+  if (!store) {
+    // one of several clusters of its unit: each non-zero sum added to the
+    // zeroed out, one element a thread so that a warp's adds are adjacent
+    // (the L2 takes adjacent adds faster than adds 16 B apart)
+    for (int i = b0 + static_cast<int>(threadIdx.x); i < b1;
+         i += static_cast<int>(blockDim.x)) {
+      float sum = at(0, i);
+      for (int g = 1; g < G; ++g) sum += at(g, i);
+      if (sum != 0.0f) atomicAdd(o + i, sum);
+    }
+  } else {
+    // the cluster's unit: float4 reads inside the band (every copy has the
+    // same shared offsets, so peers' addresses share the alignment),
+    // scalars at its two ends; float4 stores where out is aligned
+    const int a0 = min((b0 + 3) & ~3, b1);
+    const int a1 = max(a0, b1 & ~3);
+    const bool vec_out = (reinterpret_cast<unsigned long long>(o) & 15ULL) == 0;
+    for (int i = a0 + 4 * static_cast<int>(threadIdx.x); i < a1;
+         i += 4 * static_cast<int>(blockDim.x)) {
+      float4 sum = at4(0, i);
+      for (int g = 1; g < G; ++g) {
+        const float4 p = at4(g, i);
+        sum.x += p.x;
+        sum.y += p.y;
+        sum.z += p.z;
+        sum.w += p.w;
+      }
+      if (vec_out) {
+        *reinterpret_cast<float4*>(o + i) = sum;
+      } else {
+        o[i] = sum.x;
+        o[i + 1] = sum.y;
+        o[i + 2] = sum.z;
+        o[i + 3] = sum.w;
+      }
+    }
+    // the band's ends: below a0 and from a1 on, at most 3 floats each
+    const int tid = static_cast<int>(threadIdx.x);
+    const int e = tid < 4 ? b0 + tid : a1 + tid - 4;
+    if (tid < 8 && e < (tid < 4 ? a0 : b1)) {
+      float sum = at(0, e);
+      for (int g = 1; g < G; ++g) sum += at(g, e);
+      o[e] = sum;
+    }
+  }
+  if constexpr (kCluster) cg::this_cluster().sync();
+}
+
+// The image kernel: cluster_splat_body with splat_range (channel k of a
+// slot's weights wn floats after channel 0).
+template <bool kCluster>
+__global__ void __launch_bounds__(kImageThreads)
+cluster_splat_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                     const float* __restrict__ w, long long n,
+                     long long x_unit, long long w_unit, long long w_group,
+                     long long wn, long long out_unit, long long out_group,
+                     int K, int H, int W, float* __restrict__ out) {
+  cluster_splat_body<kCluster>(
+      [=](float* img, const float* xu, const float* yu, const float* wu,
+          long long lo, long long hi) {
+        splat_range(img, H * W, K, H, W, xu, yu, wu, wn, lo, hi);
+      },
+      x, y, w, n, x_unit, w_unit, w_group, out_unit, out_group, K, H, W,
+      out);
+}
+
+constexpr int kMaxCluster = 8;  // the portable cluster size
+
+// A launch configuration of `grid` in clusters of (G, 1, 1).
+void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                    dim3 grid, int G, int threads, size_t smem,
+                    void* stream) {
+  cfg->gridDim = grid;
+  cfg->blockDim = dim3(threads, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// Launch a kernel of cluster_splat_body on `grid` in clusters of G
+// (cudaLaunchKernelEx with the cluster dimension attribute; it captures into
+// CUDA graphs): kPlain, its instantiation without cluster code, where
+// G = 1, else kCluster. A refused launch (too much shared memory,
+// cudaErrorClusterOutOfResources) is returned, never replaced by another
+// kernel.
+template <auto kPlain, auto kCluster, typename... Args>
+int launch_cluster_splat(dim3 grid, int G, int threads, size_t smem,
+                         void* stream, Args... args) {
+  static const cudaError_t attr[2] = {allow_max_shared(kPlain),
+                                      allow_max_shared(kCluster)};
+  if (attr[0] != cudaSuccess) return static_cast<int>(attr[0]);
+  if (attr[1] != cudaSuccess) return static_cast<int>(attr[1]);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attrs[1];
+  cluster_config(&cfg, attrs, grid, G, threads, smem, stream);
+  cudaError_t err;
+  if (G == 1) {
+    cfg.numAttrs = 0;  // no cluster
+    err = cudaLaunchKernelEx(&cfg, kPlain, args...);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, kCluster, args...);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch is reported once, here
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kMergeGroups = 16;  // a warp merges its lanes up to this many
 
 // Send n floats of shared memory s to global g: stored, or with kReduce
 // added to what g holds. All threads call it, after a barrier that follows
@@ -457,6 +683,227 @@ __global__ void shared_atomic_probe_kernel(T* __restrict__ out,
     out[static_cast<long long>(blockIdx.x) * cells + i] = s[i];
 }
 
+// Sum v over the lanes of `peers` (this lane's group, from
+// __match_any_sync), for groups of at most `widest` lanes, by pointer
+// jumping: each lane holds the lane of the next rank in its group; after
+// the step of distance d the lane of rank r holds the sum of ranks
+// [r, r + 2d) and points at rank r + 2d. The group's first lane ends with
+// the whole sum. All 32 lanes call it.
+__device__ __forceinline__ float4 group_sum(float4 v, unsigned int peers,
+                                            int lane, int widest) {
+  const unsigned int above = peers & ~((2u << lane) - 1u);
+  int next = above ? __ffs(above) - 1 : 32;
+  for (int d = 1; d < widest; d <<= 1) {
+    const int from = next < 32 ? next : lane;
+    const float4 t = make_float4(__shfl_sync(0xffffffffu, v.x, from),
+                                 __shfl_sync(0xffffffffu, v.y, from),
+                                 __shfl_sync(0xffffffffu, v.z, from),
+                                 __shfl_sync(0xffffffffu, v.w, from));
+    const int after = __shfl_sync(0xffffffffu, next, from);
+    if (next < 32) {
+      v.x += t.x;
+      v.y += t.y;
+      v.z += t.z;
+      v.w += t.w;
+      next = after;
+    }
+  }
+  return v;
+}
+
+// splat_range with the lanes of a warp grouped by pixel: the lanes whose
+// events share their top-left tap (and so all four taps) sum their four
+// tap weights by shuffles (group_sum) and the group's first lane alone
+// sends the four shared-memory adds. On this card such an add is a
+// compare-and-swap loop in which the lanes of a warp that hit one address
+// succeed one per round, and the events of a patch or an image sharpened by
+// contrast maximisation pile onto few pixels: the grouping turns up to 32
+// rounds into one. A warp whose events all fall on distinct pixels skips
+// the shuffles. Warps run while their first lane has slots, so every lane
+// takes part in the warp-wide calls (a slot past the range is a NaN
+// coordinate, which joins no pixel).
+__device__ __forceinline__ void splat_range_grouped(
+    float* img, int plane, int K, int H, int W, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ w, long long wn,
+    long long lo, long long hi) {
+  const float fW = static_cast<float>(W);
+  const float fH = static_cast<float>(H);
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const long long step = static_cast<long long>(blockDim.x) * kAhead;
+  for (long long first = lo + threadIdx.x; first - lane < hi; first += step) {
+    float xs[kAhead], ys[kAhead], w0[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const long long i = first + static_cast<long long>(u) * blockDim.x;
+      const bool in = i < hi;
+      xs[u] = in ? x[i] : __int_as_float(0x7fc00000);
+      ys[u] = in ? y[i] : 0.0f;
+      w0[u] = in ? w[i] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const float xf = xs[u];
+      const float yf = ys[u];
+      const float x0 = floorf(xf);
+      const float y0 = floorf(yf);
+      const bool okx0 = x0 >= 0.0f && x0 < fW;
+      const bool okx1 = x0 + 1.0f >= 0.0f && x0 + 1.0f < fW;
+      const bool oky0 = y0 >= 0.0f && y0 < fH;
+      const bool oky1 = y0 + 1.0f >= 0.0f && y0 + 1.0f < fH;
+      const bool live = (okx0 || okx1) && (oky0 || oky1);
+      // the top-left tap's id (x0 = -1 or y0 = -1 included: down to
+      // -W - 1); a slot with no tap gets a key no tap id can equal
+      const int pix = live ? static_cast<int>(y0) * W + static_cast<int>(x0)
+                           : INT_MIN;
+      const unsigned int peers = __match_any_sync(0xffffffffu, pix);
+      const bool first_lane = (peers & ((1u << lane) - 1u)) == 0u;
+      // merge only where the warp's events fall on few pixels (warp-uniform)
+      const bool merge =
+          __popc(__ballot_sync(0xffffffffu, first_lane)) <= kMergeGroups;
+      const int widest =
+          merge ? static_cast<int>(
+                      __reduce_max_sync(0xffffffffu, __popc(peers)))
+                : 1;
+      const float dx = live ? xf - x0 : 0.0f;
+      const float dy = live ? yf - y0 : 0.0f;
+      const long long i = first + static_cast<long long>(u) * blockDim.x;
+      for (int k = 0; k < K; ++k) {
+        float wk = k == 0 ? w0[u] : (i < hi ? w[k * wn + i] : 0.0f);
+        if (!live) wk = 0.0f;
+        const float wl = wk * (1.0f - dx);
+        const float wr = wk * dx;
+        float4 t = make_float4(oky0 && okx0 ? wl * (1.0f - dy) : 0.0f,
+                               oky0 && okx1 ? wr * (1.0f - dy) : 0.0f,
+                               oky1 && okx0 ? wl * dy : 0.0f,
+                               oky1 && okx1 ? wr * dy : 0.0f);
+        if (widest > 1) t = group_sum(t, peers, lane, widest);
+        if (live && (first_lane || !merge)) {
+          // the tap pixels of a group are the same: its first lane's
+          float* o = img + k * plane + pix;
+          if (t.x != 0.0f) atomicAdd(o, t.x);
+          if (t.y != 0.0f) atomicAdd(o + 1, t.y);
+          if (t.z != 0.0f) atomicAdd(o + W, t.z);
+          if (t.w != 0.0f) atomicAdd(o + W + 1, t.w);
+        }
+      }
+    }
+  }
+}
+
+// Add (a, b) to the two floats of shared memory at p (8-byte aligned) with
+// one 64-bit compare-and-swap loop.
+__device__ __forceinline__ void add_pair(float* p, float a, float b) {
+  unsigned long long* word = reinterpret_cast<unsigned long long*>(p);
+  unsigned long long seen = *word;
+  unsigned long long want;
+  do {
+    want = seen;
+    const float lo = __uint_as_float(static_cast<unsigned int>(want)) + a;
+    const float hi = __uint_as_float(static_cast<unsigned int>(want >> 32)) +
+                     b;
+    seen = atomicCAS(word, want,
+                     (static_cast<unsigned long long>(__float_as_uint(hi))
+                      << 32) |
+                         __float_as_uint(lo));
+  } while (seen != want);
+}
+
+// splat_range with an event's two horizontal taps of a row sent as one
+// 64-bit compare-and-swap where both lie inside the image and share an
+// aligned 8-byte word (an even flat index), else as two float adds.
+__device__ __forceinline__ void splat_range_paired(
+    float* img, int plane, int K, int H, int W, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ w, long long wn,
+    long long lo, long long hi) {
+  const float fW = static_cast<float>(W);
+  const float fH = static_cast<float>(H);
+  const long long step = static_cast<long long>(blockDim.x) * kAhead;
+  for (long long first = lo + threadIdx.x; first < hi; first += step) {
+    float xs[kAhead], ys[kAhead], w0[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const long long i = first + static_cast<long long>(u) * blockDim.x;
+      const bool in = i < hi;
+      xs[u] = in ? x[i] : __int_as_float(0x7fc00000);
+      ys[u] = in ? y[i] : 0.0f;
+      w0[u] = in ? w[i] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const float xf = xs[u];
+      const float yf = ys[u];
+      const float x0 = floorf(xf);
+      const float y0 = floorf(yf);
+      const bool okx0 = x0 >= 0.0f && x0 < fW;
+      const bool okx1 = x0 + 1.0f >= 0.0f && x0 + 1.0f < fW;
+      const bool oky0 = y0 >= 0.0f && y0 < fH;
+      const bool oky1 = y0 + 1.0f >= 0.0f && y0 + 1.0f < fH;
+      if (!(okx0 || okx1) || !(oky0 || oky1)) continue;
+      const float dx = xf - x0;
+      const float dy = yf - y0;
+      const int pix = static_cast<int>(y0) * W + static_cast<int>(x0);
+      const long long i = first + static_cast<long long>(u) * blockDim.x;
+      for (int k = 0; k < K; ++k) {
+        const float wk = k == 0 ? w0[u] : w[k * wn + i];
+        if (wk == 0.0f) continue;
+        const float wl = wk * (1.0f - dx);
+        const float wr = wk * dx;
+        float* o = img + k * plane + pix;
+#pragma unroll
+        for (int row = 0; row < 2; ++row) {
+          if (!(row == 0 ? oky0 : oky1)) continue;
+          const float wy = row == 0 ? 1.0f - dy : dy;
+          float* r = o + row * W;
+          const int at = pix + row * W + k * plane;
+          if (okx0 && okx1 && (at & 1) == 0) {
+            add_pair(r, wl * wy, wr * wy);
+          } else {
+            if (okx0) atomicAdd(r, wl * wy);
+            if (okx1) atomicAdd(r + 1, wr * wy);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The cluster kernel body with the paired splat.
+template <bool kCluster>
+__global__ void __launch_bounds__(kImageThreads)
+paired_cluster_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                      const float* __restrict__ w, long long n,
+                      long long x_unit, long long w_unit, long long w_group,
+                      long long wn, long long out_unit, long long out_group,
+                      int K, int H, int W, float* __restrict__ out) {
+  cluster_splat_body<kCluster>(
+      [=](float* img, const float* xu, const float* yu, const float* wu,
+          long long lo, long long hi) {
+        splat_range_paired(img, H * W, K, H, W, xu, yu, wu, wn, lo, hi);
+      },
+      x, y, w, n, x_unit, w_unit, w_group, out_unit, out_group, K, H, W,
+      out);
+}
+
+// The cluster kernel body with the grouped splat: the few-patch
+// route that lost to the direct kernel (one cluster of G per (patch,
+// channel), K = 1 a unit), and images with grouped lanes.
+template <bool kCluster>
+__global__ void __launch_bounds__(kImageThreads)
+grouped_cluster_kernel(const float* __restrict__ x,
+                       const float* __restrict__ y,
+                       const float* __restrict__ w, long long n,
+                       long long x_unit, long long w_unit, long long w_group,
+                       long long wn, long long out_unit, long long out_group,
+                       int K, int H, int W, float* __restrict__ out) {
+  cluster_splat_body<kCluster>(
+      [=](float* img, const float* xu, const float* yu, const float* wu,
+          long long lo, long long hi) {
+        splat_range_grouped(img, H * W, K, H, W, xu, yu, wu, wn, lo, hi);
+      },
+      x, y, w, n, x_unit, w_unit, w_group, out_unit, out_group, K, H, W,
+      out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -629,4 +1076,98 @@ int shared_atomic_probe(void* out, int blocks, int per_thread, int cells,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The cluster kernel (grouped = 0), the grouped one (1) or the paired one
+// (2), launched in clusters of G up to 16: past 8 (the portable size) only
+// with the non-portable attribute. Arguments as
+// bilinear_scatter_batched_private's, with G CTAs a cluster and `clusters`
+// clusters a sample for its blocks.
+int cluster_wide(const void* x, const void* y, const void* w, long long S,
+                 long long n, long long w_stride, int K, int H, int W,
+                 void* out, int G, int clusters, int grouped, void* stream) {
+  static const cudaError_t wide[3] = {
+      cudaFuncSetAttribute(cluster_splat_kernel<true>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1),
+      cudaFuncSetAttribute(grouped_cluster_kernel<true>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1),
+      cudaFuncSetAttribute(paired_cluster_kernel<true>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1)};
+  for (int i = 0; i < 3; ++i)
+    if (wide[i] != cudaSuccess) return static_cast<int>(wide[i]);
+  if (S > 65535 || G < 1 || G > 16 || clusters < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned int>(G * clusters),
+                  static_cast<unsigned int>(S), 1);
+  const size_t smem = sizeof(float) * K * H * W;
+  const float* xf = static_cast<const float*>(x);
+  const float* yf = static_cast<const float*>(y);
+  const float* wf = static_cast<const float*>(w);
+  const long long plane = static_cast<long long>(K) * H * W;
+  float* o = static_cast<float*>(out);
+  if (grouped == 1)
+    return launch_cluster_splat<grouped_cluster_kernel<false>,
+                                grouped_cluster_kernel<true>>(
+        grid, G, kImageThreads, smem, stream, xf, yf, wf, n, n, w_stride,
+        0LL, n, plane, 0LL, K, H, W, o);
+  if (grouped == 2)
+    return launch_cluster_splat<paired_cluster_kernel<false>,
+                                paired_cluster_kernel<true>>(
+        grid, G, kImageThreads, smem, stream, xf, yf, wf, n, n, w_stride,
+        0LL, n, plane, 0LL, K, H, W, o);
+  return launch_cluster_splat<cluster_splat_kernel<false>,
+                              cluster_splat_kernel<true>>(
+      grid, G, kImageThreads, smem, stream, xf, yf, wf, n, n, w_stride, 0LL,
+      n, plane, 0LL, K, H, W, o);
+}
+
+// The few-patch route on the cluster kernel, grouped or not: one cluster
+// of G (1..8) per (patch, channel), CTAs of kPatchThreads; out may hold
+// anything.
+int patches_cluster(const void* x, const void* y, const void* w, long long P,
+                    long long C, int K, int PH, int PW, void* out, int G,
+                    int grouped, void* stream) {
+  if (P > 65535 || K > 65535 || G < 1 || G > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned int>(G), static_cast<unsigned int>(P),
+                  static_cast<unsigned int>(K));
+  const size_t smem = sizeof(float) * PH * PW;
+  const long long plane = static_cast<long long>(PH) * PW;
+  const float* xf = static_cast<const float*>(x);
+  const float* yf = static_cast<const float*>(y);
+  const float* wf = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
+  if (grouped)
+    return launch_cluster_splat<grouped_cluster_kernel<false>,
+                                grouped_cluster_kernel<true>>(
+        grid, G, kPatchThreads, smem, stream, xf, yf, wf, C, C, C, P * C,
+        P * C, plane, P * plane, 1, PH, PW, o);
+  return launch_cluster_splat<cluster_splat_kernel<false>,
+                              cluster_splat_kernel<true>>(
+      grid, G, kPatchThreads, smem, stream, xf, yf, wf, C, C, C, P * C,
+      P * C, plane, P * plane, 1, PH, PW, o);
+}
+
+// cudaOccupancyMaxActiveClusters for G up to 16 (non-portable past 8), of
+// the cluster kernel (grouped = 0) or the grouped one.
+int cluster_wide_occupancy(int G, int threads, int smem_bytes, int grouped,
+                           void* active) {
+  static const cudaError_t wide[2] = {
+      cudaFuncSetAttribute(cluster_splat_kernel<true>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1),
+      cudaFuncSetAttribute(grouped_cluster_kernel<true>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1)};
+  static const cudaError_t attr[2] = {
+      allow_max_shared(cluster_splat_kernel<true>),
+      allow_max_shared(grouped_cluster_kernel<true>)};
+  for (int i = 0; i < 2; ++i) {
+    if (wide[i] != cudaSuccess) return static_cast<int>(wide[i]);
+    if (attr[i] != cudaSuccess) return static_cast<int>(attr[i]);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attrs[1];
+  cluster_config(&cfg, attrs, dim3(G, 1, 1), G, threads, smem_bytes, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      static_cast<int*>(active),
+      grouped ? grouped_cluster_kernel<true> : cluster_splat_kernel<true>,
+      &cfg));
+}
 }  // extern "C"

@@ -901,3 +901,219 @@ def test_batched_bilinear_refused_launch_raises(cuda, monkeypatch):
         cs.bilinear_scatter_batched(x, x, torch.ones(1, 1, device=cuda), 8,
                                     8)
     assert cs.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# The private kernel (bilinear_scatter_batched:private and
+# bilinear_scatter:private) at the blocks a sample private_blocks picks,
+# across a wave and at every blocks count, and the few-patch shapes (the
+# direct route), held per pixel within chip_smoke's splat_limits rule at no
+# more than half of it
+# ---------------------------------------------------------------------------
+
+def _limit_share(got, x, y, w, H, W):
+    """Largest share of a pixel's rounding limit that ``got`` uses against
+    the plain version in float64 (x, y (S, n); w (K, n) or (S, K, n))."""
+    from chip_smoke import splat_limits
+    ref = cs.bilinear_scatter_batched_plain(x.double(), y.double(),
+                                            w.double(), H, W)
+    limit = splat_limits(torch, x, y, w, H, W)
+    err = (got.double() - ref).abs()
+    assert bool((err[limit == 0] == 0).all())
+    return float((err / limit.clamp_min(1e-300)).max())
+
+
+def _patch_share(got, x, y, w, P, C, PH, PW):
+    """``_limit_share`` of a (K, P, PH, PW) patch splat: each patch is a
+    sample of C slots."""
+    K = w.shape[0]
+    wp = w.view(K, P, C).permute(1, 0, 2).contiguous()
+    return _limit_share(got.permute(1, 0, 2, 3), x.view(P, C), y.view(P, C),
+                        wp, PH, PW)
+
+
+def _batched_counts(fn):
+    before = cs.launch_counts()
+    out = fn()
+    after = cs.launch_counts()
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,shared", [(1, 200_000, True),
+                                        (3, 60_000, False),
+                                        (25, 20_000, True)])
+def test_private_splat_matches_plain_per_pixel(cuda, gen, S, n, shared):
+    """The wrapper's blocks at a single image, a few samples and a stream
+    grid level, with NaN, huge and wholly-off coordinates."""
+    H, W = 181, 241
+    x = torch.as_tensor(gen.uniform(-2, W + 1, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(-2, H + 1, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    x[0, ::13] = float("nan")
+    y[0, 5::17] = 1e30
+    x[0, 7::19] = -1.0
+    x[0, 11::23] = W - 1
+    if S > 1:
+        x[1] = -50.0
+    w = torch.as_tensor(gen.normal(size=(1, n) if shared else (S, 1, n)),
+                        dtype=torch.float32, device=cuda)
+    got, diff = _batched_counts(
+        lambda: cs.bilinear_scatter_batched(x, y, w, H, W))
+    assert diff == {"bilinear_scatter_batched:private": 1}
+    assert _limit_share(got, x, y, w, H, W) <= 0.5
+    if S > 1:
+        assert float(got[1].abs().max()) == 0.0
+    if S == 1:
+        one, diff = _batched_counts(
+            lambda: cs.bilinear_scatter(x[0], y[0], w, H, W))
+        assert diff == {"bilinear_scatter:private": 1}
+        assert _limit_share(one[None], x, y, w, H, W) <= 0.5
+
+
+@pytest.mark.cuda
+def test_private_blocks_across_a_wave(cuda, gen):
+    """A loss chunk of 83 samples of 98304 events: 3 blocks a sample, 249
+    blocks in two waves of the 132 SMs, each adding its copy; every
+    sample's image is written; one block a sample stores its image."""
+    from event_utils_tpu_torch.ops import build
+    H, W, n, S = 181, 241, cs.PRIVATE_MIN_EVENTS, 83
+    assert cs.private_blocks(S, n) == 3
+    x = torch.as_tensor(gen.uniform(0, W, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(0, H, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    w = torch.as_tensor(gen.normal(size=(1, n)), dtype=torch.float32,
+                        device=cuda)
+    got, diff = _batched_counts(
+        lambda: cs.bilinear_scatter_batched(x, y, w, H, W))
+    assert diff == {"bilinear_scatter_batched:private": 1}
+    assert _limit_share(got, x, y, w, H, W) <= 0.5
+    out = torch.empty(S, 1, H, W, device=cuda)
+    build.check(build.library().bilinear_scatter_batched_private(
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), S, n, 0, 1, H, W,
+        out.data_ptr(), 1, torch.cuda.current_stream().cuda_stream),
+        "private")
+    assert _limit_share(out, x, y, w, H, W) <= 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 2, 3, 5, 7, 44, 132])
+def test_private_every_blocks_count(cuda, gen, blocks):
+    """Blocks a sample from one (stored) to 132 (each adding its copy),
+    launched directly, with shares that do not divide the events, K = 2."""
+    from event_utils_tpu_torch.ops import build
+    S, n, K, H, W = 3, 9001, 2, 37, 53
+    x = torch.as_tensor(gen.uniform(-2, W + 1, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(-2, H + 1, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    w = torch.as_tensor(gen.normal(size=(S, K, n)), dtype=torch.float32,
+                        device=cuda)
+    alloc = torch.empty if blocks == 1 else torch.zeros
+    out = alloc((S, K, H, W), dtype=torch.float32, device=cuda)
+    build.check(build.library().bilinear_scatter_batched_private(
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), S, n, K * n, K, H, W,
+        out.data_ptr(), blocks, torch.cuda.current_stream().cuda_stream),
+        "private")
+    assert _limit_share(out, x, y, w, H, W) <= 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [65535, 65536])
+def test_private_at_the_chunk_boundary(cuda, gen, S):
+    """S at and across the samples one launch takes, 4 events a sample
+    into 6x8: one launch and two."""
+    x = torch.as_tensor(gen.uniform(-1, 9, (S, 4)), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(-1, 7, (S, 4)), dtype=torch.float32,
+                        device=cuda)
+    w = torch.as_tensor(gen.normal(size=(1, 4)), dtype=torch.float32,
+                        device=cuda)
+    got, diff = _batched_counts(
+        lambda: cs.bilinear_scatter_batched(x, y, w, 6, 8))
+    assert diff == {"bilinear_scatter_batched:private": -(-S // 65535)}
+    assert _limit_share(got, x, y, w, 6, 8) <= 0.5
+
+
+@pytest.mark.cuda
+def test_private_on_one_pixel(cuda, gen):
+    """Every event of every sample on one pixel: the longest chains of the
+    shared-memory CAS loop, and the flush of one hot pixel."""
+    S, n, H, W = 5, 100_000, 181, 241
+    x = torch.full((S, n), 100.25, device=cuda)
+    y = torch.full((S, n), 50.75, device=cuda)
+    w = torch.as_tensor(gen.uniform(0.5, 1.5, (1, n)), dtype=torch.float32,
+                        device=cuda)
+    got = cs.bilinear_scatter_batched(x, y, w, H, W)
+    assert _limit_share(got, x, y, w, H, W) <= 0.5
+    one = cs.bilinear_scatter(x[0], y[0], w, H, W)
+    assert _limit_share(one[None], x[:1], y[:1], w, H, W) <= 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,C,K,pile", [(1, 2048, 1, False),
+                                        (108, 2048, 1, False),
+                                        (108, 1024, 4, False),
+                                        (767, 300, 2, False),
+                                        (108, 2048, 1, True)])
+def test_few_patches_stay_direct_and_match_plain(cuda, gen, P, C, K, pile):
+    """Fewer than 768 (64, 128) patches take the direct kernel (a cluster
+    variant only tied it over whole ROI solves): one patch, a descent step,
+    stream_flow's 1024 slots at K = 4, the most patches it takes, and every
+    slot on one pixel, each within the per-pixel limit."""
+    PH, PW = 64, 128
+    assert cs.bilinear_patches_route(P, PH, PW) == "direct"
+    if pile:
+        x = torch.full((P * C,), 60.5, device=cuda)
+        y = torch.full((P * C,), 30.25, device=cuda)
+    else:
+        x = torch.as_tensor(gen.uniform(-2, PW + 1, P * C),
+                            dtype=torch.float32, device=cuda)
+        y = torch.as_tensor(gen.uniform(-2, PH + 1, P * C),
+                            dtype=torch.float32, device=cuda)
+        x[::29] = float("nan")
+        y[3::31] = -1e30
+    w = torch.as_tensor(gen.normal(size=(K, P * C)), dtype=torch.float32,
+                        device=cuda)
+    got, diff = _batched_counts(
+        lambda: cs.bilinear_patches_scatter(x, y, w, P, C, PH, PW))
+    assert diff == {"bilinear_patches_scatter:direct": 1}
+    assert got.shape == (K, P, PH, PW)
+    assert _patch_share(got, x, y, w, P, C, PH, PW) <= 0.5
+
+
+@pytest.mark.cuda
+def test_private_launch_refused_raises_and_replays_in_a_graph(cuda, gen):
+    """A private launch the card refuses (planes past 227 KB, no block)
+    raises; an accepted one captures into a CUDA graph and its replay
+    writes the same image."""
+    from event_utils_tpu_torch.errors import NativeBuildError
+    from event_utils_tpu_torch.ops import build
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    x = torch.as_tensor(gen.uniform(0, 241, (2, 5000)), dtype=torch.float32,
+                        device=cuda)
+    w = torch.ones(4, 5000, device=cuda)
+    out = torch.zeros(2, 4, 181, 241, device=cuda)
+    with pytest.raises(NativeBuildError):     # 697 KB a plane group
+        build.check(lib.bilinear_scatter_batched_private(
+            x.data_ptr(), x.data_ptr(), w.data_ptr(), 2, 5000, 0, 4, 181, 241,
+            out.data_ptr(), 2, stream), "private")
+    with pytest.raises(NativeBuildError):     # no block
+        build.check(lib.bilinear_scatter_batched_private(
+            x.data_ptr(), x.data_ptr(), w.data_ptr(), 2, 5000, 0, 1, 181, 241,
+            out.data_ptr(), 0, stream), "private")
+    y = x.flip(1).contiguous() * 0.7
+    w1 = w[:1].contiguous()
+    want = cs.bilinear_scatter_batched(x, y, w1, 181, 241)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = cs.bilinear_scatter_batched(x, y, w1, 181, 241)
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _limit_share(got, x, y, w1, 181, 241) <= 0.5
+    assert_rel(got, want)
