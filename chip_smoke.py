@@ -21,11 +21,15 @@
      one, both also at VGA; the private route with unsorted slots and with
      B=9; the direct route at a (240, 256) tile, whose plane
      exceeds a block's shared memory;
-   - bilinear: K=1 (private route against direct) and K=4 (direct) at
-     181x241 on 200k events, the planted scene warped onto its 400 tracks,
-     ~2k events into 21x21 and 181x241 (the one-block form of the private
-     kernel, which no shape is sent to, against direct), NaN, +-1e30 and
-     all-out-of-frame coordinates on every route, and autograd gradients;
+   - bilinear: the floor of one graph node (an empty kernel,
+     ``torch.cuda._sleep(0)``); K=1 (private route against direct) at
+     181x241 on 200k events, the planted scene warped onto its 400 tracks;
+     K=4 on the vector route against direct (the planted scene's
+     timestamp image and uniform weights, held per pixel within
+     ``splat_limits``); ~2k events of one ROI into 21x21 and 181x241 (the
+     one-block form of the private kernel, which no shape is sent to,
+     against direct); NaN, +-1e30 and all-out-of-frame coordinates on
+     every route, and autograd gradients;
    - batched bilinear (``jax.vmap`` of the TPU kernel): one grid level
      (25 velocity samples of the 200k planted scene, per-sample masked
      weights, K=1: the private route, also forced onto the direct one),
@@ -33,7 +37,8 @@
      two waves), the rotating scene's grid level, 25 samples with every
      event on one pixel, S at and across the samples one launch takes
      (65535, 65536: one launch, two), a sample wholly off the image and
-     NaN, +-inf and huge coordinates on both routes, zhu's K=4 stack (direct), each against its plain version in
+     NaN, +-inf and huge coordinates on every route, zhu's K=4 stack
+     (vector, against direct), each against its plain version in
      float64 within a per-pixel limit that scales with the pixel's f32
      sums (``splat_limits``) and against S single ``bilinear_scatter``
      launches;
@@ -65,9 +70,11 @@
    on the rotating bench scene (all-ROI median flow error at most 4.5
    px/s; again with ``pyramid="auto"``), one patch loss with (240, 256)
    patches, and the host loop ``grid_cmax`` on one 40x60 corner of it.
-   Every route that some shape is sent to must have launched during this
-   phase, and each voxel and flat call must have taken the route that
-   ``voxel_route`` / ``flat_route`` name for its shape.
+   Every call must have launched the route that the dispatch names for
+   its shape (``voxel_route``, ``flat_route``, ``bilinear_route``, ...),
+   and every route of this path must have launched; then the vector
+   route at the shapes this path sent it, against its plain version per
+   pixel and timed beside the direct route on the same inputs.
 4. The batched solves (``batched``), with the launch counts set to 0 again
    first: ``optimize_contrast_jit(grid_search_init=True)``,
    ``grid_search_optimisation`` and ``optimize_contrast`` on the 200k
@@ -822,39 +829,62 @@ def patches_library_ms(torch, x, y, w, P, C, PH, PW, **counts):
 
 
 def bilinear_case(torch, cs, label, x, y, w1, H, W, routes):
-    """One K=1 splat of ``w1`` (1, N) at (x, y) into (H, W) on each of
-    ``routes``: every route against the plain version, its time, and the
-    plain, ``index_put_`` and bound times of the shape. Returns
+    """One splat of the K rows of ``w1`` (K, N) at (x, y) into (H, W) on
+    each of ``routes``: every route against the plain version, its time,
+    and the plain, ``index_put_`` and bound times of the shape. Returns
     ``{route: record}``."""
+    K = w1.shape[0]
     bi, bv = live_taps(torch, x, y, w1, H, W)
-    shape = f"K=1, {len(x)} events ({label}) into {H}x{W}"
+    shape = f"K={K}, {len(x)} events ({label}) into {H}x{W}"
     ref = cs.bilinear_scatter_plain(x, y, w1, H, W)
     shared = dict(
         shape=shape,
         plain_ms=time_ms(lambda: cs.bilinear_scatter_plain(x, y, w1, H, W),
                          torch),
-        library_ms=time_ms(lambda: torch.zeros(H * W, device=x.device)
+        library_ms=time_ms(lambda: torch.zeros(K * H * W, device=x.device)
                            .index_put_((bi,), bv, accumulate=True), torch),
-        bound=bilinear_bound(x, y, 1, H, W))
+        bound=bilinear_bound(x, y, K, H, W))
     out = {}
     for r in routes:
+        got = cs.bilinear_scatter(x, y, w1, H, W, route=r)
         out[r] = dict(
             shared,
-            max_abs_err=check_close(
-                f"bilinear_scatter:{r} ({shape})",
-                cs.bilinear_scatter(x, y, w1, H, W, route=r), ref),
+            max_abs_err=check_close(f"bilinear_scatter:{r} ({shape})", got,
+                                    ref),
             ms=time_ms(lambda: cs.bilinear_scatter(x, y, w1, H, W, route=r),
                        torch))
+        if r == "vector":
+            out[r]["max_abs_err"], out[r]["limit_share"] = single_splat_check(
+                torch, cs, f"bilinear_scatter:{r} ({shape})", got, x, y, w1,
+                H, W)
     log("  timed: " + ", ".join(f"{r} {out[r]['ms']:.4f} ms" for r in routes)
         + f", plain {shared['plain_ms']:.4f} ms, index_put_ "
         f"{shared['library_ms']:.4f} ms, bound {shared['bound'][0]:.5f} ms")
     return out
 
 
+def single_splat_check(torch, cs, name, got, x, y, w, H, W):
+    """A single (K, H, W) splat held per pixel, as ``batched_case`` holds a
+    batched one: ``got`` viewed as one sample against the plain version in
+    float64 within ``splat_limits``. Returns the max |err| and the largest
+    share of a pixel's limit used."""
+    K = w.shape[0]
+    return check_splat(
+        f"{name}, against the plain version in float64 per pixel",
+        got.view(1, K, H, W),
+        cs.bilinear_scatter_batched_plain(x[None].double(), y[None].double(),
+                                          w.double(), H, W),
+        splat_limits(torch, x[None], y[None], w, H, W))
+
+
 def as_case(rec, **extra):
+    """A timed case for the kernels line; ``direct_ms`` where the case was
+    also timed on the direct route (the vector route's shapes), and
+    ``limit_share`` where it was held per pixel."""
     return dict({k: rec[k] for k in ("shape", "ms", "plain_ms", "library_ms",
-                                     "max_abs_err")},
-                bound_ms=rec["bound"][0], **extra)
+                                     "max_abs_err", "direct_ms",
+                                     "limit_share")
+                 if k in rec}, bound_ms=rec["bound"][0], **extra)
 
 
 def batched_bound(x, y, w, H: int, W: int):
@@ -944,7 +974,7 @@ def batched_case(torch, cs, label, x, y, w, H, W, route, single=True):
     shape = f"S={S} x {n} events, K={K} ({label}) into {H}x{W}"
     before = cs.launch_counts()[f"bilinear_scatter_batched:{route}"]
     got = kernel()
-    chunks = -(-S // cs.BATCH_MAX_SAMPLES)
+    chunks = -(-S // cs.batched_chunk(route, K, H, W))
     if cs.launch_counts()[f"bilinear_scatter_batched:{route}"] != (
             before + chunks):
         raise AssertionError(f"{shape}: not {chunks} launches")
@@ -1053,30 +1083,38 @@ def batched_kernel_cases(torch, cs, rng, records):
             (priv if r == "private" else edge).append(batched_case(
                 torch, cs, f"{S} samples", xe, ye, we, 6, 8, r,
                 single=False))
+    # zhu's timestamp stack: K = 4 per-sample weights past 227 KB, on the
+    # vector route (part 11 of the tune script) and forced onto the direct
+    # one
+    tn = (t - t.min()) / (t.max() - t.min())
+    pos, neg = (ep > 0).float(), (ep <= 0).float()
+    w4 = (torch.stack([tn * pos, pos, tn * neg, neg])[None]
+          * (w[:, 0:1] != 0)).contiguous()
+    if cs.bilinear_batched_route(4, H, W, len(sx)) != "vector":
+        raise AssertionError("K=4 at 181x241, 200k events a sample: want "
+                             "the vector route")
+    k4 = batched_case(torch, cs, "zhu's stack", x, y, w4, H, W, "vector")
+    k4d = batched_case(torch, cs, "zhu's stack", x, y, w4, H, W, "direct",
+                       single=False)
+    k4["direct_ms"] = k4d["ms"]
     xo, yo = x[:4].clone(), y[:4].clone()
     xo[1] = -1000.0                                 # every tap off
     odd = torch.as_tensor([np.nan, np.inf, -np.inf, 1e30, -1e30, 2.0 ** 31],
                           dtype=torch.float32, device=dev)
     xo[2, ::5] = odd[torch.arange(len(xo[2, ::5]), device=dev) % 6]
     yo[3, 3::7] = odd[torch.arange(len(yo[3, 3::7]), device=dev) % 6]
-    odd_cases = {r: batched_case(torch, cs, "odd coordinates", xo, yo,
-                                 w[:4].contiguous(), H, W, r)
-                 for r in ("private", "direct")}
-    for r in ("private", "direct"):
-        if float(cs.bilinear_scatter_batched(xo, yo, w[:4].contiguous(), H,
-                                             W, route=r)[1].abs().max()):
+    wo = {r: (w4 if r == "vector" else w)[:4].contiguous()
+          for r in ("private", "direct", "vector")}
+    odd_cases = {r: batched_case(torch, cs, "odd coordinates", xo, yo, wo[r],
+                                 H, W, r) for r in wo}
+    for r in wo:
+        if float(cs.bilinear_scatter_batched(xo, yo, wo[r], H, W,
+                                             route=r)[1].abs().max()):
             raise AssertionError(f"bilinear_scatter_batched:{r}: a sample "
                                  f"off the image left a mark")
-    # zhu's timestamp stack: K = 4 per-sample weights past 227 KB
-    tn = (t - t.min()) / (t.max() - t.min())
-    pos, neg = (ep > 0).float(), (ep <= 0).float()
-    w4 = (torch.stack([tn * pos, pos, tn * neg, neg])[None]
-          * (w[:, 0:1] != 0)).contiguous()
-    if cs.bilinear_batched_route(4, H, W) != "direct":
-        raise AssertionError("K=4 at 181x241 must take the direct route")
-    k4 = batched_case(torch, cs, "zhu's stack", x, y, w4, H, W, "direct")
     for route, cases in (("private", priv + [odd_cases["private"]]),
-                         ("direct", [k4, forced, odd_cases["direct"]]
+                         ("vector", [k4, odd_cases["vector"]]),
+                         ("direct", [k4d, forced, odd_cases["direct"]]
                           + edge)):
         rec = dict(cases[0])
         rec["cases"] = [as_case(c, limit_share=c["limit_share"])
@@ -1087,8 +1125,9 @@ def batched_kernel_cases(torch, cs, rng, records):
 
 def odd_coordinates(torch, cs, rng):
     """NaN, +-inf, +-1e30 and out-of-frame coordinates on every bilinear
-    route: dropped, never wrapped; a stream wholly out of frame gives an
-    exact zero image."""
+    route (two channels: the vector route pairs them): dropped, never
+    wrapped; a stream wholly out of frame gives an exact zero image.
+    Returns ``{route: max |err|}``."""
     dev = torch.device("cuda")
     H, W, n = 40, 60, 4096
     odd = np.array([np.nan, np.inf, -np.inf, 1e30, -1e30, -1.0, -1.5, W - 1,
@@ -1102,11 +1141,11 @@ def odd_coordinates(torch, cs, rng):
     w = torch.as_tensor(rng.uniform(-1, 1, (2, n)), dtype=torch.float32,
                         device=dev)
     ref = cs.bilinear_scatter_plain(x, y, w, H, W)
-    errs = []
-    for r in ("direct", "single", "private"):
-        errs.append(check_close(f"bilinear_scatter:{r} (odd coordinates)",
-                                cs.bilinear_scatter(x, y, w, H, W, route=r),
-                                ref))
+    errs = {}
+    for r in ("direct", "single", "private", "vector"):
+        errs[r] = check_close(f"bilinear_scatter:{r} (odd coordinates)",
+                              cs.bilinear_scatter(x, y, w, H, W, route=r),
+                              ref)
         away = cs.bilinear_scatter(x * 0 - 10.0, y, w, H, W, route=r)
         if float(away.abs().max()) != 0.0:
             raise AssertionError(f"bilinear_scatter:{r}: out-of-frame events "
@@ -1114,15 +1153,15 @@ def odd_coordinates(torch, cs, rng):
     P, C = 4, n // 4
     pref = cs.bilinear_patches_scatter_plain(x, y, w, P, C, H, W)
     for r in ("patch", "direct"):
-        errs.append(check_close(
+        errs[f"patches {r}"] = check_close(
             f"bilinear_patches_scatter {r} route (odd coordinates)",
-            cs.bilinear_patches_scatter(x, y, w, P, C, H, W, route=r), pref))
+            cs.bilinear_patches_scatter(x, y, w, P, C, H, W, route=r), pref)
         away = cs.bilinear_patches_scatter(x, y * 0 + 1e30, w, P, C, H, W,
                                            route=r)
         if float(away.abs().max()) != 0.0:
             raise AssertionError(f"bilinear_patches_scatter {r}: "
                                  f"out-of-frame events left a mark")
-    return max(errs)
+    return errs
 
 
 def patch_loss_inputs(torch, objective):
@@ -1186,10 +1225,12 @@ def atlas_route(torch, cs, x, y, w, P, C, PH, PW):
     return run
 
 
-def patches_phase(torch, cs, rng, records):
+def patches_phase(torch, cs, rng, records, odd_errs):
     """The patch kernel at one batched loss evaluation (K=1 and K=4),
     against its plain version and the atlas route; a ragged shape; a patch
-    too large for shared memory (direct route); gradients."""
+    too large for shared memory (direct route); gradients. ``odd_errs``:
+    what ``odd_coordinates`` returned (its patch routes' errors count
+    here)."""
     dev = torch.device("cuda")
     slow = dict(calls=2, reps=5)
     errs, cases, steps = [], [], []
@@ -1283,7 +1324,7 @@ def patches_phase(torch, cs, rng, records):
     for name, gk, gp in zip("xyw", *grads):
         errs.append(check_close(f"bilinear_patches grad d{name}", gk, gp,
                                 rel=1e-4))
-    errs.append(odd_coordinates(torch, cs, rng))
+    errs.append(max(odd_errs["patches patch"], odd_errs["patches direct"]))
 
     top = cases[0]
     top["cases"] = [as_case(c, atlas_ms=c["atlas_ms"]) for c in cases]
@@ -1596,12 +1637,15 @@ def kernel_phase(torch, cs, rng, records):
                         device=dev)
     w4 = torch.as_tensor(rng.uniform(-1, 1, (4, n)), dtype=torch.float32,
                          device=dev)
-    # K=4 at 181x241 (the timestamp image) exceeds shared memory: direct
-    if cs.bilinear_route(4, HP, WP, n) != "direct":
-        raise AssertionError("K=4 at 181x241 must take the direct route")
-    err_k4 = check_close(
-        "bilinear_scatter:direct (K=4)", cs.bilinear_scatter(x, y, w4, HP, WP),
-        cs.bilinear_scatter_plain(x, y, w4, HP, WP))
+    # the floor of one graph node: an empty kernel in the same harness
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0), torch)
+    log(f"empty kernel (torch.cuda._sleep(0)): {floor_ms:.4f} ms a graph "
+        f"node")
+    # K=4 at 181x241 (the timestamp image) exceeds shared memory: the
+    # vector route at 200k events (part 11 of the tune script)
+    if cs.bilinear_route(4, HP, WP, n) != "vector":
+        raise AssertionError("K=4 at 181x241, 200k events: want the vector "
+                             "route")
     # autograd: kernel forward + gather backward vs autograd of index_add_
     from event_utils_tpu_torch.ops.scatter import bilinear_scatter as bs
     tgt = torch.as_tensor(rng.normal(size=(HP, WP)), dtype=torch.float32,
@@ -1638,31 +1682,54 @@ def kernel_phase(torch, cs, rng, records):
         torch, cs, "one ROI of the planted scene", wx[:m].contiguous(),
         wy[:m].contiguous(), wp[:, :m].contiguous(), HP, WP,
         ("single", "direct"))
+    # K = 4 at 200k: the timestamp image's four weights of the planted
+    # scene, and uniform weights; the vector route against the direct one
+    pos = torch.as_tensor(sp > 0, dtype=torch.float32, device=dev)
+    tn = torch.as_tensor((st - st.min()) / (st.max() - st.min()),
+                         dtype=torch.float32, device=dev)
+    stamp = bilinear_case(
+        torch, cs, "the planted scene's timestamp image", wx, wy,
+        torch.stack([tn * pos, pos, tn * (1 - pos), 1 - pos]).contiguous(),
+        HP, WP, ("vector", "direct"))
+    uni4 = bilinear_case(torch, cs, "uniform", x, y, w4, HP, WP,
+                         ("vector", "direct"))
+    for label, c in (("timestamp image", stamp), ("uniform", uni4)):
+        log(f"  vector against direct, K=4 ({label}): "
+            f"{c['vector']['ms']:.4f} / {c['direct']['ms']:.4f} ms, floor "
+            f"{floor_ms:.4f} ms")
     # the one-block form is no route of the main path (it loses to the
     # direct kernel at every shape): its times stand with the private
     # kernel, whose code it shares
     for route, cases in (
             ("private", [big["private"], sharp["private"]]),
+            ("vector", [stamp["vector"], uni4["vector"]]),
             ("direct", [big["direct"], sharp["direct"], small["direct"],
-                        few["direct"]])):
+                        few["direct"], stamp["direct"], uni4["direct"]])):
         rec = dict(cases[0])
         rec["cases"] = [as_case(c) for c in cases]
         rec["max_abs_err"] = max(c["max_abs_err"] for c in cases)
         records[f"bilinear_scatter:{route}"] = rec
+    for c, done in zip(records["bilinear_scatter:vector"]["cases"],
+                       (stamp, uni4)):
+        c["direct_ms"] = done["direct"]["ms"]
     rec = records["bilinear_scatter:private"]
     rec["cases"] += [as_case(c, blocks=1) for c in (small["single"],
                                                      few["single"])]
     rec["max_abs_err"] = max(rec["max_abs_err"], small["single"]["max_abs_err"],
                              few["single"]["max_abs_err"])
     records["bilinear_scatter:direct"]["max_abs_err"] = max(
-        [records["bilinear_scatter:direct"]["max_abs_err"], err_k4]
-        + err_grad)
+        [records["bilinear_scatter:direct"]["max_abs_err"]] + err_grad)
+    err_odd = odd_coordinates(torch, cs, rng)
+    for route in ("vector", "direct"):
+        rec = records[f"bilinear_scatter:{route}"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err_odd[route])
 
     batched_kernel_cases(torch, cs, rng, records)
 
-    patches_phase(torch, cs, rng, records)
+    patches_phase(torch, cs, rng, records, err_odd)
 
     flat_phase(torch, cs, rng, records, x, y, w4[0].contiguous())
+    return floor_ms
 
 
 def main_path(torch, P, rng):
@@ -2345,9 +2412,9 @@ def route_calls(cs):
 
     def bat_(x, y, w, H, W, route=None):
         (S, n), K = x.shape, w.shape[-2]
-        note("bilinear_scatter_batched:"
-             + (route or cs.bilinear_batched_route(K, H, W)), (S, K, H, W),
-             (x, y, w), S * n * K, -(-S // cs.BATCH_MAX_SAMPLES))
+        r = route or cs.bilinear_batched_route(K, H, W, n, S)
+        note("bilinear_scatter_batched:" + r, (S, K, H, W), (x, y, w),
+             S * n * K, -(-S // cs.batched_chunk(r, K, H, W)))
         return bat(x, y, w, H, W, route=route)
 
     def patches_(x, y, w, P, C, PH, PW, route=None):
@@ -2405,11 +2472,10 @@ def route_cases(torch, cs, records, seen, label, extra=None):
             K, H, W = shape
             bi, bv = live_taps(torch, x, y, w, H, W)
             ref = cs.bilinear_scatter_plain(x, y, w, H, W)
+            got = cs.bilinear_scatter(x, y, w, H, W, route=route)
             case = dict(
                 shape=f"K={K}, {len(x)} events ({label}) into {H}x{W}",
-                max_abs_err=check_close(
-                    f"{name} ({label})",
-                    cs.bilinear_scatter(x, y, w, H, W, route=route), ref),
+                max_abs_err=check_close(f"{name} ({label})", got, ref),
                 ms=time_ms(lambda: cs.bilinear_scatter(x, y, w, H, W,
                                                        route=route), torch),
                 plain_ms=time_ms(lambda: cs.bilinear_scatter_plain(
@@ -2418,6 +2484,14 @@ def route_cases(torch, cs, records, seen, label, extra=None):
                     K * H * W, device=x.device).index_put_(
                         (bi,), bv, accumulate=True), torch),
                 bound=bilinear_bound(x, y, K, H, W))
+            if route == "vector":
+                # held per pixel; and the route these shapes took before,
+                # on the same inputs
+                case["max_abs_err"], case["limit_share"] = \
+                    single_splat_check(torch, cs, f"{name} ({label})", got,
+                                       x, y, w, H, W)
+                case["direct_ms"] = time_ms(lambda: cs.bilinear_scatter(
+                    x, y, w, H, W, route="direct"), torch)
         else:
             x, y, w = args
             K, P, C, PH, PW = shape
@@ -4560,10 +4634,11 @@ def batched_phase(torch, cs, records):
     BFGS, counted: ``optimize_contrast_jit(grid_search_init=True)`` and
     ``grid_search_optimisation`` on the 200k planted scene (every grid
     level one batched launch per chunk, no single splat), one
-    ``grid_search_initial`` level of zhu's objective (K = 4: the direct
-    route), the 20x20 landscape on the visualization phase's 15,000 events
-    (card vs CPU) and on all 200k (5 chunks; against the per-sample loop on
-    the card), ``grid_cmax_batched(solver='bfgs')`` on the rotating scene
+    ``grid_search_initial`` level of zhu's objective (K = 4: the vector
+    route, in its chunks of samples), the 20x20 landscape on the
+    visualization phase's 15,000 events (card vs CPU) and on all 200k (5
+    chunks; against the per-sample loop on the card),
+    ``grid_cmax_batched(solver='bfgs')`` on the rotating scene
     (one batched BFGS over its ROIs; flow error, card vs CPU) and a
     full-frame objective's ROI solve there. Then warm walls, device busy
     and idle shares, and each kept shape on its route against its plain
@@ -4609,12 +4684,28 @@ def batched_phase(torch, cs, records):
         add_level("grid_search_refine", sizes, delta(before))
         return res
 
+    zhu_sizes = []   # samples of each of zhu's loss chunks
+
+    in_zhu = [False]
+
+    def zhu_level():
+        in_zhu[0] = True
+        try:
+            res = grid_search_initial(sx, sy, st, sp, linvel_warp(),
+                                      zhu_timestamp_objective(), SENSOR,
+                                      device=dev)
+        finally:
+            in_zhu[0] = False
+        S, chunk = len(res["params"]), ec.batch_chunk(n, SENSOR)
+        zhu_sizes[:] = [min(chunk, S - s0) for s0 in range(0, S, chunk)]
+        return res
+
     def initial_(xs, *a, **kw):
         before = cs.launch_counts()
         res = real_initial(xs, *a, **kw)
         torch.cuda.synchronize()
-        add_level("grid_search_initial", [len(res["params"])],
-                  delta(before))
+        add_level("grid_search_initial" + ("(zhu)" if in_zhu[0] else ""),
+                  [len(res["params"])], delta(before))
         return res
 
     bfgs_calls = []
@@ -4637,9 +4728,7 @@ def batched_phase(torch, cs, records):
         "optimize_contrast": lambda: optimize_contrast(
             sx, sy, st, sp, linvel_warp(), variance_objective(),
             blur_sigma=1.0, img_size=SENSOR, grid_search_init=True),
-        "grid_search_initial(zhu)": lambda: grid_search_initial(
-            sx, sy, st, sp, linvel_warp(), zhu_timestamp_objective(), SENSOR,
-            device=dev),
+        "grid_search_initial(zhu)": zhu_level,
         "landscape": lambda: ec._objective_landscape(
             vx, vy, vt, vp, variance_objective(minimum_events=1),
             linvel_warp(), device=dev, **lkw),
@@ -4675,7 +4764,15 @@ def batched_phase(torch, cs, records):
 
     # every grid level: one batched launch per chunk, no single splat
     for label, (sizes, d) in levels.items():
-        want = sum(-(-S // ec.batch_chunk(n, SENSOR)) for S in sizes)
+        # the loss's chunks of samples, each in its route's launches
+        K = 4 if "zhu" in label else 1
+        inner = min([cs.batched_chunk(k.split(":")[1], K, SENSOR[0] + 1,
+                                      SENSOR[1] + 1)
+                     for k in d if k.startswith("bilinear_scatter_batched")]
+                    or [cs.BATCH_MAX_SAMPLES])
+        L = ec.batch_chunk(n, SENSOR)
+        want = sum(-(-min(L, S - s0) // inner) for S in sizes
+                   for s0 in range(0, S, L))
         n_single = sum(d.get(r, 0) for r in single)
         n_batched = sum(v for k, v in d.items()
                         if k.startswith("bilinear_scatter_batched"))
@@ -4696,10 +4793,17 @@ def batched_phase(torch, cs, records):
                                         for r in single):
             raise AssertionError(f"{label}: single splats "
                                  f"{launches_of[label]}")
-    if launches_of["grid_search_initial(zhu)"] != {
-            "bilinear_scatter_batched:direct": 1}:
+    # zhu's level: K = 4 past 227 KB, on the route its shape is sent to, in
+    # that route's chunks of samples
+    zr = cs.bilinear_batched_route(4, SENSOR[0] + 1, SENSOR[1] + 1, n,
+                                   zhu_sizes[0])
+    zhu_want = {f"bilinear_scatter_batched:{zr}": sum(
+        -(-S // cs.batched_chunk(zr, 4, SENSOR[0] + 1, SENSOR[1] + 1))
+        for S in zhu_sizes)}
+    if launches_of["grid_search_initial(zhu)"] != zhu_want:
         raise AssertionError(f"zhu's level: "
-                             f"{launches_of['grid_search_initial(zhu)']}")
+                             f"{launches_of['grid_search_initial(zhu)']}, "
+                             f"want {zhu_want}")
     # optimize_contrast_jit's single problem, then the ROI solve: one BFGS
     # over all R ROIs and, where ROIs overflow the capacity, one over the
     # overflow tier's rows (as JAX vmaps each tier's solver)
@@ -4897,27 +5001,46 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     records = {}
-    kernel_phase(torch, cs, rng, records)
+    floor_ms = kernel_phase(torch, cs, rng, records)
     torch.cuda.synchronize()
 
     cs.reset_launch_counts()
-    main_path(torch, P, rng)
+    with route_calls(cs) as seen:
+        main_path(torch, P, rng)
     torch.cuda.synchronize()
     launches = cs.launch_counts()
-    log(f"main-path launches: {launches}")
-    # every route that some shape is sent to; the one-block form of the
-    # private bilinear kernel is sent none (see kernel_phase), and the
-    # batched direct route (an image past 227 KB a sample: zhu's K = 4
-    # stack) is the batched phase's
-    routed = set(launches) - {"bilinear_scatter:single"}
-    missing = sorted(k for k in routed - {"bilinear_scatter_batched:direct"}
-                     if launches[k] == 0)
+    got = {k: v for k, v in launches.items() if v}
+    log(f"main-path launches: {got}; by the dispatch rules {seen['calls']}")
+    # every call launched the route that its shape is sent to, and every
+    # route of this path launched: all but the one-block form of the
+    # private bilinear kernel (sent no shape, see kernel_phase) and the
+    # batched vector and direct routes (the batched phase's: zhu's K = 4
+    # stack). The single direct route takes grid_cmax's per-ROI splats
+    # and the streaming IWEs here
+    # (route_calls counts no per-tile voxel call: tiles_phase and roi_path
+    # hold those)
+    if {k: v for k, v in got.items()
+            if not k.startswith("voxel_tiles_scatter")} != seen["calls"]:
+        raise AssertionError(f"main-path launches {got}, dispatch "
+                             f"{seen['calls']}")
+    off_path = {"bilinear_scatter:single",
+                "bilinear_scatter_batched:vector",
+                "bilinear_scatter_batched:direct"}
+    missing = sorted(set(launches) - off_path - set(got))
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    if set(records) != routed:
+    # every route is held against its plain version (the one-block private
+    # form among the private kernel's cases)
+    held = set(launches) - {"bilinear_scatter:single"}
+    if set(records) != held:
         raise AssertionError(f"routes not held against their plain "
-                             f"version: {routed ^ set(records)}")
+                             f"version: {held ^ set(records)}")
+    # the vector route at the shapes this path sent it, against its plain
+    # version per pixel, timed beside the direct route on the same inputs
+    route_cases(torch, cs, records, {"kept": {
+        k: v for k, v in seen["kept"].items()
+        if k[0] == "bilinear_scatter:vector"}}, "main path")
     batched_launches, batched = batched_phase(torch, cs, records)
     serving_launches, serving = serving_phase(torch, cs, records)
     with tempfile.TemporaryDirectory(prefix=".smoke_sim_", dir=ROOT) as work:
@@ -4951,7 +5074,9 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": rec["library_ms"],
-            **{k: rec[k] for k in ("shape", "cases") if k in rec}})
+            "floor_ms": floor_ms,
+            **{k: rec[k] for k in ("shape", "direct_ms", "cases")
+               if k in rec}})
     print(json.dumps({"batched": batched}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"simulated_anchors": anchors}))
@@ -5003,6 +5128,41 @@ def roi_bfgs_walls(reps: int = 2) -> int:
     return 0
 
 
+FEW_SPLAT_WALLS_FLAG = "--few-splat-walls"
+
+
+def few_splat_walls(reps: int = 5) -> int:
+    """``python3 chip_smoke.py --few-splat-walls``: cold and warm walls of
+    the main path's host-loop ROI solver, ``grid_cmax`` on the 40x60 corner
+    of the rotating scene (each loss evaluation one single splat of one
+    ROI's ~2k events), with its launches, for the package beside this
+    file; a copy of this file placed at the root of another checkout times
+    that checkout (compare two in one call: A, B, B, A). Prints one JSON
+    line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from event_utils_tpu_torch.contrast_max import grid_cmax
+    from event_utils_tpu_torch.ops import cuda_scatter as cs
+    sx, sy, st, sp = rotating_scene()
+    corner = (sx < 60) & (sy < 40)
+
+    def solve():
+        return grid_cmax(sx[corner], sy[corner], st[corner], sp[corner],
+                         roi_size=ROT_ROI, img_size=ROT_SENSOR)
+
+    cs.reset_launch_counts()
+    (params, _, _), cold = synced(torch, solve)
+    launches = {k: v for k, v in cs.launch_counts().items() if v}
+    warm = [synced(torch, solve)[1] for _ in range(reps)]
+    print(json.dumps({"few_splat_walls": {
+        "root": ROOT, "cold_s": cold, "warm_s": warm, "launches": launches,
+        "params": np.round(np.array(params), 3).tolist(),
+        "card": card_line()}}))
+    return 0
+
+
 STEP_PARITY_FLAG = "--step-parity"
 
 
@@ -5045,6 +5205,8 @@ if __name__ == "__main__":
         sys.exit(dp_rank_main(sys.argv[2:]))
     if sys.argv[1:] == [ROI_WALLS_FLAG]:
         sys.exit(roi_bfgs_walls())
+    if sys.argv[1:] == [FEW_SPLAT_WALLS_FLAG]:
+        sys.exit(few_splat_walls())
     if sys.argv[1:2] == [STEP_PARITY_FLAG]:
         sys.exit(step_parity_runs(*(int(a) for a in sys.argv[2:3])))
     sys.exit(main())

@@ -50,6 +50,10 @@
 //   - flat_vector: the D weights of one id are neighbours in a
 //     rows-innermost scratch (num_buckets, Dp) and go as one float2 (D = 2)
 //     or as float4s (four rows each); flat_transpose writes (D, num_buckets).
+//   - bilinear_vector: the K channels of one bilinear tap are neighbours in
+//     a channels-innermost scratch (S, H*W, Kp) and go as one float2 (K = 2)
+//     or float4 (K = 3, 4); bilinear_unpack writes (S, K, H, W). For K >= 2
+//     images past 227 KB (the timestamp image, zhu's grid levels).
 //
 // Private tiles (the bilinear and per-tile voxel kernels' other routes): the
 // output, or the part of it that a block owns, is accumulated in that
@@ -73,17 +77,19 @@
 //     shape: G * S within the card's 132 SMs for few samples, up to 3 a
 //     sample in waves where one block a sample would leave SMs idle. With
 //     one block a sample the copy is stored like a patch. The direct route,
-//     bilinear_scatter_kernel, has the same sample axis and serves images
-//     past 227 KB (K = 4).
+//     bilinear_scatter_kernel, has the same sample axis and serves what no
+//     other route wins.
 //   - voxel_tiles_private: one block per (tile, bin) owns that bin plane in
 //     its shared memory and stores it once. Every block reads t_norm of all
 //     slots of its tile and keeps the taps of its own bin.
+//
 // Variants that measured slower on an H100 (taps sent through a cluster's
 // distributed shared memory, private copies summed across a cluster through
 // it and stored once, for images and for few patches, cp.reduce.async.bulk
 // of whole private images, several channels per block, other block sizes, one voxel accumulator with
 // scalar reductions for odd first bins, flat ids loaded ahead or one thread
-// per (row, id) element) live with the script that measures them,
+// per (row, id) element, a row-band splat for few events that spares the
+// memset) live with the script that measures them,
 // scripts/tune_scatter_variants.cu.
 //
 // Every tap is bounds-checked in float before any integer cast
@@ -694,6 +700,126 @@ voxel_tiles_private_kernel(const int* __restrict__ bx,
   store_wait();
 }
 
+// ---------------------------------------------------------------------------
+// Channels innermost: many events into K >= 2 channels past shared memory
+// ---------------------------------------------------------------------------
+
+// Add f * (v[0], .., v[V-1]) to V neighbouring floats of global memory in
+// one reduction (REDG.E.ADD.F32x2 / .F32x4; p aligned to V floats).
+template <int V>
+__device__ __forceinline__ void add_vector(float* p, const float* v,
+                                           float f) {
+  if constexpr (V == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0] * f, v[1] * f));
+  } else {
+    atomicAdd(reinterpret_cast<float4*>(p),
+              make_float4(v[0] * f, v[1] * f, v[2] * f, v[3] * f));
+  }
+}
+
+// (S, K, H, W) splats with each tap's K values sent as vector reductions
+// into a zeroed channels-innermost scratch (S, H*W, Kp): Kp = 2 for K = 2
+// (one float2 a tap), else K rounded up to whole float4s (one float4 a tap
+// for K = 3 and K = 4; pad channels add zeros to columns that
+// bilinear_unpack_kernel never reads). One thread per slot, the sample as
+// the grid's y axis, weights at w + s * w_stride (bilinear_scatter_kernel's
+// layout); a group of V channels whose weights are all zero is skipped.
+// Each value is (w*wx)*wy, the direct kernel's order of products.
+//
+// What bounds it: what bounds the direct kernel, the L2's rate of
+// reduction requests, now one a tap instead of K; then the scratch is read
+// once and the output written once (bilinear_unpack_kernel).
+template <int V>
+__global__ void bilinear_vector_kernel(const float* __restrict__ x,
+                                       const float* __restrict__ y,
+                                       const float* __restrict__ w,
+                                       long long n, long long w_stride,
+                                       int K, int H, int W, int Kp,
+                                       float* __restrict__ scratch) {
+  const long long s = blockIdx.y;
+  const float* xs = x + s * n;
+  const float* ys = y + s * n;
+  const float* ws = w + s * w_stride;
+  float* acc = scratch + s * static_cast<long long>(H) * W * Kp;
+  const float fW = static_cast<float>(W);
+  const float fH = static_cast<float>(H);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const float xf = xs[i];
+    const float yf = ys[i];
+    const float x0 = floorf(xf);
+    const float y0 = floorf(yf);
+    const bool okx0 = x0 >= 0.0f && x0 < fW;
+    const bool okx1 = x0 + 1.0f >= 0.0f && x0 + 1.0f < fW;
+    const bool oky0 = y0 >= 0.0f && y0 < fH;
+    const bool oky1 = y0 + 1.0f >= 0.0f && y0 + 1.0f < fH;
+    if (!(okx0 || okx1) || !(oky0 || oky1)) continue;
+    const float dx = xf - x0;
+    const float dy = yf - y0;
+    float* a = acc + (static_cast<long long>(y0) * W +
+                      static_cast<long long>(x0)) * Kp;
+    const long long row = static_cast<long long>(W) * Kp;
+    for (int g = 0; g < Kp; g += V) {
+      float wl[V], wr[V];
+      bool any = false;
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        const float wk =
+            g + u < K ? ws[static_cast<long long>(g + u) * n + i] : 0.0f;
+        any = any || wk != 0.0f;
+        wl[u] = wk * (1.0f - dx);
+        wr[u] = wk * dx;
+      }
+      if (!any) continue;
+      if (oky0) {
+        if (okx0) add_vector<V>(a + g, wl, 1.0f - dy);
+        if (okx1) add_vector<V>(a + Kp + g, wr, 1.0f - dy);
+      }
+      if (oky1) {
+        if (okx0) add_vector<V>(a + row + g, wl, dy);
+        if (okx1) add_vector<V>(a + row + Kp + g, wr, dy);
+      }
+    }
+  }
+}
+
+// out[s, k, pix] = scratch[s, pix, k] for k < K: one thread per (sample,
+// pixel) reads its scratch row as V-float vectors and stores the K values
+// coalesced, one plane apart.
+template <int V>
+__global__ void bilinear_unpack_kernel(const float* __restrict__ scratch,
+                                       long long pixels, long long image,
+                                       int K, int Kp,
+                                       float* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       p < pixels; p += stride) {
+    const long long s = p / image;
+    float* o = out + s * K * image + (p - s * image);
+    const float* row = scratch + p * Kp;
+    for (int g = 0; g < K; g += V) {
+      float v[V];
+      if constexpr (V == 2) {
+        const float2 q = *reinterpret_cast<const float2*>(row + g);
+        v[0] = q.x;
+        v[1] = q.y;
+      } else {
+        const float4 q = *reinterpret_cast<const float4*>(row + g);
+        v[0] = q.x;
+        v[1] = q.y;
+        v[2] = q.z;
+        v[3] = q.w;
+      }
+#pragma unroll
+      for (int u = 0; u < V; ++u)
+        if (g + u < K) o[(g + u) * image] = v[u];
+    }
+  }
+}
+
 // Let a kernel ask for up to 227 KB of dynamic shared memory.
 template <typename Kernel>
 cudaError_t allow_max_shared(Kernel kernel) {
@@ -882,6 +1008,59 @@ int bilinear_scatter_private(const void* x, const void* y, const void* w,
                              int blocks, void* stream) {
   return bilinear_scatter_batched_private(x, y, w, 1, n, 0, K, H, W, out,
                                           blocks, stream);
+}
+
+// scratch: (S, H*W, Kp) zeroed floats, 16-byte aligned; Kp = 2 for K = 2,
+// else K rounded up to a multiple of 4. out may hold anything.
+int bilinear_scatter_batched_vector(const void* x, const void* y,
+                                    const void* w, long long S, long long n,
+                                    long long w_stride, int K, int H, int W,
+                                    int Kp, void* scratch, void* out,
+                                    void* stream) {
+  if (S > 65535 || K < 2 || Kp < K || (Kp != 2 && Kp % 4 != 0) ||
+      (Kp == 2) != (K == 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long pixels = S * static_cast<long long>(H) * W;
+  if (S > 0 && n > 0) {
+    long long bx = (n + kThreads - 1) / kThreads;
+    const long long cap = (kMaxBlocks + S - 1) / S;  // ~kMaxBlocks in all
+    if (bx > cap) bx = cap;
+    const dim3 grid(static_cast<unsigned int>(bx),
+                    static_cast<unsigned int>(S));
+    const float* xf = static_cast<const float*>(x);
+    const float* yf = static_cast<const float*>(y);
+    const float* wf = static_cast<const float*>(w);
+    float* acc = static_cast<float*>(scratch);
+    if (Kp == 2) {
+      bilinear_vector_kernel<2><<<grid, kThreads, 0, st>>>(
+          xf, yf, wf, n, w_stride, K, H, W, Kp, acc);
+    } else {
+      bilinear_vector_kernel<4><<<grid, kThreads, 0, st>>>(
+          xf, yf, wf, n, w_stride, K, H, W, Kp, acc);
+    }
+  }
+  if (pixels > 0) {
+    const long long image = static_cast<long long>(H) * W;
+    if (Kp == 2) {
+      bilinear_unpack_kernel<2><<<grid_for(pixels), kThreads, 0, st>>>(
+          static_cast<const float*>(scratch), pixels, image, K, Kp,
+          static_cast<float*>(out));
+    } else {
+      bilinear_unpack_kernel<4><<<grid_for(pixels), kThreads, 0, st>>>(
+          static_cast<const float*>(scratch), pixels, image, K, Kp,
+          static_cast<float*>(out));
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One image: the vector kernels at S = 1.
+int bilinear_scatter_vector(const void* x, const void* y, const void* w,
+                            long long n, int K, int H, int W, int Kp,
+                            void* scratch, void* out, void* stream) {
+  return bilinear_scatter_batched_vector(x, y, w, 1, n, 0, K, H, W, Kp,
+                                         scratch, out, stream);
 }
 
 int voxel_tiles_scatter_private(const void* bx, const void* by,

@@ -57,6 +57,10 @@ SIGNATURES = {
                                              _I, _P, _I, _P),
         "voxel_tiles_scatter_private": (_P, _P, _P, _P, _L, _L, _I, _I, _I,
                                         _P, _P),
+        "bilinear_scatter_vector": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
+                                    _P),
+        "bilinear_scatter_batched_vector": (_P, _P, _P, _L, _L, _L, _I, _I,
+                                            _I, _I, _P, _P, _P),
     },
 }
 

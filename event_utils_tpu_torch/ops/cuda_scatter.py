@@ -22,7 +22,8 @@ kernel wrapper (this module)      TPU kernel it replaces (pallas_scatter.py)
 
 Every wrapper has several kernels, called routes. A route is chosen from
 the call's shape before the launch (``voxel_route``, ``flat_route``,
-``bilinear_route``, ``voxel_tiles_route``, ``bilinear_patches_route``),
+``bilinear_route``, ``bilinear_batched_route``, ``voxel_tiles_route``,
+``bilinear_patches_route``),
 never from a failure. The thresholds are measurements on an H100
 (``scripts/tune_scatter_routes.py``). What they reflect: a float
 ``atomicAdd`` on shared memory is a compare-and-swap loop on this card
@@ -47,9 +48,16 @@ the events are many; below that the direct kernels win.
   ``flat_scatter:direct`` — one row (the event image), or few ids: one
   thread per id, one scalar reduction per row into the zeroed output.
 
+- ``bilinear_scatter:vector`` — K >= 2 channels past 227 KB with enough
+  events (``vector_pays``: the timestamp image, zhu's grid levels): each
+  tap's K values go as one ``float2``/``float4`` reduction into a zeroed
+  channels-innermost scratch, which a second kernel unpacks into an
+  uninitialised output; samples in chunks of ``vector_chunk``.
 - ``bilinear_scatter:direct`` — one thread per event, global ``atomicAdd``
-  into the zeroed output: few events, or an image that does not fit one
-  block's shared memory (227 KB).
+  into the zeroed output: what neither of the others wins (few events,
+  one channel past 227 KB, few channels below the vector route's rule).
+  A row-band splat for few events (one launch, no memset) lost to it and
+  stays in ``scripts/tune_scatter_variants.cu``.
 - ``bilinear_scatter:private`` — 98304 events or more into an image that
   fits: up to 132 blocks each accumulate a private copy in shared memory
   and add its non-zero pixels to the zeroed output.
@@ -58,13 +66,14 @@ the events are many; below that the direct kernels win.
   the direct route at every shape tried (one SM zeroing and storing the
   image costs more than a memset node), so no shape is sent to it; it stays
   selectable for measurement.
-- ``bilinear_scatter_batched:private`` / ``:direct`` — S samples of N
-  events each in one launch (up to 65535 samples) with the sample as the
-  grid's y axis (Pallas batches ``_bilinear_kernel`` under ``vmap`` by adding
-  a grid axis): the private kernel per sample where ``K*H*W*4`` bytes fit
-  227 KB, else the direct one; ``private_blocks`` gives the private blocks
-  a sample by shape. ``bilinear_scatter:private`` and ``:direct`` are these
-  kernels at S = 1.
+- ``bilinear_scatter_batched:private`` / ``:vector`` / ``:direct`` — S
+  samples of N events each in one launch (up to 65535 samples) with the
+  sample as the grid's y axis (Pallas batches ``_bilinear_kernel`` under
+  ``vmap`` by adding a grid axis): the private kernel per sample where
+  ``K*H*W*4`` bytes fit 227 KB, else the vector or direct one by
+  ``bilinear_batched_route``; ``private_blocks`` gives the private blocks
+  a sample by shape. The single image's routes
+  are these kernels at S = 1.
 - ``bilinear_patches_scatter`` — run ``q`` of ``C`` consecutive slots
   splats into patch ``q`` only (the batched patch loss of the ROI solvers):
   one block owns each patch in shared memory and stores it once into an
@@ -162,8 +171,10 @@ ROUTES = ("voxel_scatter:vector", "voxel_scatter:direct",
           "voxel_tiles_scatter:private", "voxel_tiles_scatter:direct",
           "flat_scatter:vector", "flat_scatter:direct",
           "bilinear_scatter:direct", "bilinear_scatter:private",
-          "bilinear_scatter:single", "bilinear_scatter_batched:private",
-          "bilinear_scatter_batched:direct", "bilinear_patches_scatter",
+          "bilinear_scatter:single", "bilinear_scatter:vector",
+          "bilinear_scatter_batched:private",
+          "bilinear_scatter_batched:direct",
+          "bilinear_scatter_batched:vector", "bilinear_patches_scatter",
           "bilinear_patches_scatter:direct")
 _launches = dict.fromkeys(ROUTES, 0)
 
@@ -705,11 +716,78 @@ def private_blocks(S: int, n: int) -> int:
     return best if share(best) <= PRIVATE_WAVE_CUT * share(1) else 1
 
 
+# Many events into K >= 2 channels past shared memory: the vector route.
+# Part 11 of scripts/tune_scatter_routes.py and chip_smoke.py on an H100
+# (700 W): it pays where it saves at least VECTOR_MIN_SAVED_BILINEAR L2
+# requests and its scratch holds at most VECTOR_SCRATCH_PER_SAVED floats per
+# request saved, the rule of the voxel and flat vector routes with a lower
+# floor (one image at 181x241, K = 4: direct 0.0064 against vector 0.0071
+# ms at visualization's 15,000 events, 0.0083 against 0.0065 at 20,000,
+# 0.0315 against 0.0223 at the 200k timestamp image; 25 samples: direct
+# 0.0178 against 0.0229 at 2048 events a sample, 0.0275 against 0.0260 at
+# 4096; 480x640: direct up to 20,000 events, vector from 32768). One
+# private plane per (sample, channel) in shared memory lost at one image
+# (0.2468 against 0.0153 ms), tied at zhu's level (0.2612 against 0.2642)
+# and won at 83 samples (0.7705 against 0.8815: a loss chunk, as a
+# landscape of zhu's objective would send; no path of chip_smoke.py does).
+# One launch takes up to as many samples as keep its scratch within
+# VECTOR_CHUNK_BYTES (30 at 181x241, K = 4): a loss chunk of 83 x 200k
+# into 181x241 took 0.9034 / 0.8905 / 0.8781 / 0.8843 / 0.9185 ms in
+# launches of 10 / 21 / 30 / 42 / 83 samples, zhu's grid level (25 x 200k)
+# 0.3881 / 0.3021 / 0.2834 / 0.2735 / 0.2722 / 0.2664 in launches of 1 / 3
+# / 5 / 9 / 13 / 25.
+VECTOR_MIN_SAVED_BILINEAR = 3 * 65536
+VECTOR_CHUNK_BYTES = 20 << 20
+
+
+def vector_channels(K: int) -> int:
+    """Columns of the channels-innermost scratch: 2 for two channels (one
+    float2 a tap), else K rounded up to whole float4s."""
+    return 2 if K == 2 else -(-K // 4) * 4
+
+
+def vector_pays(K: int, H: int, W: int, n: int, S: int = 1) -> bool:
+    """Whether the vector route pays for S samples of n events: the L2
+    requests it saves (4 taps an event, each ``K - Kp/4`` requests fewer;
+    one fewer for K = 2) reach ``VECTOR_MIN_SAVED_BILINEAR``, and its
+    scratch, ``H*W*Kp`` floats a sample, is within
+    ``VECTOR_SCRATCH_PER_SAVED`` floats per request saved."""
+    if K < 2:
+        return False
+    Kp = vector_channels(K)
+    saved = 4 * S * n * (K - (1 if K == 2 else Kp // 4))
+    return (saved >= VECTOR_MIN_SAVED_BILINEAR
+            and S * H * W * Kp <= VECTOR_SCRATCH_PER_SAVED * saved)
+
+
+def vector_chunk(K: int, H: int, W: int) -> int:
+    """Samples a launch of the vector route: as many as keep the scratch
+    within ``VECTOR_CHUNK_BYTES``, at least one, at most
+    ``BATCH_MAX_SAMPLES``."""
+    per = H * W * vector_channels(K) * 4
+    return max(1, min(BATCH_MAX_SAMPLES, VECTOR_CHUNK_BYTES // max(per, 1)))
+
+
+def _bilinear_allowed(K: int, H: int, W: int) -> set:
+    """Routes that can compute a (K, H, W) splat: the private kernel where
+    the image fits 227 KB, the vector kernel for two channels or more, the
+    direct kernel always."""
+    routes = {"direct"}
+    if K * H * W * 4 <= SHARED_MAX_BYTES:
+        routes.add("private")
+    if K >= 2:
+        routes.add("vector")
+    return routes
+
+
 def bilinear_route(K: int, H: int, W: int, n: int) -> str:
     """Route of a (K, H, W) splat of n events: 'private' where the image
-    fits 227 KB of shared memory and n is at least 98304; else 'direct'."""
-    fits = K * H * W * 4 <= SHARED_MAX_BYTES
-    return "private" if fits and n >= PRIVATE_MIN_EVENTS else "direct"
+    fits 227 KB and n is at least 98304; 'vector' for K >= 2 past 227 KB
+    where it pays (``vector_pays``); else 'direct'."""
+    allowed = _bilinear_allowed(K, H, W)
+    if "private" in allowed:
+        return "private" if n >= PRIVATE_MIN_EVENTS else "direct"
+    return "vector" if vector_pays(K, H, W, n) else "direct"
 
 
 def bilinear_scatter(x, y, w, H: int, W: int, route=None):
@@ -722,40 +800,63 @@ def bilinear_scatter(x, y, w, H: int, W: int, route=None):
     K=4 it does not) and N >= 98304: one block of 1024 threads per 1024
     events, at most 132, each with a private image in shared memory whose
     non-zero pixels it adds to the zeroed output (a bulk reduction of whole
-    images measured slower). 'direct' for everything else: one thread per
-    event, global atomics into the zeroed output. 'single' (one block,
-    image stored once into an uninitialised output) is slower than 'direct'
-    wherever it was measured and is never chosen; ``route`` forces one of
-    the routes the shape allows.
+    images measured slower). 'vector', for K >= 2 past 227 KB (the
+    timestamp image): each tap's K values go as one ``float2``/``float4``
+    reduction into a zeroed channels-innermost scratch, which a second
+    kernel unpacks into an uninitialised output. 'direct' for everything
+    else: one thread per event, global atomics into the zeroed output.
+    'single' (one block, image stored once into an uninitialised output) is
+    slower than 'direct' wherever it was measured and is never chosen;
+    ``route`` forces one of the routes the shape allows.
     """
     dev = _check("bilinear_scatter", (x, y, w), (_F32, _F32, _F32))
     if w.dim() != 2 or w.shape[1] != x.shape[0] or y.shape != x.shape:
         raise ConfigurationError(
             f"bilinear_scatter: w must be (K, {x.shape[0]}), got "
             f"{tuple(w.shape)}")
+    K, n = w.shape
+    allowed = _bilinear_allowed(K, H, W)
+    if "private" in allowed:
+        allowed.add("single")
+    route = _pick("bilinear_scatter", route, bilinear_route(K, H, W, n),
+                  allowed)
     if dev.type == "cpu":
         return bilinear_scatter_plain(x, y, w, H, W)
-    K, n = w.shape
     if n == 0 or K == 0:
         return torch.zeros((K, H, W), dtype=_F32, device=dev)
-    fits = K * H * W * 4 <= SHARED_MAX_BYTES
-    route = _pick("bilinear_scatter", route, bilinear_route(K, H, W, n),
-                  {"direct", "single", "private"} if fits else {"direct"})
     ptrs = (x.data_ptr(), y.data_ptr(), w.data_ptr())
+    lib = build.library()
     if route == "direct":
         out = torch.zeros((K, H, W), dtype=_F32, device=dev)
-        rc = build.library().bilinear_scatter(
-            *ptrs, n, K, H, W, out.data_ptr(), _stream())
+        rc = lib.bilinear_scatter(*ptrs, n, K, H, W, out.data_ptr(),
+                                  _stream())
+    elif route == "vector":
+        Kp = vector_channels(K)
+        scratch = _vector_scratch(1, H, W, Kp, dev)
+        out = torch.empty((K, H, W), dtype=_F32, device=dev)
+        rc = lib.bilinear_scatter_vector(*ptrs, n, K, H, W, Kp,
+                                         scratch.data_ptr(), out.data_ptr(),
+                                         _stream())
     else:
         blocks = 1 if route == "single" else max(2, min(
             PRIVATE_MAX_BLOCKS, -(-n // PRIVATE_EVENTS_PER_BLOCK)))
         alloc = torch.empty if blocks == 1 else torch.zeros
         out = alloc((K, H, W), dtype=_F32, device=dev)
-        rc = build.library().bilinear_scatter_private(
-            *ptrs, n, K, H, W, out.data_ptr(), blocks, _stream())
+        rc = lib.bilinear_scatter_private(*ptrs, n, K, H, W, out.data_ptr(),
+                                          blocks, _stream())
     build.check(rc, f"bilinear_scatter:{route}")
     _launches[f"bilinear_scatter:{route}"] += 1
     return out
+
+
+def _vector_scratch(S: int, H: int, W: int, Kp: int, dev):
+    """A zeroed channels-innermost scratch (S, H*W, Kp), 16-byte aligned
+    for the vector reductions."""
+    scratch = torch.zeros((S, H * W, Kp), dtype=_F32, device=dev)
+    if scratch.data_ptr() % 16:
+        raise ConfigurationError(
+            "bilinear_scatter: scratch not aligned for vector reductions")
+    return scratch
 
 
 def _bilinear_vjp(g, dx, dy, taps, w):
@@ -810,11 +911,21 @@ class _BilinearCore(torch.autograd.Function):
 BATCH_MAX_SAMPLES = 65535
 
 
-def bilinear_batched_route(K: int, H: int, W: int) -> str:
-    """Route of a batched (S, K, H, W) splat: 'private' where one sample's
-    ``K*H*W*4`` bytes fit 227 KB of shared memory (181x241 at K = 1), else
-    'direct' (K = 4 there)."""
-    return "private" if K * H * W * 4 <= SHARED_MAX_BYTES else "direct"
+def bilinear_batched_route(K: int, H: int, W: int, n: int,
+                           S: int = 1) -> str:
+    """Route of a batched (S, K, H, W) splat of n events a sample:
+    'private' where one sample's ``K*H*W*4`` bytes fit 227 KB of shared
+    memory (181x241 at K = 1); past that 'vector' for K >= 2 where it pays
+    (zhu's K = 4 stack), else 'direct'."""
+    if "private" in _bilinear_allowed(K, H, W):
+        return "private"
+    return "vector" if vector_pays(K, H, W, n, S) else "direct"
+
+
+def batched_chunk(route: str, K: int, H: int, W: int) -> int:
+    """Samples that one launch of a batched route takes: the vector
+    route's chunk (``vector_chunk``), else the grid's y extent."""
+    return vector_chunk(K, H, W) if route == "vector" else BATCH_MAX_SAMPLES
 
 
 def bilinear_scatter_batched_plain(x, y, w, H: int, W: int):
@@ -856,10 +967,11 @@ def bilinear_scatter_batched(x, y, w, H: int, W: int, route=None):
     few samples what the card's 132 SMs leave per sample, at most one per
     1024 events; for more, up to 3 in waves where one a sample would leave
     SMs idle); with G = 1 each block stores its image into an
-    uninitialised output, else
-    the blocks add their non-zero pixels to a zeroed one. 'direct'
-    otherwise: one thread per slot, global atomics into the zeroed output.
-    ``route`` forces one of the routes the shape allows.
+    uninitialised output, else the blocks add their non-zero pixels to a
+    zeroed one. Past 227 KB: 'vector' for K >= 2 (zhu's K = 4 stack;
+    launched in chunks of ``vector_chunk`` samples, the measured best),
+    'direct' otherwise: one thread per slot, global atomics into the
+    zeroed output. ``route`` forces one of the routes the shape allows.
     """
     dev = _check("bilinear_scatter_batched", (x, y, w), (_F32, _F32, _F32))
     if (x.dim() != 2 or y.shape != x.shape or w.dim() not in (2, 3)
@@ -871,30 +983,39 @@ def bilinear_scatter_batched(x, y, w, H: int, W: int, route=None):
             f"{tuple(w.shape)}")
     S, n = x.shape
     K = w.shape[-2]
-    fits = K * H * W * 4 <= SHARED_MAX_BYTES
     route = _pick("bilinear_scatter_batched", route,
-                  bilinear_batched_route(K, H, W),
-                  {"direct", "private"} if fits else {"direct"})
+                  bilinear_batched_route(K, H, W, n, S),
+                  _bilinear_allowed(K, H, W))
     if dev.type == "cpu":
         return bilinear_scatter_batched_plain(x, y, w, H, W)
     if S == 0 or n == 0 or K == 0:
         return torch.zeros((S, K, H, W), dtype=_F32, device=dev)
-    chunk = BATCH_MAX_SAMPLES
+    chunk = batched_chunk(route, K, H, W)
     w_stride = K * n if w.dim() == 3 else 0
     blocks = private_blocks(min(S, chunk), n)
-    alloc = torch.empty if route == "private" and blocks == 1 else torch.zeros
-    out = alloc((S, K, H, W), dtype=_F32, device=dev)
+    stores = route == "vector" or (route == "private" and blocks == 1)
+    out = (torch.empty if stores else torch.zeros)((S, K, H, W), dtype=_F32,
+                                                   device=dev)
+    if route == "vector":
+        Kp = vector_channels(K)
+        scratch = _vector_scratch(min(S, chunk), H, W, Kp, dev)
     lib = build.library()
     for s0 in range(0, S, chunk):
         s1 = min(S, s0 + chunk)
         ptrs = (x[s0:s1].data_ptr(), y[s0:s1].data_ptr(),
                 (w[s0:s1] if w_stride else w).data_ptr(), s1 - s0, n,
-                w_stride, K, H, W, out[s0:s1].data_ptr())
+                w_stride, K, H, W)
+        o = out[s0:s1].data_ptr()
         if route == "private":
-            rc = lib.bilinear_scatter_batched_private(*ptrs, blocks,
+            rc = lib.bilinear_scatter_batched_private(*ptrs, o, blocks,
                                                       _stream())
+        elif route == "vector":
+            if s0:
+                scratch.zero_()
+            rc = lib.bilinear_scatter_batched_vector(
+                *ptrs, Kp, scratch.data_ptr(), o, _stream())
         else:
-            rc = lib.bilinear_scatter_batched(*ptrs, _stream())
+            rc = lib.bilinear_scatter_batched(*ptrs, o, _stream())
         build.check(rc, f"bilinear_scatter_batched:{route}")
         _launches[f"bilinear_scatter_batched:{route}"] += 1
     return out
@@ -1103,8 +1224,10 @@ KERNEL_WRAPPERS = {
     "bilinear_scatter:direct": bilinear_scatter,
     "bilinear_scatter:private": bilinear_scatter,
     "bilinear_scatter:single": bilinear_scatter,
+    "bilinear_scatter:vector": bilinear_scatter,
     "bilinear_scatter_batched:private": bilinear_scatter_batched,
     "bilinear_scatter_batched:direct": bilinear_scatter_batched,
+    "bilinear_scatter_batched:vector": bilinear_scatter_batched,
     "bilinear_patches_scatter": bilinear_patches_scatter,
     "bilinear_patches_scatter:direct": bilinear_patches_scatter,
 }

@@ -5,9 +5,10 @@ which launch parameters are fastest.
     python3 scripts/tune_scatter_routes.py [--parts 6,7,8] [--out r.jsonl]
         [--cases chunk,6x8]
 
-The thresholds in ``ops/cuda_scatter.py`` (``PRIVATE_*``, ``private_blocks``,
-``PATCH_MIN_PATCHES``, ``VECTOR_*``) and the launch parameters fixed in
-``csrc/scatter_kernels.cu`` come from this script's output. The package
+The thresholds in ``ops/cuda_scatter.py`` (``PRIVATE_*``,
+``private_blocks``, ``PATCH_MIN_PATCHES``, ``VECTOR_*``) and the
+launch parameters fixed in ``csrc/scatter_kernels.cu`` come from this
+script's output. The package
 ships one configuration of each kernel; the others that are measured here
 (and the probe of part 1) are built from ``scripts/tune_scatter_variants.cu``.
 It prints the card's name and power limit, then one JSON line per
@@ -79,6 +80,26 @@ measurement (with ``--out``, also written to that file):
    solve, are timed on the direct route and on the grouped cluster variant
    (G = 2): the mean device ms a call on each.
 
+11. Few events and K = 4 (``--cases`` picks its sections: ``floor``,
+   ``few``, ``sweep``, ``many``). floor: an empty kernel
+   (``torch.cuda._sleep(0)``) and a one-float fill, the floor of one graph
+   node. few: what a splat of 512-2,048 events into 181x241 costs beside
+   its work (the memset alone, the direct kernel without it, the band
+   variant with no events) and the host's wall per eager call on the
+   direct route and on the band variant, which spares the memset. sweep:
+   event counts from 512 to 131072, images 21x21, 181x241, 240x256 and
+   480x640, K = 1 and 4, S = 1 and 25 (per-sample weights): the direct,
+   private and vector routes as shipped (vector held per pixel within the
+   smoke's ``splat_limits``) against the row-band variant (``band_variant``:
+   each block owns rows of the uninitialised output) over its rows a band
+   (1 to all rows) and, at a few shapes, its block size (256, 512, 1024)
+   and the band in shared memory (stored by every thread or by one bulk
+   copy a channel). many: K = 4 at 200k events into 181x241 (the timestamp
+   image, S = 1; zhu's grid level, S = 25; a loss chunk, S = 83) on the
+   direct and vector routes as shipped, the vector kernels in launches of
+   1 to S samples, and one private plane per (sample, channel)
+   (``plane_variant``). ``VECTOR_MIN_SAVED_BILINEAR`` comes from these rows.
+
 Rows marked "as shipped" time the package's own kernel through its
 wrapper; the others time a variant (the variant with the shipped parameters
 keeps its run-time arguments and so runs a little slower than the package's
@@ -99,6 +120,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 
@@ -145,6 +167,8 @@ def build_variants(build):
             "cluster_wide": [P, P, P, L, L, L, I, I, I, P, I, I, I, P],
             "patches_cluster": [P, P, P, L, L, I, I, I, P, I, I, P],
             "cluster_wide_occupancy": [I, I, I, I, P],
+            "band_variant": [P, P, P, L, L, L, I, I, I, I, I, I, P, P],
+            "plane_variant": [P, P, P, L, L, L, I, I, I, P, P],
     }.items():
         getattr(dll, name).argtypes = argtypes
         getattr(dll, name).restype = I
@@ -176,11 +200,13 @@ def sass_reductions(build, lib_path):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write the JSON lines here")
-    parser.add_argument("--parts", default="1,2,3,4,5,6,7,8,9,10",
+    parser.add_argument("--parts", default="1,2,3,4,5,6,7,8,9,10,11",
                         help="comma-separated parts to run (default: all)")
     parser.add_argument("--cases", default="",
                         help="part 9: only the image cases whose label holds "
-                        "one of these comma-separated words (no patches)")
+                        "one of these comma-separated words (no patches); "
+                        "part 11: only these sections (floor, few, sweep, "
+                        "many)")
     opts = parser.parse_args()
     try:
         return run({int(k) for k in opts.parts.split(",")},
@@ -413,7 +439,6 @@ def run(parts, only=()) -> int:
     if 5 in parts:
         # The solvers wait on the host, so a route's enqueue cost counts too:
         # seconds of host time per eager call, no synchronisation inside.
-        import time
         x0, y0, w0 = coords["scene_warped"]
         for m in (2048, n):
             x, y, w = (x0[:m].contiguous(), y0[:m].contiguous(),
@@ -908,6 +933,197 @@ def run(parts, only=()) -> int:
                         for r, v in totals.items()})
         finally:
             ec.bilinear_patches_scatter = splat
+
+    # ---- 11. the few-event band variants and the vector routes ---------
+    # --cases picks sections of this part: floor, few, sweep, many
+    sect = lambda name: not only or name in only
+    if 11 in parts and sect("floor"):
+        emit(part=11, what="empty kernel (torch.cuda._sleep(0)), the floor "
+             "of one graph node", ms=T(lambda: torch.cuda._sleep(0)))
+        one = torch.zeros(1, dtype=f32, device=dev)
+        emit(part=11, what="one-float fill kernel", ms=T(lambda: one.fill_(1)))
+
+    def band(x, y, w, S, m, K, h, wd, rows, threads, mode=0):
+        out = torch.empty((S, K, h, wd), dtype=f32, device=dev)
+        build.check(vlib.band_variant(
+            x.data_ptr(), y.data_ptr(), w.data_ptr(), S, m,
+            K * m if w.dim() == 3 else 0, K, h, wd, rows, threads, mode,
+            out.data_ptr(), stream()), f"band rows={rows}")
+        return out
+
+    def plane(x, y, w, S, m, K, h, wd):
+        out = torch.empty((S, K, h, wd), dtype=f32, device=dev)
+        build.check(vlib.plane_variant(
+            x.data_ptr(), y.data_ptr(), w.data_ptr(), S, m,
+            K * m if w.dim() == 3 else 0, K, h, wd, out.data_ptr(),
+            stream()), "plane")
+        return out
+
+    def held(what, got, x, y, w, h, wd):
+        """The smoke's per-pixel rule against the plain version in float64
+        (S samples; w (K, m) shared or (S, K, m))."""
+        try:
+            limit = chip_smoke.splat_limits(torch, x, y, w, h, wd)
+            chip_smoke.check_splat(
+                what, got.view(x.shape[0], w.shape[-2], h, wd),
+                cs.bilinear_scatter_batched_plain(
+                    x.double(), y.double(), w.double(), h, wd), limit)
+            return True
+        except AssertionError as e:
+            failed.append(str(e))
+            return False
+
+    if 11 in parts and sect("few"):
+        # what one splat of few events costs beside its work: the memset
+        # alone, the direct kernel without it, the band variant with no
+        # events; and the host's time per eager call (200 calls, then one
+        # synchronisation), what a host-bound solver pays, on the direct
+        # route and the band variant (rows in the output, 6 rows a band)
+        prng = np.random.default_rng(12)
+        for m in (0, 512, 2048):
+            x = t(prng.uniform(-2, W + 1, m))
+            y = t(prng.uniform(-2, H + 1, m))
+            w = t(prng.uniform(-1, 1, (1, m)))
+            tag = dict(part=11, image=[H, W], K=1, samples=1, events=m)
+            if m == 0:
+                emit(**tag, what="torch.zeros of the image alone",
+                     ms=T(lambda: torch.zeros((1, H, W), dtype=f32,
+                                              device=dev)))
+                emit(**tag, what="band variant, no events", ms=T(
+                    lambda: band(x[None], y[None], w, 1, 0, 1, H, W, 6,
+                                 512)))
+                continue
+            scratch = torch.empty((1, H, W), dtype=f32, device=dev)
+            emit(**tag, what="direct kernel alone (no memset)",
+                 ms=T(lambda: direct_raw(x, y, w, H, W, scratch)))
+            calls = {"direct": lambda: cs.bilinear_scatter(x, y, w, H, W,
+                                                           route="direct"),
+                     "band": lambda: band(x[None], y[None], w, 1, m, 1, H, W,
+                                          6, 512)}
+            walls = {r: [] for r in calls}
+            for r in ("direct", "band", "band", "direct") * 3:
+                for _ in range(20):
+                    calls[r]()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    calls[r]()
+                torch.cuda.synchronize()
+                walls[r].append((time.perf_counter() - t0) / 200 * 1e3)
+            for r, v in walls.items():
+                emit(**tag, route=r, what="eager wall a call (host clock, "
+                     "200 calls, 6 rounds in turns)", ms=float(np.median(v)),
+                     rounds=v)
+
+    brng = np.random.default_rng(11)
+    if 11 in parts and sect("sweep"):
+        # (image, K, S, events) where the band variant's block size and
+        # shared-memory forms are swept
+        threads_at = {((181, 241), 1, 1, 2048), ((181, 241), 1, 1, 20000),
+                      ((181, 241), 1, 25, 2048), ((181, 241), 4, 1, 2048),
+                      ((480, 640), 1, 1, 8192)}
+        for h, wd in ((21, 21), (181, 241), (240, 256), (480, 640)):
+            for K in (1, 4):
+                most = cs.SHARED_MAX_BYTES // (4 * K * wd)
+                allowed = cs._bilinear_allowed(K, h, wd)
+                for S in (1, 25):
+                    for m in (512, 2048, 4096, 8192, 20000, 32768, 65536,
+                              131072):
+                        x = t(brng.uniform(-2, wd + 1, (S, m)))
+                        y = t(brng.uniform(-2, h + 1, (S, m)))
+                        w = t(brng.uniform(-1, 1, (K, m) if S == 1
+                                           else (S, K, m)))
+                        tag = dict(part=11, image=[h, wd], K=K, samples=S,
+                                   events=m)
+                        if S == 1:
+                            call = lambda r: cs.bilinear_scatter(
+                                x[0], y[0], w, h, wd, route=r)
+                        else:
+                            call = lambda r: cs.bilinear_scatter_batched(
+                                x, y, w, h, wd, route=r)
+                        for r in ("direct", "private", "vector"):
+                            if r not in allowed:
+                                continue
+                            ok = (held(f"{r} {tag}", call(r), x, y, w, h, wd)
+                                  if r == "vector" else True)
+                            emit(**tag, route=f"{r}, as shipped", ok=ok,
+                                 ms=T(lambda: call(r)))
+                        rows_set = sorted({-(-h // g) for g in
+                                           (1, 2, 4, 8, 16, 32, 64, 128, h)})
+                        swept = ((h, wd), K, S, m) in threads_at
+                        for rows in rows_set:
+                            # the rows in the output (mode 0), and where
+                            # swept in shared memory (1: per-thread stores,
+                            # 2: bulk); each form held once a shape
+                            modes = (0, 1, 2) if swept and rows <= most \
+                                else (0,)
+                            for th in (256, 512, 1024) if swept else (512,):
+                                for mode in modes:
+                                    run_ = lambda: band(x, y, w, S, m, K, h,
+                                                        wd, rows, th, mode)
+                                    ok = (held(f"band {tag} rows={rows} "
+                                               f"mode={mode}", run_(), x, y,
+                                               w, h, wd)
+                                          if rows == rows_set[len(rows_set)
+                                                              // 2]
+                                          and th == 512 else None)
+                                    emit(**tag, route="band variant",
+                                         rows=rows, bands=-(-h // rows),
+                                         threads=th, mode=mode, ok=ok,
+                                         ms=T(run_))
+
+    def vector_chunks(x, y, w, K, h, wd, c):
+        """The batched vector kernels over S samples in launches of c: one
+        zeroed scratch of c samples, zeroed again before each later launch
+        (as a chunked wrapper would run them)."""
+        S, m = x.shape
+        Kp = cs.vector_channels(K)
+        scratch = torch.zeros((min(S, c), h * wd, Kp), dtype=f32, device=dev)
+        out = torch.empty((S, K, h, wd), dtype=f32, device=dev)
+        for s0 in range(0, S, c):
+            s1 = min(S, s0 + c)
+            if s0:
+                scratch.zero_()
+            build.check(lib.bilinear_scatter_batched_vector(
+                x[s0:s1].data_ptr(), y[s0:s1].data_ptr(),
+                w[s0:s1].data_ptr(), s1 - s0, m, K * m, K, h, wd, Kp,
+                scratch.data_ptr(), out[s0:s1].data_ptr(), stream()),
+                f"vector chunk={c}")
+        return out
+
+    if 11 in parts and sect("many"):
+        # K = 4 at the main path's many events into 181x241: the timestamp
+        # image (S = 1), zhu's grid level (25 samples, per-sample weights)
+        # and a loss chunk of 2^24 // 200k = 83 samples, each on the direct
+        # and vector routes as shipped, the vector kernels in launches of c
+        # samples (c = S: one launch), and one private plane per (sample,
+        # channel)
+        for S in (1, 25, 83):
+            m = n
+            x = t(brng.uniform(-2, W + 1, (S, m)))
+            y = t(brng.uniform(-2, H + 1, (S, m)))
+            w = t(brng.uniform(0, 1, (4, m) if S == 1 else (S, 4, m)))
+            tag = dict(part=11, image=[H, W], K=4, samples=S, events=m)
+            call = ((lambda r: cs.bilinear_scatter(x[0], y[0], w, H, W,
+                                                   route=r)) if S == 1 else
+                    (lambda r: cs.bilinear_scatter_batched(x, y, w, H, W,
+                                                           route=r)))
+            for r in ("direct", "vector"):
+                ok = held(f"{r} {tag}", call(r), x, y, w, H, W)
+                emit(**tag, route=f"{r}, as shipped", ok=ok,
+                     ms=T(lambda: call(r)))
+            ok = held(f"plane {tag}", plane(x, y, w, S, m, 4, H, W), x, y,
+                      w, H, W)
+            emit(**tag, route="plane (one private plane a channel)", ok=ok,
+                 ms=T(lambda: plane(x, y, w, S, m, 4, H, W)))
+            if S == 1:
+                continue
+            for c in ((1, 3, 5, 9, 13, 25) if S == 25 else
+                      (10, 21, 30, 42, 83)):
+                ok = held(f"vector chunk={c} {tag}",
+                          vector_chunks(x, y, w, 4, H, W, c), x, y, w, H, W)
+                emit(**tag, route="vector", chunk=c, launches=-(-S // c),
+                     ok=ok, ms=T(lambda: vector_chunks(x, y, w, 4, H, W, c)))
 
     print(chip_smoke.card_line(), flush=True)
     if failed:

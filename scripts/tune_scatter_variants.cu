@@ -31,6 +31,18 @@
 //                     scalar, two scalars half a buffer apart, two adjacent
 //                     scalars, one float2 or one float4 to a random place;
 //   shared_atomic_probe  atomicAdd on shared memory, int against float;
+//   band_variant      a row-band splat for few events, one launch and no
+//                     memset: each block owns rows of the uninitialised
+//                     output, either zeroed there and reached by L2
+//                     reductions (band_body) or held in shared memory and
+//                     stored once (band_shared_body: shared-memory atomics,
+//                     then bulk or per-thread stores); both lost to the
+//                     direct route (memset + global atomics) in device time
+//                     at the main path's few-event splats;
+//   plane_variant     K >= 2 images past 227 KB as one private plane per
+//                     (sample, channel) in shared memory, stored once: the
+//                     alternative to the vector route that part 11 measures
+//                     beside it;
 //   cluster_wide,     private copies summed across a thread-block cluster
 //   patches_cluster   through distributed shared memory and stored once
 //                     (cluster_splat_body: a unit's slots split over the
@@ -904,9 +916,263 @@ grouped_cluster_kernel(const float* __restrict__ x,
       out);
 }
 
+// ---------------------------------------------------------------------------
+// Row bands: few events, one launch, no memset (lost; see band_variant)
+// ---------------------------------------------------------------------------
+
+constexpr int kBandAhead = 8;      // events a thread loads at once
+constexpr int kBandK = 4;          // channels whose weights load with them
+
+// One batch of a band block's events: kBandAhead events a thread, coalesced
+// across the block, with their x, y and first kBandK weights (0 past K);
+// a slot past the events gets y = NaN, which every row test drops.
+struct BandBatch {
+  float x[kBandAhead], y[kBandAhead], w[kBandAhead][kBandK];
+};
+
+__device__ __forceinline__ void load_batch(BandBatch& b,
+                                           const float* __restrict__ x,
+                                           const float* __restrict__ y,
+                                           const float* __restrict__ w,
+                                           long long first, long long n,
+                                           int K) {
+#pragma unroll
+  for (int u = 0; u < kBandAhead; ++u) {
+    const long long i = first + static_cast<long long>(u) * blockDim.x;
+    const bool in = i < n;
+    b.y[u] = in ? y[i] : __int_as_float(0x7fc00000);
+    b.x[u] = in ? x[i] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kBandK; ++k)
+      b.w[u][k] = in && k < K ? w[static_cast<long long>(k) * n + i] : 0.0f;
+  }
+}
+
+// Splat into rows [r0, r1) of every channel of one sample the taps of its
+// events [0, n) that fall there: channel k's row r0 starts at base + k *
+// stride, rows W floats apart (the band's own rows of the output, or a
+// copy of them in shared memory), zeroed by the caller before its first
+// barrier. An event is kept only if a tap row of it, floor(y) or
+// floor(y) + 1, lies in [r0, r1) (float tests: NaN, +-inf and huge rows
+// fail them; r0 >= 0 and r1 <= H hold the image's own row bounds). At
+// these sizes the time is the chain of memory latencies, not bandwidth, so
+// every batch is loaded whole, kept or not (the first by the caller,
+// before it zeroes the band): one latency a batch before its atomics. Tap
+// (y0+oy, x0+ox) gets (w*wx)*wy as in splat_global, and only where its row
+// is in the band: an event with floor(y) = r1 - 1 sends its first row here
+// and its second to the next band, whose block keeps it too.
+__device__ __forceinline__ void splat_band(float* base, long long stride,
+                                           int r0, int r1, int K, int W,
+                                           const float* __restrict__ x,
+                                           const float* __restrict__ y,
+                                           const float* __restrict__ w,
+                                           long long n, BandBatch& b) {
+  const float fW = static_cast<float>(W);
+  const float lo = static_cast<float>(r0);
+  const float hi = static_cast<float>(r1);
+  const long long step = static_cast<long long>(blockDim.x) * kBandAhead;
+  for (long long first = threadIdx.x; first < n; first += step) {
+    if (first != threadIdx.x) load_batch(b, x, y, w, first, n, K);
+#pragma unroll
+    for (int u = 0; u < kBandAhead; ++u) {
+      const float y0 = floorf(b.y[u]);
+      const bool oky0 = y0 >= lo && y0 < hi;
+      const bool oky1 = y0 + 1.0f >= lo && y0 + 1.0f < hi;
+      if (!(oky0 || oky1)) continue;
+      const float x0 = floorf(b.x[u]);
+      const bool okx0 = x0 >= 0.0f && x0 < fW;
+      const bool okx1 = x0 + 1.0f >= 0.0f && x0 + 1.0f < fW;
+      if (!(okx0 || okx1)) continue;
+      const float dx = b.x[u] - x0;
+      const float dy = b.y[u] - y0;
+      // band row of tap row y0: -1 where only the second row is ours
+      const int pix = (static_cast<int>(y0) - r0) * W + static_cast<int>(x0);
+      const long long i = first + static_cast<long long>(u) * blockDim.x;
+      for (int k = 0; k < K; ++k) {
+        const float wk =
+            k < kBandK ? b.w[u][k] : w[static_cast<long long>(k) * n + i];
+        if (wk == 0.0f) continue;
+        const float wl = wk * (1.0f - dx);
+        const float wr = wk * dx;
+        float* o = base + k * stride + pix;
+        if (oky0) {
+          if (okx0) atomicAdd(o, wl * (1.0f - dy));
+          if (okx1) atomicAdd(o + 1, wr * (1.0f - dy));
+        }
+        if (oky1) {
+          if (okx0) atomicAdd(o + W, wl * dy);
+          if (okx1) atomicAdd(o + W + 1, wr * dy);
+        }
+      }
+    }
+  }
+}
+
+// The row-band splat, which lost to bilinear_scatter_kernel with its
+// memset: 2,048 events into 181x241 (K = 1) 0.0046 against 0.0041 ms,
+// 1,226 events 0.00391 against 0.00338, 4,096 events 0.0052 against
+// 0.0037, 20,000 events 3.4x (H100 80GB HBM3, 700 W; part 11 and
+// chip_smoke.py). It spares a host launch (the memset) and so an eager
+// call's host wall (0.0204 against 0.0273 ms at 2,048 events), but a
+// host loop of such splats measured no resolved difference end to end.
+//
+// The band block's whole life, for any block size. Block (g, s) owns rows
+// [g * rows, min((g + 1) * rows, H)) of every channel of sample s (x, y:
+// row s of (S, n); weights at w + s * w_stride, as in
+// bilinear_scatter_kernel); the bands tile the K x H rows of every sample
+// exactly, so out needs no memset. The block loads its first batch of y,
+// zeroes its own rows of out with plain stores, and after a barrier (which
+// orders those stores before every later access of the block) adds its
+// taps to them with L2 reductions (splat_band): no other block touches
+// these rows, and no shared memory is needed.
+__device__ __forceinline__ void band_body(const float* __restrict__ x,
+                                          const float* __restrict__ y,
+                                          const float* __restrict__ w,
+                                          long long n, long long w_stride,
+                                          int K, int H, int W, int rows,
+                                          float* __restrict__ out) {
+  const long long s = blockIdx.y;
+  const int r0 = blockIdx.x * rows;
+  const int r1 = min(r0 + rows, H);
+  const int plane = (r1 - r0) * W;
+  const long long image = static_cast<long long>(H) * W;
+  float* o = out + s * K * image + static_cast<long long>(r0) * W;
+  const float* xs = x + s * n;
+  const float* ys = y + s * n;
+  const float* ws = w + s * w_stride;
+  BandBatch b;
+  load_batch(b, xs, ys, ws, threadIdx.x, n, K);
+  for (int k = 0; k < K; ++k)
+    for (int i = threadIdx.x; i < plane; i += blockDim.x)
+      o[k * image + i] = 0.0f;
+  __syncthreads();
+  splat_band(o, image, r0, r1, K, W, xs, ys, ws, n, b);
+}
+
+// The band design with the rows in shared memory, which lost to band_body
+// and to the direct route at every shape part 11 measured (its chain of
+// zeroing, barrier, loads, shared-memory CAS loops, barrier and stores cost
+// more than the memset node it spares): zero the band there, splat with
+// shared-memory atomics (splat_band), store each channel's rows once, by
+// one bulk copy a channel (bulk) or by every thread's own stores.
+__device__ __forceinline__ void band_shared_body(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ w, long long n, long long w_stride, int K,
+    int H, int W, int rows, float* __restrict__ out, bool bulk) {
+  extern __shared__ __align__(16) float band[];
+  const long long s = blockIdx.y;
+  const int r0 = blockIdx.x * rows;
+  const int r1 = min(r0 + rows, H);
+  const int plane = (r1 - r0) * W;
+  const float* xs = x + s * n;
+  const float* ys = y + s * n;
+  const float* ws = w + s * w_stride;
+  BandBatch b;
+  load_batch(b, xs, ys, ws, threadIdx.x, n, K);
+  zero_shared(band, K * plane);
+  __syncthreads();
+  splat_band(band, plane, r0, r1, K, W, xs, ys, ws, n, b);
+  if (bulk) fence_async_proxy();
+  __syncthreads();
+  const long long image = static_cast<long long>(H) * W;
+  float* o = out + s * K * image + static_cast<long long>(r0) * W;
+  for (int k = 0; k < K; ++k) {
+    if (bulk) {
+      store_start(o + k * image, band + k * plane, plane);
+    } else {
+      for (int i = threadIdx.x; i < plane; i += blockDim.x)
+        o[k * image + i] = band[k * plane + i];
+    }
+  }
+  if (bulk) store_wait();
+}
+
+// The band kernels at any block size up to 1024 (512 measured fastest at
+// 2,048 events). mode 0: band_body, the rows in the output; mode 1:
+// band_shared_body with per-thread stores; mode 2: the same with bulk
+// stores.
+__global__ void __launch_bounds__(1024)
+band_variant_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                    const float* __restrict__ w, long long n,
+                    long long w_stride, int K, int H, int W, int rows,
+                    float* __restrict__ out, int mode) {
+  if (mode == 0) {
+    band_body(x, y, w, n, w_stride, K, H, W, rows, out);
+  } else {
+    band_shared_body(x, y, w, n, w_stride, K, H, W, rows, out, mode == 2);
+  }
+}
+
+// The alternative to the vector route for K >= 2 images past 227 KB: one
+// block per (sample, channel) owns that (H, W) plane in shared memory (the
+// plane must fit 227 KB: 181x241 does), splats every event of its sample
+// with the channel's weights (splat_range, shared-memory atomics) and
+// stores the plane once into an uninitialised output. Each event is read K
+// times, once per channel's block.
+__global__ void __launch_bounds__(kImageThreads)
+plane_variant_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                     const float* __restrict__ w, long long n,
+                     long long w_stride, int K, int H, int W,
+                     float* __restrict__ out) {
+  extern __shared__ __align__(16) float img[];
+  const long long s = blockIdx.y;
+  const long long k = blockIdx.x;
+  const int plane = H * W;
+  zero_shared(img, plane);
+  __syncthreads();
+  splat_range(img, plane, 1, H, W, x + s * n, y + s * n,
+              w + s * w_stride + k * n, n, 0, n);
+  fence_async_proxy();
+  __syncthreads();
+  store_start(out + (s * K + k) * plane, img, plane);
+  store_wait();
+}
+
 }  // namespace
 
 extern "C" {
+
+// band_variant: bands of `rows` rows, `threads` a block, the rows in the
+// output (mode 0) or in shared memory (1: per-thread stores, 2: bulk).
+int band_variant(const void* x, const void* y, const void* w, long long S,
+                 long long n, long long w_stride, int K, int H, int W,
+                 int rows, int threads, int mode, void* out, void* stream) {
+  static const cudaError_t attr = allow_max_shared(band_variant_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long smem = mode ? 4LL * K * rows * W : 0;
+  if (S > 65535 || rows < 1 || smem > kMaxSharedBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (S > 0 && K > 0) {
+    const dim3 grid(static_cast<unsigned int>((H + rows - 1) / rows),
+                    static_cast<unsigned int>(S));
+    band_variant_kernel<<<grid, threads, static_cast<size_t>(smem),
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const float*>(w), n, w_stride, K, H, W, rows,
+        static_cast<float*>(out), mode);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// plane_variant: one block per (sample, channel); out may hold anything.
+int plane_variant(const void* x, const void* y, const void* w, long long S,
+                  long long n, long long w_stride, int K, int H, int W,
+                  void* out, void* stream) {
+  static const cudaError_t attr = allow_max_shared(plane_variant_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (S > 65535 || 4LL * H * W > kMaxSharedBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (S > 0 && K > 0) {
+    const dim3 grid(static_cast<unsigned int>(K),
+                    static_cast<unsigned int>(S));
+    plane_variant_kernel<<<grid, kImageThreads, sizeof(float) * H * W,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const float*>(w), n, w_stride, K, H, W,
+        static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 int patches_variant(const void* x, const void* y, const void* w,
                              long long P, long long C, int K, int kb, int PH,

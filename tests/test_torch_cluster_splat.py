@@ -138,11 +138,11 @@ def test_blocks_fill_the_card_and_stay_bounded(S):
 
 def test_routes_by_shape():
     """Shapes to routes: an image that fits 227 KB takes the private
-    kernel, K = 4 the direct one; few patches stay on the direct kernel,
-    many take the patch kernel; the routes are counted and have
-    wrappers."""
-    assert cs.bilinear_batched_route(1, *IMAGE) == "private"
-    assert cs.bilinear_batched_route(4, *IMAGE) == "direct"
+    kernel, K = 4 at a grid level's 200k events the vector one; few
+    patches stay on the direct kernel, many take the patch kernel; the
+    routes are counted and have wrappers."""
+    assert cs.bilinear_batched_route(1, *IMAGE, 200_000) == "private"
+    assert cs.bilinear_batched_route(4, *IMAGE, 200_000) == "vector"
     assert cs.bilinear_route(1, *IMAGE, cs.PRIVATE_MIN_EVENTS) == "private"
     assert cs.bilinear_route(1, *IMAGE, cs.PRIVATE_MIN_EVENTS - 1) == "direct"
     assert cs.bilinear_patches_route(108, *PATCH) == "direct"

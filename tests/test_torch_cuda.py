@@ -48,11 +48,14 @@ def test_bilinear_kernel_matches_plain_and_counts(cuda, gen):
                         device=cuda)
     w = torch.as_tensor(gen.normal(size=(4, n)), dtype=torch.float32,
                         device=cuda)
-    before = cs.launch_counts()["bilinear_scatter:direct"]
+    # K=4 at 181x241 exceeds a block's shared memory: at 50,000 events the
+    # route that part 11 of the tune script measured fastest
+    route = f"bilinear_scatter:{cs.bilinear_route(4, H, W, n)}"
+    assert route == "bilinear_scatter:vector"
+    before = cs.launch_counts()[route]
     assert_rel(cs.bilinear_scatter(x, y, w, H, W),
                cs.bilinear_scatter_plain(x, y, w, H, W))
-    # K=4 at 181x241 exceeds a block's shared memory: the direct route
-    assert cs.launch_counts()["bilinear_scatter:direct"] == before + 1
+    assert cs.launch_counts()[route] == before + 1
 
 
 @pytest.mark.cuda
@@ -204,7 +207,7 @@ def test_bilinear_route_is_chosen_by_shape(cuda, gen):
     assert cs.bilinear_route(1, 181, 241, 2000) == "direct"
     assert cs.bilinear_route(1, 181, 241, 200_000) == "private"
     assert cs.bilinear_route(1, 41, 61, 32768) == "direct"
-    assert cs.bilinear_route(4, 181, 241, 200_000) == "direct"
+    assert cs.bilinear_route(4, 181, 241, 200_000) == "vector"
     n = 100
     x = torch.rand(n, device=cuda) * 200
     w = torch.ones(4, n, device=cuda)
@@ -852,7 +855,7 @@ def test_batched_bilinear_matches_plain_and_single_launches(
         x[1] = -50.0
     w = torch.as_tensor(gen.normal(size=(K, n) if shared else (S, K, n)),
                         dtype=torch.float32, device=cuda)
-    route = cs.bilinear_batched_route(K, H, W)
+    route = cs.bilinear_batched_route(K, H, W, n, S)
     before = cs.launch_counts()[f"bilinear_scatter_batched:{route}"]
     got = cs.bilinear_scatter_batched(x, y, w, H, W)
     assert cs.launch_counts()[f"bilinear_scatter_batched:{route}"] == (
@@ -864,8 +867,7 @@ def test_batched_bilinear_matches_plain_and_single_launches(
     assert_rel(got, single)
     if S > 1:
         assert float(got[1].abs().max()) == 0.0
-    for r in ({"direct", "private"} if K * H * W * 4 <= cs.SHARED_MAX_BYTES
-              else {"direct"}):
+    for r in sorted(cs._bilinear_allowed(K, H, W)):
         assert_rel(cs.bilinear_scatter_batched(x, y, w, H, W, route=r), got)
 
 
@@ -1117,3 +1119,128 @@ def test_private_launch_refused_raises_and_replays_in_a_graph(cuda, gen):
     torch.cuda.synchronize()
     assert _limit_share(got, x, y, w1, 181, 241) <= 0.5
     assert_rel(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The vector kernel (K >= 2 channels innermost), held per pixel within
+# chip_smoke's splat_limits rule at no more than half of it
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_vector_route_stores_every_element(cuda, gen):
+    """The vector route's output is uninitialised memory: a block the
+    caching allocator hands it pre-filled with NaN comes back with every
+    element stored by the unpack pass (events on a few rows only, so most
+    pixels receive no tap)."""
+    H, W, K, n = 181, 241, 4, 2048
+    x = torch.as_tensor(gen.uniform(0, W - 1, n), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(40, 42, n), dtype=torch.float32,
+                        device=cuda)
+    w = torch.as_tensor(gen.normal(size=(K, n)), dtype=torch.float32,
+                        device=cuda)
+    from event_utils_tpu_torch.ops import build
+    ref = cs.bilinear_scatter_plain(x, y, w, H, W)
+    reused = 0
+    for _ in range(3):
+        junk = [torch.full((K, H, W), float("nan"), device=cuda)
+                for _ in range(4)]
+        ptrs = {j.data_ptr() for j in junk}
+        del junk
+        got = cs.bilinear_scatter(x, y, w, H, W, route="vector")
+        reused += got.data_ptr() in ptrs
+        assert bool(torch.isfinite(got).all())
+        assert_rel(got, ref)
+    assert reused                         # a NaN block came back
+    out = torch.full((K, H, W), float("nan"), device=cuda)
+    scratch = torch.zeros((H * W, 4), device=cuda)
+    build.check(build.library().bilinear_scatter_vector(
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), n, K, H, W, 4,
+        scratch.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "vector")
+    assert bool(torch.isfinite(out).all())
+    assert_rel(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,K,shared,H,W", [
+    (1, 200_000, 4, True, 181, 241), (1, 60_000, 2, True, 181, 241),
+    (1, 50_000, 3, True, 240, 256), (4, 40_000, 4, False, 181, 241),
+    (3, 20_001, 5, False, 37, 53), (2, 50_000, 2, False, 480, 640)])
+def test_vector_route_matches_plain_per_pixel(cuda, gen, S, n, K, shared, H,
+                                              W):
+    """The vector route (float2 for K = 2, float4 for K = 3, 4, two float4s
+    for K = 5) with NaN, huge and wholly-off coordinates, single and
+    batched, shared and per-sample weights."""
+    x = torch.as_tensor(gen.uniform(-2, W + 1, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(-2, H + 1, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    x[0, ::13] = float("nan")
+    y[0, 5::17] = 1e30
+    x[0, 7::19] = -1.0
+    y[0, 11::23] = H - 1
+    w = torch.as_tensor(gen.normal(size=(K, n) if shared else (S, K, n)),
+                        dtype=torch.float32, device=cuda)
+    w[:, ::29] = 0.0
+    got, diff = _batched_counts(lambda: cs.bilinear_scatter_batched(
+        x, y, w, H, W, route="vector"))
+    assert diff == {"bilinear_scatter_batched:vector": 1}
+    assert _limit_share(got, x, y, w, H, W) <= 0.5
+    w0 = w if shared else w[0]
+    one, diff = _batched_counts(lambda: cs.bilinear_scatter(
+        x[0], y[0], w0, H, W, route="vector"))
+    assert diff == {"bilinear_scatter:vector": 1}
+    assert _limit_share(one[None], x[:1], y[:1], w0, H, W) <= 0.5
+
+
+@pytest.mark.cuda
+def test_vector_route_launches_one_chunk_at_a_time(cuda, gen, monkeypatch):
+    """Zhu's K = 4 stack in chunks of 2 samples: one launch per chunk, the
+    scratch zeroed again for each, every chunk's planes written."""
+    S, n, H, W = 5, 30_000, 181, 241
+    monkeypatch.setattr(cs, "VECTOR_CHUNK_BYTES", 2 * H * W * 16)
+    assert cs.vector_chunk(4, H, W) == 2
+    x = torch.as_tensor(gen.uniform(-2, W + 1, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(-2, H + 1, (S, n)), dtype=torch.float32,
+                        device=cuda)
+    w = torch.as_tensor(gen.uniform(0, 1, (S, 4, n)), dtype=torch.float32,
+                        device=cuda)
+    got, diff = _batched_counts(lambda: cs.bilinear_scatter_batched(
+        x, y, w, H, W, route="vector"))
+    assert diff == {"bilinear_scatter_batched:vector": 3}
+    assert _limit_share(got, x, y, w, H, W) <= 0.5
+
+
+@pytest.mark.cuda
+def test_vector_replays_in_a_graph_and_refused_launches_raise(
+        cuda, gen, monkeypatch):
+    """The vector route captures into a CUDA graph and its replays write
+    the same images; a launch the card refuses (a scratch of 3 columns)
+    raises and counts nothing: nothing falls back to the direct route or
+    the plain version."""
+    from event_utils_tpu_torch.errors import NativeBuildError
+    H, W = 181, 241
+    x = torch.as_tensor(gen.uniform(-2, W + 1, 30_000), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.uniform(-2, H + 1, 30_000), dtype=torch.float32,
+                        device=cuda)
+    w = torch.as_tensor(gen.normal(size=(4, 30_000)), dtype=torch.float32,
+                        device=cuda)
+    want = cs.bilinear_scatter(x, y, w, H, W, route="vector")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = cs.bilinear_scatter(x, y, w, H, W, route="vector")
+    got.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert_rel(got, want)
+    monkeypatch.setattr(cs, "vector_channels", lambda K: 3)
+    before = cs.launch_counts()
+    with pytest.raises(NativeBuildError):
+        cs.bilinear_scatter(x, y, w, H, W, route="vector")
+    with pytest.raises(NativeBuildError):
+        cs.bilinear_scatter_batched(x[None], y[None], w, H, W,
+                                    route="vector")
+    assert cs.launch_counts() == before
