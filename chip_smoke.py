@@ -161,11 +161,18 @@
    scale; weights and EMA, 99% of the coordinates the CPU run moved
    within 1e-3 of the summed learning rate, all within twice it),
    'pallas' against 'xla' grids (1e-5), ``contrast_flow_loss``'s gradient
-   against the CPU's (cosine >= 0.9999, 1e-4 of its scale), the flat
-   kernel at every shape the path sent it, forward against the plain
-   version and its adjoint against the plain gather (exact), and warm
-   timings: forward+backward device ms, one flow step, one E2VID batch
-   generation and one segment step with their device idle shares.
+   against the CPU's (cosine >= 0.9999, 1e-4 of its scale), the batched
+   simulator (one render, frame loop and sort per batch) against the
+   per-scene loop it replaced (``scene_loop_flow``, ``scene_loop_recon``)
+   on both eval batches: events, masks, ground truth, saturation, frames
+   and the segmented scatters' inputs bit for bit, the grids within 1e-5
+   (float atomics), the flat kernel at every shape the path sent it,
+   forward against the plain version and its adjoint against the plain
+   gather (exact), and warm timings: forward+backward device ms, one flow
+   step, one E2VID batch generation and one segment step with their
+   device idle shares, and the flow and E2VID batch generations of the
+   per-scene loop and the batched simulator in turns (loop, batched,
+   batched, loop; 5 warm walls each, busy, idle share, peak memory).
 8. The streaming path, with the launch counts set to 0 again first,
    everything under ``set_default_impl('pallas')`` (``g++`` built the
    native runtime, ``csrc/evio.cpp``, in step 1): the port's ``simulate``
@@ -258,7 +265,7 @@ Prints a ``{"batched": {...}}`` JSON line (the phase's levels, answers,
 walls and idle shares), a ``{"serving": {...}}`` JSON line, a ``{"simulated_anchors":
 {...}}`` line (the gated numbers, walls and windows/s), a ``{"training":
 {...}}`` line (gated numbers, steps/s, Mev/s, the simulator's share,
-timings), a ``{"streaming": {...}}`` line (the stream's errors, Mev/s and
+timings, the batched simulator against the per-scene loop), a ``{"streaming": {...}}`` line (the stream's errors, Mev/s and
 windows/s, card vs CPU, the native runtime's times, the fit timings), an
 ``{"augmentation": {...}}`` line, a ``{"parallel": {...}}`` and a
 ``{"visualization": {...}}`` line, a ``{"kernels": [...]}`` line (one
@@ -2973,6 +2980,9 @@ def training_phase(torch, cs, records, work):
             runs["train_reconstruction_file"] = res, wall
         launches = cs.launch_counts()
         log(f"training launches: { {k: v for k, v in launches.items() if v} }")
+        with no_tf32():
+            out["batched_vs_scene_loop"] = batched_vs_scene_loop(
+                torch, itl, fc, rc, (ev, mask, gt, sat), (rvox, rframes, rsat))
 
         # the runs' numbers: finite losses, the final evals in their bands
         for name, (res, wall) in runs.items():
@@ -3050,6 +3060,153 @@ def training_phase(torch, cs, records, work):
     out["timings"] = training_timings(torch, itl, FlowTrainer,
                                       ReconstructionTrainer, work)
     return launches, out
+
+
+def scene_loop_flow(torch, itl, scenes, capacity, window_t=0.1,
+                    num_frames=9, burn_in=0):
+    """``simulate_flow_scenes`` as the port ran it before the batch: each
+    scene rendered and simulated alone (``simulate_events_device``), the
+    reference of the batched simulator."""
+    from event_utils_tpu_torch.simulation import esim
+    tex_all = scenes["texture"]
+    B, H, W = tex_all.shape
+    cfg = esim.SimulatorConfig(c_pos=0.15, c_neg=0.15)
+    fts = itl.jax_linspace((burn_in + 1) * window_t,
+                           burn_in * (num_frames - 1) + num_frames)
+    cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
+    yy, xx = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device="cuda") - cy,
+        torch.arange(W, dtype=torch.float32, device="cuda") - cx,
+        indexing="ij")
+    evs, masks, gts, sats = [], [], [], []
+    for b in range(B):
+        v, ws = scenes["v"][b].to("cuda"), scenes["ws"][b].to("cuda")
+        frames = itl._render_similarity(tex_all[b].to("cuda"), v, ws[0],
+                                        ws[1], fts,
+                                        age=scenes["age"][b].to("cuda"))
+        ev, mask, overflow = esim.simulate_events_device(
+            frames, fts, capacity, cfg, return_overflow=True)
+        t_ref = np.float32(0.0)
+        if burn_in:
+            if bool(scenes["fresh"][b]):
+                keep = ev[:, 2] < window_t
+            else:
+                keep = ev[:, 2] >= burn_in * window_t
+                t_ref = np.float32(burn_in * window_t)
+            mask = mask * keep.to(mask.dtype)
+        if scenes["similarity"]:
+            rx, ry = xx - v[0] * t_ref, yy - v[1] * t_ref
+            gts.append(torch.stack([v[0] - ws[0] * ry + ws[1] * rx,
+                                    v[1] + ws[0] * rx + ws[1] * ry]))
+        else:
+            gts.append(v)
+        evs.append(ev)
+        masks.append(mask)
+        sats.append(overflow > 0)
+    return tuple(torch.stack(a) for a in (evs, masks, gts, sats))
+
+
+def scene_loop_recon(torch, itl, scenes, capacity, seq_len, window_t=0.05,
+                     sim_steps_per_window=4, num_bins=5):
+    """``simulate_recon_scenes`` as the port ran it before the batch (each
+    scene rendered and simulated alone, then one pair of segmented
+    scatters): ``(voxels, frames, saturation, scatter inputs (x, y, t, p,
+    seg))``."""
+    from event_utils_tpu_torch.simulation import esim
+    tex_all = scenes["texture"]
+    B, H, W = tex_all.shape
+    cfg = esim.SimulatorConfig(c_pos=0.15, c_neg=0.15)
+    spw = sim_steps_per_window
+    fts = itl.jax_linspace(seq_len * window_t, seq_len * spw + 1)
+    bounds = torch.as_tensor(fts, device="cuda")[::spw].contiguous()
+    target_idx = torch.arange(1, seq_len + 1, device="cuda") * spw
+    evs, segs, frames_out, sats = [], [], [], []
+    for b in range(B):
+        ws = scenes["ws"][b].to("cuda")
+        frames = itl._render_similarity(tex_all[b].to("cuda"),
+                                        scenes["v"][b].to("cuda"), ws[0],
+                                        ws[1], fts)
+        ev, mask, overflow = esim.simulate_events_device(
+            frames, fts, capacity, cfg, return_overflow=True)
+        w = torch.searchsorted(bounds, ev[:, 2].contiguous()) - 1
+        segs.append(torch.where((mask > 0) & (w >= 0) & (w < seq_len),
+                                w * B + b, -1))
+        evs.append(ev)
+        frames_out.append(frames[target_idx])
+        sats.append(overflow > 0)
+    inputs = torch.cat(evs).unbind(-1) + (torch.cat(segs),)
+    voxels = itl.events_to_neg_pos_voxel_segments(
+        *inputs, seq_len * B, num_bins, (H, W))
+    return (voxels.view((seq_len, B) + voxels.shape[1:]),
+            torch.stack(frames_out, 1)[:, :, None], torch.stack(sats),
+            inputs)
+
+
+@contextlib.contextmanager
+def segment_inputs(itl):
+    """The ``(x, y, t, p, seg)`` of every segmented voxel scatter that
+    ``in_the_loop`` makes while open."""
+    kept, real = [], itl.events_to_neg_pos_voxel_segments
+
+    def keep(*a, **kw):
+        kept.append(a[:5])
+        return real(*a, **kw)
+
+    itl.events_to_neg_pos_voxel_segments = keep
+    try:
+        yield kept
+    finally:
+        itl.events_to_neg_pos_voxel_segments = real
+
+
+def batched_vs_scene_loop(torch, itl, fc, rc, flow, recon):
+    """Both eval batches of the batched simulator (``flow``: the phase's
+    ``(ev, mask, gt, sat)``; ``recon``: its ``(voxels, frames, sat)``)
+    against the per-scene loop on the same scenes: everything upstream of
+    the flat kernel bit for bit, the grids (float atomics, summed in
+    another order from run to run) within GRID_REL of their scale."""
+    scenes = itl.load_scenes(itl.FLOW_EVAL_SCENES)
+    ref = scene_loop_flow(torch, itl, scenes, fc["capacity"],
+                          window_t=fc["window_t"],
+                          num_frames=fc["num_frames"], burn_in=fc["burn_in"])
+    for name, a, b in zip(("events", "mask", "gt", "saturation"), flow,
+                          ref):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"flow eval batch {name}: batched differs "
+                                 f"from the scene loop")
+    grids = [itl.voxelize_batch(e, m, 5, (128, 128))
+             for e, m in (flow[:2], ref[:2])]
+    check_close("flow eval grids, batched vs scene loop", *grids, GRID_REL)
+    scenes = itl.load_scenes(itl.RECON_EVAL_SCENES)
+    T = rc["seq_len"] * rc["carry_segments"]
+    kw = dict(window_t=rc["window_t"],
+              sim_steps_per_window=rc["sim_steps_per_window"],
+              num_bins=rc["num_bins"])
+    with segment_inputs(itl) as kept:
+        again = itl.simulate_recon_scenes(scenes, rc["capacity"], T,
+                                          return_saturation=True,
+                                          device="cuda", **kw)
+    rv, rf, rs, inputs = scene_loop_recon(torch, itl, scenes,
+                                          rc["capacity"], T, **kw)
+    for name, a, b in [("frames", recon[1], rf), ("saturation", recon[2], rs),
+                       ("frames, again", again[1], rf)] + list(zip(
+                           ("x", "y", "t", "p", "segment"), kept[0],
+                           inputs)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"E2VID eval batch {name}: batched differs "
+                                 f"from the scene loop")
+    for v in (recon[0], again[0]):
+        check_close("E2VID eval grids, batched vs scene loop", v, rv,
+                    GRID_REL)
+    out = {"flow_grids_equal": bool(torch.equal(*grids)),
+           "recon_grids_equal": bool(torch.equal(recon[0], rv)),
+           "flow_events": int(flow[1].sum()),
+           "recon_scatter_ids": int((inputs[4] >= 0).sum())}
+    log(f"  batched simulator = the scene loop on both eval batches: "
+        f"events, masks, ground truth, saturation, frames and scatter "
+        f"inputs bit for bit; grids bit-equal (flow, E2VID) "
+        f"{out['flow_grids_equal']}, {out['recon_grids_equal']}")
+    return out
 
 
 def parity_steps(nets, step, count=2):
@@ -3162,11 +3319,75 @@ def step_parity(torch, itl, contrast_flow_loss, FlowTrainer,
     return out
 
 
+SIM_WALLS = 5                 # warm walls of each turn of the simulator A/B
+
+
+def simulator_turns(torch, itl):
+    """The flow and E2VID batch generations (``draw_scenes`` and the
+    simulation, at the timings' shapes) through the per-scene loop and the
+    batched simulator in turns (loop, batched, batched, loop), SIM_WALLS
+    warm synchronised walls a turn, each call drawing the scenes of its
+    own step (the same steps for both); then each one's device busy time
+    and idle share of its median wall, and at the E2VID shape each one's
+    ``max_memory_allocated`` (and its rise over the memory held before)."""
+    flow_kw = dict(omega_max=6.0, s_max=0.6, age_max=2.5, fresh_prob=0.25)
+
+    def flow(batched, step):
+        scenes = itl.draw_scenes(TRAIN_SEED, step, 8, (128, 128), **flow_kw)
+        if batched:
+            return itl.simulate_flow_scenes(scenes, 65536, burn_in=1,
+                                            device="cuda")
+        return scene_loop_flow(torch, itl, scenes, 65536, burn_in=1)
+
+    def recon(batched, step):
+        scenes = itl.draw_scenes(TRAIN_SEED, step, 4, (128, 128))
+        if batched:
+            return itl.simulate_recon_scenes(scenes, 294912, 24,
+                                             device="cuda")
+        return scene_loop_recon(torch, itl, scenes, 294912, 24)
+
+    out = {}
+    for kind, fn in (("flow_batch", flow), ("recon_batch", recon)):
+        res = {"scene_loop": {"walls_s": []}, "batched": {"walls_s": []}}
+        for label in ("scene_loop", "batched", "batched", "scene_loop"):
+            batched = label == "batched"
+            fn(batched, 300)
+            walls = []
+            for i in range(SIM_WALLS):
+                walls.append(synced(torch, lambda: fn(batched, 301 + i))[1])
+            res[label]["walls_s"].append(walls)
+        for label, r in res.items():
+            batched = label == "batched"
+            r["wall_s"] = float(np.median(np.concatenate(r["walls_s"])))
+            r["device_busy_s"], r["top_device"] = device_busy(
+                torch, lambda: fn(batched, 301))
+            r["idle_share"] = max(0.0, 1.0 - r["device_busy_s"] / r["wall_s"])
+            if kind == "recon_batch":
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn(batched, 301)
+                torch.cuda.synchronize()
+                r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+                r["peak_rise_bytes"] = r["max_memory_allocated"] - before
+        out[kind] = res
+    log("  simulator, scene loop vs batched (loop, batched, batched, loop; "
+        + "; ".join(f"{k} {label} walls {np.round(r['walls_s'], 4).tolist()}"
+                    f" busy {r['device_busy_s']:.4f} s idle "
+                    f"{r['idle_share']:.3f}"
+                    + (f" peak {r['max_memory_allocated'] / 2**30:.3f} GiB"
+                       if "max_memory_allocated" in r else "")
+                    for k, res in out.items() for label, r in res.items()))
+    return out
+
+
 def training_timings(torch, itl, FlowTrainer, ReconstructionTrainer, work):
     """Warm timings of the training path on the card: one forward-plus-
     backward pass of each recipe (CUDA events), one full flow step and one
     E2VID batch generation and segment step (host wall, and the device
-    idle share under torch.profiler)."""
+    idle share under torch.profiler), and the simulator's batch
+    generations through the per-scene loop and batched
+    (``simulator_turns``)."""
     from event_utils_tpu_torch._device import no_tf32
     from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
     prev = get_default_impl()
@@ -3225,6 +3446,7 @@ def training_timings(torch, itl, FlowTrainer, ReconstructionTrainer, work):
                 out[name] = {"wall_s": wall, "device_busy_s": busy,
                              "idle_share": max(0.0, 1.0 - busy / wall),
                              "top_device": top}
+            sim = simulator_turns(torch, itl)
     finally:
         set_default_impl(prev)
     card = card_line()
@@ -3235,6 +3457,7 @@ def training_timings(torch, itl, FlowTrainer, ReconstructionTrainer, work):
                     f"{v['device_busy_s']:.4f} s, idle "
                     f"{v['idle_share']:.3f}" for k, v in out.items()
                     if isinstance(v, dict)))
+    out["simulator"] = sim
     out["card"] = card
     return out
 
@@ -5163,6 +5386,50 @@ def few_splat_walls(reps: int = 5) -> int:
     return 0
 
 
+TRAIN_WALLS_FLAG = "--train-walls"
+
+
+def train_walls(reps: int = 3) -> int:
+    """``python3 chip_smoke.py --train-walls``: ``train_flow --simulate``
+    (the stage-9 recipe, TRAIN_FLOW_STEPS steps from the committed weights)
+    and ``train_reconstruction --simulate`` (the stage-8 recipe,
+    TRAIN_RECON_STEPS steps), no evals, one cold and ``reps`` warm runs
+    each in this process, for the package beside this file; a copy of this
+    file placed at the root of another checkout times that checkout
+    (compare two in one call: A, B, B, A). Prints one JSON line: each
+    run's steps/s, loop wall and the simulator's share of it."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from event_utils_tpu_torch.cli import train_flow, train_reconstruction
+    runs = {"train_flow": [], "train_reconstruction": []}
+    with tempfile.TemporaryDirectory(prefix=".smoke_sim_", dir=ROOT) as work:
+        for _ in range(reps + 1):
+            for name, res in (
+                    ("train_flow", train_flow.main(TRAIN_FLOW + [
+                        "--resume_params", FLOW_PARAMS, "--lr", "5e-6",
+                        "--steps", str(TRAIN_FLOW_STEPS), "--seed",
+                        str(TRAIN_SEED), "--eval_every", "0", "--params_out",
+                        os.path.join(work, "flow.npz"), "--device",
+                        "cuda"])),
+                    ("train_reconstruction", train_reconstruction.main(
+                        TRAIN_RECON + [
+                            "--simulate", "--resume_params", RECON_PARAMS,
+                            "--lr", "3e-5", "--lr_end", "3e-6", "--steps",
+                            str(TRAIN_RECON_STEPS), "--seed",
+                            str(TRAIN_SEED), "--eval_every", "0",
+                            "--params_out", os.path.join(work, "recon.npz"),
+                            "--device", "cuda"]))):
+                runs[name].append({
+                    "steps_per_s": res["steps"] / res["wall_s"],
+                    "loop_wall_s": res["wall_s"],
+                    "sim_share": res["sim_s"] / res["wall_s"]})
+    print(json.dumps({"train_walls": {"root": ROOT, "runs": runs,
+                                      "card": card_line()}}))
+    return 0
+
+
 STEP_PARITY_FLAG = "--step-parity"
 
 
@@ -5207,6 +5474,8 @@ if __name__ == "__main__":
         sys.exit(roi_bfgs_walls())
     if sys.argv[1:] == [FEW_SPLAT_WALLS_FLAG]:
         sys.exit(few_splat_walls())
+    if sys.argv[1:] == [TRAIN_WALLS_FLAG]:
+        sys.exit(train_walls())
     if sys.argv[1:2] == [STEP_PARITY_FLAG]:
         sys.exit(step_parity_runs(*(int(a) for a in sys.argv[2:3])))
     sys.exit(main())

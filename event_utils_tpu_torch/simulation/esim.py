@@ -12,11 +12,14 @@ period, additive log-intensity noise, and background activity (Poisson ON
 "leak" events, random-polarity shot noise, stuck-ON hot pixels).
 
 The scan is a loop over frame pairs of elementwise tensor operations on
-``(H, W, K)``: every pixel emits into ``K`` slots per interval, masked by
-validity. Each chunk of ``cfg.chunk`` intervals is compacted with
-``torch.nonzero`` (crossings in ``(step, y, x, k)`` order, then the
-chunk's noise events, as in JAX), and the whole stream is sorted by its
-float64 time with a stable sort, so ties keep JAX's order.
+``(B, H, W, K)``: every pixel of each of B scenes emits into ``K`` slots
+per interval, masked by validity. The host stream (one scene) compacts
+each chunk of ``cfg.chunk`` intervals with ``torch.nonzero`` (crossings in
+``(step, y, x, k)`` order, then the chunk's noise events, as in JAX) and
+sorts the whole stream by its float64 time with a stable sort, so ties
+keep JAX's order. The device batch (``simulate_events_device_batch``, B
+scenes in one frame loop, JAX's ``jax.vmap`` of ``simulate_events_device``)
+sorts each scene's slots with one stable sort of the ``(B, slots)`` keys.
 
 Randomness: where JAX takes a ``key`` this takes a ``torch.Generator``.
 One 62-bit seed is drawn from it per call, and every noise draw comes from
@@ -137,9 +140,17 @@ def _sample_wrap(tex: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor):
     """``jax.scipy.ndimage.map_coordinates(tex, [cy, cx], order=1,
     mode="wrap")``: taps ``floor`` and ``floor + 1`` taken modulo the size
     (period ``size``, not scipy's), weights ``1 - f`` and ``f``, the four
-    products summed in JAX's order."""
-    H, W = tex.shape
+    products summed in JAX's order. A texture with leading axes ``(...,
+    H, W)`` is sampled per leading index: ``cy`` and ``cx`` then start with
+    the same axes (textures ``(B, H, W)``, coordinates ``(B, F, H, W)``),
+    and each gathers from its own texture at an offset of ``b H W``."""
+    H, W = tex.shape[-2:]
     flat = tex.reshape(-1)
+    lead = tex.shape[:-2]
+    base = 0
+    if lead:
+        base = (torch.arange(lead.numel(), device=tex.device) * (H * W)) \
+            .reshape(lead + (1,) * (cy.dim() - len(lead)))
     taps = []
     for c, size in ((cy, H), (cx, W)):
         lower = torch.floor(c)
@@ -150,7 +161,7 @@ def _sample_wrap(tex: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor):
     out = None
     for yi, wy in taps[0]:
         for xi, wx in taps[1]:
-            term = (wy * wx) * flat[yi * W + xi]
+            term = (wy * wx) * flat[base + yi * W + xi]
             out = term if out is None else out + term
     return out
 
@@ -396,11 +407,12 @@ def _noise_interval(root, index, t0, t1, rate, p_on, Kn):
 
 
 def _step(L_ref, t_last, L0, L1, t0, t1, cp, cn, K, rho, j):
-    """One frame pair: the crossings of ``L0 -> L1`` against ``L_ref``.
+    """One frame pair of B scenes: the crossings of ``L0 -> L1`` against
+    ``L_ref`` (all ``(B, H, W)``; the thresholds broadcast).
 
     ``t0``, ``t1`` are f32 values (Python floats holding them exactly).
-    Returns the new state and ``(t_ev (H, W, K), kept, sign (H, W) int8,
-    dropped)``.
+    Returns the new state and ``(t_ev (B, H, W, K), kept, sign (B, H, W)
+    int8, dropped (B,))``.
     """
     dL = L1 - L_ref
     up = dL >= 0
@@ -439,18 +451,21 @@ def _step(L_ref, t_last, L0, L1, t0, t1, cp, cn, K, rho, j):
     # L_ref advances over KEPT crossings only: a refractory-dropped
     # crossing re-fires once the pixel wakes up
     new_L_ref = L_ref + sign * C * n_kept
-    dropped = (valid & ~kept).sum() + overflow.sum()
+    dropped = (valid & ~kept).sum((-3, -2, -1)) + overflow.sum((-2, -1))
     return new_L_ref, new_t_last, (t_ev, kept, sign.to(torch.int8), dropped)
 
 
-def _check_frames(frames, n_ts):
+def _check_frames(frames, n_ts, ndim=3):
+    """Frames ``(F, H, W)`` (``ndim`` 3) or ``(B, F, H, W)`` (4) against
+    ``n_ts`` stamps; returns the shape."""
     shape = tuple(frames.shape) if hasattr(frames, "shape") \
         else np.shape(frames)
-    if len(shape) != 3 or shape[0] != n_ts:
+    if len(shape) != ndim or shape[-3] != n_ts:
         raise ConfigurationError(
             f"frames {shape} / frame_ts ({n_ts},) mismatch")
-    if shape[0] < 2:
+    if shape[-3] < 2:
         raise ConfigurationError("need at least two frames to simulate")
+    return shape
 
 
 def _host_stamps(frame_ts) -> np.ndarray:
@@ -460,11 +475,12 @@ def _host_stamps(frame_ts) -> np.ndarray:
 
 
 def _log_frame(frames, i, cfg, root):
-    """``log(frame_i + eps)`` plus the frame's own log-intensity noise
-    (drawn from the generator of the absolute frame index ``i``)."""
-    L = torch.log(frames[i] + cfg.log_eps)
+    """``log(frame_i + eps)`` of ``frames (B, F, H, W)``, plus the frame's
+    own log-intensity noise (drawn from the generator of the absolute frame
+    index ``i``; one scene only)."""
+    L = torch.log(frames[:, i] + cfg.log_eps)
     if cfg.noise_std > 0.0:
-        z = torch.randn(L.shape, device=L.device,
+        z = torch.randn(L.shape[-2:], device=L.device,
                         generator=_stream(root, _FRAME_NOISE, i, L.device))
         L = L + cfg.noise_std * z
     return L
@@ -483,18 +499,20 @@ def _prepare(frames, cfg, generator, device):
 
 
 def _scan(frames, stamps32, cfg, root):
-    """The crossing scan over every frame pair, in order: yields ``(i,
-    t_ev (H, W, K), kept, sign (H, W) int8, dropped)`` for interval ``i``
-    (``stamps32``: the frame stamps as float32 numpy)."""
+    """The crossing scan of ``frames (B, F, H, W)`` over every frame pair,
+    in order: yields ``(i, t_ev (B, H, W, K), kept, sign (B, H, W) int8,
+    dropped (B,))`` for interval ``i`` (``stamps32``: the frame stamps as
+    float32 numpy). Each scene's arithmetic is the one-scene scan's: every
+    operation is elementwise along B, H, W and K."""
     dev = frames.device
-    H, W = frames.shape[1:]
+    B, F_, H, W = frames.shape
     cp, cn = _threshold_maps(root, (H, W), cfg, dev)
     K = int(cfg.max_events_per_pixel)
     j = torch.arange(1, K + 1, dtype=torch.float32, device=dev)
     L0 = _log_frame(frames, 0, cfg, root)
     L_ref = L0
-    t_last = torch.full((H, W), -torch.inf, device=dev)
-    for i in range(frames.shape[0] - 1):
+    t_last = torch.full((B, H, W), -torch.inf, device=dev)
+    for i in range(F_ - 1):
         L1 = _log_frame(frames, i + 1, cfg, root)
         L_ref, t_last, out = _step(L_ref, t_last, L0, L1,
                                    float(stamps32[i]), float(stamps32[i + 1]),
@@ -535,15 +553,15 @@ def simulate_events(frames, frame_ts, cfg: Optional[SimulatorConfig] = None,
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
     noise_total = 0
     chunk = max(1, int(cfg.chunk))
-    steps = _scan(frames, rel_ts, cfg, root)
+    steps = _scan(frames[None], rel_ts, cfg, root)
     for start in range(0, F_ - 1, chunk):
         stop = min(start + chunk, F_ - 1)
         t_c, kept_c, sign_c = [], [], []
         for _, t_ev, kept, sign, d in itertools.islice(steps, stop - start):
-            dropped += d
-            t_c.append(t_ev)
-            kept_c.append(kept)
-            sign_c.append(sign)
+            dropped += d[0]
+            t_c.append(t_ev[0])
+            kept_c.append(kept[0])
+            sign_c.append(sign[0])
         kept = torch.stack(kept_c)                  # (steps, H, W, K)
         si, iy, ix, _ = torch.nonzero(kept, as_tuple=True)
         if len(si):
@@ -600,67 +618,107 @@ def simulate_events_device(frames, frame_ts, capacity: int,
     have zero coordinates and polarity and repeat the last valid stamp.
     ``return_overflow`` adds the exact number of events the cut dropped.
     ``dt_max`` overrides the largest frame interval for the noise-slot
-    capacity check.
+    capacity check. The one-scene case of
+    :func:`simulate_events_device_batch`.
     """
     cfg = cfg or SimulatorConfig()
     stamps = _host_stamps(frame_ts)
     _check_frames(frames, len(stamps))
-    frames, dev, root = _prepare(frames, cfg, generator, device)
-    F_, H, W = frames.shape
+    frames, _, root = _prepare(frames, cfg, generator, device)
+    ev, mask, overflow = _device_batch(frames[None], stamps, capacity, cfg,
+                                       root, dt_max)
+    if return_overflow:
+        return ev[0], mask[0], overflow[0]
+    return ev[0], mask[0]
+
+
+def simulate_events_device_batch(frames, frame_ts, capacity: int,
+                                 cfg: Optional[SimulatorConfig] = None,
+                                 generator: Optional[torch.Generator] = None,
+                                 dt_max: Optional[float] = None,
+                                 device=None):
+    """:func:`simulate_events_device` of B scenes in one frame loop (JAX's
+    ``jax.vmap`` of it over the scenes): ``frames (B, F, H, W)`` at the
+    common stamps ``frame_ts (F,)``; returns ``(events (B, capacity, 4),
+    mask (B, capacity), overflow (B,))``, row b exactly what the one-scene
+    call gives on ``frames[b]``.
+
+    The noise options (``noise_std``, ``sigma_c``, leak, shot and hot
+    pixels) draw from one generator for one scene, so with B > 1 they raise
+    ``ConfigurationError``: simulate such scenes one at a time with
+    :func:`simulate_events_device`.
+    """
+    cfg = cfg or SimulatorConfig()
+    stamps = _host_stamps(frame_ts)
+    B = _check_frames(frames, len(stamps), ndim=4)[0]
+    if B > 1 and (cfg.noise_std > 0.0 or cfg.sigma_c > 0.0
+                  or cfg.has_noise_events()):
+        raise ConfigurationError(
+            "the noise options draw for one scene: simulate noisy scenes one "
+            "at a time with simulate_events_device")
+    frames, _, root = _prepare(frames, cfg, generator, device)
+    return _device_batch(frames, stamps, capacity, cfg, root, dt_max)
+
+
+def _device_batch(frames, stamps, capacity, cfg, root, dt_max):
+    """The scan of ``frames (B, F, H, W)`` on their device compacted into
+    ``(events (B, capacity, 4), mask (B, capacity), overflow (B,))``: one
+    stable sort of the ``(B, slots)`` keys ``where(valid, t, inf)``, the
+    first ``capacity`` slots of each row, the coordinates and polarity of
+    those slots read off their index, pads per row."""
+    dev = frames.device
+    B, F_, H, W = frames.shape
     ts32 = stamps.astype(np.float32)
     K = int(cfg.max_events_per_pixel)
     _, t_c, kept_c, sign_c, _ = zip(*_scan(frames, ts32, cfg, root))
     steps = F_ - 1
-
-    def coords(k):
-        shape = (steps, H, W, k)
-        xx = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :,
-                                                               None]
-        yy = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None,
-                                                               None]
-        return (xx.expand(shape).reshape(-1), yy.expand(shape).reshape(-1))
-
-    xx, yy = coords(K)
-    pp = torch.stack(sign_c).float()[..., None].expand(steps, H, W,
-                                                       K).reshape(-1)
-    tt = torch.stack(t_c).reshape(-1)
-    valid = torch.stack(kept_c).reshape(-1)
-    if cfg.has_noise_events():
+    # slot ((i H + y) W + x) K + k of a row: crossing k of pixel (y, x) in
+    # interval i; its polarity is the pixel's sign in that interval
+    tt = torch.stack(t_c, 1).reshape(B, -1)
+    valid = torch.stack(kept_c, 1).reshape(B, -1)
+    sign = torch.stack(sign_c, 1).reshape(B, -1)
+    n_cross = tt.shape[1]
+    noise = cfg.has_noise_events()
+    if noise:   # one scene: its noise slots follow, Kn per pixel
         _check_noise_capacity(cfg, float(dt_max) if dt_max is not None
                               else float(np.diff(ts32).max()))
-        noise = _noise_rate_maps(root, (H, W), cfg, dev)
+        maps = _noise_rate_maps(root, (H, W), cfg, dev)
         Kn = int(cfg.max_noise_events_per_pixel)
-        out = [_noise_interval(root, i, ts32[i], ts32[i + 1], *noise, Kn)
+        out = [_noise_interval(root, i, ts32[i], ts32[i + 1], *maps, Kn)
                for i in range(steps)]
-        n_t, n_valid, n_sign = (torch.stack(a) for a in zip(*out))
-        nx, ny = coords(Kn)
-        xx, yy = torch.cat([xx, nx]), torch.cat([yy, ny])
-        pp = torch.cat([pp, n_sign.float().reshape(-1)])
-        tt = torch.cat([tt, n_t.reshape(-1)])
-        valid = torch.cat([valid, n_valid.reshape(-1)])
-    n_valid_total = valid.sum()
-    order = torch.argsort(torch.where(valid, tt, torch.inf),
-                          stable=True)[:capacity]
-    pad_out = capacity - order.shape[0]
-    mask = valid[order].float()
-    # pads: zero coordinates and polarity, the last valid stamp (the batch
-    # stays time-sorted end to end)
-    t_sel = tt[order]
-    t_pad = torch.where(mask != 0, t_sel, -torch.inf).max() \
-        if len(order) else torch.tensor(-torch.inf, device=dev)
+        n_t, n_valid, n_sign = (torch.stack(a).reshape(1, -1)
+                                for a in zip(*out))
+        tt = torch.cat([tt, n_t], 1)
+        valid = torch.cat([valid, n_valid], 1)
+    overflow = torch.clamp(valid.sum(1) - capacity, min=0)
+    order = torch.argsort(torch.where(valid, tt, torch.inf), dim=1,
+                          stable=True)[:, :capacity]
+    mask = valid.gather(1, order).float()
+    t_sel = tt.gather(1, order)
+    pix = order // max(K, 1)            # (interval, pixel) of the slot
+    if noise:
+        cross = order < n_cross
+        slot = torch.clamp(order - n_cross, min=0)
+        pix = torch.where(cross, pix, slot // Kn)
+        pol = torch.where(cross, sign.gather(1, pix), n_sign.gather(1, slot))
+    else:
+        pol = sign.gather(1, pix)
+    pix = pix % (H * W)
+    # pads: zero coordinates and polarity, the row's last valid stamp (each
+    # row stays time-sorted end to end)
+    t_pad = torch.where(mask != 0, t_sel, -torch.inf).amax(1) \
+        if order.shape[1] else torch.full((B,), -torch.inf, device=dev)
     t_pad = torch.where(torch.isfinite(t_pad), t_pad, 0.0)
-    t_col = torch.where(mask != 0, t_sel, t_pad)
-    ev = torch.stack([xx[order] * mask, yy[order] * mask, t_col,
-                      pp[order] * mask], dim=-1)
+    t_col = torch.where(mask != 0, t_sel, t_pad[:, None])
+    ev = torch.stack([(pix % W).float() * mask, (pix // W).float() * mask,
+                      t_col, pol.float() * mask], dim=-1)
+    pad_out = capacity - order.shape[1]
     if pad_out > 0:
-        pad_row = torch.stack([torch.zeros((), device=dev),
-                               torch.zeros((), device=dev), t_pad,
-                               torch.zeros((), device=dev)])
-        ev = torch.cat([ev, pad_row.expand(pad_out, 4)])
-        mask = torch.cat([mask, torch.zeros(pad_out, device=dev)])
-    if return_overflow:
-        return ev, mask, torch.clamp(n_valid_total - capacity, min=0)
-    return ev, mask
+        pad = torch.zeros((B, pad_out, 4), device=dev)
+        pad[..., 2] = t_pad[:, None]
+        ev = torch.cat([ev, pad], 1)
+        mask = torch.cat([mask, torch.zeros((B, pad_out), device=dev)], 1)
+    return ev, mask, overflow
 
 
 def simulate_scene(scene: Scene, duration: float, fps: float,

@@ -2,8 +2,8 @@
 of ``event_utils_tpu.training.in_the_loop``).
 
 Every step renders fresh random scenes, runs the sensor model on the card
-(``simulation.esim.simulate_events_device``), voxelizes and takes one
-optimiser step: no intermediate files.
+(``simulation.esim.simulate_events_device_batch``), voxelizes and takes
+one optimiser step: no intermediate files.
 
 Scene draws. JAX draws each scene from a threefry key; here each element's
 texture, velocity ``v``, ``(omega, s)``, age and fresh/steady choice come
@@ -17,10 +17,13 @@ carried over as data (``load_scenes`` and ``FLOW_EVAL_SCENES`` /
 
 Frames are rendered at the stamps ``jnp.linspace`` gives in float32
 (``jax_linspace``), with the order-1 wrap sampler of the simulator
-(``esim._sample_wrap``: JAX's ``index % size``). The B scenes are
-simulated one after the other; their voxel grids take one pair of flat
-scatters per batch (``representations.events_to_neg_pos_voxel_segments``):
-two flat-kernel launches under ``set_default_impl('pallas')``.
+(``esim._sample_wrap``: JAX's ``index % size``). The B scenes of a batch
+go through one batched render, one crossing scan over the frame pairs and
+one compaction with a cut per scene, as JAX's ``jax.vmap`` over the
+scenes; each scene's events are bit for bit those of its own simulation.
+Their voxel grids take one pair of flat scatters per batch
+(``representations.events_to_neg_pos_voxel_segments``): two flat-kernel
+launches under ``set_default_impl('pallas')``.
 
 Under a trainer's mesh, rank r simulates only the elements ``[r B/N,
 (r+1) B/N)`` of each step, each from its own ``(seed, step, element)``
@@ -43,7 +46,7 @@ from ..errors import ConfigurationError
 from ..parallel import sharding
 from ..representations.voxel_grid import events_to_neg_pos_voxel_segments
 from ..simulation.esim import (SimulatorConfig, _sample_wrap,
-                               simulate_events_device, smooth_texture)
+                               simulate_events_device_batch, smooth_texture)
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 # the pinned --eval_seed 0 batches of runs/flow128_similarity (stage 9) and
@@ -75,20 +78,29 @@ def _render_similarity(texture, v, omega, s, t, age=0.0):
     translation ``v`` px/s, rotation ``omega`` rad/s and divergence ``s``
     1/s about the sensor centre. ``age`` shifts the rotation/scale clock
     only (angle ``omega (t+age)``, scale ``e^{s (t+age)}``); translation
-    stays on ``t``. JAX's ``_render_similarity``, per frame."""
-    H, W = texture.shape
+    stays on ``t``. JAX's ``_render_similarity``, per frame. Scenes with
+    leading axes render in one pass: ``texture (..., H, W)``, ``v (...,
+    2)`` and ``omega``, ``s``, ``age`` of shape ``(...)`` (or scalars)
+    give ``(..., F, H, W)``, each scene's frames as its own render."""
+    H, W = texture.shape[-2:]
     dev = texture.device
     cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
     yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
                             torch.arange(W, dtype=torch.float32, device=dev),
                             indexing="ij")
     t = torch.as_tensor(t, dtype=torch.float32, device=dev)[:, None, None]
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-    v, omega, s, age = f32(v), f32(omega), f32(s), f32(age)
+
+    def per_scene(a):   # (...) -> (..., 1, 1, 1), against (F, H, W)
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device=dev)[..., None, None, None]
+
+    v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+    vx, vy = per_scene(v[..., 0]), per_scene(v[..., 1])
+    omega, s, age = per_scene(omega), per_scene(s), per_scene(age)
     # the pixel's texture coordinate at t=0: undo the translation, then
     # the rotation, then the exponential scaling
-    x0 = xx - cx - v[0] * t
-    y0 = yy - cy - v[1] * t
+    x0 = xx - cx - vx * t
+    y0 = yy - cy - vy * t
     t_rs = t + age
     c, sn = torch.cos(omega * t_rs), torch.sin(omega * t_rs)
     xr = c * x0 + sn * y0
@@ -174,8 +186,9 @@ def simulate_flow_scenes(scenes: dict, capacity: int, window_t: float = 0.1,
     """One supervised flow batch from explicit scene parameters.
 
     Per scene: ``burn_in * (num_frames - 1) + num_frames`` frames over
-    ``(burn_in + 1) * window_t`` seconds, one simulation into a
-    ``capacity``-padded batch (the earliest events when more fire). With
+    ``(burn_in + 1) * window_t`` seconds, simulated into a
+    ``capacity``-padded batch (the earliest events when more fire); all B
+    scenes in one batched render and one batched simulation. With
     ``burn_in`` the mask keeps only the last window (steady state), or the
     first for scenes drawn ``fresh``.
 
@@ -185,44 +198,38 @@ def simulate_flow_scenes(scenes: dict, capacity: int, window_t: float = 0.1,
     window's start ``t``. ``return_saturation`` adds (B,) bools: the
     scene's stream overflowed ``capacity``."""
     dev = resolve_device(device)
-    tex_all = scenes["texture"]
-    B, H, W = tex_all.shape
+    tex = scenes["texture"].to(dev)
+    B, H, W = tex.shape
+    v, ws = scenes["v"].to(dev), scenes["ws"].to(dev)
     cfg = SimulatorConfig(c_pos=c_pos, c_neg=c_neg)
     fts = jax_linspace((burn_in + 1) * window_t,
                        burn_in * (num_frames - 1) + num_frames)
-    t = torch.as_tensor(fts, device=dev)
-    cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
-    yy, xx = torch.meshgrid(
-        torch.arange(H, dtype=torch.float32, device=dev) - cy,
-        torch.arange(W, dtype=torch.float32, device=dev) - cx, indexing="ij")
-    evs, masks, gts, sats = [], [], [], []
-    for b in range(B):
-        v = scenes["v"][b].to(dev)
-        ws = scenes["ws"][b].to(dev)
-        frames = _render_similarity(tex_all[b].to(dev), v, ws[0], ws[1], t,
-                                    age=scenes["age"][b].to(dev))
-        ev, mask, overflow = simulate_events_device(
-            frames, fts, capacity, cfg, return_overflow=True)
-        t_ref = np.float32(0.0)    # the kept window's start
-        if burn_in:
-            if bool(scenes["fresh"][b]):
-                keep = ev[:, 2] < window_t
-            else:
-                keep = ev[:, 2] >= burn_in * window_t
-                t_ref = np.float32(burn_in * window_t)
-            mask = mask * keep.to(mask.dtype)
-        if scenes["similarity"]:
-            rx = xx - v[0] * t_ref
-            ry = yy - v[1] * t_ref
-            gts.append(torch.stack([v[0] - ws[0] * ry + ws[1] * rx,
-                                    v[1] + ws[0] * rx + ws[1] * ry]))
-        else:
-            gts.append(v)
-        evs.append(ev)
-        masks.append(mask)
-        sats.append(overflow > 0)
-    out = (torch.stack(evs), torch.stack(masks), torch.stack(gts))
-    return out + (torch.stack(sats),) if return_saturation else out
+    frames = _render_similarity(tex, v, ws[:, 0], ws[:, 1], fts,
+                                age=scenes["age"].to(dev))
+    ev, mask, overflow = simulate_events_device_batch(frames, fts, capacity,
+                                                      cfg)
+    t_ref = torch.zeros(B, device=dev)    # the kept window's start
+    if burn_in:
+        fresh = scenes["fresh"].to(dev)
+        keep = torch.where(fresh[:, None], ev[..., 2] < window_t,
+                           ev[..., 2] >= burn_in * window_t)
+        t_ref = torch.where(fresh, 0.0, np.float32(burn_in * window_t))
+        mask = mask * keep.to(mask.dtype)
+    if scenes["similarity"]:
+        cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
+        yy, xx = torch.meshgrid(
+            torch.arange(H, dtype=torch.float32, device=dev) - cy,
+            torch.arange(W, dtype=torch.float32, device=dev) - cx,
+            indexing="ij")
+        rx = xx - (v[:, 0] * t_ref)[:, None, None]
+        ry = yy - (v[:, 1] * t_ref)[:, None, None]
+        w0, w1 = ws[:, 0, None, None], ws[:, 1, None, None]
+        gt = torch.stack([v[:, 0, None, None] - w0 * ry + w1 * rx,
+                          v[:, 1, None, None] + w0 * rx + w1 * ry], 1)
+    else:
+        gt = v
+    out = (ev, mask, gt)
+    return out + (overflow > 0,) if return_saturation else out
 
 
 def simulate_flow_batch(seed: int, step: int, batch_size: int,
@@ -274,45 +281,40 @@ def simulate_recon_scenes(scenes: dict, capacity: int, seq_len: int,
     """One supervised E2VID sequence batch from explicit scene parameters.
 
     Per scene: ``seq_len * sim_steps_per_window + 1`` frames over ``seq_len
-    * window_t`` seconds, one simulation (the sensor state threads across
-    the whole sequence), then each window ``(t_w, t_{w+1}]`` is voxelized
-    over its own events: every window of every scene in one pair of flat
-    scatters (ids offset by window and element).
+    * window_t`` seconds (the sensor state threads across the whole
+    sequence), all B scenes in one batched render and one batched
+    simulation; then each window ``(t_w, t_{w+1}]`` is voxelized over its
+    own events: every window of every scene in one pair of flat scatters
+    (ids offset by window and element).
 
     Returns ``(voxels (T, B, C, H, W), frames (T, B, 1, H, W))`` on the
     device, ``frames[w]`` the rendered frame at window w's end;
     ``capacity`` bounds events per sequence. ``return_saturation`` adds
     (B,) bools: the scene's stream overflowed ``capacity``."""
     dev = resolve_device(device)
-    tex_all = scenes["texture"]
-    B, H, W = tex_all.shape
+    tex = scenes["texture"].to(dev)
+    B, H, W = tex.shape
+    ws = scenes["ws"].to(dev)
     cfg = SimulatorConfig(c_pos=c_pos, c_neg=c_neg)
     spw = sim_steps_per_window
     fts = jax_linspace(seq_len * window_t, seq_len * spw + 1)
-    t = torch.as_tensor(fts, device=dev)
-    bounds = t[::spw].contiguous()             # (seq_len + 1,) window edges
+    bounds = torch.as_tensor(fts, device=dev)[::spw].contiguous()  # edges
     target_idx = torch.arange(1, seq_len + 1, device=dev) * spw
-    evs, segs, frames_out, sats = [], [], [], []
-    for b in range(B):
-        ws = scenes["ws"][b].to(dev)
-        frames = _render_similarity(tex_all[b].to(dev), scenes["v"][b].to(dev),
-                                    ws[0], ws[1], t)
-        ev, mask, overflow = simulate_events_device(
-            frames, fts, capacity, cfg, return_overflow=True)
-        # window w holds the events with t_w < t <= t_{w+1}
-        w = torch.searchsorted(bounds, ev[:, 2].contiguous()) - 1
-        segs.append(torch.where((mask > 0) & (w >= 0) & (w < seq_len),
-                                w * B + b, -1))
-        evs.append(ev)
-        frames_out.append(frames[target_idx])
-        sats.append(overflow > 0)
-    x, y, ts, p = torch.cat(evs).unbind(-1)
+    frames = _render_similarity(tex, scenes["v"].to(dev), ws[:, 0], ws[:, 1],
+                                fts)
+    ev, mask, overflow = simulate_events_device_batch(frames, fts, capacity,
+                                                      cfg)
+    # window w holds the events with t_w < t <= t_{w+1}
+    w = torch.searchsorted(bounds, ev[..., 2].contiguous()) - 1
+    seg = torch.where((mask > 0) & (w >= 0) & (w < seq_len),
+                      w * B + torch.arange(B, device=dev)[:, None], -1)
+    x, y, ts, p = ev.reshape(-1, 4).unbind(-1)
     voxels = events_to_neg_pos_voxel_segments(
-        x, y, ts, p, torch.cat(segs), seq_len * B, num_bins, (H, W),
+        x, y, ts, p, seg.reshape(-1), seq_len * B, num_bins, (H, W),
         combined=combined)
     out = (voxels.view((seq_len, B) + voxels.shape[1:]),
-           torch.stack(frames_out, 1)[:, :, None])
-    return out + (torch.stack(sats),) if return_saturation else out
+           frames.transpose(0, 1)[target_idx][:, :, None])
+    return out + (overflow > 0,) if return_saturation else out
 
 
 def simulate_recon_batch(seed: int, step: int, batch_size: int,
