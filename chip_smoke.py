@@ -50,6 +50,17 @@
      on one pixel, held per pixel within ``splat_limits``); 1 and 767
      patches; a ragged case (P=7, C=1000, (24, 40)) on both routes; a
      (240, 256) patch; gradients;
+   - batched voxel (``jax.vmap`` of the TPU kernel): both routes of
+     ``voxel_scatter_batched`` against the plain version and against S
+     single ``voxel_scatter`` launches (2S with the polarity split), within
+     GRID_REL of the grids' scale, timed beside the plain version and one
+     ``index_put_``: the 2^21-event stream in 104 windows of 20,000 and in
+     8 of 2^18 (DAVIS240, B=5), the trainers' split grids of padded rows
+     (``fit``'s 8 x 32,768 at 184x240, the flow batch's 8 x 65,536 and the
+     E2VID batch's 96 windows of 12,288 at 128x128), and on the flow
+     batch's shape B = 1 and 9, every row masked, a row of one event,
+     per-row windows that pin events to the last bin, NaN, +-inf and huge
+     bins;
    - flat, on the vector route (one float2 or float4 reduction per id)
      and on the direct one: the D=2 derivative stack of 200k events (800k
      ids), also with ids -1 and num_buckets mixed in, with all-zero weight
@@ -89,7 +100,18 @@
    their range), the BFGS field card vs CPU (medians within 0.5 px/s).
    Then warm walls, device busy and idle shares, and each shape the phase
    sent the batched splat against its plain version.
-5. The serving path, with the launch counts set to 0 again first: a
+5. JAX's vmapped voxel grids (``voxel_batched``), with the launch counts
+   set to 0 again first: ``voxel_grids_fixed_n(impl='matmul')`` on the
+   2^21-event DAVIS240 stream in windows of 20,000 (104 windows) and of
+   2^18 (8), and ``voxelize_batch`` under ``'pallas'`` at the flow batch's
+   and ``fit``'s shapes; each call must launch ``voxel_scatter_batched`` on
+   the route its shape is sent to (``voxel_batched_route``), once per
+   chunk of rows, and nothing else (no ``voxel_scatter:*``). Then every
+   grid against the per-window loop of single launches that the port ran
+   before (``window_loop_grids``) and the exact 'xla' route, and the walls
+   of both in turns (loop, batched, batched, loop), with device busy, idle
+   share, largest entries and launches.
+6. The serving path, with the launch counts set to 0 again first: a
    recording made here from ``SEED`` (128x128, the sensor of the committed
    weights; 2 s of a textured plane under the similarity motion of the
    seed-91 flow recording, v = (24, -15) px/s, omega = 4 rad/s, divergence
@@ -114,7 +136,7 @@
    each with the flat kernel and with ``index_add_`` in turns, the
    networks' device ms per batch (CUDA events), and each CLI's device idle
    share (``torch.profiler`` busy time over the unprofiled warm wall).
-6. The published serving anchors, with the launch counts set to 0 again
+7. The published serving anchors, with the launch counts set to 0 again
    first, everything under ``set_default_impl('pallas')``: the port's
    ``simulate`` CLI makes the three recordings of the JAX simulator on the
    card from the committed textures (seed 91, similarity, 2 s: 746,962
@@ -138,7 +160,7 @@
    ``eval_cmax`` sent to the patch splat (grid-search evaluations and
    descent steps, kept during the run), and ``flat_scatter:direct`` on
    the densest window's positive grid of each served recording.
-7. The training path, with the launch counts set to 0 again first,
+8. The training path, with the launch counts set to 0 again first,
    everything under ``set_default_impl('pallas')`` and TF32 off: JAX's
    two pinned eval batches (stage 9 of ``runs/flow128_similarity``,
    stage 8 of ``runs/recon128v2``) rebuilt on the card from the committed
@@ -153,9 +175,10 @@
    recording of phase 5 (2 steps): finite losses, the final evals within
    bands around the CPU port's readings of the same commands,
    ``--params_out`` reloaded into fresh trainers bit-identical, and
-   exactly ``flat_scatter:direct`` 3 per flow step (two grids, the loss's
-   splat) plus 2 for the eval grids, 2 per simulated E2VID batch and 2 per
-   recording window, nothing else. After the counts are read: 2 Adam
+   exactly one ``voxel_scatter_batched`` (both polarities' grids) and one
+   ``flat_scatter:direct`` (the loss's splat) per flow step plus one
+   batched launch for the eval grids, ``flat_scatter:direct`` 2 per
+   simulated E2VID batch and 2 per recording window, nothing else. After the counts are read: 2 Adam
    steps of each recipe on one batch on the card and on the CPU (losses
    to 1e-4; gradients per leaf, cosine >= 0.9999 and 1e-3 of the leaf's
    scale; weights and EMA, 99% of the coordinates the CPU run moved
@@ -165,15 +188,22 @@
    simulator (one render, frame loop and sort per batch) against the
    per-scene loop it replaced (``scene_loop_flow``, ``scene_loop_recon``)
    on both eval batches: events, masks, ground truth, saturation, frames
-   and the segmented scatters' inputs bit for bit, the grids within 1e-5
-   (float atomics), the flat kernel at every shape the path sent it,
-   forward against the plain version and its adjoint against the plain
-   gather (exact), and warm timings: forward+backward device ms, one flow
+   and the segmented scatters' inputs bit for bit, each E2VID window's
+   first and last stamp (read off the sorted rows) bit for bit the
+   ``scatter_reduce`` ones, the grids within 1e-5 (float atomics), the
+   flat and batched voxel kernels at every shape the path sent them,
+   forward against the plain version (the flat adjoint against the plain
+   gather, exact), and warm timings: forward+backward device ms, one flow
    step, one E2VID batch generation and one segment step with their
-   device idle shares, and the flow and E2VID batch generations of the
+   device idle shares, the flow and E2VID batch generations of the
    per-scene loop and the batched simulator in turns (loop, batched,
-   batched, loop; 5 warm walls each, busy, idle share, peak memory).
-8. The streaming path, with the launch counts set to 0 again first,
+   batched, loop; 5 warm walls each, busy, idle share, peak memory), and
+   a flow step and an E2VID batch generation with the trainers' grids as
+   built before the batched voxel kernel (``old_segment_route``:
+   ``scatter_reduce`` per segment) and now, in turns (old, new, new, old; 5 warm walls each,
+   busy, idle share, largest entries, launches; the new route's largest
+   entries may hold no ``_scatter_gather_elementwise_kernel``).
+9. The streaming path, with the launch counts set to 0 again first,
    everything under ``set_default_impl('pallas')`` (``g++`` built the
    native runtime, ``csrc/evio.cpp``, in step 1): the port's ``simulate``
    CLI writes a DAVIS240 recording on the card (a texture translating at
@@ -202,7 +232,7 @@
    and warm ``fit`` steps through the pinned prefetch and through
    pageable copies, in turns: wall, the device's idle share and the share
    of the copy time under kernels (``torch.profiler`` trace).
-9. The augmentation path, with the launch counts set to 0 again first
+10. The augmentation path, with the launch counts set to 0 again first
    around its drive: the slider-like scene of
    ``benchmarks/bench_configs.py:36-50`` (2^20 draws at 180x240, 0.5 s,
    600 points at (70, 30) px/s, floored to pixels) written as ECD text by
@@ -223,7 +253,7 @@
    matplotlib where that is missing); warm times in turns: the densify
    with integer and float coordinates and unsorted, in M input events/s,
    the voxel and image calls, and the pipeline's idle share.
-10. The multi-card path (``parallel``), with the launch counts set to 0
+11. The multi-card path (``parallel``), with the launch counts set to 0
    again first around a world of one: this process joins a one-rank
    NCCL group (``file://`` store in the work directory) and
    ``make_mesh(1)`` spans it; ``sharded_events_to_voxel`` (2^21 events,
@@ -247,7 +277,7 @@
    quantile by the training phase's rule (the max is logged: the two
    runs can step a near-zero-gradient coordinate opposite ways), and
    steps/s of each.
-11. The remaining host-side modules' device halves (``visualization``),
+12. The remaining host-side modules' device halves (``visualization``),
     counted: ``draw_objective_function``'s landscape (20x20 samples at
     20 px/s over +-200 px/s on 15,000 events of the planted scene; within
     1e-4 of the CPU port, its peak within one cell of the planted
@@ -257,12 +287,14 @@
     recording at its ground-truth flow (card vs CPU within 1e-5; the
     PNG it writes decodes to its levels) and the 2-D visualizers' images
     under ``'pallas'`` (card vs CPU within 1e-5).
-12. Times the tiled route and its host bucketing alone (now the native
+13. Times the tiled route and its host bucketing alone (now the native
     bucket fill), warm, and prints the bucketing's share of the route's
     wall.
 
 Prints a ``{"batched": {...}}`` JSON line (the phase's levels, answers,
-walls and idle shares), a ``{"serving": {...}}`` JSON line, a ``{"simulated_anchors":
+walls and idle shares), a ``{"voxel_batched": {...}}`` line (its
+comparisons, the fixed-n walls in turns), a ``{"serving": {...}}`` JSON
+line, a ``{"simulated_anchors":
 {...}}`` line (the gated numbers, walls and windows/s), a ``{"training":
 {...}}`` line (gated numbers, steps/s, Mev/s, the simulator's share,
 timings, the batched simulator against the per-scene loop), a ``{"streaming": {...}}`` line (the stream's errors, Mev/s and
@@ -270,7 +302,8 @@ windows/s, card vs CPU, the native runtime's times, the fit timings), an
 ``{"augmentation": {...}}`` line, a ``{"parallel": {...}}`` and a
 ``{"visualization": {...}}`` line, a ``{"kernels": [...]}`` line (one
 entry per route; ``launches`` counts the contrast-maximisation path,
-``launches_batched`` the batched solves, ``launches_serving`` the serving
+``launches_batched`` the batched solves, ``launches_voxel_batched`` the
+vmapped voxel grids, ``launches_serving`` the serving
 path, ``launches_sim`` the simulated
 anchors, ``launches_train`` the training path, ``launches_stream`` the
 streaming path, ``launches_aug`` the augmentation path,
@@ -302,6 +335,9 @@ SEED = 0
 REPS = 20                    # timed graph replays (median)
 CALLS = 10                   # calls captured in each graph
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
+FIXED_N = 20_000             # voxel_grids_fixed_n's DAVIS240 windows (104)
+FIXED_N_VECTOR = 1 << 18     # 8 windows of the same stream: :vector
+VOXEL_WALLS = 5              # warm walls of each turn of the fixed-n A/B
 F32_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 TILED_SENSORS = {"VGA": (480, 640), "720p": (720, 1280)}
 TILE = (96, 128)
@@ -530,6 +566,9 @@ REPLACES = {
     # under jax.vmap (grid_search_initial, events_cmax.py:348; the refine,
     # :451; draw_objective_function, :1557): the call at :732 batched
     "bilinear_scatter_batched": "event_utils_tpu/ops/pallas_scatter.py:576",
+    # under jax.vmap (voxel_grids_fixed_n, voxel_grid.py:328; the trainers'
+    # padded rows, training/loop.py:174-185): the call at :353 batched
+    "voxel_scatter_batched": "event_utils_tpu/ops/pallas_scatter.py:113",
 }
 
 
@@ -1527,6 +1566,298 @@ def voxel_phase(torch, cs, rng, records):
                 for c in (big, small)])
 
 
+def padded_rows(torch, rng, S, n, sensor, counts=None):
+    """S padded rows of n slots as the trainers get them: a valid prefix
+    (``counts``, else 60-100% of the slots) of events on the sensor with
+    sorted stamps and polarities +-1, then pads with zero coordinates and
+    polarity and the row's last valid stamp. ``(events (S, n, 4), mask (S,
+    n))`` on the card."""
+    H, W = sensor
+    if counts is None:
+        counts = rng.integers(int(0.6 * n), n + 1, S)
+    counts = np.asarray(counts)
+    valid = np.arange(n)[None, :] < counts[:, None]
+    t = np.sort(rng.uniform(0.0, 0.1, (S, n)).astype(np.float32), axis=1)
+    last = np.where(counts > 0, t[np.arange(S), np.maximum(counts - 1, 0)],
+                    np.float32(0.0))
+    ev = np.stack([np.where(valid, rng.integers(0, W, (S, n)), 0),
+                   np.where(valid, rng.integers(0, H, (S, n)), 0),
+                   np.where(valid, t, last[:, None]),
+                   np.where(valid, rng.choice([-1.0, 1.0], (S, n)), 0.0)],
+                  -1).astype(np.float32)
+    return (torch.as_tensor(ev, device="cuda"),
+            torch.as_tensor(valid.astype(np.float32), device="cuda"))
+
+
+def voxel_batched_taps(torch, args, B, H, W, split):
+    """The live (ids, values) of a batched voxel grid's kernel inputs: each
+    event's in-range taps at its grid's offset, dropped taps left out."""
+    xs, ys, t_norm, ps = args
+    S = xs.shape[0]
+    b0 = torch.floor(t_norm)
+    fb = t_norm - b0
+    grid = torch.arange(S, device=xs.device)[:, None] * (2 if split else 1)
+    w = ps
+    if split:
+        grid = grid + (ps < 0).long()
+        w = ps.abs()
+    base = grid * (B * H * W) + ys.long() * W + xs.long()
+    ids, vals = [], []
+    for b, wt in ((b0, w * (1 - fb)), (b0 + 1, w * fb)):
+        ok = (ps != 0) & (b >= 0) & (b < B)
+        ids.append((base + torch.where(ok, b, 0.0).long() * (H * W))[ok])
+        vals.append(wt[ok])
+    return torch.cat(ids), torch.cat(vals)
+
+
+def voxel_batched_case(torch, cs, label, args, B, H, W, split, route,
+                       time=True):
+    """``voxel_scatter_batched`` on ``route`` at the kernel inputs ``args``
+    against its plain version and against S single ``voxel_scatter``
+    launches (2S with ``split``: the positive and negative weights), within
+    GRID_REL of the grid's scale; with ``time``, the kernel, the plain
+    version and one ``index_put_`` over the live taps timed, and the bound
+    (each slot's weight read, the other 12 B of a live slot, the grids
+    written once)."""
+    name = f"voxel_scatter_batched:{route}"
+    x, y, t, p = args
+    S, n = x.shape
+    G = 2 if split else 1
+    kernel = lambda: cs.voxel_scatter_batched(*args, B, H, W, split=split,
+                                              route=route)
+    plain = lambda: cs.voxel_scatter_batched_plain(*args, B, H, W, split)
+    got = kernel()
+    shape = (f"{S} rows x {n} events into ({G * B}, {H}, {W})"
+             + (", split" if split else ""))
+    err = check_close(f"{name} ({label})", got, plain(), GRID_REL)
+    weights = ((torch.where(p > 0, p, 0.0), torch.where(p < 0, -p, 0.0))
+               if split else (p,))
+    single = torch.stack([cs.voxel_scatter(x[s], y[s], t[s],
+                                           w[s].contiguous(), B, H, W,
+                                           route=route)
+                          for s in range(S) for w in weights])
+    err = max(err, check_close(f"{name} ({label}) vs {S * G} single "
+                               f"voxel_scatter:{route} launches", got,
+                               single.view(got.shape), GRID_REL))
+    case = dict(shape=f"{shape} ({label})", max_abs_err=err)
+    if time:
+        ids, vals = voxel_batched_taps(torch, args, B, H, W, split)
+        live = int((p != 0).sum())
+        case.update(
+            ms=time_ms(kernel, torch), plain_ms=time_ms(plain, torch),
+            library_ms=time_ms(lambda: torch.zeros(
+                S * G * B * H * W, device=x.device).index_put_(
+                    (ids,), vals, accumulate=True), torch),
+            bound=bound(S * n * 4 + live * 12 + S * G * B * H * W * 4,
+                        live * 8))
+        log(f"  {name} at {case['shape']}: {case['ms']:.4f} ms, plain "
+            f"{case['plain_ms']:.4f} ms, index_put_ "
+            f"{case['library_ms']:.4f} ms, bound {case['bound'][0]:.5f} ms; "
+            f"the dispatch takes "
+            f"{cs.voxel_batched_route(S, n, B, H, W, split)}")
+    return case
+
+
+def voxel_batched_kernel_cases(torch, cs, records):
+    """The batched voxel kernel's two routes at the shapes of the
+    ``voxel_batched`` path and the trainers', against the plain version and S single
+    launches, timed: the DAVIS240 2^21-event stream in 104 windows of
+    20,000 (``voxel_grids_fixed_n``) and in 8 of 2^18; the trainers' split
+    grids of padded rows, ``fit``'s 8 x 32,768 at 184x240, the flow batch's
+    8 x 65,536 and the E2VID batch's 96 windows of 12,288 at 128x128. Then
+    edge cases on the flow batch's shape: B = 1 and 9, every row masked, a
+    row of one event, per-row windows that pin half of each row to the
+    last bin, NaN, +-inf and huge bin coordinates."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 16)
+    H, W = SENSOR
+    xs, ys, ts, ps = (torch.as_tensor(a, device=dev)
+                      for a in voxel_events(rng))
+    ts, ps = ts.float(), ps.float()
+    cases = {"direct": [], "vector": []}
+
+    def hold(label, args, bins, sensor, split, time=True):
+        for r in cases:
+            cases[r].append(voxel_batched_case(torch, cs, label, args, bins,
+                                               *sensor, split, r, time))
+
+    for n in (FIXED_N, FIXED_N_VECTOR):
+        S = N_VOXEL // n
+        win = [a[:S * n].reshape(S, n) for a in (xs, ys, ts, ps)]
+        hold(f"DAVIS240, {S} windows of {n}",
+             cs.voxel_inputs_batched(*win, B, SENSOR), B, SENSOR, False)
+    flow = None
+    for label, S, n, sensor in (("fit", 8, 32768, (184, 240)),
+                                ("flow batch", 8, 65536, (128, 128)),
+                                ("E2VID windows", 96, 12288, (128, 128))):
+        ev, mask = padded_rows(torch, rng, S, n, sensor)
+        rows = [a.contiguous() for a in ev.unbind(-1)]
+        hold(label, cs.voxel_inputs_batched(*rows, B, sensor, mask=mask,
+                                            split=True), B, sensor, True)
+        if label == "flow batch":
+            flow = rows, mask, sensor
+    rows, mask, sensor = flow
+    for bins in (1, 9):
+        hold(f"flow batch, B={bins}", cs.voxel_inputs_batched(
+            *rows, bins, sensor, mask=mask, split=True), bins, sensor, True,
+            time=False)
+    none = cs.voxel_inputs_batched(*rows, B, sensor,
+                                   mask=torch.zeros_like(mask), split=True)
+    one_mask = mask.clone()
+    one_mask[0] = 0.0
+    one_mask[0, 7] = 1.0
+    one = cs.voxel_inputs_batched(*rows, B, sensor, mask=one_mask,
+                                  split=True)
+    n = mask.shape[1]
+    pinned = cs.voxel_inputs_batched(*rows, B, sensor, mask=mask,
+                                     t1=rows[2][:, n // 4], split=True)
+    log(f"  per-row t1 overrides: {int((pinned[2] == B - 1).sum())} events "
+        f"at t_norm = B-1 exactly")
+    odd = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30,
+                        -1e30, -1.0, -0.25, float(B)], device=dev)
+    t_odd = pinned[2].clone()
+    t_odd[:, ::5] = odd[torch.arange(t_odd[:, ::5].shape[1], device=dev)
+                        % len(odd)]
+    for label, args in (("every row masked", none), ("a row of one event",
+                                                     one),
+                        ("pinned to the last bin", pinned),
+                        ("NaN, inf and huge bins",
+                         (pinned[0], pinned[1], t_odd, pinned[3]))):
+        hold(f"flow batch, {label}", args, B, sensor, True, time=False)
+    for r in cases:
+        grids = cs.voxel_scatter_batched(*none, B, *sensor, split=True,
+                                         route=r)
+        ones = cs.voxel_scatter_batched(*one, B, *sensor, split=True,
+                                        route=r)
+        if float(grids.abs().max()) != 0.0 or float(ones[0].sum()) != 1.0:
+            raise AssertionError(f"voxel_scatter_batched:{r}: masked rows "
+                                 f"left a mark, or one event weighs "
+                                 f"{float(ones[0].sum())}")
+    # the record's own numbers: the shape the path sends each route
+    for r, main in (("direct", 0), ("vector", 1)):
+        timed = [c for c in cases[r] if "ms" in c]
+        records[f"voxel_scatter_batched:{r}"] = dict(
+            timed[main], max_abs_err=max(c["max_abs_err"] for c in cases[r]),
+            cases=[as_case(c) for c in timed])
+
+
+def window_loop_grids(torch, events_to_voxel, ev, n, impl):
+    """``voxel_grids_fixed_n`` as the port ran it before the batched kernel:
+    one ``events_to_voxel`` per window of ``n`` events."""
+    num = len(ev[0]) // n
+    return torch.stack([events_to_voxel(*(a[i:i + n] for a in ev), B,
+                                        sensor_size=SENSOR, impl=impl)
+                        for i in range(0, num * n, n)])
+
+
+def voxel_batched_phase(torch, cs, records):
+    """The vmapped voxel grids' path (JAX's ``jax.vmap`` of the voxel
+    kernel), with the launch counts set to 0 first:
+    ``voxel_grids_fixed_n(impl='matmul')`` on the DAVIS240 2^21-event
+    stream in windows of 20,000 (104: the direct route) and of
+    2^18 (8: the vector route), and ``voxelize_batch`` under 'pallas' at the
+    flow batch's and ``fit``'s shapes. Each call must launch
+    ``voxel_scatter_batched`` on the route its shape is sent to, once per
+    chunk of rows, and nothing else. After the counts are read: every grid
+    against the per-window loop of single launches (``window_loop_grids``)
+    and the exact 'xla' route, the rows' grids against ``voxelize_batch``
+    under 'xla', and the walls of ``voxel_grids_fixed_n`` batched and as the
+    per-window loop in turns (loop, batched, batched, loop), with device
+    busy, idle share and largest entries. Returns the phase's launch counts
+    and what it measured."""
+    from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
+    from event_utils_tpu_torch.representations import (events_to_voxel,
+                                                       voxel_grids_fixed_n)
+    from event_utils_tpu_torch.training import in_the_loop as itl
+    rng = np.random.default_rng(SEED + 17)
+    H, W = SENSOR
+    ev = tuple(torch.as_tensor(a, device="cuda") for a in voxel_events(rng))
+    rows = {"flow": (padded_rows(torch, rng, 8, 65536, (128, 128)),
+                     (128, 128)),
+            "fit": (padded_rows(torch, rng, 8, 32768, (184, 240)),
+                    (184, 240))}
+    out = {"card": card_line()}
+    want, grids = {}, {}
+    prev = get_default_impl()
+    cs.reset_launch_counts()
+    set_default_impl("pallas")
+    try:
+        with route_calls(cs) as seen:
+            for n in (FIXED_N, FIXED_N_VECTOR):
+                S = N_VOXEL // n
+                r = cs.voxel_batched_route(S, n, B, H, W)
+                chunk = (cs.voxel_batched_chunk(B, H, W) if r == "vector"
+                         else cs.BATCH_MAX_SAMPLES)
+                key = f"voxel_scatter_batched:{r}"
+                want[key] = want.get(key, 0) + -(-S // chunk)
+                grids[n], wall = synced(torch, lambda: voxel_grids_fixed_n(
+                    *ev, B, n, sensor_size=SENSOR, impl="matmul"))
+                log(f"voxel_batched: voxel_grids_fixed_n, {S} windows of {n}"
+                    f" -> {key} ({-(-S // chunk)} launches), {wall:.4f} s")
+            for name, ((e, m), sensor) in rows.items():
+                S, n = m.shape
+                key = "voxel_scatter_batched:" + cs.voxel_batched_route(
+                    S, n, B, *sensor, split=True)
+                want[key] = want.get(key, 0) + 1
+                grids[name], wall = synced(torch, lambda: itl.voxelize_batch(
+                    e, m, B, sensor))
+                log(f"  voxelize_batch, {name}: {S} x {n} at {sensor} -> "
+                    f"{key}, {wall:.4f} s")
+        torch.cuda.synchronize()
+    finally:
+        set_default_impl(prev)
+    launches = cs.launch_counts()
+    got = {k: v for k, v in launches.items() if v}
+    log(f"voxel_batched launches: {got}; by the dispatch rules "
+        f"{seen['calls']}; expected {want}")
+    if got != want or got != seen["calls"]:
+        raise AssertionError(f"voxel_batched launches {got}, expected {want}"
+                             f", dispatch {seen['calls']}")
+    errs = {}
+    for n in (FIXED_N, FIXED_N_VECTOR):
+        S = N_VOXEL // n
+        errs[f"fixed_n_{n}_vs_loop"] = check_close(
+            f"voxel_grids_fixed_n, {S} windows of {n}, vs the per-window "
+            f"loop", grids[n], window_loop_grids(torch, events_to_voxel, ev,
+                                                 n, "matmul"), GRID_REL)
+        errs[f"fixed_n_{n}_vs_xla"] = check_close(
+            f"voxel_grids_fixed_n, {S} windows of {n}, vs 'xla'", grids[n],
+            voxel_grids_fixed_n(*ev, B, n, sensor_size=SENSOR, impl="xla"),
+            GRID_REL)
+    for name, ((e, m), sensor) in rows.items():
+        errs[f"{name}_vs_xla"] = check_close(
+            f"voxelize_batch, {name}, 'pallas' vs 'xla'", grids[name],
+            itl.voxelize_batch(e, m, B, sensor), GRID_REL)
+    out["max_abs_err"] = errs
+    calls = {
+        "loop": lambda: window_loop_grids(torch, events_to_voxel, ev,
+                                          FIXED_N, "matmul"),
+        "batched": lambda: voxel_grids_fixed_n(*ev, B, FIXED_N,
+                                               sensor_size=SENSOR,
+                                               impl="matmul")}
+    turns = {k: {"walls_s": []} for k in calls}
+    for label in ("loop", "batched", "batched", "loop"):
+        calls[label]()
+        turns[label]["walls_s"].append(
+            [synced(torch, calls[label])[1] for _ in range(VOXEL_WALLS)])
+    for label, r in turns.items():
+        r["wall_s"] = float(np.median(np.concatenate(r["walls_s"])))
+        r["device_busy_s"], r["top_device"] = device_busy(torch, calls[label])
+        r["idle_share"] = max(0.0, 1.0 - r["device_busy_s"] / r["wall_s"])
+        before = cs.launch_counts()
+        synced(torch, calls[label])
+        r["launches"] = {k: v - before[k] for k, v in
+                         cs.launch_counts().items() if v != before[k]}
+    out["fixed_n_turns"] = turns
+    log(f"  voxel_grids_fixed_n, {N_VOXEL // FIXED_N} windows of {FIXED_N} "
+        f"({out['card']}): " + "; ".join(
+            f"{k} walls {np.round(r['walls_s'], 5).tolist()} (median "
+            f"{r['wall_s']:.5f} s), busy {r['device_busy_s']:.5f} s, idle "
+            f"{r['idle_share']:.3f}, launches {r['launches']}, top "
+            f"{r['top_device'][:3]}" for k, r in turns.items()))
+    return launches, out
+
+
 def flat_library(torch, idx, wts, buckets):
     """One ``index_put_(accumulate=True)`` computing the flat scatter;
     dropped ids are left out, as for the bilinear library call."""
@@ -1633,6 +1964,7 @@ def kernel_phase(torch, cs, rng, records):
     H, W = SENSOR
 
     voxel_phase(torch, cs, rng, records)
+    voxel_batched_kernel_cases(torch, cs, records)
     tiles_phase(torch, cs, rng, records)
 
     # ---- bilinear, whole images ------------------------------------------
@@ -2376,8 +2708,9 @@ def baf_scene(torch):
 
 @contextlib.contextmanager
 def route_calls(cs):
-    """Inside, every call of the voxel, flat, bilinear and patch splat
-    wrappers on card tensors counts one call of the route its shape is
+    """Inside, every call of the voxel (single and batched), flat, bilinear
+    and patch splat wrappers on card tensors counts one call of the route
+    its shape is
     dispatched to,
     and the call with the most inputs of each (route, output shape) keeps a
     copy of them: yields ``{"calls": {route: n}, "kept": {(route, shape):
@@ -2388,6 +2721,7 @@ def route_calls(cs):
                                     cs.bilinear_scatter,
                                     cs.bilinear_scatter_batched,
                                     ec.bilinear_patches_scatter)
+    vbat = cs.voxel_scatter_batched
 
     def note(route, shape, inputs, size, launches=1):
         # calls on the card only (the CPU runs the plain versions), and
@@ -2404,6 +2738,15 @@ def route_calls(cs):
         note("voxel_scatter:" + (route or cs.voxel_route(n, B, H, W)),
              (B, H, W), (xs, ys, t_norm, ps), n if B else 0)
         return vox(xs, ys, t_norm, ps, B, H, W, route=route)
+
+    def vbat_(xs, ys, t_norm, ps, B, H, W, split=False, route=None):
+        S, n = xs.shape
+        r = route or cs.voxel_batched_route(S, n, B, H, W, split)
+        chunk = (cs.voxel_batched_chunk(B, H, W, split) if r == "vector"
+                 else cs.BATCH_MAX_SAMPLES)
+        note("voxel_scatter_batched:" + r, (B, H, W, split),
+             (xs, ys, t_norm, ps), S * n if B else 0, -(-S // chunk))
+        return vbat(xs, ys, t_norm, ps, B, H, W, split=split, route=route)
 
     def flat_(idx, w, num_buckets, route=None):
         D, n = w.shape
@@ -2433,12 +2776,14 @@ def route_calls(cs):
 
     cs.voxel_scatter, cs.flat_scatter, cs.bilinear_scatter = vox_, flat_, bil_
     cs.bilinear_scatter_batched = bat_
+    cs.voxel_scatter_batched = vbat_
     ec.bilinear_patches_scatter = patches_
     try:
         yield out
     finally:
         cs.voxel_scatter, cs.flat_scatter, cs.bilinear_scatter = vox, flat, bil
         cs.bilinear_scatter_batched = bat
+        cs.voxel_scatter_batched = vbat
         ec.bilinear_patches_scatter = patches
 
 
@@ -2451,7 +2796,9 @@ def route_cases(torch, cs, records, seen, label, extra=None):
     cases = []
     for (name, shape), (args, _) in sorted(seen["kept"].items()):
         route = name.split(":")[1] if ":" in name else None
-        if name.startswith("voxel_scatter"):
+        if name.startswith("voxel_scatter_batched"):
+            case = voxel_batched_case(torch, cs, label, args, *shape, route)
+        elif name.startswith("voxel_scatter"):
             Bv, Hv, Wv = shape
             n = len(args[0])
             kernel = lambda: cs.voxel_scatter(*args, Bv, Hv, Wv, route=route)
@@ -2865,13 +3212,16 @@ def training_phase(torch, cs, records, work):
     set_default_impl("pallas")
 
     def launched(fn, want, what):
+        """``fn()``, which must launch ``want`` ({route: count}, or a count
+        of ``flat_scatter:direct``) and nothing else."""
+        want = want if isinstance(want, dict) else (
+            {direct: want} if want else {})
         before = cs.launch_counts()
         res = fn()
         got = {k: v - before[k] for k, v in cs.launch_counts().items()
                if v != before[k]}
-        if got != ({direct: want} if want else {}):
-            raise AssertionError(f"{what}: launches {got}, expected "
-                                 f"{direct} {want} only")
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
         return res
 
     try:
@@ -2895,9 +3245,12 @@ def training_phase(torch, cs, records, work):
             flow_net = FlowTrainer((128, 128), supervised_weight=1.0,
                                    device="cuda")
             flow_net.load_params(FLOW_PARAMS)
+            # a batch's grids: one batched voxel launch, both polarities
+            grids = "voxel_scatter_batched:" + cs.voxel_batched_route(
+                *mask.shape, 5, 128, 128, split=True)
             vox = launched(lambda: itl.voxelize_batch(ev, mask, 5,
                                                       (128, 128)),
-                           2, "flow eval grids")
+                           {grids: 1}, "flow eval grids")
             aee, zero = itl.flow_eval(flow_net, vox, gt)
             log(f"  held-out AEE {aee:.4f} px/s (JAX on the CPU "
                 f"{fa['aee_px_s']:.4f}), zero-flow {zero:.4f} "
@@ -2957,7 +3310,8 @@ def training_phase(torch, cs, records, work):
                     str(TRAIN_FLOW_STEPS),
                     "--params_out", flow_out, "--metrics_out",
                     os.path.join(work, "train_flow.json"), "--device",
-                    "cuda"]), 2 + 3 * TRAIN_FLOW_STEPS, "train_flow"))
+                    "cuda"]), {grids: 1 + TRAIN_FLOW_STEPS,
+                               direct: TRAIN_FLOW_STEPS}, "train_flow"))
             runs["train_flow"] = res, wall
             recon_out = os.path.join(work, "train_recon.npz")
             res, wall = synced(torch, lambda: launched(
@@ -3048,6 +3402,8 @@ def training_phase(torch, cs, records, work):
     # 4. the flat kernel at this path's shapes, after the counts are read,
     # its adjoint against the plain gather too (exact)
     def adjoint(name, shape, inputs):
+        if not name.startswith("flat_scatter"):
+            return {}
         idx, w = inputs
         err = flat_gradient_case(torch, cs, idx, w, shape[1])
         if err != 0.0:
@@ -3055,9 +3411,9 @@ def training_phase(torch, cs, records, work):
                                  f"{err}")
         return {"grad_max_abs_err": err}
 
-    out["flat_cases"] = route_cases(torch, cs, records, seen,
-                                    "training path", extra=adjoint)
-    out["timings"] = training_timings(torch, itl, FlowTrainer,
+    out["route_cases"] = route_cases(torch, cs, records, seen,
+                                     "training path", extra=adjoint)
+    out["timings"] = training_timings(torch, cs, itl, FlowTrainer,
                                       ReconstructionTrainer, work)
     return launches, out
 
@@ -3145,11 +3501,12 @@ def scene_loop_recon(torch, itl, scenes, capacity, seq_len, window_t=0.05,
 @contextlib.contextmanager
 def segment_inputs(itl):
     """The ``(x, y, t, p, seg)`` of every segmented voxel scatter that
-    ``in_the_loop`` makes while open."""
+    ``in_the_loop`` makes while open, with the per-segment ``(t0, t1)`` it
+    passes."""
     kept, real = [], itl.events_to_neg_pos_voxel_segments
 
     def keep(*a, **kw):
-        kept.append(a[:5])
+        kept.append(a[:5] + (kw.get("t0"), kw.get("t1")))
         return real(*a, **kw)
 
     itl.events_to_neg_pos_voxel_segments = keep
@@ -3188,10 +3545,14 @@ def batched_vs_scene_loop(torch, itl, fc, rc, flow, recon):
                                           device="cuda", **kw)
     rv, rf, rs, inputs = scene_loop_recon(torch, itl, scenes,
                                           rc["capacity"], T, **kw)
+    # each window's first and last stamp, read off the sorted rows, against
+    # the scatter_reduce min and max over the scene loop's own segments
+    from event_utils_tpu_torch.representations import segment_windows
+    windows = segment_windows(inputs[2], inputs[4], T * len(rs))
     for name, a, b in [("frames", recon[1], rf), ("saturation", recon[2], rs),
                        ("frames, again", again[1], rf)] + list(zip(
-                           ("x", "y", "t", "p", "segment"), kept[0],
-                           inputs)):
+                           ("x", "y", "t", "p", "segment", "window t0",
+                            "window t1"), kept[0], inputs + windows)):
         if a.shape != b.shape or not torch.equal(a, b):
             raise AssertionError(f"E2VID eval batch {name}: batched differs "
                                  f"from the scene loop")
@@ -3204,7 +3565,8 @@ def batched_vs_scene_loop(torch, itl, fc, rc, flow, recon):
            "recon_scatter_ids": int((inputs[4] >= 0).sum())}
     log(f"  batched simulator = the scene loop on both eval batches: "
         f"events, masks, ground truth, saturation, frames and scatter "
-        f"inputs bit for bit; grids bit-equal (flow, E2VID) "
+        f"inputs bit for bit, the windows' stamps from the sorted rows = "
+        f"the scatter_reduce ones; grids bit-equal (flow, E2VID) "
         f"{out['flow_grids_equal']}, {out['recon_grids_equal']}")
     return out
 
@@ -3381,13 +3743,114 @@ def simulator_turns(torch, itl):
     return out
 
 
-def training_timings(torch, itl, FlowTrainer, ReconstructionTrainer, work):
+@contextlib.contextmanager
+def old_segment_route(torch, itl):
+    """Inside, the trainers' grids are built as the port built them before
+    the batched voxel kernel: ``voxelize_batch`` as one pair of segmented
+    flat scatters over the padded rows, and every segmented scatter takes
+    its windows' first and last stamps with two ``scatter_reduce`` calls a
+    polarity (four a batch), whatever stamps its caller passes."""
+    from event_utils_tpu_torch.representations import voxel_grid as vg
+    real = itl.voxelize_batch, itl.events_to_neg_pos_voxel_segments
+
+    def segments(xs, ys, ts, ps, seg, num, bins, sensor_size=(180, 240),
+                 combined=False, impl=None, t0=None, t1=None):
+        kw = dict(sensor_size=sensor_size, impl=impl)
+        if combined:
+            return vg.events_to_voxel_segments(xs, ys, ts, ps, seg, num, bins,
+                                               **kw)
+        return torch.cat([vg.events_to_voxel_segments(
+            xs, ys, ts, sel.float(), seg, num, bins, **kw)
+            for sel in (ps > 0, ps <= 0)], 1)
+
+    def voxelize(events, mask, num_bins, sensor_size, combined=False):
+        rows = mask.shape[0]
+        seg = torch.where(mask != 0, torch.arange(
+            rows, device=mask.device)[:, None], -1)
+        x, y, t, p = (a.reshape(-1) for a in events.unbind(-1))
+        return segments(x, y, t, p, seg.reshape(-1), rows, num_bins,
+                        sensor_size, combined=combined)
+
+    itl.voxelize_batch, itl.events_to_neg_pos_voxel_segments = (voxelize,
+                                                                segments)
+    try:
+        yield
+    finally:
+        itl.voxelize_batch, itl.events_to_neg_pos_voxel_segments = real
+
+
+def segment_route_turns(torch, cs, itl, flow):
+    """A flow step (its batch simulated, its grids, one Adam step of
+    ``flow``) and an E2VID batch generation, with the trainers' grids as
+    the port built them before (``old_segment_route``: ``scatter_reduce``
+    per segment) and as now (one batched voxel launch; the windows' stamps
+    read off the sorted rows), in turns (old, new, new, old), SIM_WALLS
+    warm synchronised walls a turn, each call on its own step's scenes (the
+    same steps for both); then each one's device busy time, idle share of
+    its median wall, five largest device entries and launches a call. The
+    new route's five largest entries of either must hold no
+    ``_scatter_gather_elementwise_kernel``."""
+    def flow_step(step):
+        ev, mask, gt = itl.simulate_flow_batch(
+            TRAIN_SEED, step, 8, (128, 128), 65536, omega_max=6.0, s_max=0.6,
+            burn_in=1, fresh_prob=0.25, age_max=2.5, device="cuda")
+        return flow.train_batch(itl.voxelize_batch(ev, mask, 5, (128, 128)),
+                                ev, mask, itl.dense_gt(gt, (128, 128)))
+
+    def recon(step):
+        return itl.simulate_recon_batch(TRAIN_SEED, step, 4, (128, 128),
+                                        294912, 24, device="cuda")
+
+    def route(label):
+        return (old_segment_route(torch, itl) if label == "old"
+                else contextlib.nullcontext())
+
+    out = {}
+    for kind, fn in (("flow_step", flow_step),
+                     ("recon_batch_generation", recon)):
+        res = {"old": {"walls_s": []}, "new": {"walls_s": []}}
+        for label in ("old", "new", "new", "old"):
+            with route(label):
+                fn(400)
+                res[label]["walls_s"].append(
+                    [synced(torch, lambda: fn(401 + i))[1]
+                     for i in range(SIM_WALLS)])
+        for label, r in res.items():
+            with route(label):
+                r["wall_s"] = float(np.median(np.concatenate(r["walls_s"])))
+                r["device_busy_s"], r["top_device"] = device_busy(
+                    torch, lambda: fn(401))
+                r["idle_share"] = max(0.0,
+                                      1.0 - r["device_busy_s"] / r["wall_s"])
+                before = cs.launch_counts()
+                synced(torch, lambda: fn(402))
+                r["launches"] = {k: v - before[k] for k, v in
+                                 cs.launch_counts().items() if v != before[k]}
+        out[kind] = res
+    log("  trainers' grids, old segment route vs new (old, new, new, old; "
+        + "; ".join(f"{k} {label} walls {np.round(r['walls_s'], 4).tolist()}"
+                    f" busy {r['device_busy_s']:.4f} s idle "
+                    f"{r['idle_share']:.3f} launches {r['launches']} top "
+                    f"{r['top_device']}"
+                    for k, res in out.items() for label, r in res.items()))
+    for kind, res in out.items():
+        if any("_scatter_gather_elementwise" in e[0]
+               for e in res["new"]["top_device"]):
+            raise AssertionError(f"{kind}: a scatter_gather kernel among the "
+                                 f"largest entries {res['new']['top_device']}")
+    return out
+
+
+def training_timings(torch, cs, itl, FlowTrainer, ReconstructionTrainer,
+                     work):
     """Warm timings of the training path on the card: one forward-plus-
     backward pass of each recipe (CUDA events), one full flow step and one
     E2VID batch generation and segment step (host wall, and the device
-    idle share under torch.profiler), and the simulator's batch
-    generations through the per-scene loop and batched
-    (``simulator_turns``)."""
+    idle share under torch.profiler), the simulator's batch generations
+    through the per-scene loop and batched (``simulator_turns``), and a
+    flow step and an E2VID batch generation with the trainers' grids as
+    they were built before the batched voxel kernel and now
+    (``segment_route_turns``)."""
     from event_utils_tpu_torch._device import no_tf32
     from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
     prev = get_default_impl()
@@ -3447,6 +3910,7 @@ def training_timings(torch, itl, FlowTrainer, ReconstructionTrainer, work):
                              "idle_share": max(0.0, 1.0 - busy / wall),
                              "top_device": top}
             sim = simulator_turns(torch, itl)
+            grid_turns = segment_route_turns(torch, cs, itl, flow)
     finally:
         set_default_impl(prev)
     card = card_line()
@@ -3458,6 +3922,7 @@ def training_timings(torch, itl, FlowTrainer, ReconstructionTrainer, work):
                     f"{v['idle_share']:.3f}" for k, v in out.items()
                     if isinstance(v, dict)))
     out["simulator"] = sim
+    out["segment_route"] = grid_turns
     out["card"] = card
     return out
 
@@ -5236,9 +5701,11 @@ def main() -> int:
     log(f"main-path launches: {got}; by the dispatch rules {seen['calls']}")
     # every call launched the route that its shape is sent to, and every
     # route of this path launched: all but the one-block form of the
-    # private bilinear kernel (sent no shape, see kernel_phase) and the
+    # private bilinear kernel (sent no shape, see kernel_phase), the
     # batched vector and direct routes (the batched phase's: zhu's K = 4
-    # stack). The single direct route takes grid_cmax's per-ROI splats
+    # stack) and the batched voxel routes (the voxel_batched phase's and
+    # the trainers'). The single direct route takes grid_cmax's per-ROI
+    # splats
     # and the streaming IWEs here
     # (route_calls counts no per-tile voxel call: tiles_phase and roi_path
     # hold those)
@@ -5248,7 +5715,9 @@ def main() -> int:
                              f"{seen['calls']}")
     off_path = {"bilinear_scatter:single",
                 "bilinear_scatter_batched:vector",
-                "bilinear_scatter_batched:direct"}
+                "bilinear_scatter_batched:direct",
+                "voxel_scatter_batched:vector",
+                "voxel_scatter_batched:direct"}
     missing = sorted(set(launches) - off_path - set(got))
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
@@ -5265,6 +5734,7 @@ def main() -> int:
         k: v for k, v in seen["kept"].items()
         if k[0] == "bilinear_scatter:vector"}}, "main path")
     batched_launches, batched = batched_phase(torch, cs, records)
+    vb_launches, voxel_batched = voxel_batched_phase(torch, cs, records)
     serving_launches, serving = serving_phase(torch, cs, records)
     with tempfile.TemporaryDirectory(prefix=".smoke_sim_", dir=ROOT) as work:
         sim_launches, anchors = simulated_anchors_phase(torch, cs, records,
@@ -5287,6 +5757,7 @@ def main() -> int:
             "replaces": REPLACES[name.split(":")[0]],
             "launches": launches[name],
             "launches_batched": batched_launches[name],
+            "launches_voxel_batched": vb_launches[name],
             "launches_serving": serving_launches[name],
             "launches_sim": sim_launches[name],
             "launches_train": train_launches[name],
@@ -5301,6 +5772,7 @@ def main() -> int:
             **{k: rec[k] for k in ("shape", "direct_ms", "cases")
                if k in rec}})
     print(json.dumps({"batched": batched}))
+    print(json.dumps({"voxel_batched": voxel_batched}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"simulated_anchors": anchors}))
     print(json.dumps({"training": training}))

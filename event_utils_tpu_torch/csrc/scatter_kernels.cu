@@ -6,7 +6,11 @@
 // atomics in its L2 and, faster still, in the shared memory of each SM, so
 // each kernel here computes the same function directly:
 //
-//   voxel_scatter        <- _voxel_kernel (voxel_matmul / _voxel_core)
+//   voxel_scatter        <- _voxel_kernel (voxel_matmul / _voxel_core);
+//                           as voxel_scatter_batched, the same kernel
+//                           under jax.vmap (voxel_grids_fixed_n, the
+//                           trainers' padded rows): the row is a grid
+//                           axis, one launch for all rows
 //   voxel_tiles_scatter  <- _voxel_kernel on the (tile, chunk) grid
 //                           (voxel_matmul_tiles)
 //   flat_scatter         <- _image_kernel (image_matmul,
@@ -42,7 +46,8 @@
 // accumulator and go as one request; a second small kernel rearranges the
 // scratch into the output, which then needs no memset.
 //   - voxel_vector: the two temporal taps of an event, bins b0 and b0 + 1 of
-//     one pixel, are neighbours in a bins-innermost scratch (H*W, Bp). A
+//     one pixel, are neighbours in a bins-innermost scratch (H*W, Bp) of its
+//     grid (one per row, two with the polarity split). A
 //     float2 must start at an even column, so there are two accumulators:
 //     events with even b0 add (b0, b0+1) to the first, events with odd b0
 //     add to the second, which is stored one column to the right so that
@@ -118,97 +123,138 @@ inline unsigned int grid_for(long long n) {
   return static_cast<unsigned int>(blocks);
 }
 
-// (B, H, W) temporally-bilinear voxel grid. The wrapper has already applied
-// voxel_matmul's preprocessing: out-of-image and masked events carry p = 0,
-// coordinates are clipped into the image, and out-of-window events are
-// pinned to the edge bin with their surviving tap folded into p. Each event
-// adds p*(1-fb) to bin floor(t) and p*fb to bin floor(t)+1, where either bin
-// lies in [0, B).
+// Blocks along x for S rows of n items each on the grid's y axis: one per
+// kThreads items of a row, at most ~kMaxBlocks in all.
+inline unsigned int row_blocks(long long S, long long n) {
+  long long bx = (n + kThreads - 1) / kThreads;
+  const long long cap = (kMaxBlocks + S - 1) / S;
+  if (bx > cap) bx = cap;
+  if (bx < 1) bx = 1;
+  return static_cast<unsigned int>(bx);
+}
+
+// S rows of n events each (xs, ys, t_norm, ps: (S, n)) into S * G
+// temporally-bilinear voxel grids (B, H, W), with the row as the grid's y
+// axis (blockIdx.y = s), as the batching rule of the TPU kernel adds a grid
+// axis under jax.vmap; one grid is S = 1. G = 1: row s goes to grid s.
+// G = 2 (split): an event with p > 0 goes to grid 2s with weight p, one with
+// p < 0 to grid 2s + 1 with weight -p (the positive and negative grids of
+// events_to_neg_pos_voxel, which the wrapper encodes in the sign of p).
+// The wrapper has already applied voxel_matmul's preprocessing: out-of-image
+// and masked events carry p = 0, coordinates are clipped into the image, and
+// out-of-window events are pinned to the edge bin with their surviving tap
+// folded into p. Each event adds p*(1-fb) to bin floor(t) and p*fb to bin
+// floor(t)+1 of its grid, where either bin lies in [0, B). out is zeroed.
 __global__ void voxel_scatter_kernel(const int* __restrict__ xs,
                                      const int* __restrict__ ys,
                                      const float* __restrict__ t_norm,
                                      const float* __restrict__ ps,
                                      long long n, int B, int H, int W,
-                                     float* __restrict__ out) {
+                                     int split, float* __restrict__ out) {
   const long long plane = static_cast<long long>(H) * W;
+  const long long grid = B * plane;
+  const long long row = static_cast<long long>(blockIdx.y) * n;
+  float* const first = out + static_cast<long long>(blockIdx.y) *
+                                 (split ? 2 : 1) * grid;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n; i += stride) {
-    const float p = ps[i];
+    float p = ps[row + i];
     if (p == 0.0f) continue;
-    const int x = xs[i];
-    const int y = ys[i];
+    const int x = xs[row + i];
+    const int y = ys[row + i];
     if (x < 0 || x >= W || y < 0 || y >= H) continue;
-    const float t = t_norm[i];
+    float* o = first;
+    if (split && p < 0.0f) {
+      o += grid;
+      p = -p;
+    }
+    const float t = t_norm[row + i];
     const float b0 = floorf(t);
     const float fb = t - b0;
     const long long pix = static_cast<long long>(y) * W + x;
     if (b0 >= 0.0f && b0 < static_cast<float>(B))
-      atomicAdd(out + static_cast<long long>(b0) * plane + pix,
+      atomicAdd(o + static_cast<long long>(b0) * plane + pix,
                 p * (1.0f - fb));
     const float b1 = b0 + 1.0f;
     if (b1 >= 0.0f && b1 < static_cast<float>(B))
-      atomicAdd(out + static_cast<long long>(b1) * plane + pix, p * fb);
+      atomicAdd(o + static_cast<long long>(b1) * plane + pix, p * fb);
   }
 }
 
-// The voxel function with one float2 reduction per event. acc holds two
-// zeroed accumulators of (H*W, Bp) floats, bins innermost, Bp even and at
-// least B + 1 (B + 2 for even B). Column c of the first holds bin c; column
-// c of the second holds bin c - 1. An event with even b0 adds
-// (p*(1-fb), p*fb) at columns (b0, b0+1) of the first, one with odd b0
-// (b0 = -1 too) at columns (b0+1, b0+2) of the second: either pair starts at
-// an even column, 8-byte aligned. A tap outside [0, B) (bin -1, or bin B of
-// an event at t_norm = B-1) lands in a column that voxel_combine_kernel
-// never reads.
+// The voxel function with one float2 reduction per event. Each of the S * G
+// grids (rows and groups as in voxel_scatter_kernel) has two zeroed
+// accumulators of (H*W, Bp) floats, bins innermost, Bp even and at least
+// B + 1 (B + 2 for even B): acc is (S * G, 2, H*W, Bp). Column c of the
+// first holds bin c; column c of the second holds bin c - 1. An event with
+// even b0 adds (p*(1-fb), p*fb) at columns (b0, b0+1) of the first, one with
+// odd b0 (b0 = -1 too) at columns (b0+1, b0+2) of the second: either pair
+// starts at an even column, 8-byte aligned. A tap outside [0, B) (bin -1, or
+// bin B of an event at t_norm = B-1) lands in a column that
+// voxel_combine_kernel never reads.
 //
 // What bounds it: 16 B read per event and one L2 reduction; then the scratch
-// (2 * H*W * Bp floats, in L2) is read once and the grid written once.
+// (2 * H*W * Bp floats a grid, in L2) is read once and the grids written
+// once.
 __global__ void voxel_vector_kernel(const int* __restrict__ xs,
                                     const int* __restrict__ ys,
                                     const float* __restrict__ t_norm,
                                     const float* __restrict__ ps,
                                     long long n, int B, int H, int W, int Bp,
-                                    float* __restrict__ acc) {
+                                    int split, float* __restrict__ acc) {
   const long long half = static_cast<long long>(H) * W * Bp;
+  const long long row = static_cast<long long>(blockIdx.y) * n;
+  float* const first = acc + static_cast<long long>(blockIdx.y) *
+                                 (split ? 2 : 1) * 2 * half;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n; i += stride) {
-    const float p = ps[i];
+    float p = ps[row + i];
     if (p == 0.0f) continue;
-    const int x = xs[i];
-    const int y = ys[i];
+    const int x = xs[row + i];
+    const int y = ys[row + i];
     if (x < 0 || x >= W || y < 0 || y >= H) continue;
-    const float t = t_norm[i];
+    const float t = t_norm[row + i];
     const float b0 = floorf(t);
     // float test before the cast: NaN, +-inf and huge bins fail it; below
     // -1 or from B on neither tap has a bin
     if (!(b0 >= -1.0f && b0 < static_cast<float>(B))) continue;
+    float* g = first;
+    if (split && p < 0.0f) {
+      g += 2 * half;
+      p = -p;
+    }
     const float fb = t - b0;
     const int ib = static_cast<int>(b0);  // -1 .. B-1
     const int odd = ib & 1;               // 1 for -1 too
-    float* a = acc + odd * half +
-               (static_cast<long long>(y) * W + x) * Bp + (ib + odd);
+    float* a = g + odd * half + (static_cast<long long>(y) * W + x) * Bp +
+               (ib + odd);
     atomicAdd(reinterpret_cast<float2*>(a),
               make_float2(p * (1.0f - fb), p * fb));
   }
 }
 
-// out[b, pix] = first[pix, b] + second[pix, b + 1] for the two accumulators
-// of voxel_vector_kernel: one thread per pixel, so that every store of a warp
-// is coalesced; the strided reads of the scratch come from L2 and L1.
+// out[g, b, pix] = first[g][pix, b] + second[g][pix, b + 1] for the two
+// accumulators of each of the grids g = blockIdx.y, blockIdx.y + gridDim.y,
+// ... < grids of voxel_vector_kernel: one thread per pixel, so that every
+// store of a warp is coalesced; the strided reads of the scratch come from
+// L2 and L1.
 __global__ void voxel_combine_kernel(const float* __restrict__ acc,
-                                     long long plane, int B, int Bp,
-                                     float* __restrict__ out) {
+                                     long long plane, long long grids, int B,
+                                     int Bp, float* __restrict__ out) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long pix = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-       pix < plane; pix += stride) {
-    const float* even = acc + pix * Bp;
-    const float* odd = even + plane * Bp + 1;
-    for (int b = 0; b < B; ++b) out[b * plane + pix] = even[b] + odd[b];
+  for (long long g = blockIdx.y; g < grids; g += gridDim.y) {
+    const float* a = acc + g * 2 * plane * Bp;
+    float* o = out + g * B * plane;
+    for (long long pix = static_cast<long long>(blockIdx.x) * blockDim.x +
+                         threadIdx.x;
+         pix < plane; pix += stride) {
+      const float* even = a + pix * Bp;
+      const float* odd = even + plane * Bp + 1;
+      for (int b = 0; b < B; ++b) o[b * plane + pix] = even[b] + odd[b];
+    }
   }
 }
 
@@ -831,17 +877,30 @@ cudaError_t allow_max_shared(Kernel kernel) {
 
 extern "C" {
 
-int voxel_scatter(const void* xs, const void* ys, const void* t_norm,
-                  const void* ps, long long n, int B, int H, int W, void* out,
-                  void* stream) {
-  if (n > 0) {
-    voxel_scatter_kernel<<<grid_for(n), kThreads, 0,
+// S rows of n events into S * G zeroed grids (split: G = 2, else 1). At
+// most 65535 rows (the grid's y extent): the wrapper launches larger
+// batches in chunks.
+int voxel_scatter_batched(const void* xs, const void* ys, const void* t_norm,
+                          const void* ps, long long S, long long n, int B,
+                          int H, int W, int split, void* out, void* stream) {
+  if (S > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (S > 0 && n > 0 && B > 0) {
+    const dim3 grid(row_blocks(S, n), static_cast<unsigned int>(S));
+    voxel_scatter_kernel<<<grid, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(xs), static_cast<const int*>(ys),
         static_cast<const float*>(t_norm), static_cast<const float*>(ps), n, B,
-        H, W, static_cast<float*>(out));
+        H, W, split, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One grid: the batched direct kernel at S = 1. out zeroed.
+int voxel_scatter(const void* xs, const void* ys, const void* t_norm,
+                  const void* ps, long long n, int B, int H, int W, void* out,
+                  void* stream) {
+  return voxel_scatter_batched(xs, ys, t_norm, ps, 1, n, B, H, W, 0, out,
+                               stream);
 }
 
 int voxel_tiles_scatter(const void* bx, const void* by, const void* t_norm,
@@ -895,28 +954,42 @@ int flat_scatter_vector(const void* idx, const void* w, long long n, int D,
   return static_cast<int>(cudaGetLastError());
 }
 
-// acc: two zeroed accumulators of (H*W, Bp) floats each, 8-byte aligned;
-// Bp even, at least B + 1 for odd B and B + 2 for even B. out may hold
-// anything.
-int voxel_scatter_vector(const void* xs, const void* ys, const void* t_norm,
-                         const void* ps, long long n, int B, int H, int W,
-                         int Bp, void* acc, void* out, void* stream) {
-  if (B < 1 || Bp % 2 != 0 || Bp < B + 1 + (B % 2 == 0))
+// acc: (S * G, 2, H*W, Bp) zeroed floats (two accumulators a grid), 8-byte
+// aligned; Bp even, at least B + 1 for odd B and B + 2 for even B; G = 2
+// with split, else 1. out may hold anything. At most 65535 rows.
+int voxel_scatter_batched_vector(const void* xs, const void* ys,
+                                 const void* t_norm, const void* ps,
+                                 long long S, long long n, int B, int H,
+                                 int W, int split, int Bp, void* acc,
+                                 void* out, void* stream) {
+  if (S > 65535 || B < 1 || Bp % 2 != 0 || Bp < B + 1 + (B % 2 == 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long plane = static_cast<long long>(H) * W;
-  if (n > 0) {
-    voxel_vector_kernel<<<grid_for(n), kThreads, 0, s>>>(
+  const long long grids = S * (split ? 2 : 1);
+  if (S > 0 && n > 0) {
+    const dim3 grid(row_blocks(S, n), static_cast<unsigned int>(S));
+    voxel_vector_kernel<<<grid, kThreads, 0, st>>>(
         static_cast<const int*>(xs), static_cast<const int*>(ys),
         static_cast<const float*>(t_norm), static_cast<const float*>(ps), n, B,
-        H, W, Bp, static_cast<float*>(acc));
+        H, W, Bp, split, static_cast<float*>(acc));
   }
-  if (plane > 0) {
-    voxel_combine_kernel<<<grid_for(plane), kThreads, 0, s>>>(
-        static_cast<const float*>(acc), plane, B, Bp,
+  if (grids > 0 && plane > 0) {
+    const long long gy = grids < 65535 ? grids : 65535;
+    const dim3 grid(row_blocks(gy, plane), static_cast<unsigned int>(gy));
+    voxel_combine_kernel<<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(acc), plane, grids, B, Bp,
         static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One grid: the batched vector kernels at S = 1. acc (2, H*W, Bp).
+int voxel_scatter_vector(const void* xs, const void* ys, const void* t_norm,
+                         const void* ps, long long n, int B, int H, int W,
+                         int Bp, void* acc, void* out, void* stream) {
+  return voxel_scatter_batched_vector(xs, ys, t_norm, ps, 1, n, B, H, W, 0,
+                                      Bp, acc, out, stream);
 }
 
 int bilinear_patches_scatter(const void* x, const void* y, const void* w,
@@ -958,11 +1031,7 @@ int bilinear_scatter_batched(const void* x, const void* y, const void* w,
                              int K, int H, int W, void* out, void* stream) {
   if (S > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (S > 0 && n > 0 && K > 0) {
-    long long bx = (n + kThreads - 1) / kThreads;
-    const long long cap = (kMaxBlocks + S - 1) / S;  // ~kMaxBlocks in all
-    if (bx > cap) bx = cap;
-    const dim3 grid(static_cast<unsigned int>(bx),
-                    static_cast<unsigned int>(S));
+    const dim3 grid(row_blocks(S, n), static_cast<unsigned int>(S));
     bilinear_scatter_kernel<<<grid, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(y),
@@ -1023,11 +1092,7 @@ int bilinear_scatter_batched_vector(const void* x, const void* y,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long pixels = S * static_cast<long long>(H) * W;
   if (S > 0 && n > 0) {
-    long long bx = (n + kThreads - 1) / kThreads;
-    const long long cap = (kMaxBlocks + S - 1) / S;  // ~kMaxBlocks in all
-    if (bx > cap) bx = cap;
-    const dim3 grid(static_cast<unsigned int>(bx),
-                    static_cast<unsigned int>(S));
+    const dim3 grid(row_blocks(S, n), static_cast<unsigned int>(S));
     const float* xf = static_cast<const float*>(x);
     const float* yf = static_cast<const float*>(y);
     const float* wf = static_cast<const float*>(w);

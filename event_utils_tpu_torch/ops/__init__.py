@@ -25,5 +25,6 @@ from .cuda_scatter import (  # noqa: F401
     reset_launch_counts,
     scatter_add_flat_cuda,
     voxel_matmul,
+    voxel_matmul_batched,
     voxel_matmul_tiles,
 )

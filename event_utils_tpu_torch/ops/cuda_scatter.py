@@ -10,6 +10,9 @@ directly:
 kernel wrapper (this module)      TPU kernel it replaces (pallas_scatter.py)
 ================================  =========================================
 ``voxel_scatter``                 ``_voxel_kernel`` via ``voxel_matmul``
+``voxel_scatter_batched``         ``_voxel_kernel`` under ``jax.vmap``
+                                  (``voxel_grids_fixed_n``, the trainers'
+                                  padded rows)
 ``voxel_tiles_scatter``           ``_voxel_kernel`` on the (tile, chunk)
                                   grid via ``voxel_matmul_tiles``
 ``flat_scatter``                  ``_image_kernel`` via ``image_matmul`` and
@@ -21,9 +24,9 @@ kernel wrapper (this module)      TPU kernel it replaces (pallas_scatter.py)
 ================================  =========================================
 
 Every wrapper has several kernels, called routes. A route is chosen from
-the call's shape before the launch (``voxel_route``, ``flat_route``,
-``bilinear_route``, ``bilinear_batched_route``, ``voxel_tiles_route``,
-``bilinear_patches_route``),
+the call's shape before the launch (``voxel_route``, ``voxel_batched_route``,
+``flat_route``, ``bilinear_route``, ``bilinear_batched_route``,
+``voxel_tiles_route``, ``bilinear_patches_route``),
 never from a failure. The thresholds are measurements on an H100
 (``scripts/tune_scatter_routes.py``). What they reflect: a float
 ``atomicAdd`` on shared memory is a compare-and-swap loop on this card
@@ -42,6 +45,13 @@ the events are many; below that the direct kernels win.
   rearranges into the uninitialised ``(B, H, W)`` grid.
   ``voxel_scatter:direct`` — fewer events, or a scratch that would crowd
   the L2: two scalar reductions per event into the zeroed grid.
+- ``voxel_scatter_batched:vector`` / ``:direct`` — the same two kernels
+  with the row as the grid's y axis: S rows of N events into S grids (2S
+  with the polarity split of the trainers' grids) in one launch, the vector
+  route in chunks of rows whose scratch stays in the L2
+  (``voxel_batched_chunk``), by ``voxel_batched_route``: the single
+  grid's rule per row and per launch. The single grid's routes are these
+  kernels at S = 1.
 - ``flat_scatter:vector`` — two rows or more and enough ids (D = 2: from
   262144): the weights of one id go as one ``float2`` or as ``float4``
   reductions into a rows-innermost scratch, transposed by a second kernel.
@@ -108,7 +118,7 @@ which lies inside each of those precision classes. The VMEM planning of the
 JAX wrappers (``_fit_chunk``, ``SensorLimitError``, the oversized-sensor
 fallbacks) has no counterpart: the card has no such limit.
 
-Gradients: ``voxel_matmul``, ``bilinear_matmul``,
+Gradients: ``voxel_matmul``, ``voxel_matmul_batched``, ``bilinear_matmul``,
 ``bilinear_matmul_batched`` and ``bilinear_patches_scatter`` are ``torch.autograd.Function``s whose backward
 is the plain-torch gather of ``_voxel_core_bwd`` / ``_bilinear_core_bwd``
 (plain jnp in the JAX package, so plain torch here); the flat scatter's
@@ -168,6 +178,7 @@ def _stream() -> int:
 SHARED_MAX_BYTES = 232448
 
 ROUTES = ("voxel_scatter:vector", "voxel_scatter:direct",
+          "voxel_scatter_batched:vector", "voxel_scatter_batched:direct",
           "voxel_tiles_scatter:private", "voxel_tiles_scatter:direct",
           "flat_scatter:vector", "flat_scatter:direct",
           "bilinear_scatter:direct", "bilinear_scatter:private",
@@ -306,22 +317,9 @@ class _VoxelCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xs, ys, t_norm, ps = ctx.saved_tensors
-        B, H, W = ctx.dims
-        b0 = torch.floor(t_norm)
-        fb = t_norm - b0
-        ib0 = torch.where(torch.isfinite(b0), b0, -1.0).clamp(-1, B).long()
-        yy = ys.long().clamp(0, H - 1)
-        xx = xs.long().clamp(0, W - 1)
-
-        def tap_cot(ib):
-            ok = (ib >= 0) & (ib < B)
-            return torch.where(ok, g[ib.clamp(0, B - 1), yy, xx], 0.0)
-
-        g0 = tap_cot(ib0)
-        g1 = tap_cot(ib0 + 1)
-        g_ps = (1.0 - fb) * g0 + fb * g1
-        g_t = ps * (g1 - g0)
-        return None, None, g_t, g_ps, None, None, None
+        g_t, g_ps = _voxel_vjp(g.reshape(1, -1), xs[None], ys[None],
+                               t_norm[None], ps[None], *ctx.dims, False)
+        return None, None, g_t[0], g_ps[0], None, None, None
 
 
 def voxel_matmul(xs, ys, ts, ps, B: int, sensor_size=(180, 240),
@@ -353,8 +351,209 @@ def voxel_inputs(xs, ys, ts, ps, B: int, sensor_size, mask=None, t0=None,
                  t1=None):
     """``voxel_matmul``'s preprocessing: the ``(xs, ys, t_norm, ps)`` that
     the voxel kernel takes (int32 in-image coordinates, f32 bin coordinate
-    in [0, B-1], f32 weights with dropped events at 0). Differentiable in
-    ``ts`` and ``ps``."""
+    in [0, B-1], f32 weights with dropped events at 0): the one-row case
+    of ``voxel_inputs_batched``. Differentiable in ``ts`` and ``ps``."""
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=xs.device)[None]
+    args = voxel_inputs_batched(xs[None], ys[None], ts[None], ps[None], B,
+                                sensor_size, mask=mask, t0=t0, t1=t1)
+    return tuple(a[0] for a in args)
+
+
+# ---------------------------------------------------------------------------
+# Batched voxel grids (replaces _voxel_kernel under jax.vmap: Pallas adds a
+# grid axis for the batch, pallas_scatter.py:113 / call :353)
+# ---------------------------------------------------------------------------
+
+def _voxel_row_scratch(B: int, H: int, W: int, split: bool) -> int:
+    """Floats of one row's vector scratch: two bins-innermost accumulators
+    of its grid (of each of its two grids with ``split``)."""
+    return (2 if split else 1) * 2 * H * W * _voxel_scratch_bins(B)
+
+
+def voxel_batched_chunk(B: int, H: int, W: int, split: bool = False) -> int:
+    """Rows that one launch of ``voxel_scatter_batched:vector`` takes: as
+    many as keep its scratch within ``VECTOR_MAX_SCRATCH_BYTES`` (in the
+    50 MB L2 beside the grids; 21 at 128x128 with B = 5, 8 at 180x240), at
+    least one, at most ``BATCH_MAX_SAMPLES``."""
+    per = _voxel_row_scratch(B, H, W, split) * 4
+    return max(1, min(BATCH_MAX_SAMPLES, VECTOR_MAX_SCRATCH_BYTES // per))
+
+
+def voxel_batched_route(S: int, n: int, B: int, H: int, W: int,
+                        split: bool = False) -> str:
+    """Route of S rows of n events into S grids (2S with ``split``):
+    ``voxel_route``'s rule per row and per launch. 'vector' where a row's
+    scratch stays within ``VECTOR_MAX_SCRATCH_BYTES`` and within
+    ``VECTOR_SCRATCH_PER_SAVED`` floats per event, and one launch's rows
+    hold ``VECTOR_MIN_SAVED`` events; else 'direct'. At S = 1 without
+    ``split`` it is ``voxel_route``."""
+    scratch = _voxel_row_scratch(B, H, W, split)
+    rows = min(S, voxel_batched_chunk(B, H, W, split))
+    return ("vector" if scratch * 4 <= VECTOR_MAX_SCRATCH_BYTES
+            and scratch <= VECTOR_SCRATCH_PER_SAVED * n
+            and rows * n >= VECTOR_MIN_SAVED else "direct")
+
+
+def voxel_scatter_batched_plain(xs, ys, t_norm, ps, B: int, H: int, W: int,
+                                split: bool = False):
+    """Plain version of ``voxel_scatter_batched``: each temporal tap of all
+    rows summed with one ``index_add_`` over ids offset by the event's grid
+    (its row's; with ``split`` its row's positive grid for ``ps > 0``,
+    negative for ``ps < 0``, weight ``|ps|``). Every grid receives its terms
+    in ``voxel_scatter_plain``'s order, so it equals S (2S) calls of that
+    bit for bit."""
+    S, n = xs.shape
+    G = 2 if split else 1
+    b0 = torch.floor(t_norm)
+    fb = t_norm - b0
+    ok_ev = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H) & (ps != 0)
+    grid = torch.arange(S, device=xs.device)[:, None] * G
+    w = ps
+    if split:
+        grid = grid + (ps < 0).long()
+        w = ps.abs()
+    pix = ys.long() * W + xs.long()
+    out = torch.zeros(S * G * B * H * W, dtype=_F32, device=xs.device)
+    for b, wt in ((b0, w * (1.0 - fb)), (b0 + 1.0, w * fb)):
+        ok = ok_ev & (b >= 0) & (b < B)
+        idx = (grid * (B * H * W) + torch.where(ok, b, 0.0).long() * (H * W)
+               + torch.where(ok, pix, 0))
+        out.index_add_(0, idx.reshape(-1),
+                       torch.where(ok, wt, 0.0).reshape(-1))
+    return out.view(S, G * B, H, W)
+
+
+def voxel_scatter_batched(xs, ys, t_norm, ps, B: int, H: int, W: int,
+                          split: bool = False, route=None):
+    """(S, B, H, W) voxel grids of S rows of preprocessed events: grid ``s``
+    is ``voxel_scatter(xs[s], ys[s], t_norm[s], ps[s], B, H, W)``. With
+    ``split`` (S, 2B, H, W): row s's events with ``ps > 0`` make its first B
+    channels, those with ``ps < 0`` the last B, each with weight ``|ps|``
+    (``voxel_inputs_batched(split=True)`` encodes the polarity so).
+
+    ``xs``/``ys`` int32, ``t_norm``/``ps`` f32, all ``(S, N)`` and
+    contiguous: what ``voxel_inputs_batched`` hands over. CUDA tensors
+    launch a kernel with the row as the grid's y axis; CPU tensors run
+    ``voxel_scatter_batched_plain``.
+
+    Routes, by shape alone (``voxel_batched_route``), the single grid's
+    two with a row offset: 'direct', two scalar reductions per event into
+    the zeroed grids, one launch per ``BATCH_MAX_SAMPLES`` rows; 'vector',
+    one ``float2`` reduction per event into its grid's two zeroed
+    bins-innermost accumulators and a second kernel that adds them into the
+    uninitialised grids, launched in chunks of ``voxel_batched_chunk``
+    rows so that the scratch stays in the L2. ``route`` forces either.
+    """
+    dev = _check("voxel_scatter_batched", (xs, ys, t_norm, ps),
+                 (_I32, _I32, _F32, _F32))
+    if xs.dim() != 2 or any(a.shape != xs.shape for a in (ys, t_norm, ps)):
+        raise ConfigurationError(
+            "voxel_scatter_batched: inputs must share one (S, N) shape")
+    S, n = xs.shape
+    route = _pick("voxel_scatter_batched", route,
+                  voxel_batched_route(S, n, B, H, W, split),
+                  {"vector", "direct"})
+    if dev.type == "cpu":
+        return voxel_scatter_batched_plain(xs, ys, t_norm, ps, B, H, W, split)
+    G = 2 if split else 1
+    if S == 0 or n == 0 or B == 0:
+        return torch.zeros((S, G * B, H, W), dtype=_F32, device=dev)
+    lib = build.library()
+    if route == "vector":
+        Bp = _voxel_scratch_bins(B)
+        chunk = voxel_batched_chunk(B, H, W, split)
+        acc = torch.zeros((min(S, chunk) * G, 2, H * W, Bp), dtype=_F32,
+                          device=dev)
+        if acc.data_ptr() % 8:
+            raise ConfigurationError("voxel_scatter_batched: scratch not "
+                                     "aligned for float2 reductions")
+        out = torch.empty((S, G * B, H, W), dtype=_F32, device=dev)
+    else:
+        chunk = BATCH_MAX_SAMPLES
+        out = torch.zeros((S, G * B, H, W), dtype=_F32, device=dev)
+    for s0 in range(0, S, chunk):
+        s1 = min(S, s0 + chunk)
+        ptrs = (xs[s0:s1].data_ptr(), ys[s0:s1].data_ptr(),
+                t_norm[s0:s1].data_ptr(), ps[s0:s1].data_ptr(), s1 - s0, n,
+                B, H, W, int(split))
+        if route == "vector":
+            if s0:
+                acc.zero_()
+            rc = lib.voxel_scatter_batched_vector(
+                *ptrs, Bp, acc.data_ptr(), out[s0:s1].data_ptr(), _stream())
+        else:
+            rc = lib.voxel_scatter_batched(*ptrs, out[s0:s1].data_ptr(),
+                                           _stream())
+        build.check(rc, f"voxel_scatter_batched:{route}")
+        _launches[f"voxel_scatter_batched:{route}"] += 1
+    return out
+
+
+class _VoxelBatchedCore(torch.autograd.Function):
+    """Batched voxel scatter with the gather VJP of ``_voxel_core_bwd``
+    (pallas_scatter.py:469) per row: cotangents reach ``t_norm`` and
+    ``ps``, as in ``_VoxelCore``; with ``split`` each event reads its own
+    grid's cotangent, and ``ps``'s carries the sign of its encoding."""
+
+    @staticmethod
+    def forward(ctx, xs, ys, t_norm, ps, B, H, W, split):
+        ctx.save_for_backward(xs, ys, t_norm, ps)
+        ctx.dims = (B, H, W, split)
+        return voxel_scatter_batched(xs, ys, t_norm, ps, B, H, W, split=split)
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, ys, t_norm, ps = ctx.saved_tensors
+        g_t, g_ps = _voxel_vjp(g.reshape(g.shape[0], -1), xs, ys, t_norm, ps,
+                               *ctx.dims)
+        return None, None, g_t, g_ps, None, None, None, None
+
+
+def _voxel_vjp(g, xs, ys, t_norm, ps, B: int, H: int, W: int, split: bool):
+    """Gather VJP of ``_voxel_core_bwd`` (pallas_scatter.py:469) for S rows
+    of kernel inputs ``(S, N)``, ``g`` the grids' cotangent as ``(S, G*B*H*W)``:
+    the cotangents of ``t_norm`` and ``ps``. With ``split`` an event reads
+    its own grid's cotangent and ``ps``'s carries the sign of its
+    encoding."""
+    b0 = torch.floor(t_norm)
+    fb = t_norm - b0
+    ib0 = torch.where(torch.isfinite(b0), b0, -1.0).clamp(-1, B).long()
+    pix = ys.long().clamp(0, H - 1) * W + xs.long().clamp(0, W - 1)
+    mag, sign, first = ps, 1.0, 0
+    if split:
+        neg = ps < 0
+        mag, sign = ps.abs(), torch.where(neg, -1.0, 1.0)
+        first = neg.long() * B
+
+    def tap_cot(ib):
+        ok = (ib >= 0) & (ib < B)
+        idx = (first + ib.clamp(0, B - 1)) * (H * W) + pix
+        return torch.where(ok, torch.gather(g, 1, idx), 0.0)
+
+    g0 = tap_cot(ib0)
+    g1 = tap_cot(ib0 + 1)
+    return mag * (g1 - g0), sign * ((1.0 - fb) * g0 + fb * g1)
+
+
+def voxel_inputs_batched(xs, ys, ts, ps, B: int, sensor_size, mask=None,
+                         t0=None, t1=None, split: bool = False):
+    """``voxel_matmul``'s preprocessing of S rows (pallas_scatter.py:259-311
+    under ``vmap``): the ``(xs, ys, t_norm, ps)`` that the batched voxel
+    kernel takes, ``(S, N)`` each (int32 in-image coordinates, f32 bin
+    coordinate in [0, B-1], f32 weights with out-of-image and masked events
+    at 0). ``mask`` (S, N); ``t0``/``t1`` scalars or per-row ``(S,)``
+    overrides. Without an override a row's window is its first and last
+    stamp (``ts[:, 0]``, ``ts[:, -1]``), or with a mask its masked min and
+    max, one reduction over all rows each (JAX's voxel_grid.py:107-115).
+    Under an override, out-of-window events are pinned to the edge bin with
+    their surviving tap folded into the weight, as the JAX driver does
+    (its kernel's per-chunk bin classification needs it; here it keeps the
+    two drivers' outputs and VJPs the same function). ``split``: each event
+    weighs 1 (times the mask and the fold) with the sign of its polarity,
+    positive for ``ps > 0`` and negative otherwise, as
+    ``events_to_neg_pos_voxel`` weighs them. Differentiable in ``ts`` and
+    ``ps``."""
     H, W = sensor_size
     dev = xs.device
     xs = xs.to(_I32)
@@ -362,39 +561,66 @@ def voxel_inputs(xs, ys, ts, ps, B: int, sensor_size, mask=None, t0=None,
     ts = ts.to(_F32)
     ps = ps.to(_F32)
     in_img = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
-    ps = torch.where(in_img, ps, 0.0)
+    w = torch.where(in_img, torch.ones_like(ps) if split else ps, 0.0)
     if mask is not None:
-        ps = ps * torch.as_tensor(mask, device=dev).to(_F32)
+        mask = torch.as_tensor(mask, device=dev)
+        w = w * mask.to(_F32)
     xs = xs.clamp(0, W - 1).contiguous()
     ys = ys.clamp(0, H - 1).contiguous()
 
     if t0 is None or t1 is None:
         if mask is None:
-            tt0, tt1 = ts[0], ts[-1]
+            tt0, tt1 = ts[:, 0], ts[:, -1]
         else:
-            valid = torch.as_tensor(mask, device=dev) != 0
+            valid = mask != 0
             big = 3.4e38
-            tt0 = torch.where(valid, ts, big).min()
-            tt1 = torch.where(valid, ts, -big).max()
+            tt0 = torch.where(valid, ts, big).amin(1)
+            tt1 = torch.where(valid, ts, -big).amax(1)
         t0 = tt0 if t0 is None else t0
         t1 = tt1 if t1 is None else t1
-    t0 = torch.as_tensor(t0, dtype=_F32, device=dev)
-    t1 = torch.as_tensor(t1, dtype=_F32, device=dev)
+    t0 = torch.as_tensor(t0, dtype=_F32, device=dev).reshape(-1, 1)
+    t1 = torch.as_tensor(t1, dtype=_F32, device=dev).reshape(-1, 1)
     dt = t1 - t0
     t_norm = (ts - t0) / torch.where(dt == 0, 1.0, dt) * (B - 1)
 
-    # Out-of-window events (only under t0/t1 overrides): fold the surviving
-    # edge-bin tap into ps and pin t_norm to the edge, as the JAX driver
-    # does (its kernel's per-chunk bin classification needs it; here it
-    # keeps the two drivers' outputs and VJPs the same function).
+    # out-of-window events (only under t0/t1 overrides)
     below = t_norm < 0.0
     above = t_norm > (B - 1.0)
-    ps = torch.where(below, ps * torch.clamp(1.0 + t_norm, min=0.0), ps)
-    ps = torch.where(above,
-                     ps * torch.clamp(1.0 - (t_norm - (B - 1.0)), min=0.0), ps)
+    w = torch.where(below, w * torch.clamp(1.0 + t_norm, min=0.0), w)
+    w = torch.where(above,
+                    w * torch.clamp(1.0 - (t_norm - (B - 1.0)), min=0.0), w)
     t_norm = torch.where(below, 0.0, t_norm)
     t_norm = torch.where(above, float(B - 1), t_norm)
-    return xs, ys, t_norm.contiguous(), ps.contiguous()
+    if split:
+        w = torch.where(ps > 0, w, -w)
+    return xs, ys, t_norm.contiguous(), w.contiguous()
+
+
+def voxel_matmul_batched(xs, ys, ts, ps, B: int, sensor_size=(180, 240),
+                         precision: str = "hilo", mask=None, t0=None,
+                         t1=None, split: bool = False):
+    """(S, B, H, W) voxel grids of S rows of events through the batched
+    CUDA voxel kernel: ``voxel_matmul`` under ``jax.vmap`` over the rows
+    (JAX's ``voxel_grids_fixed_n``, voxel_grid.py:328, and the trainers'
+    padded rows). ``split``: (S, 2B, H, W), each row's
+    ``events_to_neg_pos_voxel`` grids one after the other, in one launch.
+
+    ``xs``, ``ys``, ``ts``, ``ps`` ``(S, N)``; ``mask`` (S, N); ``t0``/``t1``
+    scalars or ``(S,)``. Per row it is ``voxel_matmul``: out-of-image events
+    dropped, masked events contribute nothing, the window defaults to the
+    row's first and last valid event, out-of-window events under an
+    override pinned to the edge bin. ``precision`` is accepted for parity;
+    the kernel computes in f32. Differentiable in ``ts`` and ``ps``.
+    """
+    _check_precision(precision)
+    H, W = sensor_size
+    S, n = xs.shape
+    if n == 0:
+        return torch.zeros((S, (2 if split else 1) * B, H, W), dtype=_F32,
+                           device=xs.device)
+    args = voxel_inputs_batched(xs, ys, ts, ps, B, sensor_size, mask=mask,
+                                t0=t0, t1=t1, split=split)
+    return _VoxelBatchedCore.apply(*args, B, H, W, split)
 
 
 # ---------------------------------------------------------------------------
@@ -1217,6 +1443,8 @@ def launch_counts() -> dict:
 KERNEL_WRAPPERS = {
     "voxel_scatter:vector": voxel_scatter,
     "voxel_scatter:direct": voxel_scatter,
+    "voxel_scatter_batched:vector": voxel_scatter_batched,
+    "voxel_scatter_batched:direct": voxel_scatter_batched,
     "voxel_tiles_scatter:private": voxel_tiles_scatter,
     "voxel_tiles_scatter:direct": voxel_tiles_scatter,
     "flat_scatter:vector": flat_scatter,

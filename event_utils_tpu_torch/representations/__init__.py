@@ -17,6 +17,7 @@ from .voxel_grid import (  # noqa: F401
     events_to_neg_pos_voxel_segments,
     events_to_neg_pos_voxel_torch,
     events_to_voxel,
+    events_to_voxel_rows,
     events_to_voxel_segments,
     events_to_voxel_tiled,
     events_to_voxel_timesync,
@@ -24,6 +25,7 @@ from .voxel_grid import (  # noqa: F401
     events_to_voxel_torch,
     get_voxel_grid_as_image,
     plot_voxel_grid,
+    segment_windows,
     voxel_grids_fixed_n,
     voxel_grids_fixed_n_torch,
     voxel_grids_fixed_t,

@@ -10,7 +10,11 @@ truncates coordinates to integers, as the reference's torch path does;
 route) runs the hand-written CUDA voxel kernel (``ops.cuda_scatter``) for
 every sensor size. ``impl='tiled'`` and ``events_to_voxel_tiled`` bucket
 the events by sensor tile on the host and run the per-tile CUDA kernel
-(``voxel_matmul_tiles``).
+(``voxel_matmul_tiles``). Where the JAX package vmaps ``events_to_voxel``
+over rows of events (``voxel_grids_fixed_n``, the trainers' padded
+batches), ``events_to_voxel_rows`` builds every row's grid in one call:
+the batched voxel kernel (``voxel_matmul_batched``) under ``'matmul*'``,
+one flat scatter with ids offset by row otherwise.
 
 By design the port's ``impl='matmul'`` does not auto-route large sensors to
 the tiled route as the JAX package does (its one-hot kernel runs out of
@@ -27,7 +31,8 @@ import torch
 
 from .._device import as_f32, as_tensor, pick_device, to_numpy
 from ..errors import ConfigurationError
-from ..ops.cuda_scatter import voxel_matmul, voxel_matmul_tiles
+from ..ops.cuda_scatter import (voxel_matmul, voxel_matmul_batched,
+                                 voxel_matmul_tiles)
 from ..ops.scatter import bilinear_scatter, scatter_add_2d, scatter_add_flat
 
 _PRECISION = {"matmul": "hilo", "matmul_hilo": "hilo",
@@ -243,22 +248,13 @@ def events_to_neg_pos_voxel_torch(xs, ys, ts, ps, B, device=None, **kw):
     return events_to_neg_pos_voxel(xs, ys, ts, ps, B, device=device, **kw)
 
 
-def events_to_voxel_segments(xs, ys, ts, ps, seg, num_segments: int,
-                             B: int, sensor_size=(180, 240),
-                             impl: Optional[str] = None) -> torch.Tensor:
-    """Voxel grids of many windows in ONE flat scatter:
-    ``(num_segments, B, H, W)``.
-
-    ``seg`` gives each event its window (-1 or ``num_segments`` and above
-    drop it). Each window's grid is what ``events_to_voxel`` (temporally
-    bilinear, integer coordinates) gives on that window's events alone:
-    its ``[t0, t1]`` is the first and last stamp among them. Ids are offset
-    by ``seg * B*H*W``, so the B-element batches and the T x B windows of
-    the trainers take one scatter (one flat-kernel launch under
-    ``'pallas'``) where the JAX package vmaps one per window. All inputs
-    are tensors on one device.
-    """
-    H, W = sensor_size
+def segment_windows(ts, seg, num_segments: int):
+    """Each segment's first and last stamp, ``(num_segments,)`` each, for
+    events in any order: the min and max of the stamps of its events (one
+    ``scatter_reduce`` each; float32 max and -max for an empty segment).
+    ``seg`` as ``events_to_voxel_segments`` takes it. A caller that knows
+    its events' order reads them off that order instead
+    (``training.in_the_loop`` does)."""
     seg = seg.long()
     live = (seg >= 0) & (seg < num_segments)
     sid = torch.where(live, seg, 0)
@@ -268,6 +264,34 @@ def events_to_voxel_segments(xs, ys, ts, ps, seg, num_segments: int,
         0, sid, torch.where(live, ts, big), "amin")
     t1 = torch.full((num_segments,), -big, device=ts.device).scatter_reduce(
         0, sid, torch.where(live, ts, -big), "amax")
+    return t0, t1
+
+
+def events_to_voxel_segments(xs, ys, ts, ps, seg, num_segments: int,
+                             B: int, sensor_size=(180, 240),
+                             impl: Optional[str] = None, t0=None,
+                             t1=None) -> torch.Tensor:
+    """Voxel grids of many windows in ONE flat scatter:
+    ``(num_segments, B, H, W)``.
+
+    ``seg`` gives each event its window (-1 or ``num_segments`` and above
+    drop it). Each window's grid is what ``events_to_voxel`` (temporally
+    bilinear, integer coordinates) gives on that window's events alone:
+    its ``[t0, t1]`` is the first and last stamp among them, given per
+    segment (both ``t0`` and ``t1``, ``(num_segments,)`` tensors) or taken
+    by ``segment_windows``.
+    Ids are offset by ``seg * B*H*W``, so the T x B windows of the E2VID
+    batches take one scatter (one flat-kernel launch under ``'pallas'``)
+    where the JAX package vmaps one per window. All inputs are tensors on
+    one device.
+    """
+    H, W = sensor_size
+    seg = seg.long()
+    live = (seg >= 0) & (seg < num_segments)
+    sid = torch.where(live, seg, 0)
+    ts = ts.to(torch.float32)
+    if t0 is None or t1 is None:
+        t0, t1 = segment_windows(ts, seg, num_segments)
     t0, t1 = t0[sid], t1[sid]
     dt = t1 - t0
     dt = torch.where(dt == 0, 1.0, dt)
@@ -292,20 +316,92 @@ def events_to_voxel_segments(xs, ys, ts, ps, seg, num_segments: int,
 def events_to_neg_pos_voxel_segments(xs, ys, ts, ps, seg, num_segments: int,
                                      B: int, sensor_size=(180, 240),
                                      combined: bool = False,
-                                     impl: Optional[str] = None
-                                     ) -> torch.Tensor:
+                                     impl: Optional[str] = None, t0=None,
+                                     t1=None) -> torch.Tensor:
     """``events_to_voxel_segments`` split by polarity into the trainers'
     channel layout: ``(num_segments, 2B, H, W)``, positive (``ps > 0``)
     bins first, then negative (``ps <= 0``), as
-    ``events_to_neg_pos_voxel`` and a concatenation give; two scatters.
+    ``events_to_neg_pos_voxel`` and a concatenation give; two scatters over
+    one per-segment window, taken once (``t0``/``t1`` when given).
     ``combined``: one ``(num_segments, B, H, W)`` grid of ``ps``."""
-    kw = dict(sensor_size=sensor_size, impl=impl)
+    if t0 is None or t1 is None:
+        t0, t1 = segment_windows(ts, seg, num_segments)
+    kw = dict(sensor_size=sensor_size, impl=impl, t0=t0, t1=t1)
     if combined:
         return events_to_voxel_segments(xs, ys, ts, ps, seg, num_segments, B,
                                         **kw)
     return torch.cat([events_to_voxel_segments(
         xs, ys, ts, sel.to(torch.float32), seg, num_segments, B, **kw)
         for sel in (ps > 0, ps <= 0)], 1)
+
+
+def events_to_voxel_rows(xs, ys, ts, ps, B: int, sensor_size=(180, 240),
+                         temporal_bilinear: bool = True, mask=None,
+                         split: bool = False,
+                         impl: Optional[str] = None) -> torch.Tensor:
+    """Voxel grids of S rows of events in one call, as JAX's ``jax.vmap``
+    of ``events_to_voxel`` builds them: ``(S, B, H, W)``, grid s what
+    ``events_to_voxel`` gives on row s (with ``mask[s]``): its window is
+    the row's first and last valid stamp. ``split``: ``(S, 2B, H, W)``,
+    each row's ``events_to_neg_pos_voxel`` grids one after the other.
+
+    ``xs``, ``ys``, ``ts``, ``ps`` and ``mask`` are ``(S, N)`` tensors on one
+    device. Under ``impl='matmul*'`` (temporally bilinear) one batched
+    voxel kernel launch per chunk of rows (``voxel_matmul_batched``); every
+    other ``impl`` takes the exact route, one flat scatter
+    (``scatter_add_flat``: ``index_add_`` under 'xla') with ids offset by
+    the row's (and polarity's) grid.
+    """
+    H, W = sensor_size
+    if impl in _PRECISION and temporal_bilinear:
+        return voxel_matmul_batched(xs, ys, ts, ps, B, sensor_size=sensor_size,
+                                    precision=_PRECISION[impl], mask=mask,
+                                    split=split)
+    # the slice binning's matmul routes are the flat kernel, as
+    # scatter_add_2d's are
+    flat_impl = "pallas" if impl in _PRECISION else impl
+    S = xs.shape[0]
+    dev = xs.device
+    ts = ts.to(torch.float32)
+    ps = ps.to(torch.float32)
+    if mask is None:
+        t0, t1 = ts[:, :1], ts[:, -1:]
+    else:
+        big = torch.finfo(torch.float32).max
+        t0 = torch.where(mask != 0, ts, big).amin(1, keepdim=True)
+        t1 = torch.where(mask != 0, ts, -big).amax(1, keepdim=True)
+    dt = t1 - t0
+    dt = torch.where(dt == 0, 1.0, dt)
+    grid = torch.arange(S, device=dev)[:, None]
+    if split:
+        grid = 2 * grid + (ps <= 0).long()
+        ps = torch.ones_like(ps)
+    if mask is not None:
+        ps = ps * mask.to(ps.dtype)
+    ixs = torch.trunc(xs.to(torch.float32)).long()
+    iys = torch.trunc(ys.to(torch.float32)).long()
+    in_img = (ixs >= 0) & (ixs < W) & (iys >= 0) & (iys < H)
+    base = grid * (B * H * W) + iys * W + ixs
+    buckets = S * (2 if split else 1) * B * H * W
+    if temporal_bilinear:
+        t_norm = (ts - t0) / dt * (B - 1)
+        b0 = torch.floor(t_norm)
+        fb = t_norm - b0
+        ib0 = torch.where(torch.isfinite(b0), b0, -1.0).long()
+        ids, ws = [], []
+        for ib, wb in ((ib0, 1.0 - fb), (ib0 + 1, fb)):
+            ok = in_img & (ib >= 0) & (ib < B)
+            ids.append(torch.where(ok, base + ib * (H * W), -1).reshape(-1))
+            ws.append((ps * wb).reshape(-1))
+        flat = scatter_add_flat(torch.cat(ids), torch.cat(ws), buckets,
+                                impl=flat_impl)
+    else:
+        # equal-duration slice binning; the int cast truncates
+        bin_idx = ((ts - t0) / dt * B).to(torch.int32).long().clamp(0, B - 1)
+        ids = torch.where(in_img, base + bin_idx * (H * W), -1)
+        flat = scatter_add_flat(ids.reshape(-1), ps.reshape(-1), buckets,
+                                impl=flat_impl)
+    return flat.view(S, -1, H, W)
 
 
 def events_to_voxel_timesync(xs, ys, ts, ps, B: int, t0, t1, np_ts=None,
@@ -336,16 +432,27 @@ def voxel_grids_fixed_n(xs, ys, ts, ps, B: int, n: int,
                         sensor_size=(180, 240), temporal_bilinear: bool = True,
                         impl: Optional[str] = None, device=None):
     """Voxel grids over consecutive windows of ``n`` events (reference
-    voxel_grid.py:37-57): one ``events_to_voxel`` per window (the JAX
-    package vmaps them). Returns ``(num_windows, B, H, W)``."""
+    voxel_grid.py:37-57). The stream is cut to ``(num_windows, n)`` rows and
+    every window is built in one call (``events_to_voxel_rows``), as the
+    JAX package's ``jax.vmap`` builds them: under ``impl='matmul*'`` one
+    batched voxel kernel launch per chunk of windows, otherwise one flat
+    scatter with ids offset by window. ``impl='tiled'`` raises
+    ``ConfigurationError``: its host bucketing needs one concrete stream, and
+    JAX's vmapped call raises too. Returns ``(num_windows, B, H, W)``."""
+    if impl == "tiled":
+        raise ConfigurationError(
+            "voxel_grids_fixed_n: impl='tiled' buckets one stream on the "
+            "host and does not batch windows; use impl='matmul'")
     dev = pick_device(xs, ys, ts, ps, device=device)
     num = (len(xs) - n) // n + 1 if len(xs) >= n else 0
     if num <= 0:
         return torch.zeros((0, B) + tuple(sensor_size), device=dev)
-    return torch.stack([events_to_voxel(
-        xs[i:i + n], ys[i:i + n], ts[i:i + n], ps[i:i + n], B,
-        sensor_size=sensor_size, temporal_bilinear=temporal_bilinear,
-        impl=impl, device=dev) for i in range(0, num * n, n)])
+    cut = num * n
+    xs, ys = (as_tensor(a[:cut], dev).reshape(num, n) for a in (xs, ys))
+    ts, ps = (as_f32(a[:cut], dev).reshape(num, n) for a in (ts, ps))
+    return events_to_voxel_rows(xs, ys, ts, ps, B, sensor_size=sensor_size,
+                                temporal_bilinear=temporal_bilinear,
+                                impl=impl)
 
 
 voxel_grids_fixed_n_torch = voxel_grids_fixed_n

@@ -21,9 +21,11 @@ Frames are rendered at the stamps ``jnp.linspace`` gives in float32
 go through one batched render, one crossing scan over the frame pairs and
 one compaction with a cut per scene, as JAX's ``jax.vmap`` over the
 scenes; each scene's events are bit for bit those of its own simulation.
-Their voxel grids take one pair of flat scatters per batch
-(``representations.events_to_neg_pos_voxel_segments``): two flat-kernel
-launches under ``set_default_impl('pallas')``.
+A flow batch's grids take one batched voxel kernel launch under
+``set_default_impl('pallas')`` (``voxelize_batch``); an E2VID batch's
+windows one pair of flat scatters
+(``representations.events_to_neg_pos_voxel_segments``), each window's
+first and last stamp read off the sorted rows (``window_stamps``).
 
 Under a trainer's mesh, rank r simulates only the elements ``[r B/N,
 (r+1) B/N)`` of each step, each from its own ``(seed, step, element)``
@@ -44,7 +46,9 @@ import torch
 from .._device import resolve_device
 from ..errors import ConfigurationError
 from ..parallel import sharding
-from ..representations.voxel_grid import events_to_neg_pos_voxel_segments
+from ..ops.scatter import get_default_impl
+from ..representations.voxel_grid import (
+    events_to_neg_pos_voxel_segments, events_to_voxel_rows)
 from ..simulation.esim import (SimulatorConfig, _sample_wrap,
                                simulate_events_device_batch, smooth_texture)
 
@@ -261,15 +265,37 @@ def voxelize_batch(events, mask, num_bins: int, sensor_size,
                    combined: bool = False) -> torch.Tensor:
     """``(B, C, H, W)`` voxel grids of padded events ``(B, N, 4)``: per
     element what ``events_to_neg_pos_voxel`` (or ``events_to_voxel`` when
-    ``combined``) gives on its masked events, all B in one pair of flat
-    scatters."""
-    B = mask.shape[0]
-    seg = torch.where(mask != 0, torch.arange(B, device=mask.device)[:, None],
-                      -1)
-    x, y, t, p = (a.reshape(-1) for a in events.unbind(-1))
-    return events_to_neg_pos_voxel_segments(x, y, t, p, seg.reshape(-1), B,
-                                            num_bins, sensor_size,
-                                            combined=combined)
+    ``combined``) gives on its masked events, as JAX's ``jax.vmap`` over the
+    rows (``training/loop.py:174-185``): each row's window is its masked
+    first and last stamp, one reduction over all rows. Under
+    ``set_default_impl('pallas')`` one batched voxel kernel launch
+    (``voxel_scatter_batched``, both polarities at once); under 'xla' one
+    ``index_add_`` with ids offset by row."""
+    x, y, t, p = (a.contiguous() for a in events.unbind(-1))
+    impl = "matmul" if get_default_impl() == "pallas" else None
+    return events_to_voxel_rows(x, y, t, p, num_bins, sensor_size, mask=mask,
+                                split=not combined, impl=impl)
+
+
+def window_stamps(ts, mask, bounds):
+    """The first and last stamp of each window ``(bounds[w], bounds[w+1]]``
+    of each row, ``(B, T)`` each, read off the rows' order: ``ts (B, N)``
+    time-sorted end to end with the valid events first (``mask (B, N)``), as
+    ``simulate_events_device_batch`` gives them (its pads carry the row's
+    last valid stamp). Window w's events are the slots from the first stamp
+    past ``bounds[w]`` to the last at or before ``bounds[w+1]``, cut at the
+    valid count; an empty window gets float32 max and -max, the values
+    ``segment_windows`` gives it."""
+    B = ts.shape[0]
+    edges = bounds.reshape(1, -1).expand(B, -1).contiguous()
+    cut = torch.searchsorted(ts.contiguous(), edges, right=True)
+    count = (mask != 0).sum(1, keepdim=True)
+    lo, hi = cut[:, :-1], torch.minimum(cut[:, 1:], count)
+    some = hi > lo
+    big = torch.finfo(torch.float32).max
+    first = ts.gather(1, torch.where(some, lo, 0))
+    last = ts.gather(1, torch.where(some, hi - 1, 0))
+    return torch.where(some, first, big), torch.where(some, last, -big)
 
 
 def simulate_recon_scenes(scenes: dict, capacity: int, seq_len: int,
@@ -285,7 +311,8 @@ def simulate_recon_scenes(scenes: dict, capacity: int, seq_len: int,
     sequence), all B scenes in one batched render and one batched
     simulation; then each window ``(t_w, t_{w+1}]`` is voxelized over its
     own events: every window of every scene in one pair of flat scatters
-    (ids offset by window and element).
+    (ids offset by window and element), each window's first and last stamp
+    read off its scene's sorted row (``window_stamps``).
 
     Returns ``(voxels (T, B, C, H, W), frames (T, B, 1, H, W))`` on the
     device, ``frames[w]`` the rendered frame at window w's end;
@@ -304,14 +331,17 @@ def simulate_recon_scenes(scenes: dict, capacity: int, seq_len: int,
                                 fts)
     ev, mask, overflow = simulate_events_device_batch(frames, fts, capacity,
                                                       cfg)
-    # window w holds the events with t_w < t <= t_{w+1}
-    w = torch.searchsorted(bounds, ev[..., 2].contiguous()) - 1
+    # window w holds the events with t_w < t <= t_{w+1}; its first and last
+    # stamps are read off each row's order (segment w * B + b)
+    t_rows = ev[..., 2].contiguous()
+    w = torch.searchsorted(bounds, t_rows) - 1
     seg = torch.where((mask > 0) & (w >= 0) & (w < seq_len),
                       w * B + torch.arange(B, device=dev)[:, None], -1)
+    t0, t1 = (a.t().reshape(-1) for a in window_stamps(t_rows, mask, bounds))
     x, y, ts, p = ev.reshape(-1, 4).unbind(-1)
     voxels = events_to_neg_pos_voxel_segments(
         x, y, ts, p, seg.reshape(-1), seq_len * B, num_bins, (H, W),
-        combined=combined)
+        combined=combined, t0=t0, t1=t1)
     out = (voxels.view((seq_len, B) + voxels.shape[1:]),
            frames.transpose(0, 1)[target_idx][:, :, None])
     return out + (overflow > 0,) if return_saturation else out
@@ -561,9 +591,9 @@ def train_flow_in_the_loop(trainer, steps: int, batch_size: int = 8,
                            stats: Optional[dict] = None):
     """Drive ``FlowTrainer`` on simulated batches (no files).
 
-    Each step: ``simulate_flow_batch(seed, step, ...)``, one pair of voxel
-    scatters, one optimiser step; losses are read only at log points. Every
-    ``eval_every`` steps the net is scored on a held-out batch
+    Each step: ``simulate_flow_batch(seed, step, ...)``, its grids
+    (``voxelize_batch``), one optimiser step; losses are read only at log
+    points. Every ``eval_every`` steps the net is scored on a held-out batch
     (``flow_eval``: AEE against the dense ground truth, and the zero-flow
     baseline), always drawn with ``fresh_prob = age_max = 0`` — from
     ``eval_seed`` (default ``seed``) at step -1, or rebuilt from

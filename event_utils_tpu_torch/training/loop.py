@@ -15,8 +15,9 @@ uses ``schedule(0)``; loading weights (``load_params``) starts a fresh
 optimiser and so a fresh count, as in JAX.
 
 ``fit`` drives the streaming loaders through ``device_prefetch`` and
-voxelizes each batch of B padded windows in one pair of flat scatters (one
-with ``combined_channels``), where JAX vmaps a grid per window.
+voxelizes each batch of B padded windows in one call
+(``in_the_loop.voxelize_batch``: one batched voxel kernel launch under
+``'pallas'``), as JAX vmaps a grid per window.
 
 Data parallelism (``mesh=``, a ``parallel.make_mesh`` mesh): the model is
 wrapped in ``DistributedDataParallel`` over the mesh's group, so the

@@ -616,7 +616,7 @@ def test_train_steps_on_the_card_match_the_cpu(cuda):
     learning rate (Adam turns the card's rounding on a zero or near-zero
     gradient into a step of up to ~lr: ``chip_smoke.py``'s
     ``STEP_PARAM_*``). Each flow step launches ``flat_scatter:direct``
-    once (its loss), each batch's grids twice."""
+    once (its loss), each batch's grids ``voxel_scatter_batched`` once."""
     from event_utils_tpu_torch._device import no_tf32
     from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
     from event_utils_tpu_torch.training import (FlowTrainer,
@@ -628,9 +628,13 @@ def test_train_steps_on_the_card_match_the_cpu(cuda):
         ev, mask, gt = itl.simulate_flow_batch(
             1, 0, 2, (32, 32), 4096, omega_max=6.0, s_max=0.6, burn_in=1,
             device=cuda)
-        before = cs.launch_counts()["flat_scatter:direct"]
+        grids = "voxel_scatter_batched:" + cs.voxel_batched_route(
+            2, 4096, 5, 32, 32, split=True)
+        before = cs.launch_counts()
         vox = itl.voxelize_batch(ev, mask, 5, (32, 32))
-        assert cs.launch_counts()["flat_scatter:direct"] == before + 2
+        after = cs.launch_counts()
+        assert {k: v - before[k] for k, v in after.items()
+                if v != before[k]} == {grids: 1}
         voxels, frames = itl.simulate_recon_batch(1, 0, 2, (32, 32), 20000,
                                                   3, device=cuda)
         batches = ((vox, ev, mask, itl.dense_gt(gt, (32, 32))),
@@ -746,14 +750,19 @@ def test_fit_step_on_the_card_matches_the_cpu(cuda, tmp_path):
         losses = {}
         for dev in ("cpu", "cuda"):
             t = FlowTrainer((32, 32), learning_rate=1e-3, seed=4, device=dev)
-            before = cs.launch_counts()["flat_scatter:direct"]
+            before = cs.launch_counts()
             losses[dev] = t.fit(NativeWindowedLoader(rec, k=2000,
                                                      batch_size=4),
                                 epochs=1, log_every=0)[:2]
             if dev == "cuda":
-                # 5 steps: two grids and the loss's splat each
-                assert cs.launch_counts()["flat_scatter:direct"] == \
-                    before + 15
+                # 5 steps: one batched launch for the grids and the loss's
+                # splat each
+                grids = "voxel_scatter_batched:" + cs.voxel_batched_route(
+                    4, 2000, 5, 32, 32, split=True)
+                after = cs.launch_counts()
+                assert {k: v - before[k] for k, v in after.items()
+                        if v != before[k]} == {grids: 5,
+                                               "flat_scatter:direct": 5}
     finally:
         set_default_impl(prev)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
@@ -1244,3 +1253,109 @@ def test_vector_replays_in_a_graph_and_refused_launches_raise(
         cs.bilinear_scatter_batched(x[None], y[None], w, H, W,
                                     route="vector")
     assert cs.launch_counts() == before
+
+
+def _voxel_rows(cuda, gen, S, n, H, W):
+    xs = torch.as_tensor(gen.integers(-2, W + 2, (S, n)), device=cuda)
+    ys = torch.as_tensor(gen.integers(-2, H + 2, (S, n)), device=cuda)
+    ts = torch.sort(torch.rand(S, n, device=cuda), dim=1).values
+    ps = torch.as_tensor(gen.choice([-1.0, 1.0], (S, n)),
+                         dtype=torch.float32, device=cuda)
+    return xs, ys, ts, ps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("route", ["vector", "direct"])
+@pytest.mark.parametrize("B", [1, 5, 9])
+def test_batched_voxel_matches_plain_and_single_launches(cuda, gen, route, B,
+                                                         split):
+    """S rows on each route, one launch, against the plain version and
+    against S single ``voxel_scatter`` launches (2S with the polarity
+    split): whole rows, masks with an all-masked row and a row of one
+    event, per-row ``t1`` overrides that pin a third of each row to
+    ``t_norm = B-1`` exactly, and NaN, +-inf and huge bins."""
+    S, n, H, W = 23, 20_001, 45, 67
+    xs, ys, ts, ps = _voxel_rows(cuda, gen, S, n, H, W)
+    mask = torch.rand(S, n, device=cuda) > 0.3
+    mask[1] = False
+    mask[2] = False
+    mask[2, n // 2] = True
+    cases = [cs.voxel_inputs_batched(xs, ys, ts, ps, B, (H, W), split=split,
+                                     **kw)
+             for kw in ({}, {"mask": mask}, {"t1": ts[:, 2 * n // 3]})]
+    assert int((cases[2][2] == B - 1).sum()) >= S * n // 3
+    odd = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30,
+                        -1.0, -0.25, float(B)], device=cuda)
+    t_odd = cases[0][2].clone()
+    t_odd[:, ::5] = odd[torch.arange(t_odd[:, ::5].shape[1],
+                                     device=cuda) % len(odd)]
+    cases.append((cases[0][0], cases[0][1], t_odd, cases[0][3]))
+    name = f"voxel_scatter_batched:{route}"
+    for args in cases:
+        before = cs.launch_counts()[name]
+        got = cs.voxel_scatter_batched(*args, B, H, W, split=split,
+                                       route=route)
+        assert cs.launch_counts()[name] == before + 1
+        assert got.shape == (S, (2 if split else 1) * B, H, W)
+        assert_rel(got, cs.voxel_scatter_batched_plain(*args, B, H, W,
+                                                       split))
+        x, y, t, p = args
+        weights = ((torch.where(p > 0, p, 0.0), torch.where(p < 0, -p, 0.0))
+                   if split else (p,))
+        single = torch.stack([cs.voxel_scatter(x[s], y[s], t[s], w[s], B, H,
+                                               W, route=route)
+                              for s in range(S) for w in weights])
+        assert_rel(got, single.view(got.shape))
+    masked = cs.voxel_scatter_batched(*cases[1], B, H, W, split=split,
+                                      route=route)
+    assert float(masked[1].abs().max()) == 0.0
+    assert abs(float(masked[2].sum())) == 1.0      # one event
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])
+def test_batched_voxel_vector_launches_one_chunk_at_a_time(cuda, gen, split):
+    """More rows than one vector launch keeps in the L2: one launch per
+    chunk of ``voxel_batched_chunk`` rows, the scratch zeroed between
+    them."""
+    B, H, W = 5, 180, 240
+    chunk = cs.voxel_batched_chunk(B, H, W, split)
+    S, n = 2 * chunk + 3, 5000
+    args = cs.voxel_inputs_batched(*_voxel_rows(cuda, gen, S, n, H, W), B,
+                                   (H, W), split=split)
+    before = cs.launch_counts()["voxel_scatter_batched:vector"]
+    got = cs.voxel_scatter_batched(*args, B, H, W, split=split,
+                                   route="vector")
+    assert cs.launch_counts()["voxel_scatter_batched:vector"] == before + 3
+    assert_rel(got, cs.voxel_scatter_batched_plain(*args, B, H, W, split))
+
+
+@pytest.mark.cuda
+def test_batched_voxel_gradients_and_grids_on_the_card(cuda, gen):
+    """``voxel_matmul_batched``'s gradients in ``ts`` and ``ps`` against
+    the CPU's, and ``voxel_grids_fixed_n(impl='matmul')``: one batched
+    launch, no single-grid one, the grids of the exact route."""
+    from event_utils_tpu_torch.representations import voxel_grids_fixed_n
+    S, n, B, H, W = 6, 30_000, 5, 60, 80
+    xs, ys, ts, ps = _voxel_rows(cuda, gen, S, n, H, W)
+    mask = torch.rand(S, n, device=cuda) > 0.2
+    tgt = torch.randn(S, B, H, W, device=cuda)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        t = ts.to(dev, copy=True).requires_grad_(True)
+        p = ps.to(dev, copy=True).requires_grad_(True)
+        out = cs.voxel_matmul_batched(xs.to(dev), ys.to(dev), t, p, B,
+                                      (H, W), mask=mask.to(dev))
+        grads[dev] = torch.autograd.grad((out * tgt.to(dev)).sum(), (t, p))
+    for a, b in zip(*grads.values()):
+        assert_rel(a.cpu(), b)
+    flat = (xs.reshape(-1), ys.reshape(-1), ts.reshape(-1), ps.reshape(-1))
+    before = cs.launch_counts()
+    got = voxel_grids_fixed_n(*flat, B, n, sensor_size=(H, W), impl="matmul")
+    after = cs.launch_counts()
+    route = cs.voxel_batched_route(S, n, B, H, W)
+    assert {k: v - before[k] for k, v in after.items()
+            if v != before[k]} == {f"voxel_scatter_batched:{route}": 1}
+    assert_rel(got, voxel_grids_fixed_n(*flat, B, n, sensor_size=(H, W),
+                                        impl="xla"))

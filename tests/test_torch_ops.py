@@ -452,8 +452,8 @@ def test_kernel_wrappers_run_plain_on_cpu_and_check_inputs(rng):
     counts = cs.launch_counts()
     assert set(counts) == set(cs.ROUTES) == set(cs.KERNEL_WRAPPERS)
     assert {r.split(":")[0] for r in counts} == {
-        "voxel_scatter", "voxel_tiles_scatter", "flat_scatter",
-        "bilinear_scatter", "bilinear_scatter_batched",
+        "voxel_scatter", "voxel_scatter_batched", "voxel_tiles_scatter",
+        "flat_scatter", "bilinear_scatter", "bilinear_scatter_batched",
         "bilinear_patches_scatter"}
     assert not any(counts.values())
     with pytest.raises(P.errors.ConfigurationError):
