@@ -50,9 +50,11 @@
      on one pixel, held per pixel within ``splat_limits``); 1 and 767
      patches; a ragged case (P=7, C=1000, (24, 40)) on both routes; a
      (240, 256) patch; gradients;
-   - batched voxel (``jax.vmap`` of the TPU kernel): both routes of
-     ``voxel_scatter_batched`` against the plain version and against S
-     single ``voxel_scatter`` launches (2S with the polarity split), within
+   - batched voxel (``jax.vmap`` of the TPU kernel): the three routes of
+     ``voxel_scatter_batched`` (direct, vector, and private: a block per
+     (grid, bin) in shared memory, stored once) against the plain version
+     and against S single ``voxel_scatter`` launches (2S with the polarity
+     split; the private route's on ``voxel_route``'s route), within
      GRID_REL of the grids' scale, timed beside the plain version and one
      ``index_put_``: the 2^21-event stream in 104 windows of 20,000 and in
      8 of 2^18 (DAVIS240, B=5), the trainers' split grids of padded rows
@@ -929,7 +931,7 @@ def as_case(rec, **extra):
     ``limit_share`` where it was held per pixel."""
     return dict({k: rec[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                      "max_abs_err", "direct_ms",
-                                     "limit_share")
+                                     "limit_share", "dispatch")
                  if k in rec}, bound_ms=rec["bound"][0], **extra)
 
 
@@ -1614,11 +1616,12 @@ def voxel_batched_case(torch, cs, label, args, B, H, W, split, route,
                        time=True):
     """``voxel_scatter_batched`` on ``route`` at the kernel inputs ``args``
     against its plain version and against S single ``voxel_scatter``
-    launches (2S with ``split``: the positive and negative weights), within
-    GRID_REL of the grid's scale; with ``time``, the kernel, the plain
-    version and one ``index_put_`` over the live taps timed, and the bound
-    (each slot's weight read, the other 12 B of a live slot, the grids
-    written once)."""
+    launches (2S with ``split``: the positive and negative weights; on the
+    same route, or for 'private', which one grid never takes, on
+    ``voxel_route``'s), within GRID_REL of the grid's scale; with ``time``,
+    the kernel, the plain version and one ``index_put_`` over the live taps
+    timed, and the bound (each slot's weight read, the other 12 B of a live
+    slot, the grids written once)."""
     name = f"voxel_scatter_batched:{route}"
     x, y, t, p = args
     S, n = x.shape
@@ -1632,14 +1635,17 @@ def voxel_batched_case(torch, cs, label, args, B, H, W, split, route,
     err = check_close(f"{name} ({label})", got, plain(), GRID_REL)
     weights = ((torch.where(p > 0, p, 0.0), torch.where(p < 0, -p, 0.0))
                if split else (p,))
+    one = None if route == "private" else route
     single = torch.stack([cs.voxel_scatter(x[s], y[s], t[s],
                                            w[s].contiguous(), B, H, W,
-                                           route=route)
+                                           route=one)
                           for s in range(S) for w in weights])
-    err = max(err, check_close(f"{name} ({label}) vs {S * G} single "
-                               f"voxel_scatter:{route} launches", got,
-                               single.view(got.shape), GRID_REL))
-    case = dict(shape=f"{shape} ({label})", max_abs_err=err)
+    err = max(err, check_close(
+        f"{name} ({label}) vs {S * G} single voxel_scatter:"
+        f"{one or cs.voxel_route(n, B, H, W)} launches", got,
+        single.view(got.shape), GRID_REL))
+    case = dict(shape=f"{shape} ({label})", max_abs_err=err,
+                dispatch=cs.voxel_batched_route(S, n, B, H, W, split))
     if time:
         ids, vals = voxel_batched_taps(torch, args, B, H, W, split)
         live = int((p != 0).sum())
@@ -1653,28 +1659,32 @@ def voxel_batched_case(torch, cs, label, args, B, H, W, split, route,
         log(f"  {name} at {case['shape']}: {case['ms']:.4f} ms, plain "
             f"{case['plain_ms']:.4f} ms, index_put_ "
             f"{case['library_ms']:.4f} ms, bound {case['bound'][0]:.5f} ms; "
-            f"the dispatch takes "
-            f"{cs.voxel_batched_route(S, n, B, H, W, split)}")
+            f"the dispatch takes {case['dispatch']}")
     return case
 
 
 def voxel_batched_kernel_cases(torch, cs, records):
-    """The batched voxel kernel's two routes at the shapes of the
-    ``voxel_batched`` path and the trainers', against the plain version and S single
-    launches, timed: the DAVIS240 2^21-event stream in 104 windows of
+    """The batched voxel kernel's three routes at the shapes of the
+    ``voxel_batched`` path and the trainers', against the plain version and
+    S single launches, timed: the DAVIS240 2^21-event stream in 104 windows of
     20,000 (``voxel_grids_fixed_n``) and in 8 of 2^18; the trainers' split
     grids of padded rows, ``fit``'s 8 x 32,768 at 184x240, the flow batch's
-    8 x 65,536 and the E2VID batch's 96 windows of 12,288 at 128x128. Then
+    8 x 65,536, and 96 split windows of 12,288 at 128x128, an E2VID
+    batch's size (its own grids go through ``flat_scatter``). Then
     edge cases on the flow batch's shape: B = 1 and 9, every row masked, a
     row of one event, per-row windows that pin half of each row to the
-    last bin, NaN, +-inf and huge bin coordinates."""
+    last bin, NaN, +-inf and huge bin coordinates; the same on 96 E2VID
+    windows (960 private blocks, each keeping one sign) and on 104
+    DAVIS240 windows (520 blocks: four waves). Each route's record keeps
+    one shape from run to run: 104 windows of 20,000 for direct and
+    private, 8 of 2^18 for vector."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 16)
     H, W = SENSOR
     xs, ys, ts, ps = (torch.as_tensor(a, device=dev)
                       for a in voxel_events(rng))
     ts, ps = ts.float(), ps.float()
-    cases = {"direct": [], "vector": []}
+    cases = {"direct": [], "vector": [], "private": []}
 
     def hold(label, args, bins, sensor, split, time=True):
         for r in cases:
@@ -1686,7 +1696,7 @@ def voxel_batched_kernel_cases(torch, cs, records):
         win = [a[:S * n].reshape(S, n) for a in (xs, ys, ts, ps)]
         hold(f"DAVIS240, {S} windows of {n}",
              cs.voxel_inputs_batched(*win, B, SENSOR), B, SENSOR, False)
-    flow = None
+    edges = {}
     for label, S, n, sensor in (("fit", 8, 32768, (184, 240)),
                                 ("flow batch", 8, 65536, (128, 128)),
                                 ("E2VID windows", 96, 12288, (128, 128))):
@@ -1694,11 +1704,34 @@ def voxel_batched_kernel_cases(torch, cs, records):
         rows = [a.contiguous() for a in ev.unbind(-1)]
         hold(label, cs.voxel_inputs_batched(*rows, B, sensor, mask=mask,
                                             split=True), B, sensor, True)
-        if label == "flow batch":
-            flow = rows, mask, sensor
-    rows, mask, sensor = flow
+        if label != "fit":
+            edges[label] = rows, mask, sensor
+    S = N_VOXEL // FIXED_N
+    win = [a[:S * FIXED_N].reshape(S, FIXED_N) for a in (xs, ys, ts, ps)]
+    edges[f"DAVIS240, {S} windows"] = ([a.contiguous() for a in win],
+                                        torch.ones_like(win[3]), SENSOR)
+    for where, (rows, mask, sensor) in edges.items():
+        edge_cases(torch, cs, hold, where, rows, mask, sensor)
+    # the record's own numbers, each route at one shape kept from run to
+    # run: 104 DAVIS240 windows of 20,000 for direct and private (the
+    # latter's path shape), 8 of 2^18 for vector (its path shape)
+    for r, main in (("direct", 0), ("vector", 1), ("private", 0)):
+        timed = [c for c in cases[r] if "ms" in c]
+        records[f"voxel_scatter_batched:{r}"] = dict(
+            timed[main], max_abs_err=max(c["max_abs_err"] for c in cases[r]),
+            cases=[as_case(c) for c in timed])
+
+
+def edge_cases(torch, cs, hold, where, rows, mask, sensor):
+    """``hold`` every route of the batched voxel kernel (untimed) on the
+    padded rows ``rows`` (x, y, t, p: (S, n)) with ``mask``, split: B = 1
+    and 9, every row masked, a row of one event, per-row windows that pin a
+    quarter of each row to the last bin, NaN, +-inf and huge bin
+    coordinates; a masked batch must leave no mark and one event must weigh
+    1 on every route."""
+    dev = mask.device
     for bins in (1, 9):
-        hold(f"flow batch, B={bins}", cs.voxel_inputs_batched(
+        hold(f"{where}, B={bins}", cs.voxel_inputs_batched(
             *rows, bins, sensor, mask=mask, split=True), bins, sensor, True,
             time=False)
     none = cs.voxel_inputs_batched(*rows, B, sensor,
@@ -1711,8 +1744,8 @@ def voxel_batched_kernel_cases(torch, cs, records):
     n = mask.shape[1]
     pinned = cs.voxel_inputs_batched(*rows, B, sensor, mask=mask,
                                      t1=rows[2][:, n // 4], split=True)
-    log(f"  per-row t1 overrides: {int((pinned[2] == B - 1).sum())} events "
-        f"at t_norm = B-1 exactly")
+    log(f"  {where}, per-row t1 overrides: "
+        f"{int((pinned[2] == B - 1).sum())} events at t_norm = B-1 exactly")
     odd = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30,
                         -1e30, -1.0, -0.25, float(B)], device=dev)
     t_odd = pinned[2].clone()
@@ -1723,22 +1756,16 @@ def voxel_batched_kernel_cases(torch, cs, records):
                         ("pinned to the last bin", pinned),
                         ("NaN, inf and huge bins",
                          (pinned[0], pinned[1], t_odd, pinned[3]))):
-        hold(f"flow batch, {label}", args, B, sensor, True, time=False)
-    for r in cases:
+        hold(f"{where}, {label}", args, B, sensor, True, time=False)
+    for r in ("direct", "vector", "private"):
         grids = cs.voxel_scatter_batched(*none, B, *sensor, split=True,
                                          route=r)
         ones = cs.voxel_scatter_batched(*one, B, *sensor, split=True,
                                         route=r)
         if float(grids.abs().max()) != 0.0 or float(ones[0].sum()) != 1.0:
-            raise AssertionError(f"voxel_scatter_batched:{r}: masked rows "
-                                 f"left a mark, or one event weighs "
-                                 f"{float(ones[0].sum())}")
-    # the record's own numbers: the shape the path sends each route
-    for r, main in (("direct", 0), ("vector", 1)):
-        timed = [c for c in cases[r] if "ms" in c]
-        records[f"voxel_scatter_batched:{r}"] = dict(
-            timed[main], max_abs_err=max(c["max_abs_err"] for c in cases[r]),
-            cases=[as_case(c) for c in timed])
+            raise AssertionError(f"voxel_scatter_batched:{r} ({where}): "
+                                 f"masked rows left a mark, or one event "
+                                 f"weighs {float(ones[0].sum())}")
 
 
 def window_loop_grids(torch, events_to_voxel, ev, n, impl):
@@ -1754,7 +1781,7 @@ def voxel_batched_phase(torch, cs, records):
     """The vmapped voxel grids' path (JAX's ``jax.vmap`` of the voxel
     kernel), with the launch counts set to 0 first:
     ``voxel_grids_fixed_n(impl='matmul')`` on the DAVIS240 2^21-event
-    stream in windows of 20,000 (104: the direct route) and of
+    stream in windows of 20,000 (104: the private route) and of
     2^18 (8: the vector route), and ``voxelize_batch`` under 'pallas' at the
     flow batch's and ``fit``'s shapes. Each call must launch
     ``voxel_scatter_batched`` on the route its shape is sent to, once per
@@ -5717,7 +5744,8 @@ def main() -> int:
                 "bilinear_scatter_batched:vector",
                 "bilinear_scatter_batched:direct",
                 "voxel_scatter_batched:vector",
-                "voxel_scatter_batched:direct"}
+                "voxel_scatter_batched:direct",
+                "voxel_scatter_batched:private"}
     missing = sorted(set(launches) - off_path - set(got))
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "

@@ -87,14 +87,24 @@
 //   - voxel_tiles_private: one block per (tile, bin) owns that bin plane in
 //     its shared memory and stores it once. Every block reads t_norm of all
 //     slots of its tile and keeps the taps of its own bin.
+//   - voxel_batched_private (voxel_scatter_batched:private): the same
+//     design with the row in place of the tile, one block per (grid, bin)
+//     of S rows' grids, each plane stored once by cp.async.bulk. The
+//     wrapper sends it the batches that the direct route would take and
+//     whose grids pass 32 MB, two thirds of the L2 (104 DAVIS240 windows:
+//     90 MB), where that route's memset and reductions reach device
+//     memory; fewer rows stay direct, and the vector route keeps what it
+//     takes.
 //
 // Variants that measured slower on an H100 (taps sent through a cluster's
 // distributed shared memory, private copies summed across a cluster through
 // it and stored once, for images and for few patches, cp.reduce.async.bulk
-// of whole private images, several channels per block, other block sizes, one voxel accumulator with
-// scalar reductions for odd first bins, flat ids loaded ahead or one thread
-// per (row, id) element, a row-band splat for few events that spares the
-// memset) live with the script that measures them,
+// of whole private images, several channels per block, other block sizes,
+// one voxel accumulator with scalar reductions for odd first bins, flat ids
+// loaded ahead or one thread per (row, id) element, a row-band splat for
+// few events that spares the memset, batched voxel planes in bands of rows,
+// both signs' planes in one block or read ahead by 8 slots) live with the
+// script that measures them,
 // scripts/tune_scatter_variants.cu.
 //
 // Every tap is bounds-checked in float before any integer cast
@@ -451,6 +461,7 @@ constexpr int kBulkBytes = 32768;  // one bulk copy moves at most this
 constexpr int kPatchThreads = 256;   // block sizes that measured fastest
 constexpr int kImageThreads = 1024;
 constexpr int kTileThreads = 1024;
+constexpr int kRowThreads = 1024;    // batched private voxel grids
 
 // Zero n floats of shared memory (16-byte aligned), all threads.
 __device__ __forceinline__ void zero_shared(float* s, int n) {
@@ -743,6 +754,83 @@ voxel_tiles_private_kernel(const int* __restrict__ bx,
   fence_async_proxy();
   __syncthreads();
   store_start(out + blockIdx.x * static_cast<long long>(plane), bin, plane);
+  store_wait();
+}
+
+// S rows of n events (xs, ys, t_norm, ps: (S, n)) into S * G voxel grids
+// (B, H, W), the function of voxel_scatter_kernel (G = 2 with split: p > 0
+// to grid 2s with weight p, p < 0 to grid 2s + 1 with weight -p), with each
+// output element written by exactly one block: out needs no memset and
+// sees no atomic. Block (g * B + b) owns bin plane b of grid g = s * G + q
+// in shared memory. The blocks of one row are neighbours, so that they run
+// in the same wave and its events come from the L2 after the first read.
+// Every block reads t_norm of its row's n slots and, for the slots with a
+// tap in its own bin, the other 12 bytes; it keeps the taps of its sign,
+// as voxel_tiles_private_kernel does. Float tests: a NaN, infinite or huge
+// bin fails them, and no bin is ever cast.
+//
+// What bounds it: 4 B per slot, 12 B more per live slot, the grids written
+// once. Above that each row's t_norm is read by all of its blocks and a
+// live slot's other 12 bytes by the blocks of its two bins, from the L2
+// after the first read, and the taps meet in the shared-memory CAS loop:
+// the reads' latency, one block an SM at 180x240, sets the pace.
+__global__ void __launch_bounds__(kRowThreads)
+voxel_batched_private_kernel(const int* __restrict__ xs,
+                             const int* __restrict__ ys,
+                             const float* __restrict__ t_norm,
+                             const float* __restrict__ ps, long long n, int B,
+                             int H, int W, int split,
+                             float* __restrict__ out) {
+  extern __shared__ __align__(16) float bin[];
+  const int plane = H * W;
+  const int G = split ? 2 : 1;
+  const int b = static_cast<int>(blockIdx.x % B);
+  const long long g = blockIdx.x / B;  // the grid: row g / G, sign g % G
+  const int q = static_cast<int>(g % G);
+  zero_shared(bin, plane);
+  __syncthreads();
+  const float own = static_cast<float>(b);
+  const long long base = g / G * n;
+  const long long stride = blockDim.x;
+  for (long long first = threadIdx.x; first < n; first += stride * kAhead) {
+    // t_norm first: whether a tap of the slot falls into this block's bin
+    float tv[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const long long i = first + u * stride;
+      tv[u] = i < n ? t_norm[base + i] : -100.0f;
+    }
+    int xv[kAhead], yv[kAhead];
+    float pv[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const float b0 = floorf(tv[u]);
+      const bool want = b0 == own || b0 + 1.0f == own;
+      const long long i = base + first + u * stride;
+      pv[u] = want ? ps[i] : 0.0f;
+      xv[u] = want ? xs[i] : 0;
+      yv[u] = want ? ys[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      float p = pv[u];
+      if (p == 0.0f) continue;
+      if (split) {
+        if ((p < 0.0f) != q) continue;  // the other sign's grid
+        p = fabsf(p);
+      }
+      const int yi = yv[u];
+      const int xi = xv[u];
+      if (yi < 0 || yi >= H || xi < 0 || xi >= W) continue;
+      const float t = tv[u];
+      const float b0 = floorf(t);
+      const float fb = t - b0;
+      atomicAdd(bin + yi * W + xi, b0 == own ? p * (1.0f - fb) : p * fb);
+    }
+  }
+  fence_async_proxy();
+  __syncthreads();
+  store_start(out + (g * B + b) * plane, bin, plane);
   store_wait();
 }
 
@@ -1141,6 +1229,32 @@ int voxel_tiles_scatter_private(const void* bx, const void* by,
         static_cast<const int*>(bx), static_cast<const int*>(by),
         static_cast<const float*>(t_norm), static_cast<const float*>(bp), cap,
         B, th, tw, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// S rows of n events into S * G grids (split: G = 2, else 1) by
+// voxel_batched_private_kernel, one plane of H * W floats a block within
+// 227 KB. out may hold anything. At most 65535 rows.
+int voxel_scatter_batched_private(const void* xs, const void* ys,
+                                  const void* t_norm, const void* ps,
+                                  long long S, long long n, int B, int H,
+                                  int W, int split, void* out, void* stream) {
+  static const cudaError_t attr =
+      allow_max_shared(voxel_batched_private_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long smem = 4LL * H * W;
+  if (S > 65535 || smem > kMaxSharedBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = S * (split ? 2 : 1) * B;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks > 0 && smem > 0) {
+    voxel_batched_private_kernel<<<
+        static_cast<unsigned int>(blocks), kRowThreads,
+        static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(xs), static_cast<const int*>(ys),
+        static_cast<const float*>(t_norm), static_cast<const float*>(ps), n, B,
+        H, W, split, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

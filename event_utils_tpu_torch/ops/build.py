@@ -48,6 +48,8 @@ SIGNATURES = {
                                   _P),
         "voxel_scatter_batched_vector": (_P, _P, _P, _P, _L, _L, _I, _I, _I,
                                          _I, _I, _P, _P, _P),
+        "voxel_scatter_batched_private": (_P, _P, _P, _P, _L, _L, _I, _I,
+                                          _I, _I, _P, _P),
         "flat_scatter": (_P, _P, _L, _I, _L, _P, _P),
         "flat_scatter_vector": (_P, _P, _L, _I, _L, _I, _P, _P, _P),
         "bilinear_scatter": (_P, _P, _P, _L, _I, _I, _I, _P, _P),

@@ -52,6 +52,14 @@ the events are many; below that the direct kernels win.
   (``voxel_batched_chunk``), by ``voxel_batched_route``: the single
   grid's rule per row and per launch. The single grid's routes are these
   kernels at S = 1.
+  ``voxel_scatter_batched:private`` — batches that the rule above sends
+  'direct' whose grids hold at least ``PRIVATE_MIN_GRID_BYTES`` (32 MB,
+  about two thirds of the L2) and whose bin plane fits 227 KB
+  (``voxel_grids_fixed_n``'s 104 DAVIS240 windows): one block per (grid,
+  bin) owns that plane in shared memory, reads its row's ``t_norm`` and
+  keeps the taps of its bin and sign, and stores the plane once into the
+  uninitialised grids: no memset, no global atomic. Fewer rows stay
+  direct, and 'vector' keeps what it takes.
 - ``flat_scatter:vector`` — two rows or more and enough ids (D = 2: from
   262144): the weights of one id go as one ``float2`` or as ``float4``
   reductions into a rows-innermost scratch, transposed by a second kernel.
@@ -179,6 +187,7 @@ SHARED_MAX_BYTES = 232448
 
 ROUTES = ("voxel_scatter:vector", "voxel_scatter:direct",
           "voxel_scatter_batched:vector", "voxel_scatter_batched:direct",
+          "voxel_scatter_batched:private",
           "voxel_tiles_scatter:private", "voxel_tiles_scatter:direct",
           "flat_scatter:vector", "flat_scatter:direct",
           "bilinear_scatter:direct", "bilinear_scatter:private",
@@ -380,19 +389,54 @@ def voxel_batched_chunk(B: int, H: int, W: int, split: bool = False) -> int:
     return max(1, min(BATCH_MAX_SAMPLES, VECTOR_MAX_SCRATCH_BYTES // per))
 
 
+def voxel_private_fits(H: int, W: int) -> bool:
+    """Whether one (H, W) bin plane fits one block's shared memory, as
+    ``voxel_scatter_batched:private`` needs."""
+    return H * W * 4 <= SHARED_MAX_BYTES
+
+
+# Where the batched private route pays, from part 12 of
+# scripts/tune_scatter_routes.py on an H100 (its "rule" rows): once the
+# grids pass 32 MB, about two thirds of the 50 MB L2, where the direct
+# route's memset and reductions reach device memory. At 33 MB (40 DAVIS240
+# grids) private took 0.0195 / 0.0301 / 0.0598 ms against direct's 0.0228
+# / 0.0503 / 0.1029 at 4,096 / 20,000 / 65,536 events a row, at 40 MB (64
+# split rows into 128x128) 0.0285 / 0.0396 / 0.1138 against 0.0311 /
+# 0.0555 / 0.1418 (4,096 / 12,288 / 65,536); 104 DAVIS240 grids (86 MB)
+# of 20,000 events 0.0618 against 0.1596, where direct in chunks of rows
+# that stay in the L2 took 0.1004. Below 32 MB direct still wins at few
+# events a row: 30 MB (48 split rows), 4,096 events 0.0195 against 0.0212;
+# 26 MB (32 DAVIS240 grids) 0.0151 against 0.0175; 25 MB (40 split rows)
+# 0.0144 against 0.0182 and 0.0233 against 0.0266 at 12,288. The trainers'
+# eight rows (5-14 MB) stay direct: each of their 40-80 blocks reads a
+# whole row, and its reads' latency outlasts the direct route's memset and
+# reductions in the L2 (fit's 8 x 32,768 at 184x240: 0.0168 against
+# 0.0126). The vector route keeps every batch it takes: at 32 DAVIS240
+# windows of 2^18 it took 0.1936 ms against private's 0.2303.
+PRIVATE_MIN_GRID_BYTES = 32 << 20
+
+
 def voxel_batched_route(S: int, n: int, B: int, H: int, W: int,
                         split: bool = False) -> str:
     """Route of S rows of n events into S grids (2S with ``split``):
-    ``voxel_route``'s rule per row and per launch. 'vector' where a row's
+    ``voxel_route``'s rule per row and per launch, 'vector' where a row's
     scratch stays within ``VECTOR_MAX_SCRATCH_BYTES`` and within
     ``VECTOR_SCRATCH_PER_SAVED`` floats per event, and one launch's rows
-    hold ``VECTOR_MIN_SAVED`` events; else 'direct'. At S = 1 without
-    ``split`` it is ``voxel_route``."""
+    hold ``VECTOR_MIN_SAVED`` events. Where that rule says 'direct',
+    'private' if the bin plane fits a block's shared memory
+    (``voxel_private_fits``) and the grids hold at least
+    ``PRIVATE_MIN_GRID_BYTES``; never for one grid (S = 1 without
+    ``split``), which keeps ``voxel_route``."""
     scratch = _voxel_row_scratch(B, H, W, split)
     rows = min(S, voxel_batched_chunk(B, H, W, split))
-    return ("vector" if scratch * 4 <= VECTOR_MAX_SCRATCH_BYTES
+    if (scratch * 4 <= VECTOR_MAX_SCRATCH_BYTES
             and scratch <= VECTOR_SCRATCH_PER_SAVED * n
-            and rows * n >= VECTOR_MIN_SAVED else "direct")
+            and rows * n >= VECTOR_MIN_SAVED):
+        return "vector"
+    grids = S * (2 if split else 1)
+    return ("private" if (S > 1 or split) and voxel_private_fits(H, W)
+            and grids * B * H * W * 4 >= PRIVATE_MIN_GRID_BYTES
+            else "direct")
 
 
 def voxel_scatter_batched_plain(xs, ys, t_norm, ps, B: int, H: int, W: int,
@@ -437,13 +481,19 @@ def voxel_scatter_batched(xs, ys, t_norm, ps, B: int, H: int, W: int,
     launch a kernel with the row as the grid's y axis; CPU tensors run
     ``voxel_scatter_batched_plain``.
 
-    Routes, by shape alone (``voxel_batched_route``), the single grid's
-    two with a row offset: 'direct', two scalar reductions per event into
-    the zeroed grids, one launch per ``BATCH_MAX_SAMPLES`` rows; 'vector',
-    one ``float2`` reduction per event into its grid's two zeroed
-    bins-innermost accumulators and a second kernel that adds them into the
-    uninitialised grids, launched in chunks of ``voxel_batched_chunk``
-    rows so that the scratch stays in the L2. ``route`` forces either.
+    Routes, by shape alone (``voxel_batched_route``). 'private', for
+    grids that outgrow two thirds of the L2 and whose bin plane fits a
+    block's shared memory: one block per (grid, bin) owns that plane in
+    shared memory, keeps the taps of its bin and sign, and stores the
+    plane once into the uninitialised grids: no memset, no global atomic,
+    one launch per ``BATCH_MAX_SAMPLES`` rows. The single grid's two with a row offset:
+    'direct', two scalar reductions per event into the zeroed grids, one
+    launch per ``BATCH_MAX_SAMPLES`` rows; 'vector', one ``float2``
+    reduction per event into its grid's two zeroed bins-innermost
+    accumulators and a second kernel that adds them into the uninitialised
+    grids, launched in chunks of ``voxel_batched_chunk`` rows so that the
+    scratch stays in the L2. ``route`` forces any of them ('private' only
+    where the plane fits; elsewhere it raises ``ConfigurationError``).
     """
     dev = _check("voxel_scatter_batched", (xs, ys, t_norm, ps),
                  (_I32, _I32, _F32, _F32))
@@ -451,16 +501,21 @@ def voxel_scatter_batched(xs, ys, t_norm, ps, B: int, H: int, W: int,
         raise ConfigurationError(
             "voxel_scatter_batched: inputs must share one (S, N) shape")
     S, n = xs.shape
+    allowed = {"vector", "direct"}
+    if voxel_private_fits(H, W):
+        allowed.add("private")
     route = _pick("voxel_scatter_batched", route,
-                  voxel_batched_route(S, n, B, H, W, split),
-                  {"vector", "direct"})
+                  voxel_batched_route(S, n, B, H, W, split), allowed)
     if dev.type == "cpu":
         return voxel_scatter_batched_plain(xs, ys, t_norm, ps, B, H, W, split)
     G = 2 if split else 1
     if S == 0 or n == 0 or B == 0:
         return torch.zeros((S, G * B, H, W), dtype=_F32, device=dev)
     lib = build.library()
-    if route == "vector":
+    if route == "private":
+        chunk = BATCH_MAX_SAMPLES
+        out = torch.empty((S, G * B, H, W), dtype=_F32, device=dev)
+    elif route == "vector":
         Bp = _voxel_scratch_bins(B)
         chunk = voxel_batched_chunk(B, H, W, split)
         acc = torch.zeros((min(S, chunk) * G, 2, H * W, Bp), dtype=_F32,
@@ -477,7 +532,10 @@ def voxel_scatter_batched(xs, ys, t_norm, ps, B: int, H: int, W: int,
         ptrs = (xs[s0:s1].data_ptr(), ys[s0:s1].data_ptr(),
                 t_norm[s0:s1].data_ptr(), ps[s0:s1].data_ptr(), s1 - s0, n,
                 B, H, W, int(split))
-        if route == "vector":
+        if route == "private":
+            rc = lib.voxel_scatter_batched_private(
+                *ptrs, out[s0:s1].data_ptr(), _stream())
+        elif route == "vector":
             if s0:
                 acc.zero_()
             rc = lib.voxel_scatter_batched_vector(
@@ -1445,6 +1503,7 @@ KERNEL_WRAPPERS = {
     "voxel_scatter:direct": voxel_scatter,
     "voxel_scatter_batched:vector": voxel_scatter_batched,
     "voxel_scatter_batched:direct": voxel_scatter_batched,
+    "voxel_scatter_batched:private": voxel_scatter_batched,
     "voxel_tiles_scatter:private": voxel_tiles_scatter,
     "voxel_tiles_scatter:direct": voxel_tiles_scatter,
     "flat_scatter:vector": flat_scatter,

@@ -99,6 +99,24 @@ measurement (with ``--out``, also written to that file):
    direct and vector routes as shipped, the vector kernels in launches of
    1 to S samples, and one private plane per (sample, channel)
    (``plane_variant``). ``VECTOR_MIN_SAVED_BILINEAR`` comes from these rows.
+12. The batched voxel routes (``PRIVATE_MIN_GRID_BYTES`` comes from
+   these rows): at the paths' shapes
+   (DAVIS240 in 104 windows of 20,000 and 8 of 2^18; the trainers' split
+   rows, ``fit``'s 8 x 32,768 at 184x240, the flow batch's 8 x 65,536
+   and 96 E2VID windows of 12,288 at 128x128) and a sweep of rows and
+   events around them: the memset of the grids alone, the direct, vector
+   and private routes as shipped, the private kernel over its layouts
+   (one or both signs' planes a block, bands of 1/1 to 1/4 of the rows,
+   256 to 1024 threads; at the paths' shapes also launched with no events:
+   zeroing and storing alone), and, for more than 16 rows, the direct
+   kernel launched on chunks of rows whose grids are zeroed just before
+   (so that they stay in the L2). At the paths' shapes the private
+   kernel's knobs (``voxel_private_variant``): 4 or 8 slots a thread a
+   pass, ``t_norm`` read as ``float4``, per-thread stores instead of the
+   bulk copy, and no store at all. Around ``PRIVATE_MIN_GRID_BYTES``: the
+   three routes as shipped at 24-80 DAVIS240 rows and 40-80 split rows at
+   128x128, of 4,096 to 65,536 events. ``--cases`` picks its sections:
+   ``paths``, ``sweep``, ``knobs``, ``rule``.
 
 Rows marked "as shipped" time the package's own kernel through its
 wrapper; the others time a variant (the variant with the shipped parameters
@@ -169,6 +187,8 @@ def build_variants(build):
             "cluster_wide_occupancy": [I, I, I, I, P],
             "band_variant": [P, P, P, L, L, L, I, I, I, I, I, I, P, P],
             "plane_variant": [P, P, P, L, L, L, I, I, I, P, P],
+            "voxel_private_variant": [P, P, P, P, L, L, I, I, I, I, I, I, I,
+                                      I, I, P, P],
     }.items():
         getattr(dll, name).argtypes = argtypes
         getattr(dll, name).restype = I
@@ -200,13 +220,13 @@ def sass_reductions(build, lib_path):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write the JSON lines here")
-    parser.add_argument("--parts", default="1,2,3,4,5,6,7,8,9,10,11",
+    parser.add_argument("--parts", default="1,2,3,4,5,6,7,8,9,10,11,12",
                         help="comma-separated parts to run (default: all)")
     parser.add_argument("--cases", default="",
                         help="part 9: only the image cases whose label holds "
                         "one of these comma-separated words (no patches); "
                         "part 11: only these sections (floor, few, sweep, "
-                        "many)")
+                        "many); part 12: paths, sweep, knobs, rule")
     opts = parser.parse_args()
     try:
         return run({int(k) for k in opts.parts.split(",")},
@@ -1124,6 +1144,177 @@ def run(parts, only=()) -> int:
                           vector_chunks(x, y, w, 4, H, W, c), x, y, w, H, W)
                 emit(**tag, route="vector", chunk=c, launches=-(-S // c),
                      ok=ok, ms=T(lambda: vector_chunks(x, y, w, 4, H, W, c)))
+
+    # ---- 12. the batched voxel routes: private layouts, chunked direct ---
+    if 12 in parts:
+        def voxel_private(args, bins, h, wd, split, layout, ahead=4, mode=0,
+                          m=None):
+            """The private kernel's variant with run-time knobs
+            (``voxel_private_variant``; ahead 4 and mode 0 are the package's
+            kernel) at an explicit ``(planes, rows, threads)``: bands of
+            ``rows`` rows a block; ``m = 0`` launches it with no events
+            (zero and store alone)."""
+            S = args[0].shape[0]
+            out = torch.empty((S, (2 if split else 1) * bins, h, wd),
+                              dtype=f32, device=dev)
+            build.check(vlib.voxel_private_variant(
+                *ptrs(*args), S, args[0].shape[1] if m is None else m, bins,
+                h, wd, int(split), *layout, ahead, mode, out.data_ptr(),
+                stream()), f"private {layout} {ahead} {mode}")
+            return out
+
+        def direct_chunks(args, bins, h, wd, split, c):
+            """The direct kernel on c rows a launch, each chunk of grids
+            zeroed just before its launch, so that it stays in the L2."""
+            S, m = args[0].shape
+            out = torch.empty((S, (2 if split else 1) * bins, h, wd),
+                              dtype=f32, device=dev)
+            for s0 in range(0, S, c):
+                s1 = min(S, s0 + c)
+                out[s0:s1].zero_()
+                build.check(lib.voxel_scatter_batched(
+                    *(a[s0:s1].data_ptr() for a in args), s1 - s0, m, bins,
+                    h, wd, int(split), out[s0:s1].data_ptr(), stream()),
+                    f"direct chunk={c}")
+            return out
+
+        def layouts(h, wd, split, full):
+            out = []
+            for planes in (1, 2) if split else (1,):
+                for rows in sorted({h, -(-h // 2), -(-h // 3), -(-h // 4)},
+                                   reverse=True):
+                    if planes * rows * wd * 4 > cs.SHARED_MAX_BYTES or (
+                            not full and rows == -(-h // 3)):
+                        continue
+                    for threads in (256, 512, 1024) if full else (512, 1024):
+                        out.append((planes, rows, threads))
+            return out
+
+        vev = voxel_stream(chip_smoke.SENSOR, chip_smoke.SEED + 12)
+        cases = []
+        for m in (chip_smoke.FIXED_N, chip_smoke.FIXED_N_VECTOR):
+            S = N // m
+            win = [a[:S * m].reshape(S, m) for a in vev]
+            cases.append((f"DAVIS240, {S} windows of {m}", True,
+                          cs.voxel_inputs_batched(*win, Bn, (Hs, Ws)),
+                          (Hs, Ws), False))
+        prng = np.random.default_rng(chip_smoke.SEED + 12)
+        for label, S, m, sensor, full in (
+                ("fit", 8, 32768, (184, 240), True),
+                ("flow batch", 8, 65536, (128, 128), True),
+                ("E2VID windows", 96, 12288, (128, 128), True),
+                ("sweep", 8, 8192, (184, 240), False),
+                ("sweep", 8, 131072, (184, 240), False),
+                ("sweep", 8, 4096, (128, 128), False),
+                ("sweep", 8, 16384, (128, 128), False),
+                ("sweep", 32, 12288, (128, 128), False),
+                ("sweep", 32, 65536, (128, 128), False),
+                ("sweep", 96, 4096, (128, 128), False),
+                ("sweep", 96, 65536, (128, 128), False)):
+            ev, mask = chip_smoke.padded_rows(torch, prng, S, m, sensor)
+            rows_ = [a.contiguous() for a in ev.unbind(-1)]
+            cases.append((label, full, cs.voxel_inputs_batched(
+                *rows_, Bn, sensor, mask=mask, split=True), sensor, True))
+        for S, m in ((8, 4096), (8, 20000), (8, 65536), (32, 4096),
+                     (32, 20000), (32, 65536), (32, 262144), (104, 4096),
+                     (104, 65536)):
+            # each row a time-sorted draw of the stream's events
+            idx = torch.sort(torch.as_tensor(prng.integers(0, N, (S, m)),
+                                             device=dev), dim=1).values
+            win = [a[idx] for a in vev]
+            cases.append(("sweep", False, cs.voxel_inputs_batched(
+                *win, Bn, (Hs, Ws)), (Hs, Ws), False))
+        for label, full, args, (h, wd), split in cases:
+            routes = sect("paths" if full else "sweep")
+            knobs = full and sect("knobs")
+            if not (routes or knobs):
+                continue
+            S, m = args[0].shape
+            G = 2 if split else 1
+            ref = cs.voxel_scatter_batched_plain(*args, Bn, h, wd, split)
+            tag = dict(part=12, shape=label, rows=S, events=m, bins=Bn,
+                       sensor=[h, wd], split=split,
+                       dispatch=cs.voxel_batched_route(S, m, Bn, h, wd,
+                                                       split))
+            picks = [(1, h, 1024), (1, -(-h // 2), 1024),
+                     (1, -(-h // 2), 512)]
+            if split:
+                picks.append((2, h, 1024) if 2 * h * wd * 4 <=
+                             cs.SHARED_MAX_BYTES else (2, -(-h // 3), 1024))
+            for layout in picks if knobs else ():
+                for ahead in (4, 8):
+                    for mode in (0, 1, 2, 3, 4, 6):
+                        if mode & 2 and m % 4:
+                            continue
+                        run = lambda: voxel_private(args, Bn, h, wd, split,
+                                                    layout, ahead, mode)
+                        ok = bool(mode & 4) or agrees(
+                            f"private knobs {layout} {ahead} {mode} {tag}",
+                            run(), ref)
+                        emit(**tag, route="private knobs",
+                             layout=list(layout), ahead=ahead, mode=mode,
+                             ok=ok, ms=T(run))
+            if not routes:
+                continue
+            emit(**tag, what="torch.zeros of the grids alone",
+                 ms=T(lambda: torch.zeros((S, G * Bn, h, wd), dtype=f32,
+                                          device=dev)))
+            for r in ("direct", "vector", "private"):
+                run = lambda: cs.voxel_scatter_batched(*args, Bn, h, wd,
+                                                       split=split, route=r)
+                ok = agrees(f"batched voxel {r} {tag}", run(), ref)
+                emit(**tag, route=f"{r}, as shipped", ok=ok, ms=T(run))
+            for layout in layouts(h, wd, split, full):
+                ok = agrees(f"batched voxel private {layout} {tag}",
+                            voxel_private(args, Bn, h, wd, split, layout),
+                            ref)
+                emit(**tag, route="private variant", layout=list(layout),
+                     ok=ok,
+                     ms=T(lambda: voxel_private(args, Bn, h, wd, split,
+                                                layout)),
+                     ms_no_events=T(lambda: voxel_private(
+                         args, Bn, h, wd, split, layout, m=0))
+                     if full else None)
+            if full and S > 16:
+                for c in (8, 16, 24, 40, 52):
+                    ok = agrees(f"batched voxel direct chunk={c} {tag}",
+                                direct_chunks(args, Bn, h, wd, split, c), ref)
+                    emit(**tag, route="direct in chunks", chunk=c, ok=ok,
+                         ms=T(lambda: direct_chunks(args, Bn, h, wd, split,
+                                                    c)))
+        # around PRIVATE_MIN_GRID_BYTES: the routes as shipped, 24-80 rows
+        for (h, wd), split, counts, ms_ in (
+                ((Hs, Ws), False, (24, 28, 40, 48, 56, 64, 80),
+                 (4096, 20000, 65536)),
+                ((128, 128), True, (40, 48, 64, 80), (4096, 12288, 65536))):
+            for S in counts if sect("rule") else ():
+                for m in ms_:
+                    if split:
+                        ev, mask = chip_smoke.padded_rows(torch, prng, S, m,
+                                                          (h, wd))
+                        args = cs.voxel_inputs_batched(
+                            *(a.contiguous() for a in ev.unbind(-1)), Bn,
+                            (h, wd), mask=mask, split=True)
+                    else:
+                        idx = torch.sort(torch.as_tensor(
+                            prng.integers(0, N, (S, m)), device=dev),
+                            dim=1).values
+                        args = cs.voxel_inputs_batched(
+                            *(a[idx] for a in vev), Bn, (h, wd))
+                    ref = cs.voxel_scatter_batched_plain(*args, Bn, h, wd,
+                                                         split)
+                    tag = dict(part=12, shape="rule", rows=S, events=m,
+                               bins=Bn, sensor=[h, wd], split=split,
+                               grid_mb=S * (2 if split else 1) * Bn * h * wd
+                               * 4 / 2 ** 20,
+                               dispatch=cs.voxel_batched_route(
+                                   S, m, Bn, h, wd, split))
+                    for r in ("direct", "vector", "private"):
+                        run = lambda: cs.voxel_scatter_batched(
+                            *args, Bn, h, wd, split=split, route=r)
+                        ok = agrees(f"batched voxel {r} {tag}", run(), ref)
+                        emit(**tag, route=f"{r}, as shipped", ok=ok,
+                             ms=T(run))
 
     print(chip_smoke.card_line(), flush=True)
     if failed:

@@ -1128,9 +1128,173 @@ plane_variant_kernel(const float* __restrict__ x, const float* __restrict__ y,
   store_wait();
 }
 
+// voxel_batched_private_kernel with knobs: bands of `rows` rows a block,
+// `planes` = 2: both signs' planes of a split row in one block (half the
+// reads of t_norm; on an H100 0.0475 against one plane's 0.0490 ms at 96
+// split rows of 12,288 into 128x128, 0.0296 against 0.0274 at 8 of
+// 65,536, and no path sends split rows past 32 MB of grids, so the package
+// keeps one plane a block), A slots of a row a thread per pass (A = 4 is
+// the package's), mode bit 1: t_norm read as float4 (four neighbouring
+// slots a load; n a multiple of 4), bit 0: the planes stored by every
+// thread (float4 where aligned) instead of one bulk copy, bit 2: no store
+// at all (what zeroing and accumulating cost alone).
+template <int A>
+__global__ void __launch_bounds__(1024)
+voxel_private_variant_kernel(const int* __restrict__ xs,
+                             const int* __restrict__ ys,
+                             const float* __restrict__ t_norm,
+                             const float* __restrict__ ps, long long n, int B,
+                             int H, int W, int split, int planes, int rows,
+                             int mode, float* __restrict__ out) {
+  extern __shared__ __align__(16) float bin[];
+  const int bands = (H + rows - 1) / rows;
+  const int G = split ? 2 : 1;
+  long long id = blockIdx.x;
+  const int r0 = static_cast<int>(id % bands) * rows;
+  id /= bands;
+  const int b = static_cast<int>(id % B);
+  id /= B;
+  const int q = static_cast<int>(id % (G / planes));
+  const long long s = id / (G / planes);
+  const int r1 = min(H, r0 + rows);
+  const int span = rows * W;
+  zero_shared(bin, planes * span);
+  __syncthreads();
+  const float own = static_cast<float>(b);
+  const float* const tr = t_norm + s * n;
+  const long long stride = blockDim.x;
+  const bool vec = mode & 2;
+  for (long long pass = 0; pass < n; pass += stride * A) {
+    float tv[A];
+    long long iv[A];
+#pragma unroll
+    for (int u = 0; u < A; ++u)
+      iv[u] = vec ? pass + 4 * (threadIdx.x + (u / 4) * stride) + u % 4
+                  : pass + threadIdx.x + u * stride;
+    if (vec) {
+#pragma unroll
+      for (int j = 0; j < A / 4; ++j) {
+        const long long e = iv[4 * j];
+        const float4 v = e < n ? *reinterpret_cast<const float4*>(tr + e)
+                               : make_float4(-100.0f, -100.0f, -100.0f,
+                                             -100.0f);
+        tv[4 * j] = v.x;
+        tv[4 * j + 1] = v.y;
+        tv[4 * j + 2] = v.z;
+        tv[4 * j + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < A; ++u) tv[u] = iv[u] < n ? tr[iv[u]] : -100.0f;
+    }
+    int xv[A], yv[A];
+    float pv[A];
+#pragma unroll
+    for (int u = 0; u < A; ++u) {
+      const float b0 = floorf(tv[u]);
+      const bool want = b0 == own || b0 + 1.0f == own;
+      const long long i = s * n + iv[u];
+      pv[u] = want ? ps[i] : 0.0f;
+      xv[u] = want ? xs[i] : 0;
+      yv[u] = want ? ys[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < A; ++u) {
+      float p = pv[u];
+      if (p == 0.0f) continue;
+      int k = 0;
+      if (split) {
+        const int neg = p < 0.0f;
+        if (planes == 2) {
+          k = neg;
+        } else if (neg != q) {
+          continue;
+        }
+        p = fabsf(p);
+      }
+      const int yi = yv[u];
+      const int xi = xv[u];
+      if (yi < r0 || yi >= r1 || xi < 0 || xi >= W) continue;
+      const float b0 = floorf(tv[u]);
+      const float fb = tv[u] - b0;
+      atomicAdd(bin + k * span + (yi - r0) * W + xi,
+                b0 == own ? p * (1.0f - fb) : p * fb);
+    }
+  }
+  if (mode & 4) return;
+  const long long grid = static_cast<long long>(B) * H * W;
+  float* const o = out + (s * G + q * planes) * grid +
+                   static_cast<long long>(b) * H * W +
+                   static_cast<long long>(r0) * W;
+  const int live = (r1 - r0) * W;
+  if (mode & 1) {
+    __syncthreads();
+    for (int k = 0; k < planes; ++k) {
+      float* g = o + k * grid;
+      const float* sm = bin + k * span;
+      if (((reinterpret_cast<unsigned long long>(g) |
+            static_cast<unsigned long long>(__cvta_generic_to_shared(sm))) &
+           15ULL) == 0) {
+        for (int i = threadIdx.x; i < live / 4; i += blockDim.x)
+          reinterpret_cast<float4*>(g)[i] =
+              reinterpret_cast<const float4*>(sm)[i];
+        for (int i = (live & ~3) + threadIdx.x; i < live; i += blockDim.x)
+          g[i] = sm[i];
+      } else {
+        for (int i = threadIdx.x; i < live; i += blockDim.x) g[i] = sm[i];
+      }
+    }
+    return;
+  }
+  fence_async_proxy();
+  __syncthreads();
+  for (int k = 0; k < planes; ++k)
+    store_start(o + k * grid, bin + k * span, live);
+  store_wait();
+}
+
 }  // namespace
 
 extern "C" {
+
+// The batched private voxel kernel's knobs (voxel_private_variant_kernel):
+// ahead 4 or 8 slots a thread per pass; mode as the kernel's.
+int voxel_private_variant(const void* xs, const void* ys, const void* t_norm,
+                          const void* ps, long long S, long long n, int B,
+                          int H, int W, int split, int planes, int rows,
+                          int threads, int ahead, int mode, void* out,
+                          void* stream) {
+  static const cudaError_t a4 =
+      allow_max_shared(voxel_private_variant_kernel<4>);
+  static const cudaError_t a8 =
+      allow_max_shared(voxel_private_variant_kernel<8>);
+  if (a4 != cudaSuccess || a8 != cudaSuccess)
+    return static_cast<int>(a4 != cudaSuccess ? a4 : a8);
+  const int G = split ? 2 : 1;
+  const long long smem = 4LL * planes * rows * W;
+  if (S > 65535 || planes < 1 || G % planes != 0 || rows < 1 || rows > H ||
+      threads < 32 || threads > 1024 || threads % 32 != 0 ||
+      smem > kMaxSharedBytes || (ahead != 4 && ahead != 8) ||
+      ((mode & 2) && n % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = S * (G / planes) * B * ((H + rows - 1) / rows);
+  if (blocks <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned int nb = static_cast<unsigned int>(blocks);
+  const size_t sm = static_cast<size_t>(smem);
+  if (ahead == 4) {
+    voxel_private_variant_kernel<4><<<nb, threads, sm, st>>>(
+        static_cast<const int*>(xs), static_cast<const int*>(ys),
+        static_cast<const float*>(t_norm), static_cast<const float*>(ps), n,
+        B, H, W, split, planes, rows, mode, static_cast<float*>(out));
+  } else {
+    voxel_private_variant_kernel<8><<<nb, threads, sm, st>>>(
+        static_cast<const int*>(xs), static_cast<const int*>(ys),
+        static_cast<const float*>(t_norm), static_cast<const float*>(ps), n,
+        B, H, W, split, planes, rows, mode, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // band_variant: bands of `rows` rows, `threads` a block, the rows in the
 // output (mode 0) or in shared memory (1: per-thread stores, 2: bulk).

@@ -316,17 +316,119 @@ def test_batched_vector_layout_matches_plain(rng, B, split):
                1e-5)
 
 
+def batched_private_layout(xs, ys, t_norm, ps, B, H, W, split):
+    """What the batched private route's kernel computes, in numpy: block
+    (g, b) of ``voxel_batched_private_kernel`` (grid g = s * G + q) keeps,
+    of row s's events, the taps whose bin is b by the kernel's float tests
+    (a NaN, infinite or huge bin matches none) and, with ``split``, whose
+    sign is q's (q = 0: p > 0, 1: p < 0), sums them in its own plane and
+    stores it once. Every output element must be stored by exactly one
+    block."""
+    S, n = xs.shape
+    G = 2 if split else 1
+    out = np.full((S, G, B, H, W), np.nan)
+    stores = np.zeros((S, G, B, H, W), int)
+    one = np.float32(1.0)
+    for s in range(S):
+        t = t_norm[s]
+        b0 = np.floor(t)
+        fb = t - b0
+        for q in range(G):
+            for b in range(B):
+                own = np.float32(b)
+                want = (b0 == own) | (b0 + one == own)
+                p = np.where(want, ps[s], 0.0)
+                keep = (p != 0) & (ys[s] >= 0) & (ys[s] < H) & (xs[s] >= 0) \
+                    & (xs[s] < W)
+                if split:
+                    keep &= (p < 0) == bool(q)
+                    p = np.abs(p)
+                val = np.where(b0 == own, p * (1 - fb), p * fb)
+                plane = np.zeros((H, W))
+                np.add.at(plane, (ys[s][keep], xs[s][keep]), val[keep])
+                out[s, q, b] = plane
+                stores[s, q, b] += 1
+    assert (stores == 1).all()
+    return out.reshape(S, G * B, H, W)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("B", [1, 2, 5, 9])
+def test_batched_private_ownership_matches_plain_and_jax(rng, B, split):
+    """The private route's ownership (``batched_private_layout``: one
+    (grid, bin) plane a block) to 1e-5 of the scale: on kernel inputs as no
+    wrapper makes them (off-image coordinates, NaN, +-inf and huge bins,
+    zero weights) and on masked rows with per-row ``t0``/``t1`` overrides
+    (events pinned to either edge bin, ``t_norm = B-1`` exactly) against
+    the plain version; on masked rows (an all-masked row, a row of one
+    event) also against JAX's ``jax.vmap(voxel_matmul)`` in interpret mode
+    (with ``split``, its vmap over the two polarity weightings). JAX's
+    kernel truncates folded weights to bf16 scale (its ``voxel_matmul``
+    comment), so the pinned rows are held against the plain version
+    only."""
+    S, n, H, W = 3, 300, 7, 6
+    raw = raw_rows(rng, S, n, B, H, W)
+    plain = cs.voxel_scatter_batched(*raw, B, H, W, split=split)
+    with np.errstate(invalid="ignore"):
+        got = batched_private_layout(*(a.numpy() for a in raw), B, H, W,
+                                     split)
+    assert_rel(plain, got, 1e-5)
+    xs, ys, ts, ps, mask, t0, t1, _ = rows(rng, B=B)
+    weights = [(ps > 0).astype(np.float32), (ps <= 0).astype(np.float32)] \
+        if split else [ps]
+    ref = np.concatenate([np.asarray(jax_batched(
+        "masked", B, xs, ys, ts, w, mask, t0, t1)(
+            jnp.asarray(ts), jnp.asarray(w))) for w in weights], 1)
+    for over in ({}, {"t0": torch.as_tensor(t0), "t1": torch.as_tensor(t1)}):
+        args = cs.voxel_inputs_batched(
+            torch.as_tensor(xs), torch.as_tensor(ys), torch.as_tensor(ts),
+            torch.as_tensor(ps), B, SENSOR, mask=torch.as_tensor(mask),
+            split=split, **over)
+        plain = cs.voxel_scatter_batched(*args, B, *SENSOR, split=split)
+        got = batched_private_layout(*(a.numpy() for a in args), B,
+                                     *SENSOR, split)
+        assert_rel(plain, got, 1e-5)
+        if not over:
+            assert_rel(plain, ref, 1e-5)
+            assert_rel(got, ref, 1e-5)
+
+
+def test_batched_private_planes_fit_a_block():
+    """A plane past 227 KB never goes 'private', and forcing it there
+    raises; every plane that fits, the 128x128, 180x240 and 184x240 of the
+    paths among them, serves the route."""
+    for H, W in ((128, 128), (180, 240), (184, 240), (241, 241), (7, 6)):
+        assert cs.voxel_private_fits(H, W)
+        assert H * W * 4 <= cs.SHARED_MAX_BYTES
+    for H, W in ((242, 241), (480, 640), (720, 1280)):
+        assert not cs.voxel_private_fits(H, W)
+        assert cs.voxel_batched_route(104, 20000, 5, H, W) != "private"
+        assert cs.voxel_batched_route(96, 12288, 5, H, W, True) != "private"
+        xs = torch.zeros((2, 3), dtype=torch.int32)
+        t = torch.zeros((2, 3))
+        with pytest.raises(P.errors.ConfigurationError):
+            cs.voxel_scatter_batched(xs, xs, t, t, 5, H, W, route="private")
+    # at the boundary (241 x 241 x 4 B = 232,324 B) the route serves
+    xs, ys, t, ps = raw_rows(np.random.default_rng(3), 2, 40, 2, 241, 241)
+    assert torch.equal(
+        cs.voxel_scatter_batched(xs, ys, t, ps, 2, 241, 241, route="private"),
+        cs.voxel_scatter_batched_plain(xs, ys, t, ps, 2, 241, 241))
+
+
 # ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
 
 def test_batched_route_and_chunk_by_shape():
-    """``voxel_route``'s rule per row and per launch; the scratch of one
-    vector launch stays within 16 MB."""
+    """``voxel_route``'s rule per row and per launch, and 'private' where
+    it says 'direct' for grids of at least 32 MB whose plane fits 227 KB;
+    'vector' keeps what it takes; one grid keeps ``voxel_route``'s answer;
+    the scratch of one vector launch stays within 16 MB."""
     for n in (4096, 262144, 1 << 21):
-        for sensor in ((180, 240), (480, 640), (720, 1280)):
-            assert cs.voxel_batched_route(1, n, 5, *sensor) == \
-                cs.voxel_route(n, 5, *sensor)
+        for sensor in ((180, 240), (480, 640), (720, 1280), (128, 128)):
+            for B in (5, 9, 200):
+                assert cs.voxel_batched_route(1, n, B, *sensor) == \
+                    cs.voxel_route(n, B, *sensor)
     assert cs.voxel_batched_chunk(5, 128, 128) == 21
     assert cs.voxel_batched_chunk(5, 180, 240) == 8
     assert cs.voxel_batched_chunk(5, 128, 128, split=True) == 10
@@ -335,26 +437,47 @@ def test_batched_route_and_chunk_by_shape():
         rows_ = cs.voxel_batched_chunk(B, H, W, split)
         assert rows_ * cs._voxel_row_scratch(B, H, W, split) * 4 <= \
             cs.VECTOR_MAX_SCRATCH_BYTES or rows_ == 1
-    # the shapes of the smoke's voxel_batched path and the trainers'
-    assert cs.voxel_batched_route(104, 20000, 5, 180, 240) == "direct"
+    # the shapes of the smoke's voxel_batched path and the trainers', each
+    # to the route that measured fastest there (tune part 12)
+    assert cs.voxel_batched_route(104, 20000, 5, 180, 240) == "private"
+    assert cs.voxel_batched_route(96, 12288, 5, 128, 128, True) == "private"
     assert cs.voxel_batched_route(8, 1 << 18, 5, 180, 240) == "vector"
     assert cs.voxel_batched_route(8, 32768, 5, 184, 240, True) == "direct"
     assert cs.voxel_batched_route(8, 65536, 5, 128, 128, True) == "direct"
     assert cs.voxel_batched_route(8, 65536, 5, 128, 128) == "vector"
     assert cs.voxel_batched_route(2, 65536, 5, 128, 128) == "direct"
+    # the rule's edge: 32 MB of grids (tune part 12's "rule" rows)
+    assert cs.voxel_batched_route(32, 4096, 5, 180, 240) == "direct"
+    assert cs.voxel_batched_route(32, 20000, 5, 180, 240) == "direct"
+    assert cs.voxel_batched_route(38, 4096, 5, 180, 240) == "direct"
+    assert cs.voxel_batched_route(39, 4096, 5, 180, 240) == "private"
+    assert cs.voxel_batched_route(48, 4096, 5, 128, 128, True) == "direct"
+    assert cs.voxel_batched_route(51, 12288, 5, 128, 128, True) == "direct"
+    assert cs.voxel_batched_route(52, 12288, 5, 128, 128, True) == "private"
+    assert cs.voxel_batched_route(102, 4096, 5, 128, 128) == "direct"
+    assert cs.voxel_batched_route(103, 4096, 5, 128, 128) == "private"
+    # where the old rule takes 'vector', it keeps it at any size: 32 and
+    # 104 DAVIS240 windows of 2^18 (vector 0.1936 ms, private 0.2303)
+    assert cs.voxel_batched_route(32, 1 << 18, 5, 180, 240) == "vector"
+    assert cs.voxel_batched_route(104, 1 << 18, 5, 180, 240) == "vector"
+    # past 227 KB a plane keeps the single grid's rule at any size
+    assert cs.voxel_batched_route(104, 20000, 5, 480, 640) == "direct"
 
 
 def test_batched_wrapper_checks_and_launch_count_keys(rng):
     xs, ys, t, ps = raw_rows(rng, 2, 50, 3, 5, 6)
-    for route in ("vector", "direct"):
+    for route in ("vector", "direct", "private"):
         assert torch.equal(
             cs.voxel_scatter_batched(xs, ys, t, ps, 3, 5, 6, route=route),
             cs.voxel_scatter_batched_plain(xs, ys, t, ps, 3, 5, 6))
         name = f"voxel_scatter_batched:{route}"
         assert name in cs.ROUTES
         assert cs.KERNEL_WRAPPERS[name] is cs.voxel_scatter_batched
+        assert cs.launch_counts()[name] >= 0
     with pytest.raises(P.errors.ConfigurationError):
-        cs.voxel_scatter_batched(xs, ys, t, ps, 3, 5, 6, route="private")
+        cs.voxel_scatter_batched(xs, ys, t, ps, 3, 5, 6, route="single")
+    with pytest.raises(P.errors.ConfigurationError):
+        cs.voxel_scatter_batched(xs, ys, t, ps, 3, 480, 640, route="private")
     with pytest.raises(P.errors.ConfigurationError):
         cs.voxel_scatter_batched(xs[:1], ys, t, ps, 3, 5, 6)
     with pytest.raises(P.errors.ConfigurationError):

@@ -1266,15 +1266,16 @@ def _voxel_rows(cuda, gen, S, n, H, W):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("split", [False, True])
-@pytest.mark.parametrize("route", ["vector", "direct"])
+@pytest.mark.parametrize("route", ["vector", "direct", "private"])
 @pytest.mark.parametrize("B", [1, 5, 9])
 def test_batched_voxel_matches_plain_and_single_launches(cuda, gen, route, B,
                                                          split):
     """S rows on each route, one launch, against the plain version and
     against S single ``voxel_scatter`` launches (2S with the polarity
-    split): whole rows, masks with an all-masked row and a row of one
-    event, per-row ``t1`` overrides that pin a third of each row to
-    ``t_norm = B-1`` exactly, and NaN, +-inf and huge bins."""
+    split; on the same route, for 'private' on ``voxel_route``'s): whole
+    rows, masks with an all-masked row and a row of one event, per-row
+    ``t1`` overrides that pin a third of each row to ``t_norm = B-1``
+    exactly, and NaN, +-inf and huge bins."""
     S, n, H, W = 23, 20_001, 45, 67
     xs, ys, ts, ps = _voxel_rows(cuda, gen, S, n, H, W)
     mask = torch.rand(S, n, device=cuda) > 0.3
@@ -1303,14 +1304,51 @@ def test_batched_voxel_matches_plain_and_single_launches(cuda, gen, route, B,
         x, y, t, p = args
         weights = ((torch.where(p > 0, p, 0.0), torch.where(p < 0, -p, 0.0))
                    if split else (p,))
+        one = None if route == "private" else route
         single = torch.stack([cs.voxel_scatter(x[s], y[s], t[s], w[s], B, H,
-                                               W, route=route)
+                                               W, route=one)
                               for s in range(S) for w in weights])
         assert_rel(got, single.view(got.shape))
     masked = cs.voxel_scatter_batched(*cases[1], B, H, W, split=split,
                                       route=route)
     assert float(masked[1].abs().max()) == 0.0
     assert abs(float(masked[2].sum())) == 1.0      # one event
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H, W, split, S", [(128, 128, True, 30),
+                                            (180, 240, False, 40),
+                                            (184, 240, True, 20)])
+def test_batched_voxel_private_at_the_paths_planes(cuda, gen, H, W, split,
+                                                   S):
+    """The private route at the planes the paths send it, with more blocks
+    than the card's 132 SMs: the split 128x128 grids (30 rows: 300
+    blocks), the 180x240 grids (40 rows: 200 blocks) and the split 184x240
+    grids (20 rows: 200 blocks), one launch each, against the plain
+    version and S (2S) single launches; the rows' dispatch."""
+    B, n = 5, 12_288
+    xs, ys, ts, ps = _voxel_rows(cuda, gen, S, n, H, W)
+    mask = torch.rand(S, n, device=cuda) > 0.25
+    mask[3] = False
+    args = cs.voxel_inputs_batched(xs, ys, ts, ps, B, (H, W), mask=mask,
+                                   split=split)
+    name = "voxel_scatter_batched:private"
+    before = cs.launch_counts()[name]
+    got = cs.voxel_scatter_batched(*args, B, H, W, split=split,
+                                   route="private")
+    assert cs.launch_counts()[name] == before + 1
+    assert_rel(got, cs.voxel_scatter_batched_plain(*args, B, H, W, split))
+    x, y, t, p = args
+    weights = ((torch.where(p > 0, p, 0.0), torch.where(p < 0, -p, 0.0))
+               if split else (p,))
+    single = torch.stack([cs.voxel_scatter(x[s], y[s], t[s], w[s], B, H, W)
+                          for s in range(S) for w in weights])
+    assert_rel(got, single.view(got.shape))
+    assert float(got[3].abs().max()) == 0.0
+    G = 2 if split else 1
+    assert cs.voxel_batched_route(S, n, B, H, W, split) == (
+        "private" if S * G * B * H * W * 4 >= cs.PRIVATE_MIN_GRID_BYTES
+        else "direct")
 
 
 @pytest.mark.cuda
