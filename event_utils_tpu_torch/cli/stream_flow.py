@@ -8,7 +8,13 @@ Every k-event window yields a dense ``(2, H, W)`` flow field in px/s,
 written as ``flow_NNNN.npy`` with the window's last stamp in
 ``timestamps.txt``, the layout the flow-visualization CLIs read; invalid
 ROIs are zeroed before they seed the next window. ``metrics.json`` holds
-the sustained throughput (Mev/s ingested and solved, windows/s).
+the sustained throughput (Mev/s ingested and solved, windows/s) and, under
+``"spans"``, where a window's host time went: the program's spans
+(``utils.profiling``, on for the run) as mean ms a window by name
+(``cmax.solve``, ``cmax.bucket``, ``cmax.descent``, ``cmax.grad``,
+``loader.fill``, ...) and ``h2d_mb_per_window``, the MB the solver copies
+from the host to the device a window. Spans time the host's issue of the
+work and never wait for the card.
 ``--render`` writes ``flow_NNNN.png`` HSV renderings with the standard
 library (``utils.util.write_rgb_png``; JAX's CLI uses matplotlib, which
 writes RGBA with the same levels).
@@ -129,8 +135,9 @@ def main(argv=None):
     import numpy as np
 
     from .._device import resolve_device, to_numpy
-    from ..contrast_max.events_cmax import grid_cmax_batched
+    from ..contrast_max.events_cmax import H2D_BYTES, grid_cmax_batched
     from ..ops.denoise import background_activity_filter
+    from ..utils import profiling
     from ..utils.util import flow2bgr_np, write_rgb_png
 
     device = resolve_device(args.device)
@@ -140,6 +147,8 @@ def main(argv=None):
     stamps = []
     n_events = 0
     n_windows = 0
+    span_s, h2d_bytes = {}, 0
+    spans_were_on = profiling.enable_spans(True)
     t_start = time.perf_counter()
     try:
         for batch in loader:
@@ -177,6 +186,10 @@ def main(argv=None):
                 write_rgb_png(os.path.join(args.output_dir,
                                            f"flow_{n_windows:04d}.png"),
                               flow2bgr_np(flow[0], flow[1])[..., ::-1])
+            taken = profiling.take(request=n_windows)
+            for name, sec in profiling.totals(taken.spans).items():
+                span_s[name] = span_s.get(name, 0.0) + sec
+            h2d_bytes += taken.counts.get(H2D_BYTES, 0)
             n_events += len(ev)
             n_windows += 1
             elapsed = time.perf_counter() - t_start
@@ -184,6 +197,7 @@ def main(argv=None):
                   f"{n_events / elapsed / 1e6:.2f} Mev/s, "
                   f"{n_windows / elapsed:.2f} windows/s", flush=True)
     finally:
+        profiling.enable_spans(spans_were_on)
         loader.close()
 
     if n_windows == 0:
@@ -191,10 +205,13 @@ def main(argv=None):
     elapsed = time.perf_counter() - t_start
     np.savetxt(os.path.join(args.output_dir, "timestamps.txt"),
                np.asarray(stamps))
+    spans = {"ms_per_window": {k: round(v / n_windows * 1e3, 3)
+                               for k, v in sorted(span_s.items())},
+             "h2d_mb_per_window": round(h2d_bytes / n_windows / 1e6, 4)}
     metrics = {"mevs_sustained": round(n_events / elapsed / 1e6, 3),
                "windows_per_s": round(n_windows / elapsed, 3),
                "num_windows": n_windows, "num_events": int(n_events),
-               "wallclock_s": round(elapsed, 2)}
+               "wallclock_s": round(elapsed, 2), "spans": spans}
     with open(os.path.join(args.output_dir, "metrics.json"), "w") as f:
         json.dump(metrics, f)
     print(f"wrote {n_windows} flow fields to {args.output_dir}: "

@@ -55,10 +55,15 @@ from ..models.objectives import (OBJECTIVE_REGISTRY, get_iwe,
 from ..models.warps import linvel_warp, warp_function, xyztheta_warp
 from ..ops.blur import gaussian_filter, gaussian_kernel1d
 from ..ops.cuda_scatter import bilinear_patches_scatter
+from ..utils import profiling
 from ..utils.event_util import infer_resolution, lifespan_mask
 from .bfgs import minimize_bfgs
 
 DEFAULT_IWE_IMPL = "matmul"
+
+# The counter of bytes the solvers copy from host arrays to the device
+# (``utils.profiling``): on a CPU device, the same count.
+H2D_BYTES = "cmax.h2d_bytes"
 
 # What one chunk of a batched loss evaluation may hold: its samples' warped
 # coordinates (S x N slots; 2 x 64 MB of f32 at the cap) and their images.
@@ -145,10 +150,19 @@ def make_objective_loss(objective: objective_function,
     return loss
 
 
+def _upload(a, dev, dtype=None):
+    """``as_tensor(a, dev, dtype)``; the bytes of a host array it copies to
+    the device count under ``H2D_BYTES``."""
+    t = as_tensor(a, dev, dtype)
+    if not isinstance(a, torch.Tensor):
+        profiling.count(H2D_BYTES, t.nbytes)
+    return t
+
+
 def _events(xs, ys, ts, ps, device):
     """The four event arrays as float32 tensors on one device."""
     dev = pick_device(xs, ys, ts, ps, device=device)
-    return dev, tuple(as_f32(a, dev) for a in (xs, ys, ts, ps))
+    return dev, tuple(_upload(a, dev, torch.float32) for a in (xs, ys, ts, ps))
 
 
 def _value_and_grad(loss):
@@ -160,7 +174,8 @@ def _value_and_grad(loss):
     def vg(p):
         p = p.detach().requires_grad_(True)
         f = loss(p)
-        (g,) = torch.autograd.grad(f.sum(), p)
+        with profiling.span("cmax.grad"):
+            (g,) = torch.autograd.grad(f.sum(), p)
         return f.detach(), g
 
     return vg
@@ -467,6 +482,7 @@ def grid_search_refine(loss_fn: Callable, dims: int, init_range=150.0,
     return best_p[0], best_e[0]
 
 
+@profiling.spanned("cmax.grid_search")
 def grid_search_refine_batched(loss_fn: Callable, dims: int, init_range,
                                num_samples_per_param: int = 5,
                                log_scale: bool = False, iters: int = 8):
@@ -481,13 +497,13 @@ def grid_search_refine_batched(loss_fn: Callable, dims: int, init_range,
     r0 = torch.as_tensor(init_range, dtype=torch.float32)
     dev = r0.device
     R = r0.shape[0]
-    scale = torch.as_tensor(_sample_scale(num_samples_per_param, log_scale),
-                            dtype=torch.float32, device=dev)
+    scale = _upload(_sample_scale(num_samples_per_param, log_scale), dev,
+                    torch.float32)
     n_axis = 2 * scale.shape[0] + 1
     # meshgrid(indexing='ij') order of the samples, as (S, dims) indices
     grid_idx = np.stack(np.meshgrid(*[np.arange(n_axis)] * dims,
                                     indexing="ij"), -1).reshape(-1, dims)
-    grid_idx = torch.as_tensor(grid_idx, device=dev)
+    grid_idx = _upload(grid_idx, dev)
     dim_idx = torch.arange(dims, device=dev)[None, :]
     rows = torch.arange(R, device=dev)
     ranges = torch.stack([-r0, r0], -1)[:, None, :].expand(R, dims, 2)
@@ -549,7 +565,7 @@ def _zero_pad_blur(img, k1d):
     (the JAX patch loss's ``conv_general_dilated`` pair)."""
     if k1d is None:
         return img
-    k = torch.as_tensor(k1d, dtype=torch.float32, device=img.device)
+    k = _upload(k1d, img.device, torch.float32)
     r = k.shape[0] // 2
     lead, (h, w) = img.shape[:-2], img.shape[-2:]
     x = img.reshape(-1, 1, h, w)
@@ -762,6 +778,7 @@ def _roi_ids(xs, ys, resolution, roi_size):
     return rid, ny, nx
 
 
+@profiling.spanned("cmax.bucket")
 def bucket_events_by_roi(xs, ys, ts, ps, resolution, roi_size,
                          capacity: Optional[int] = None,
                          capacity_cap: Optional[int] = 2048,
@@ -803,6 +820,7 @@ def bucket_events_by_roi(xs, ys, ts, ps, resolution, roi_size,
         # torch.tensor copies: the fill's buffers rotate
         out = tuple(torch.tensor(a, device=dev) for a in packed) + (
             torch.tensor(origins, dtype=torch.int64, device=dev), 0)
+        profiling.count(H2D_BYTES, sum(t.nbytes for t in out[:-1]))
         return out + (counts,) if return_counts else out
     # every ROI, in row-major order: the same fill and the same draws
     *packed, origins, overflow = _pack_roi_subset(
@@ -829,6 +847,7 @@ def _tier2_shapes(max_count: int, n_over: int):
     return cap2, R2
 
 
+@profiling.spanned("cmax.bucket")
 def _pack_roi_subset(xs, ys, ts, ps, resolution, roi_size, roi_ids,
                      capacity, total_rows,
                      rng: Optional[np.random.Generator] = None, device=None):
@@ -873,7 +892,7 @@ def _pack_roi_subset(xs, ys, ts, ps, resolution, roi_size, roi_ids,
     def pack(arr):
         out = np.zeros(total_rows * capacity, dtype=np.float32)
         out[flat] = arr[order]
-        return torch.as_tensor(out.reshape(total_rows, capacity), device=dev)
+        return _upload(out.reshape(total_rows, capacity), dev)
 
     bmask = np.zeros(total_rows * capacity, np.float32)
     bmask[flat] = 1.0
@@ -882,10 +901,11 @@ def _pack_roi_subset(xs, ys, ts, ps, resolution, roi_size, roi_ids,
     origins[:len(roi_ids), 0] = oy * rh
     origins[:len(roi_ids), 1] = ox * rw
     return (pack(xs), pack(ys), pack(ts), pack(ps),
-            torch.as_tensor(bmask.reshape(total_rows, capacity), device=dev),
-            torch.as_tensor(origins, device=dev), overflow)
+            _upload(bmask.reshape(total_rows, capacity), dev),
+            _upload(origins, dev), overflow)
 
 
+@profiling.spanned("cmax.descent")
 def _normalized_descent(f, x0, maxiter: int, gd_lr: float, clamp=None):
     """Fixed-``maxiter`` normalised-gradient descent with momentum 0.8,
     cosine learning rate and best-iterate tracking, batched over rows.
@@ -899,7 +919,8 @@ def _normalized_descent(f, x0, maxiter: int, gd_lr: float, clamp=None):
         with torch.enable_grad():
             p = p.detach().requires_grad_(True)
             v = f(p)
-            (g,) = torch.autograd.grad(v.sum(), p)
+            with profiling.span("cmax.grad"):
+                (g,) = torch.autograd.grad(v.sum(), p)
         return v.detach(), g
 
     with torch.no_grad():
@@ -947,7 +968,8 @@ def fit_global_motion(xs, ys, ts, ps, img_size, obj=None,
     loss = make_objective_loss(obj, xyztheta_warp(), resolution, blur_sigma,
                                iwe_impl=DEFAULT_IWE_IMPL)
     r0 = 0.5 * float(np.hypot(*resolution))
-    scale = torch.tensor([1.0, 1.0, 1.0 / r0, 1.0 / r0], device=dev)
+    scale = _upload(np.array([1.0, 1.0, 1.0 / r0, 1.0 / r0]), dev,
+                    torch.float32)
     zeros2 = torch.zeros(2, device=dev)
 
     def f_q(q):
@@ -1004,6 +1026,7 @@ def _neighbor_median(params, valid, ny, nx):
     return torch.where(torch.isnan(med), params, med)
 
 
+@profiling.spanned("cmax.solve")
 def grid_cmax_batched(xs, ys, ts, ps, roi_size=(20, 20), warp=None,
                       obj=None, min_events: int = 10, img_size=None,
                       blur_sigma: float = 1.0, maxiter: int = 50,
@@ -1098,8 +1121,8 @@ def grid_cmax_batched(xs, ys, ts, ps, roi_size=(20, 20), warp=None,
             nyc2 = (resolution[0] + 2 * rh - 1) // (2 * rh)
             nxc2 = (resolution[1] + 2 * rw - 1) // (2 * rw)
             oy2, ox2 = np.divmod(np.arange(nyc2 * nxc2), nxc2)
-            coarse_kw["x0"] = torch.as_tensor(xyztheta_velocity_at(
-                g_params, ox2 * 2 * rw + rw, oy2 * 2 * rh + rh), device=dev)
+            coarse_kw["x0"] = _upload(xyztheta_velocity_at(
+                g_params, ox2 * 2 * rw + rw, oy2 * 2 * rh + rh), dev)
             coarse_kw["trust_radius"] = 3.0 + float(np.hypot(rh, rw)) * float(
                 np.hypot(g_params[2], g_params[3]))
         kw = dict(common, roi_size=(rh * 2, rw * 2))
@@ -1111,7 +1134,7 @@ def grid_cmax_batched(xs, ys, ts, ps, roi_size=(20, 20), warp=None,
         iy, ix = np.divmod(np.arange(ny * nx), nx)
         parent = (np.minimum(iy // 2, nyc - 1) * nxc
                   + np.minimum(ix // 2, nxc - 1))
-        x0 = torch.as_tensor(c_params[parent], device=dev)
+        x0 = _upload(c_params[parent], dev)
         if trust_radius is None:
             # adaptive trust: floor + a quarter of the 3x3 coarse spread
             cgrid = c_params.reshape(nyc, nxc, -1)
@@ -1120,8 +1143,7 @@ def grid_cmax_batched(xs, ys, ts, ps, roi_size=(20, 20), warp=None,
                               for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
             spread = (neigh.max(axis=0) - neigh.min(axis=0)).max(axis=-1)
             trust_c = 3.0 + 0.25 * spread.reshape(-1)
-            trust_vec = torch.as_tensor(trust_c[parent], dtype=torch.float32,
-                                        device=dev)
+            trust_vec = _upload(trust_c[parent], dev, torch.float32)
         else:
             trust_vec = torch.full((ny * nx,), float(trust_radius),
                                    device=dev)
@@ -1138,7 +1160,8 @@ def grid_cmax_batched(xs, ys, ts, ps, roi_size=(20, 20), warp=None,
                                    torch.inf if trust_radius is None
                                    else float(trust_radius), device=dev)
         params, f_evals = _warm_roi_solver(*args)(
-            bx, by, bt, bp, bmask, origins_f, as_f32(x0, dev), trust_vec)
+            bx, by, bt, bp, bmask, origins_f, _upload(x0, dev, torch.float32),
+            trust_vec)
     else:
         params, f_evals = make_roi_solve_one(*args)(bx, by, bt, bp, bmask,
                                                     origins_f)
@@ -1157,9 +1180,9 @@ def grid_cmax_batched(xs, ys, ts, ps, roi_size=(20, 20), warp=None,
             dims = params.shape[-1]
             x0_2 = torch.zeros((R2, dims), device=dev)
             trust2 = torch.full((R2,), torch.inf, device=dev)
-            over_t = torch.as_tensor(over, device=dev)
+            over_t = _upload(over, dev)
             if x0 is not None:
-                x0_2[:len(over)] = as_f32(x0, dev)[over_t]
+                x0_2[:len(over)] = _upload(x0, dev, torch.float32)[over_t]
                 trust2[:len(over)] = trust_vec[over_t]
             else:
                 x0_2[:len(over)] = params[over_t]
@@ -1175,9 +1198,8 @@ def grid_cmax_batched(xs, ys, ts, ps, roi_size=(20, 20), warp=None,
             raise ConfigurationError(f"unknown smooth mode {smooth!r}")
         params = _neighbor_median(params, valid, ny, nx)
 
-    rois = torch.cat([origins, torch.tensor([[rh, rw]], dtype=origins.dtype,
-                                            device=dev)
-                      .expand(origins.shape[0], 2)], dim=-1)
+    size = _upload(np.array([[rh, rw]]), dev, origins.dtype)
+    rois = torch.cat([origins, size.expand(origins.shape[0], 2)], dim=-1)
     if overflow:
         import warnings
 
@@ -1291,9 +1313,10 @@ def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
             refine_mask = torch.where(enough[:, None], refine_mask, emask)
 
         if solver == "bfgs":
-            best = minimize_bfgs(
-                _value_and_grad(lambda p: f_masked(p, refine_mask)), x0,
-                maxiter=maxiter, gtol=1e-6).x_k
+            with profiling.span("cmax.descent"):
+                best = minimize_bfgs(
+                    _value_and_grad(lambda p: f_masked(p, refine_mask)), x0,
+                    maxiter=maxiter, gtol=1e-6).x_k
             with torch.no_grad():
                 return best, f(best)
 

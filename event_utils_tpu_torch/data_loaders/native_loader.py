@@ -27,6 +27,7 @@ import numpy as np
 from .. import native
 from ..data_formats.read_events import read_memmap_events
 from ..errors import ConfigurationError
+from ..utils import profiling
 
 # Rotating-pool depth: must cover every buffer alive at once — the reader's
 # queue (2) + one being consumed + one being written.
@@ -132,10 +133,12 @@ class NativeWindowedLoader:
             if self.drop_last and s + self.batch_size > len(order):
                 return
             sel = self.windows[order[s:s + self.batch_size]]
-            events, mask, trunc = native.fill_padded_batches(
-                self.t, self.xy, self.p, sel, self.capacity,
-                relative_time=self.relative_time, nthreads=self.nthreads,
-                out=_out_buffers(self._out_pool, len(sel), self.capacity))
+            with profiling.span("loader.fill"):
+                events, mask, trunc = native.fill_padded_batches(
+                    self.t, self.xy, self.p, sel, self.capacity,
+                    relative_time=self.relative_time, nthreads=self.nthreads,
+                    out=_out_buffers(self._out_pool, len(sel),
+                                     self.capacity))
             self.truncated_events += trunc
             yield {
                 "events": events,

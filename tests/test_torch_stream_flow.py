@@ -30,6 +30,7 @@ from event_utils_tpu_torch.cli import simulate
 from event_utils_tpu_torch.cli import stream_flow
 from event_utils_tpu_torch.contrast_max import events_cmax as pc
 from event_utils_tpu_torch.errors import DeviceUnavailableError
+from event_utils_tpu_torch.utils import profiling
 
 GT = (25.0, 12.0)
 MED_ATOL = 0.5
@@ -126,6 +127,17 @@ def test_free_running_streams_reach_the_ground_truth(recs, port_run,
     j_stream.main([recs[1], "--output_dir", ref] + ARGS)
     for m in (medians(port_run[0]), medians(ref)):
         assert np.all(np.hypot(m[:, 0] - GT[0], m[:, 1] - GT[1]) < 10.0), m
+    # the port's own spans, on for its run alone: mean ms a window by name
+    with open(os.path.join(port_run[0], "metrics.json")) as f:
+        spans = json.load(f)["spans"]
+    assert spans == port_run[1]["spans"]
+    ms = spans["ms_per_window"]
+    assert {"cmax.solve", "cmax.bucket", "cmax.descent", "cmax.grad",
+            "cmax.grid_search", "loader.fill"} <= set(ms), ms
+    assert all(v > 0 for v in ms.values()), ms
+    assert ms["cmax.grad"] <= ms["cmax.descent"] <= ms["cmax.solve"]
+    assert spans["h2d_mb_per_window"] > 0
+    assert not profiling.spans_enabled()
 
 
 def test_hdf5_streams_as_its_memmap_does(recs, port_run, tmp_path):
