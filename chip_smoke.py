@@ -2801,10 +2801,20 @@ def route_calls(cs):
              P * C if w.shape[0] else 0)
         return patches(x, y, w, P, C, PH, PW, route=route)
 
+    add = cs.add_launch_counts
+
+    def add_(counts):
+        # the ROI refine's CUDA graphs: a capture takes back the launches
+        # its wrappers noted, each replay adds the launches it replays
+        for route, n in counts.items():
+            out["calls"][route] = out["calls"].get(route, 0) + n
+        add(counts)
+
     cs.voxel_scatter, cs.flat_scatter, cs.bilinear_scatter = vox_, flat_, bil_
     cs.bilinear_scatter_batched = bat_
     cs.voxel_scatter_batched = vbat_
     ec.bilinear_patches_scatter = patches_
+    cs.add_launch_counts = add_
     try:
         yield out
     finally:
@@ -2812,6 +2822,7 @@ def route_calls(cs):
         cs.bilinear_scatter_batched = bat
         cs.voxel_scatter_batched = vbat
         ec.bilinear_patches_scatter = patches
+        cs.add_launch_counts = add
 
 
 def route_cases(torch, cs, records, seen, label, extra=None):

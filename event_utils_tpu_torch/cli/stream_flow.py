@@ -12,9 +12,11 @@ the sustained throughput (Mev/s ingested and solved, windows/s) and, under
 ``"spans"``, where a window's host time went: the program's spans
 (``utils.profiling``, on for the run) as mean ms a window by name
 (``cmax.solve``, ``cmax.bucket``, ``cmax.descent``, ``cmax.grad``,
-``loader.fill``, ...) and ``h2d_mb_per_window``, the MB the solver copies
-from the host to the device a window. Spans time the host's issue of the
-work and never wait for the card.
+``loader.fill``, ...), ``h2d_mb_per_window``, the MB the solver copies
+from the host to the device a window, and ``graph_captures`` and
+``graph_replays``, the run's CUDA graphs of the ROI refine captured and
+replayed. Spans time the host's issue of the work and never wait for the
+card.
 ``--render`` writes ``flow_NNNN.png`` HSV renderings with the standard
 library (``utils.util.write_rgb_png``; JAX's CLI uses matplotlib, which
 writes RGBA with the same levels).
@@ -135,7 +137,8 @@ def main(argv=None):
     import numpy as np
 
     from .._device import resolve_device, to_numpy
-    from ..contrast_max.events_cmax import H2D_BYTES, grid_cmax_batched
+    from ..contrast_max.events_cmax import (GRAPH_CAPTURES, GRAPH_REPLAYS,
+                                            H2D_BYTES, grid_cmax_batched)
     from ..ops.denoise import background_activity_filter
     from ..utils import profiling
     from ..utils.util import flow2bgr_np, write_rgb_png
@@ -147,7 +150,7 @@ def main(argv=None):
     stamps = []
     n_events = 0
     n_windows = 0
-    span_s, h2d_bytes = {}, 0
+    span_s, counts = {}, {}
     spans_were_on = profiling.enable_spans(True)
     t_start = time.perf_counter()
     try:
@@ -189,7 +192,8 @@ def main(argv=None):
             taken = profiling.take(request=n_windows)
             for name, sec in profiling.totals(taken.spans).items():
                 span_s[name] = span_s.get(name, 0.0) + sec
-            h2d_bytes += taken.counts.get(H2D_BYTES, 0)
+            for name, n in taken.counts.items():
+                counts[name] = counts.get(name, 0) + n
             n_events += len(ev)
             n_windows += 1
             elapsed = time.perf_counter() - t_start
@@ -207,7 +211,10 @@ def main(argv=None):
                np.asarray(stamps))
     spans = {"ms_per_window": {k: round(v / n_windows * 1e3, 3)
                                for k, v in sorted(span_s.items())},
-             "h2d_mb_per_window": round(h2d_bytes / n_windows / 1e6, 4)}
+             "h2d_mb_per_window": round(
+                 counts.get(H2D_BYTES, 0) / n_windows / 1e6, 4),
+             "graph_captures": counts.get(GRAPH_CAPTURES, 0),
+             "graph_replays": counts.get(GRAPH_REPLAYS, 0)}
     metrics = {"mevs_sustained": round(n_events / elapsed / 1e6, 3),
                "windows_per_s": round(n_windows / elapsed, 3),
                "num_windows": n_windows, "num_events": int(n_events),

@@ -37,8 +37,10 @@ tensors 'matmul' is the kernel's plain f32 version.
 
 from __future__ import annotations
 
+import collections
 import copy
 import math
+import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -53,6 +55,7 @@ from ..models.objectives import (OBJECTIVE_REGISTRY, get_iwe,
                                  objective_function, soe_objective,
                                  variance_objective)
 from ..models.warps import linvel_warp, warp_function, xyztheta_warp
+from ..ops import cuda_scatter
 from ..ops.blur import gaussian_filter, gaussian_kernel1d
 from ..ops.cuda_scatter import bilinear_patches_scatter
 from ..utils import profiling
@@ -560,12 +563,10 @@ PATCH_OBJECTIVES = ("variance", "sos", "rms", "soe", "sosa", "isoa", "moa",
                     "r1", "zhu")
 
 
-def _zero_pad_blur(img, k1d):
+def _zero_pad_blur(img, k):
     """Separable 'same' blur with zero padding over the last two axes
-    (the JAX patch loss's ``conv_general_dilated`` pair)."""
-    if k1d is None:
-        return img
-    k = _upload(k1d, img.device, torch.float32)
+    (the JAX patch loss's ``conv_general_dilated`` pair) by the taps ``k``,
+    a float32 tensor on ``img``'s device."""
     r = k.shape[0] // 2
     lead, (h, w) = img.shape[:-2], img.shape[-2:]
     x = img.reshape(-1, 1, h, w)
@@ -611,7 +612,9 @@ def make_patch_loss(warpfunc, roi_size, objective=None, patch=PATCH_DEFAULT,
     (R, C) per-ROI batches with (R, 2) origins; ``params`` (R, dims) gives
     (R,) losses and (R, S, dims) gives (R, S). One ROI as 1-D (C,) events
     with (dims,) or (S, dims) params gives a scalar or (S,). Differentiable
-    in ``params``.
+    in ``params``. The blur taps go to a device once per loss and device,
+    at the first evaluation there: no evaluation after it copies from the
+    host, so a CUDA graph can capture it.
     """
     if objective is None or isinstance(objective, str):
         objective = OBJECTIVE_REGISTRY[objective or "variance"]()
@@ -624,6 +627,15 @@ def make_patch_loss(warpfunc, roi_size, objective=None, patch=PATCH_DEFAULT,
               if blur_sigma and blur_sigma > 0 else None)
     FP = float(full_pixels if full_pixels is not None else PH * PW)
     Pp = float(PH * PW)
+    taps = {}   # the blur taps on each device, uploaded at their first use
+
+    def blur(img):
+        if blur_k is None:
+            return img
+        k = taps.get(img.device)
+        if k is None:
+            k = taps[img.device] = _upload(blur_k, img.device, torch.float32)
+        return _zero_pad_blur(img, k)
 
     def loss(params, ex, ey, et, ep, mask, origin_yx):
         dev = ex.device
@@ -678,11 +690,11 @@ def make_patch_loss(warpfunc, roi_size, objective=None, patch=PATCH_DEFAULT,
             negw = (ep <= 0).to(torch.float32)[:, None, :] * mask[:, None, :]
             tpos, cpos, tneg, cneg = accumulate(torch.stack(
                 [nt * posw, posw, nt * negw, negw]))
-            pos = _zero_pad_blur(tpos / (1.0 + cpos), blur_k)
-            neg = _zero_pad_blur(tneg / (1.0 + cneg), blur_k)
+            pos = blur(tpos / (1.0 + cpos))
+            neg = blur(tneg / (1.0 + cneg))
             out = (pos * pos).sum((-2, -1)) + (neg * neg).sum((-2, -1))
         else:
-            iwe = _zero_pad_blur(accumulate(w[None])[0], blur_k)
+            iwe = blur(accumulate(w[None])[0])
             Q = (iwe * iwe).sum((-2, -1))
             if name in ("sos", "rms"):
                 out = -Q / FP
@@ -1219,7 +1231,8 @@ def _warm_roi_solver(warp, obj, resolution, roi_size, blur_sigma, maxiter,
     """The warm-start refine solver (``with_x0`` and a per-ROI trust radius),
     shared by the temporal/pyramid warm path and the tier-2 refine. (JAX
     compiles and caches its solvers per configuration; building one here
-    only makes closures, so nothing is cached.)"""
+    only makes closures. On the card its GD refine is replayed from a CUDA
+    graph kept by key, ``RefineGraphs``, from the second solve of a key.)"""
     return make_roi_solve_one(warp, obj, tuple(resolution), roi_size,
                               blur_sigma, maxiter, solver, gd_lr,
                               with_x0=True, trust_radius="traced")
@@ -1241,6 +1254,138 @@ def _roi_patch_loss(warp, obj, resolution, roi_size, blur_sigma):
                            * (resolution[1] + 1))
 
 
+# Counters (``utils.profiling``) of the refine's CUDA graphs.
+GRAPH_CAPTURES = "cmax.graph_captures"
+GRAPH_REPLAYS = "cmax.graph_replays"
+# Refine graphs kept (the least recently used beyond it go, with their
+# memory pools), and keys remembered as seen once.
+REFINE_GRAPHS_KEPT = 8
+KEYS_SEEN_KEPT = 256
+
+
+class _CudaGraphs:
+    """Capture and replay with ``torch.cuda.CUDAGraph``, on the card that
+    holds the tensors."""
+
+    @staticmethod
+    def engages(device) -> bool:
+        return device.type == "cuda"
+
+    @staticmethod
+    def warm_up(device, run):
+        """``run`` once, eagerly, on a side stream (PyTorch's rule before a
+        capture)."""
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+
+    @staticmethod
+    def capture(device, run):
+        """``(graph, run's outputs)``: the outputs live in the graph's
+        memory pool and each replay writes them anew."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device), torch.cuda.graph(graph):
+            out = run()
+        return graph, out
+
+    @staticmethod
+    def replay(device, graph):
+        with torch.cuda.device(device):
+            graph.replay()
+
+
+class _RefineGraph:
+    """One captured refine: its static inputs and outputs, the graph, the
+    launches it makes (route: count) and the body, kept alive with what the
+    graph reads (the loss's blur taps)."""
+
+    __slots__ = ("inputs", "outputs", "graph", "launches", "body")
+
+
+class RefineGraphs:
+    """The GD refine of the ROI solvers, run eagerly or replayed from a
+    CUDA graph, by key.
+
+    ``run(key, inputs, body)`` returns ``body(*inputs)``, a tuple of
+    tensors. Where the backend engages for the inputs' device (the card)
+    and ``key`` was seen before in this process, the body is captured once
+    (after a warm-up) over static copies of ``inputs``, and every later call
+    with that key copies its inputs into them, replays the graph and
+    returns copies of its outputs. The key must hold every value the
+    captured work depends on besides the inputs' contents. A call that
+    meets a key the first time runs eagerly, so one-off shapes never pay a
+    capture. A failed capture raises.
+
+    A replay adds the launches the capture counted to
+    ``cuda_scatter.launch_counts()`` (the capture itself launched nothing,
+    so its count is taken back), and counts ``GRAPH_CAPTURES`` and
+    ``GRAPH_REPLAYS``. The engaged path is the span ``cmax.descent``.
+    """
+
+    def __init__(self, backend=_CudaGraphs):
+        self.backend = backend
+        self.seen = collections.OrderedDict()
+        self.entries = collections.OrderedDict()
+        self.lock = threading.Lock()
+
+    def run(self, key, inputs, body):
+        device = inputs[0].device
+        if not self.backend.engages(device):
+            return body(*inputs)
+        with self.lock:
+            entry = self.entries.get(key)
+            if entry is None and self.seen.pop(key, None) is None:
+                self.seen[key] = True
+                while len(self.seen) > KEYS_SEEN_KEPT:
+                    self.seen.popitem(last=False)
+                return body(*inputs)
+            with profiling.span("cmax.descent"):
+                if entry is None:
+                    entry = self._capture(key, inputs, body)
+                self.entries.move_to_end(key)
+                for static, a in zip(entry.inputs, inputs):
+                    static.copy_(a)
+                self.backend.replay(device, entry.graph)
+                cuda_scatter.add_launch_counts(entry.launches)
+                profiling.count(GRAPH_REPLAYS)
+                return tuple(o.clone() for o in entry.outputs)
+
+    def _capture(self, key, inputs, body):
+        device = inputs[0].device
+        entry = _RefineGraph()
+        entry.inputs = tuple(a.clone() for a in inputs)
+        entry.body = body
+        self.backend.warm_up(device, lambda: body(*entry.inputs))
+        before = cuda_scatter.launch_counts()
+        entry.graph, entry.outputs = self.backend.capture(
+            device, lambda: body(*entry.inputs))
+        after = cuda_scatter.launch_counts()
+        entry.launches = {k: n - before.get(k, 0) for k, n in after.items()
+                          if n != before.get(k, 0)}
+        cuda_scatter.add_launch_counts(
+            {k: -n for k, n in entry.launches.items()})
+        profiling.count(GRAPH_CAPTURES)
+        self.entries[key] = entry
+        while len(self.entries) > REFINE_GRAPHS_KEPT:
+            self.entries.popitem(last=False)
+        return entry
+
+
+# The process's refine graphs (``make_roi_solve_one``'s GD refine).
+_REFINE_GRAPHS = RefineGraphs()
+
+
+def _settings(o):
+    """An objective's or a warp's class and scalar attributes: what its
+    part of a captured loss depends on."""
+    return type(o), tuple(sorted(
+        (k, v) for k, v in getattr(o, "__dict__", {}).items()
+        if isinstance(v, (bool, int, float, str, type(None)))))
+
+
 def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
                        solver="gd", gd_lr=4.0, with_x0: bool = False,
                        trust_radius=None):
@@ -1257,7 +1402,12 @@ def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
     more trailing argument ``trust`` (R,).
 
     ``solver='gd'``: fixed-``maxiter`` normalised-gradient descent, every
-    ROI in each batched step. ``solver='bfgs'``: the port's BFGS
+    ROI in each batched step. With a patch objective on the card it runs
+    through ``RefineGraphs``: eagerly the first time its key (device,
+    shapes, objective, warp, sizes, ``maxiter``, ``gd_lr``, whether a trust
+    clamp applies) is met in the process, captured as a CUDA graph the
+    second time and replayed from then on; the same body either way.
+    ``solver='bfgs'``: the port's BFGS
     (``contrast_max.bfgs``, a port of ``jax.scipy.optimize.minimize``), one
     batched solve over the R ROIs, each row walking its own path as under
     JAX's vmap.
@@ -1299,8 +1449,24 @@ def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
 
         return f_masked, lambda p: f_masked(p, emask)
 
-    def _finish(et, emask, x0, losses, trust=None):
-        f_masked, f = losses
+    def _refine(ex, ey, et, ep, emask, origin, refine_mask, x0, trust=None):
+        """The GD refine from ``x0`` (its loss under ``refine_mask``, the
+        iterate clamped to ``trust`` around ``x0`` where given) and its
+        answer's loss under the full masks: one body, run eagerly or
+        captured and replayed (``RefineGraphs``)."""
+        f_masked, f = _losses(ex, ey, et, ep, emask, origin)
+        clamp = None
+        if trust is not None:
+            clamp = lambda p: x0 + torch.minimum(torch.maximum(p - x0,
+                                                               -trust), trust)
+        best_p, _ = _normalized_descent(lambda p: f_masked(p, refine_mask),
+                                        x0, maxiter, gd_lr, clamp=clamp)
+        # report the objective over the FULL window (reference convention)
+        with torch.no_grad():
+            return best_p, f(best_p)
+
+    def _finish(ev, x0, trust=None):
+        et, emask = ev[2], ev[4]
         refine_mask = emask
         if adaptive:
             # trim each ROI's window to pixel_crossings/|v| seconds (a mask
@@ -1313,6 +1479,7 @@ def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
             refine_mask = torch.where(enough[:, None], refine_mask, emask)
 
         if solver == "bfgs":
+            f_masked, f = _losses(*ev)
             with profiling.span("cmax.descent"):
                 best = minimize_bfgs(
                     _value_and_grad(lambda p: f_masked(p, refine_mask)), x0,
@@ -1320,22 +1487,23 @@ def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
             with torch.no_grad():
                 return best, f(best)
 
-        clamp = None
+        inputs = (*ev, refine_mask, x0)
         if trust is not None:
             trust = torch.as_tensor(trust, dtype=torch.float32,
                                     device=x0.device)
             if trust.dim() == 1:
                 trust = trust[:, None]
-            clamp = lambda p: x0 + torch.minimum(torch.maximum(p - x0,
-                                                               -trust), trust)
-        best_p, _ = _normalized_descent(lambda p: f_masked(p, refine_mask),
-                                        x0, maxiter, gd_lr, clamp=clamp)
-        # report the objective over the FULL window (reference convention)
-        with torch.no_grad():
-            return best_p, f(best_p)
+            inputs += (trust,)
+        if not use_patch:  # the full-frame losses are not audited for capture
+            return _refine(*inputs)
+        key = (x0.device, tuple((a.dtype, tuple(a.shape)) for a in inputs),
+               trust is not None, _settings(obj), _settings(warp),
+               tuple(roi_size), tuple(resolution), blur_sigma, patch, maxiter,
+               gd_lr)
+        return _REFINE_GRAPHS.run(key, inputs, _refine)
 
     def solve_one(ex, ey, et, ep, emask, origin):
-        losses = _losses(ex, ey, et, ep, emask, origin)
+        ev = (ex, ey, et, ep, emask, origin)
         init_range = torch.full((ex.shape[0],), 150.0, device=ex.device)
         if velocity_cap:
             on = emask != 0
@@ -1344,19 +1512,20 @@ def make_roi_solve_one(warp, obj, resolution, roi_size, blur_sigma, maxiter,
             dt_roi = torch.where(on.any(-1), t_last - t_first, 0.0)
             init_range = torch.clamp(margin / torch.clamp(dt_roi, min=1e-3),
                                      max=150.0)
-        x0, _ = grid_search_refine_batched(losses[1], warp.dims, init_range,
+        x0, _ = grid_search_refine_batched(_losses(*ev)[1], warp.dims,
+                                           init_range,
                                            num_samples_per_param=5, iters=6)
-        return _finish(et, emask, x0, losses)
+        return _finish(ev, x0)
 
     def refine_one(ex, ey, et, ep, emask, origin, x0):
-        return _finish(et, emask, as_f32(x0, ex.device),
-                       _losses(ex, ey, et, ep, emask, origin),
+        return _finish((ex, ey, et, ep, emask, origin),
+                       as_f32(x0, ex.device),
                        trust=None if trust_radius in (None, "traced")
                        else trust_radius)
 
     def refine_one_trust(ex, ey, et, ep, emask, origin, x0, trust):
-        return _finish(et, emask, as_f32(x0, ex.device),
-                       _losses(ex, ey, et, ep, emask, origin), trust=trust)
+        return _finish((ex, ey, et, ep, emask, origin),
+                       as_f32(x0, ex.device), trust=trust)
 
     if with_x0:
         return refine_one_trust if trust_radius == "traced" else refine_one

@@ -1497,6 +1497,14 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (route: launches, negative to take away) to the launch
+    counts: a CUDA graph's replay launches its kernels without running the
+    wrappers that count them."""
+    for route, n in counts.items():
+        _launches[route] += n
+
+
 # The wrapper that launches each route.
 KERNEL_WRAPPERS = {
     "voxel_scatter:vector": voxel_scatter,

@@ -26,9 +26,11 @@ what it waits for, without the registry.
 Names in use: spans ``cmax.solve`` (``grid_cmax_batched``), ``cmax.bucket``
 (the host ROI bucketing and the batches' copies to the device),
 ``cmax.grid_search``, ``cmax.descent`` (the GD or BFGS refine),
-``cmax.grad`` (each autograd backward of the refine), ``loader.fill``
-(``NativeWindowedLoader``'s batch fill); counter ``cmax.h2d_bytes`` (bytes
-the solvers copy from host arrays to the device).
+``cmax.grad`` (each autograd backward of the refine; absent where the GD
+refine replays a CUDA graph), ``loader.fill`` (``NativeWindowedLoader``'s
+batch fill); counters ``cmax.h2d_bytes`` (bytes the solvers copy from host
+arrays to the device), ``cmax.graph_captures`` and ``cmax.graph_replays``
+(the GD refine's CUDA graphs captured and replayed).
 """
 
 from __future__ import annotations

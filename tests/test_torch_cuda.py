@@ -1397,3 +1397,135 @@ def test_batched_voxel_gradients_and_grids_on_the_card(cuda, gen):
             if v != before[k]} == {f"voxel_scatter_batched:{route}": 1}
     assert_rel(got, voxel_grids_fixed_n(*flat, B, n, sensor_size=(H, W),
                                         impl="xla"))
+
+
+# ---------------------------------------------------------------------------
+# The ROI solvers' GD refine replayed from a CUDA graph
+# ---------------------------------------------------------------------------
+
+STREAM_K = 20_000          # events a window, as stream_flow's default
+
+
+def _rotating_windows(n_windows, seed=3):
+    """``n_windows`` consecutive 20k-event windows of the rotating scene
+    (400 points turning at 1.2 rad/s about the centre of a 180x240 sensor,
+    1 M draws a second, 0.2 px jitter, integer pixels), host numpy."""
+    rng = np.random.default_rng(seed)
+    H, W = 180, 240
+    n = int(STREAM_K * n_windows * 1.1)
+    px, py = rng.uniform(10, W - 10, 400), rng.uniform(10, H - 10, 400)
+    pol = rng.choice([-1.0, 1.0], 400)
+    idx = rng.integers(0, 400, n)
+    ts = np.sort(rng.uniform(0, n / 1e6, n))
+    rx, ry = px[idx] - W / 2, py[idx] - H / 2
+    ca, sa = np.cos(1.2 * ts), np.sin(1.2 * ts)
+    xs = W / 2 + ca * rx - sa * ry + rng.normal(0, 0.2, n)
+    ys = H / 2 + sa * rx + ca * ry + rng.normal(0, 0.2, n)
+    keep = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+    ev = [np.floor(xs[keep]), np.floor(ys[keep]), ts[keep], pol[idx][keep]]
+    ev = [a.astype(np.float32) for a in ev]
+    return [tuple(a[j * STREAM_K:(j + 1) * STREAM_K] for a in ev)
+            for j in range(n_windows)]
+
+
+class _EagerOnTheCard:
+    """A refine-graph backend that never engages: the eager refine on the
+    card."""
+
+    @staticmethod
+    def engages(device):
+        return False
+
+
+def _stream_solve(window, x0):
+    from event_utils_tpu_torch.contrast_max import grid_cmax_batched
+    return grid_cmax_batched(*window, roi_size=(20, 20), img_size=(180, 240),
+                             min_events=10, maxiter=30, x0=x0, pyramid=1,
+                             device="cuda")
+
+
+@pytest.mark.cuda
+def test_refine_replay_issues_no_synchronisation(cuda, monkeypatch):
+    """Once captured, a warm refine (copies in, replay, copies out) makes no
+    call that waits for the card."""
+    from event_utils_tpu_torch.contrast_max import events_cmax as ec
+    monkeypatch.setattr(ec, "_REFINE_GRAPHS", ec.RefineGraphs())
+    (window,) = _rotating_windows(1)
+    bx, by, bt, bp, bm, org, _ = ec.bucket_events_by_roi(
+        *window, (180, 240), (20, 20), device="cuda")
+    ev = (bx, by, bt, bp, bm, org.to(torch.float32))
+    x0 = torch.zeros((bx.shape[0], 2), device=cuda)
+    x0[:, 0] = 5.0
+    trust = torch.full((bx.shape[0],), torch.inf, device=cuda)
+    refine = ec._warm_roi_solver(ec.linvel_warp(), ec.variance_objective(),
+                                 (180, 240), (20, 20), 1.0, 30, "gd", 4.0)
+    eager = refine(*ev, x0, trust)           # first sighting: eager
+    refine(*ev, x0, trust)                   # second: warm-up, capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replayed = refine(*ev, x0, trust)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(ec._REFINE_GRAPHS.entries) == 1
+    assert eager[0].shape == replayed[0].shape
+    assert bool(torch.isfinite(replayed[1]).all())
+
+
+@pytest.mark.cuda
+def test_refine_graph_agrees_with_eager_over_50_windows(cuda, monkeypatch):
+    """50 warm windows of the rotating scene, each solved from the same
+    warm start by the eager refine and by the graph's replay: the parity
+    rules of the descent (per ROI 1.5 px/s unless the graph's answer's
+    loss is no worse than eager's by more than 1%, the valid-ROI median
+    0.5 px/s), each ROI's loss at the graph's answer no worse than at
+    eager's by more than 1% of the window's scale, and the same launches a
+    window."""
+    from event_utils_tpu_torch.contrast_max import events_cmax as ec
+    from event_utils_tpu_torch.utils import profiling
+    eager_cache = ec.RefineGraphs(_EagerOnTheCard())
+    graph_cache = ec.RefineGraphs()
+    windows = _rotating_windows(51)
+    was = profiling.enable_spans(True)
+    profiling.take()
+    try:
+        monkeypatch.setattr(ec, "_REFINE_GRAPHS", eager_cache)
+        p, _, _, valid = _stream_solve(windows[0], None)    # cold start
+        prev = torch.where(valid[:, None], p, 0.0).cpu().numpy()
+        replays, departed = 0, 0
+        for j, window in enumerate(windows[1:]):
+            out, launches = {}, {}
+            for name, cache in (("eager", eager_cache),
+                                ("graph", graph_cache)):
+                monkeypatch.setattr(ec, "_REFINE_GRAPHS", cache)
+                before = cs.launch_counts()
+                profiling.take()
+                out[name] = [a.cpu() for a in _stream_solve(window, prev)]
+                counts = profiling.take().counts
+                launches[name] = {k: v - before[k] for k, v in
+                                  cs.launch_counts().items() if v != before[k]}
+                if name == "graph":
+                    replayed = (counts.get(ec.GRAPH_REPLAYS, 0) == 1
+                                and not counts.get(ec.GRAPH_CAPTURES, 0))
+                    replays += counts.get(ec.GRAPH_REPLAYS, 0)
+            (pe, _, fe, ve), (pg, _, fg, vg) = out["eager"], out["graph"]
+            assert torch.equal(ve, vg)
+            v = ve
+            scale = torch.maximum(fe[v].abs(), fe[v].abs().median())
+            assert float(((fg[v] - fe[v]) / scale).max()) <= 1e-2, j
+            far = (pg[v] - pe[v]).abs().amax(-1) > 1.5
+            departed += int(far.sum())
+            med = (pg[v].median(0).values - pe[v].median(0).values).abs()
+            assert float(med.max()) <= 0.5, j
+            if replayed:        # a key met before: no warm-up, no capture
+                assert launches["graph"] == launches["eager"], j
+                assert launches["eager"] == {
+                    "bilinear_patches_scatter:direct": 33}
+            prev = torch.where(ve[:, None], pe, 0.0).numpy()
+    finally:
+        profiling.enable_spans(was)
+        profiling.take()
+    keys = len(graph_cache.entries) + len(graph_cache.seen)
+    assert replays >= 50 - 2 * keys
+    print(f"replays {replays} of 50 windows, {len(graph_cache.entries)} "
+          f"graphs, ROIs past 1.5 px/s (loss no worse): {departed}")

@@ -137,6 +137,7 @@ def test_free_running_streams_reach_the_ground_truth(recs, port_run,
     assert all(v > 0 for v in ms.values()), ms
     assert ms["cmax.grad"] <= ms["cmax.descent"] <= ms["cmax.solve"]
     assert spans["h2d_mb_per_window"] > 0
+    assert spans["graph_captures"] == spans["graph_replays"] == 0  # the CPU
     assert not profiling.spans_enabled()
 
 

@@ -261,19 +261,17 @@ def test_roi_solve_same_with_spans_and_records_its_layers(warm):
     assert all(s.parent is by["cmax.descent"] for s in got.spans
                if s.name == "cmax.grad")
     # the uploads: batches and origins, the warm start, the ROI size row,
-    # and the blur taps of every loss evaluation (1 + maxiter + 1 in the
-    # descent, 1 at the answer; the cold grid search's 6 levels, its
-    # sample scale and sample indices)
+    # the blur taps once a solve (the solve's loss keeps them on the device
+    # for every evaluation after its first), and the cold grid search's
+    # sample scale and sample indices
     taps = gaussian_kernel1d(1.0).size * 4
-    evals = MAXITER + 3
     want_bytes = packed_bytes() + 2 * 8
     if warm:
         want_bytes += x0.nbytes
     else:
         n_scale = pc._sample_scale(5, False).size
-        evals += 6
         want_bytes += n_scale * 4 + (2 * n_scale + 1) ** 2 * 2 * 8
-    assert got.counts == {pc.H2D_BYTES: want_bytes + evals * taps}
+    assert got.counts == {pc.H2D_BYTES: want_bytes + taps}
 
 
 def test_bfgs_refine_records_descent_and_grads(spans_on):
