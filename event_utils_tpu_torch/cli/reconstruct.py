@@ -2,18 +2,27 @@
 
 Port of ``event_utils_tpu.cli.reconstruct``, with the same arguments and
 outputs: windows an H5/memmap recording, voxelizes, unrolls the recurrent
-E2VID with ConvGRU state threaded across the whole recording, and writes
+network with its state threaded across the whole recording (chunk by
+chunk, so the output does not depend on ``--chunk``), and writes
 ``frame_NNNNN.png`` grayscale frames, ``timestamps.txt`` and, with
 ``--eval_gt``, ``metrics.json`` (PSNR/SSIM against the recording's frames).
 It runs on the card unless ``--device cpu`` is passed.
+
+The network is the one the ``--params`` file's ``__model_json__`` names
+(``training.reconstruction.ReconstructionTrainer``): the JAX package's
+``E2VID`` (ConvGRU state; the JAX package's own files), or, with
+``"architecture": "UNetRecurrent"``, rpg_e2vid's network at its published
+widths, whose state is one ``(h, c)`` ConvLSTM pair a level (files the
+port writes with ``training.checkpointing.save_params_npz``; run it with
+``--num_bins 5 --combined_channels``).
 
 Differences from the JAX CLI:
 
 - frames are written by ``utils.util.write_gray_png`` (standard library)
   instead of ``plt.imsave``: the same 8-bit levels within one, without
   matplotlib;
-- weights come from ``--params`` (a JAX ``params.npz``); ``--ckpt_dir``
-  (an orbax checkpoint) raises ``ConfigurationError``.
+- weights come from ``--params`` (a ``params.npz`` of either package);
+  ``--ckpt_dir`` (an orbax checkpoint) raises ``ConfigurationError``.
 
 Example:
     python -m event_utils_tpu_torch.cli.reconstruct rec_dir \\
@@ -36,11 +45,14 @@ def build_parser():
     parser.add_argument("--ckpt_step", type=int, default=None,
                         help="with --ckpt_dir only")
     parser.add_argument("--params", default=None,
-                        help="weights snapshot (.npz) written by the JAX "
-                             "package's train_reconstruction --params_out; "
-                             "the architecture comes from its embedded "
-                             "__model_json__ (omitted: random init — "
-                             "pipeline smoke only)")
+                        help="weights snapshot (.npz) written by either "
+                             "package's train_reconstruction --params_out "
+                             "(E2VID, ConvGRU state) or by the port's "
+                             "save_params_npz (UNetRecurrent, (h, c) "
+                             "ConvLSTM state); the architecture comes from "
+                             "its embedded __model_json__ (omitted: the "
+                             "port's E2VID with random init — pipeline "
+                             "smoke only)")
     parser.add_argument("--method", default="between_frames",
                         choices=["between_frames", "k_events", "t_seconds"])
     parser.add_argument("--k", type=int, default=20000,
@@ -111,10 +123,12 @@ def _window_source(dataset, args, n, pad, gt_fn=None, gt_channels=1,
     ``EVENT_UTILS_TPU_WINCACHE_LIMIT_MB`` (default 2048, the JAX package's
     variable) stream O(chunk) windows per fetch instead. The sizing
     decision is metadata-only (``gt_channels`` = per-pixel gt channels: 1
-    frame / 2 flow)."""
+    frame / 2 flow). Each fetch is the span ``reconstruct.fetch``."""
     import os
 
     import numpy as np
+
+    from ..utils import profiling
 
     H, W = int(dataset.sensor_resolution[0]), int(dataset.sensor_resolution[1])
     C = args.num_bins if args.combined_channels else 2 * args.num_bins
@@ -134,6 +148,7 @@ def _window_source(dataset, args, n, pad, gt_fn=None, gt_channels=1,
             _, idx1 = dataset.get_event_indices(i)
             stamps[i] = float(dataset.ts(max(idx1 - 1, 0)))
 
+        @profiling.spanned("reconstruct.fetch")
         def fetch(lo, hi):
             voxels, gts = [], []
             for i in range(lo, hi):
@@ -149,6 +164,7 @@ def _window_source(dataset, args, n, pad, gt_fn=None, gt_channels=1,
     all_voxels, stamps, all_gts = _window_arrays(
         dataset, args, n, pad, gt_fn, cache_suffix)
 
+    @profiling.spanned("reconstruct.fetch")
     def fetch(lo, hi):
         return (all_voxels[lo:hi],
                 all_gts[lo:hi] if all_gts is not None else None)
@@ -308,7 +324,7 @@ def main(argv=None):
     if psnrs:
         import json
 
-        # steady state = back half of the recording, where the ConvGRU
+        # steady state = back half of the recording, where the recurrent
         # state has history (the JAX package's split)
         t0 = len(psnrs) // 2
         metrics = {"psnr_db": round(float(np.mean(psnrs)), 3),

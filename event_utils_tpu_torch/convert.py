@@ -9,7 +9,11 @@
   (one array per flax tree path, plus ``__step__`` and
   ``__model_json__``) into the port's ``EVFlowNet`` / ``E2VID``;
   ``state_to_flax_params`` is the inverse of ``convert_flax_params``, with
-  which the port's trainers write the same layout.
+  which the port's trainers write the same layout. The same layout carries
+  the port's ``UNetRecurrent``, whose parameter paths (rpg_e2vid's names,
+  ``['params']['encoders']['0']['recurrent_block']['Gates']['kernel']``)
+  have no flax counterpart; its ``__model_json__`` holds
+  ``"architecture": "UNetRecurrent"``, so a load rebuilds it.
 
 Nothing of the JAX package is imported.
 """

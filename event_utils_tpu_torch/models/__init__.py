@@ -1,5 +1,5 @@
 """Motion models (warps), contrast objectives, and the learned networks
-(EV-FlowNet, E2VID)."""
+(EV-FlowNet, E2VID, rpg_e2vid's UNetRecurrent)."""
 
 from .warps import (  # noqa: F401
     WARP_REGISTRY,
@@ -28,9 +28,13 @@ from .objectives import (  # noqa: F401
 )
 from .networks import (  # noqa: F401
     E2VID,
+    RECONSTRUCTION_MODELS,
     ConvGRU,
+    ConvLSTM,
     EVFlowNet,
+    PadConv,
     SameConv,
+    UNetRecurrent,
     contrast_flow_loss,
     init_lecun_normal,
     perceptual_distance,

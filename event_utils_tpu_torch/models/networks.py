@@ -7,7 +7,11 @@ flax modules) as ``torch.nn.Module``s:
 - ``E2VID``      — recurrent encoder-decoder intensity reconstruction
   (Rebecq et al.) with ConvGRU state.
 
-Both take ``(B, C, H, W)`` float32 voxel grids (C = 2*num_bins
+and, with no flax counterpart, ``UNetRecurrent``: rpg_e2vid's own E2VID
+network at its published widths (a 5x5 head, ConvLSTM encoders, summed
+skips, symmetric padding), with ``(h, c)`` state a level.
+
+All take ``(B, C, H, W)`` float32 voxel grids (C = 2*num_bins
 polarity-split or num_bins combined, what ``BaseVoxelDataset`` emits).
 
 Layout and names. Tensors are NCHW, so flax's channel-last concatenations
@@ -337,6 +341,213 @@ class E2VID(nn.Module):
             x = F.relu(getattr(self, self.bottleneck)(bottleneck))
             img = torch.sigmoid(self._Decoder_0(x, skips))
         return img, state
+
+
+# ---------------------------------------------------------------------------
+# rpg_e2vid's UNetRecurrent (no flax counterpart)
+# ---------------------------------------------------------------------------
+
+class PadConv(nn.Module):
+    """2-D convolution padded by ``kernel // 2`` zeros on every side, as
+    ``nn.Conv2d(padding=kernel // 2)`` in rpg_e2vid. For a stride-2 5x5
+    kernel on an even input that is 2 before and 2 after, where flax's
+    ``SAME`` (``SameConv``) pads 1 before and 2 after: the outputs differ
+    by a one-pixel shift, so the two are not interchangeable.
+
+    Parameters start empty; ``init_unet_recurrent`` draws them."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int = 1):
+        super().__init__()
+        self.kernel, self.stride = kernel, stride
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel, kernel))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, self.stride,
+                        self.kernel // 2)
+
+
+class _ConvLayer(nn.Module):
+    """rpg_e2vid's ``ConvLayer`` without a norm: ``conv2d``, then ReLU
+    unless ``relu=False``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int = 1, relu: bool = True):
+        super().__init__()
+        self.relu = relu
+        self.conv2d = PadConv(in_channels, out_channels, kernel, stride)
+
+    def forward(self, x):
+        x = self.conv2d(x)
+        return F.relu(x) if self.relu else x
+
+
+class ConvLSTM(nn.Module):
+    """Convolutional LSTM cell (rpg_e2vid's ``ConvLSTM``, kernel 3).
+
+    ``gates = Gates(cat(x, h))`` split into ``i, f, o, g`` in that order;
+    ``c' = sigmoid(f) c + sigmoid(i) tanh(g)``, ``h' = sigmoid(o)
+    tanh(c')``. ``forward(x, state) -> (h', c')``; ``state=None`` starts
+    from zeros."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.Gates = PadConv(input_size + hidden_size, 4 * hidden_size, 3)
+
+    def forward(self, x, state=None):
+        if state is None:
+            z = x.new_zeros((x.shape[0], self.hidden_size) + x.shape[2:])
+            state = (z, z)
+        h, c = state
+        i, f, o, g = self.Gates(torch.cat([x, h], 1)).chunk(4, 1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c), c
+
+
+class _RecurrentConvLayer(nn.Module):
+    """A stride-2 5x5 ``conv`` + ReLU, then a ``recurrent_block``
+    (``ConvLSTM`` of the conv's width): outputs ``h'`` and keeps
+    ``(h', c')``."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = _ConvLayer(in_channels, out_channels, 5, stride=2)
+        self.recurrent_block = ConvLSTM(out_channels, out_channels)
+
+    def forward(self, x, state):
+        state = self.recurrent_block(self.conv(x), state)
+        return state[0], state
+
+
+class _PostActResBlock(nn.Module):
+    """rpg_e2vid's ``ResidualBlock`` without a norm, post-activation:
+    ``relu(x + conv2(relu(conv1(x))))`` (``_ResBlock`` is
+    pre-activation)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv1 = PadConv(channels, channels, 3)
+        self.conv2 = PadConv(channels, channels, 3)
+
+    def forward(self, x):
+        return F.relu(x + self.conv2(F.relu(self.conv1(x))))
+
+
+class _UpsampleConvLayer(nn.Module):
+    """rpg_e2vid's ``UpsampleConvLayer``: x2 bilinear
+    (``align_corners=False``), then a 5x5 ``conv2d`` + ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv2d = PadConv(in_channels, out_channels, 5)
+
+    def forward(self, x):
+        return F.relu(self.conv2d(_upsample2x(x)))
+
+
+def init_unet_recurrent(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Draw every ``PadConv`` of ``model`` from one ``torch.Generator``
+    seeded by ``seed``, modules in registration order: kernels from a
+    normal of variance 2/fan_in truncated at +-2 sigma (He's, so that
+    activations keep their scale through the ReLU stack of a network with
+    no trained weights), biases uniform in +-1/sqrt(fan_in) (PyTorch's
+    ``nn.Conv2d`` default)."""
+    g = torch.Generator(device="cpu").manual_seed(int(seed))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, PadConv):
+                fan_in = m.weight.shape[1] * m.kernel * m.kernel
+                std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+                w = torch.empty(m.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                      generator=g)
+                m.weight.copy_(w)
+                bound = 1.0 / math.sqrt(fan_in)
+                b = torch.empty(m.bias.shape)
+                b.uniform_(-bound, bound, generator=g)
+                m.bias.copy_(b)
+    return model
+
+
+class UNetRecurrent(nn.Module):
+    """rpg_e2vid's ``UNetRecurrent`` (Rebecq et al., TPAMI 2019,
+    arXiv:1906.07165; ``model/unet.py``) with the settings of its
+    released ``E2VID_lightweight``: skips summed, ConvLSTM, upsampling
+    decoders, no norm, sigmoid output. At the defaults (5 bins, base 32,
+    3 encoders, 2 residual blocks) it has 10,710,401 parameters.
+
+    - ``head``: 5x5 conv ``in_channels -> base`` + ReLU, full resolution;
+      its output is the last skip.
+    - ``encoders.i``: stride-2 5x5 conv ``base 2^i -> base 2^(i+1)`` +
+      ReLU, then a ``ConvLSTM`` of that width.
+    - ``resblocks.j``: post-activation 3x3 blocks at ``base
+      2^num_encoders``.
+    - ``decoders.j``: ``x + skip`` (the encoders' outputs, deepest
+      first), x2 bilinear, 5x5 conv halving the width + ReLU.
+    - ``pred``: 1x1 conv of ``x + head`` to one channel, then a sigmoid.
+
+    ``forward(voxel, state) -> (image (B, 1, H, W) in [0, 1], state)``;
+    ``state`` is one ``(h, c)`` pair a level, shallowest first
+    (``state=None`` starts from zeros). Submodules carry rpg_e2vid's
+    own names, so its state-dict keys (without the ``unetrecurrent.``
+    prefix) name the parameters here. H and W must be multiples of
+    ``2^num_encoders``."""
+
+    def __init__(self, in_channels: int = 5, base_num_channels: int = 32,
+                 num_encoders: int = 3, num_residual_blocks: int = 2,
+                 seed: int = 0):
+        super().__init__()
+        self.num_encoders = num_encoders
+        base = base_num_channels
+        self.widths = [base * 2 ** (i + 1) for i in range(num_encoders)]
+        self.head = _ConvLayer(in_channels, base, 5)
+        self.encoders = nn.ModuleList(
+            _RecurrentConvLayer(w // 2, w) for w in self.widths)
+        self.resblocks = nn.ModuleList(
+            _PostActResBlock(self.widths[-1])
+            for _ in range(num_residual_blocks))
+        self.decoders = nn.ModuleList(
+            _UpsampleConvLayer(w, w // 2) for w in reversed(self.widths))
+        self.pred = _ConvLayer(base, 1, 1, relu=False)
+        init_unet_recurrent(self, seed)
+
+    def state_shapes(self, batch: int, H: int, W: int):
+        """Shapes of the state for a ``(batch, C, H, W)`` input: an
+        ``(h, c)`` pair of shapes a level, shallowest first."""
+        return tuple(((batch, w, H >> (i + 1), W >> (i + 1)),) * 2
+                     for i, w in enumerate(self.widths))
+
+    def zero_state(self, batch: int, H: int, W: int, device=None):
+        """All-zero initial state (what ``state=None`` starts from)."""
+        return tuple(tuple(torch.zeros(s, device=device) for s in pair)
+                     for pair in self.state_shapes(batch, H, W))
+
+    def forward(self, voxel, state=None):
+        _check_divisible(voxel.shape[-2:], self.num_encoders,
+                         "UNetRecurrent")
+        if state is None:
+            state = (None,) * self.num_encoders
+        with no_tf32():
+            x = head = self.head(voxel)
+            blocks, states = [], []
+            for encoder, s in zip(self.encoders, state):
+                x, s = encoder(x, s)
+                blocks.append(x)
+                states.append(s)
+            for block in self.resblocks:
+                x = block(x)
+            for decoder, skip in zip(self.decoders, reversed(blocks)):
+                x = decoder(x + skip)
+            img = torch.sigmoid(self.pred(x + head))
+        return img, tuple(states)
+
+
+#: the reconstruction networks by ``model_kwargs["architecture"]``
+#: (``training.reconstruction.ReconstructionTrainer``); absent: ``E2VID``
+RECONSTRUCTION_MODELS = {"E2VID": E2VID, "UNetRecurrent": UNetRecurrent}
 
 
 # ---------------------------------------------------------------------------

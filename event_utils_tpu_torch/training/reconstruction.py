@@ -17,6 +17,13 @@ windows (truncated BPTT). Supervision is the time-synchronised frames
   it, as in JAX.
 - Optimiser and schedule as ``training.loop.FlowTrainer``; forward and
   backward run with TF32 off.
+- ``model_kwargs["architecture"]`` picks the network
+  (``models.networks.RECONSTRUCTION_MODELS``): absent, the port of the
+  JAX package's ``E2VID`` (ConvGRU state); ``"UNetRecurrent"``,
+  rpg_e2vid's network (one ``(h, c)`` pair of ConvLSTM state a level).
+  The key stays in ``model_kwargs``, so saved weights rebuild the same
+  network. Only inference (``reconstruct``) is exercised with
+  ``UNetRecurrent``.
 - ``mesh=``: data-parallel as ``FlowTrainer``. The layout is ``(T, B)``
   with the batch axis sharded: each rank trains on its slice of the B
   sequences, and its recurrent state (``final_state``) is its own batch
@@ -34,14 +41,20 @@ import torch
 
 from .._device import as_f32, no_tf32, resolve_device
 from ..errors import ConfigurationError
-from ..models.networks import E2VID, perceptual_filters, reconstruction_loss
+from ..models.networks import (RECONSTRUCTION_MODELS, perceptual_filters,
+                               reconstruction_loss)
 from ..parallel import sharding
+from ..utils import profiling
 from .loop import AdamStep, Schedule, data_parallel
+
+
+#: counter of the bytes ``reconstruct`` copies from host arrays to the card
+H2D_BYTES = "reconstruct.h2d_bytes"
 
 
 def _detach(state):
     if isinstance(state, tuple):
-        return tuple(s.detach() for s in state)
+        return tuple(_detach(s) for s in state)
     return state.detach()
 
 
@@ -50,9 +63,12 @@ class ReconstructionTrainer:
     and ``(T, B, 1, H, W)`` target frames on one device, or data-parallel
     over a ``parallel.make_mesh`` mesh (``mesh=``; this rank's device).
 
-    ``model_kwargs`` go to ``models.networks.E2VID`` (``recurrent_levels``,
-    ``num_res_blocks``, ``base_features``, ``depth``) and are recorded in
-    saved weights (``__model_json__``) and checkpoints (``model.json``).
+    ``model_kwargs`` name the network (``"architecture"``, default
+    ``"E2VID"``) and go to it: ``models.networks.E2VID``
+    (``recurrent_levels``, ``num_res_blocks``, ``base_features``,
+    ``depth``) or ``UNetRecurrent`` (``base_num_channels``,
+    ``num_encoders``, ``num_residual_blocks``). They are recorded in saved
+    weights (``__model_json__``) and checkpoints (``model.json``).
     ``device``: ``None`` means the card (``DeviceUnavailableError`` without
     one); pass ``"cpu"`` for the host.
     """
@@ -75,8 +91,15 @@ class ReconstructionTrainer:
         self.mse_weight = float(mse_weight)
         self.ema_decay = float(ema_decay)
         channels = num_bins if combined_channels else 2 * num_bins
-        self.model = E2VID(in_channels=channels, seed=seed,
-                           **self.model_kwargs).to(self.device).eval()
+        kwargs = dict(self.model_kwargs)
+        arch = kwargs.pop("architecture", "E2VID")
+        if arch not in RECONSTRUCTION_MODELS:
+            raise ConfigurationError(
+                f"unknown architecture {arch!r}; one of "
+                f"{sorted(RECONSTRUCTION_MODELS)}")
+        self.model = RECONSTRUCTION_MODELS[arch](
+            in_channels=channels, seed=seed,
+            **kwargs).to(self.device).eval()
         self.net = data_parallel(self.model, mesh)
         self.opt = AdamStep(self.model.parameters(), learning_rate)
         self.ema_model = None
@@ -84,7 +107,7 @@ class ReconstructionTrainer:
         self.filters = (perceptual_filters(device=self.device)
                         if self.lpips_weight else None)
         self.step = 0
-        #: final ConvGRU state of the last train step (detached) — pass it
+        #: final recurrent state of the last train step (detached) — pass it
         #: back as ``state0`` to continue the same scenes
         self.final_state = None
 
@@ -110,7 +133,7 @@ class ReconstructionTrainer:
                 p.requires_grad_(False)
 
     @property
-    def inference_model(self) -> E2VID:
+    def inference_model(self) -> torch.nn.Module:
         """The EMA model when enabled, else the trained one."""
         return self.ema_model if self.ema_model is not None else self.model
 
@@ -179,15 +202,26 @@ class ReconstructionTrainer:
     def reconstruct(self, voxels, state=None):
         """Run over a ``(T, B, C, H, W)`` sequence; returns ``(images (T, B,
         1, H, W), final_state)``, with the EMA weights when enabled.
-        ``state=None`` starts from the all-zero state."""
+        ``state=None`` starts from the all-zero state; the state is the
+        network's own (``E2VID``: tensors; ``UNetRecurrent``: ``(h, c)``
+        pairs). Spans ``e2vid.forward`` (each window's forward pass);
+        counters ``e2vid.windows`` (windows through the network) and
+        ``reconstruct.h2d_bytes`` (a host ``voxels`` copied to the card)."""
         model = self.inference_model
+        upload = (not isinstance(voxels, torch.Tensor)
+                  and self.device.type != "cpu")
         voxels = as_f32(voxels, self.device)
+        if upload:
+            profiling.count(H2D_BYTES,
+                            voxels.numel() * voxels.element_size())
         if state is None:
             state = model.zero_state(voxels.shape[1], voxels.shape[-2],
                                      voxels.shape[-1], self.device)
         preds = []
         for vox in voxels:
-            pred, state = model(vox, state)
+            with profiling.span("e2vid.forward"):
+                pred, state = model(vox, state)
+            profiling.count("e2vid.windows", vox.shape[0])
             preds.append(pred)
         return torch.stack(preds), state
 

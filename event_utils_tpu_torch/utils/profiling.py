@@ -28,9 +28,14 @@ Names in use: spans ``cmax.solve`` (``grid_cmax_batched``), ``cmax.bucket``
 ``cmax.grid_search``, ``cmax.descent`` (the GD or BFGS refine),
 ``cmax.grad`` (each autograd backward of the refine; absent where the GD
 refine replays a CUDA graph), ``loader.fill`` (``NativeWindowedLoader``'s
-batch fill); counters ``cmax.h2d_bytes`` (bytes the solvers copy from host
-arrays to the device), ``cmax.graph_captures`` and ``cmax.graph_replays``
-(the GD refine's CUDA graphs captured and replayed).
+batch fill), ``reconstruct.fetch`` (``cli/reconstruct.py``'s per-chunk
+window fetch: dataset items, voxel grids, padding, stack),
+``e2vid.forward`` (each window's forward pass in
+``ReconstructionTrainer.reconstruct``); counters ``cmax.h2d_bytes`` (bytes
+the solvers copy from host arrays to the device), ``cmax.graph_captures``
+and ``cmax.graph_replays`` (the GD refine's CUDA graphs captured and
+replayed), ``e2vid.windows`` (windows through the reconstruction network)
+and ``reconstruct.h2d_bytes`` (the voxel chunk's bytes copied to the card).
 """
 
 from __future__ import annotations
