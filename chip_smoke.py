@@ -559,6 +559,8 @@ TRAIN_STREAM = ["--sensor", "184", "240", "--k", "20000", "--batch_size", "8",
                 "--num_bins", "5", "--epochs", "1"]
 FIT_PARITY_STEPS = 2
 SRC = "event_utils_tpu_torch/csrc/scatter_kernels.cu"
+SOURCES = {"patch_variance_vg":
+           "event_utils_tpu_torch/csrc/patch_loss_kernels.cu"}
 REPLACES = {
     "voxel_scatter": "event_utils_tpu/ops/pallas_scatter.py:113",
     "voxel_tiles_scatter": "event_utils_tpu/ops/pallas_scatter.py:455",
@@ -571,6 +573,9 @@ REPLACES = {
     # under jax.vmap (voxel_grids_fixed_n, voxel_grid.py:328; the trainers'
     # padded rows, training/loop.py:174-185): the call at :353 batched
     "voxel_scatter_batched": "event_utils_tpu/ops/pallas_scatter.py:113",
+    # no TPU kernel: the JAX patch loss composes bilinear_matmul and XLA ops
+    "patch_variance_vg": "none (event_utils_tpu/contrast_max/"
+                         "events_cmax.py:506-662)",
 }
 
 
@@ -1413,6 +1418,93 @@ def patches_phase(torch, cs, rng, records, odd_errs):
     records["bilinear_patches_scatter:direct"] = step
 
 
+def patch_variance_case(torch, cs, label, args, R, C, roi, patch, fp):
+    """One fused patch-loss evaluation, value and gradient, on ``args`` (the
+    wrapper's tensors) against its plain version, timed beside it and beside
+    the composed body it replaces (``make_patch_loss`` with the route off:
+    the warp, the patch splat, cuDNN's blur, the sums and autograd's
+    backward); the bound: the slots' 20 bytes, read once."""
+    from event_utils_tpu_torch.contrast_max import events_cmax as ec
+    from event_utils_tpu_torch.ops.blur import gaussian_kernel1d
+    ev, params, taps = args[:6], args[6], args[7]
+    sigma = (len(taps) // 2) / 4.0
+    if not np.allclose(gaussian_kernel1d(sigma), taps.cpu().numpy()):
+        raise AssertionError(f"patch_variance_vg: taps {taps} are no blur "
+                             f"the case can rebuild")
+    kernel = lambda: cs.patch_variance_vg(*ev, params, taps, roi, patch, fp)
+    plain = lambda: cs.patch_variance_vg_plain(*ev, params, taps, roi, patch,
+                                               fp)
+    loss = ec.make_patch_loss(ec.linvel_warp(), roi, ec.variance_objective(),
+                              patch=patch, blur_sigma=sigma, full_pixels=fp)
+
+    def composed():
+        was, ec.FUSED_DEVICE_TYPE = ec.FUSED_DEVICE_TYPE, "none"
+        try:
+            q = params.detach().requires_grad_(True)
+            with torch.enable_grad():
+                v = loss(q, *ev)
+                return v, torch.autograd.grad(v.sum(), q)[0]
+        finally:
+            ec.FUSED_DEVICE_TYPE = was
+
+    def held(what, got, ref, rel):
+        # of the reference's own scale: losses ~1e-2, gradients ~1e-5
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        log(f"  patch_variance_vg {what} ({shape}): max|err| {err:.3e} of "
+            f"scale {scale:.3e}")
+        if not err <= rel * scale:
+            raise AssertionError(f"patch_variance_vg {what} ({shape}): "
+                                 f"{err} > {rel} * {scale}")
+        return err
+
+    shape = f"{R} ROIs x {C} slots into {patch} patches ({label})"
+    (v, g), (pv, pg), (cv, cg) = kernel(), plain(), composed()
+    err = max(held("loss", v, pv, 1e-5), held("gradient", g, pg, 1e-4))
+    held("loss against the composed body", v, cv, 1e-5)
+    held("gradient against the composed body", g, cg, 1e-4)
+    return dict(shape=shape, max_abs_err=err, ms=time_ms(kernel, torch),
+                plain_ms=time_ms(plain, torch),
+                library_ms=time_ms(composed, torch),
+                value_ms=time_ms(lambda: cs.patch_variance_vg(
+                    *ev, params, taps, roi, patch, fp, grad=False), torch),
+                bound=bound(R * C * 20 + R * 20 + len(taps) * 4 + R * 12,
+                            R * C * 60))
+
+
+def patch_variance_phase(torch, cs, records):
+    """The fused patch loss at the stream's shapes: 20k events of the
+    rotating scene in 108 ROIs of 20 x 20 at capacities 1024 and 2048,
+    (64, 128) patches, the 181 x 241 frame, the rotation's velocities."""
+    from event_utils_tpu_torch.contrast_max import events_cmax as ec
+    from event_utils_tpu_torch.ops.blur import gaussian_kernel1d
+    sx, sy, st, sp = (a[:20_000] for a in rotating_scene())
+    taps = torch.as_tensor(gaussian_kernel1d(1.0), dtype=torch.float32,
+                           device="cuda")
+    cases = []
+    for capacity in (1024, 2048):
+        bx, by, bt, bp, bm, org, _ = ec.bucket_events_by_roi(
+            sx, sy, st, sp, ROT_SENSOR, ROT_ROI, capacity, device="cuda")
+        org = org.to(torch.float32)
+        oy = org[:, 0] + ROT_ROI[0] / 2 - ROT_SENSOR[0] / 2
+        ox = org[:, 1] + ROT_ROI[1] / 2 - ROT_SENSOR[1] / 2
+        params = torch.stack([-ROT_OMEGA * oy, ROT_OMEGA * ox], -1)
+        cases.append(patch_variance_case(
+            torch, cs, "one descent step of the stream",
+            (bx, by, bt, bp, bm, org, params.contiguous(), taps),
+            *bx.shape, ROT_ROI, ec._roi_patch(ROT_ROI),
+            (ROT_SENSOR[0] + 1) * (ROT_SENSOR[1] + 1)))
+        log(f"  patch_variance_vg at {cases[-1]['shape']}: "
+            f"{cases[-1]['ms']:.4f} ms (value alone "
+            f"{cases[-1]['value_ms']:.4f}), plain {cases[-1]['plain_ms']:.4f}"
+            f", composed body {cases[-1]['library_ms']:.4f}, bound "
+            f"{cases[-1]['bound'][0]:.5f} ms")
+    rec = dict(cases[-1])
+    rec["cases"] = [as_case(c, value_ms=c["value_ms"]) for c in cases]
+    rec["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+    records["patch_variance_vg"] = rec
+
+
 def descent_step_case(torch, cs, x, y, w, P, C, PH, PW,
                       label="one descent step"):
     """One descent step of the batched patch loss (one sample per ROI: the
@@ -2093,6 +2185,7 @@ def kernel_phase(torch, cs, rng, records):
     batched_kernel_cases(torch, cs, rng, records)
 
     patches_phase(torch, cs, rng, records, err_odd)
+    patch_variance_phase(torch, cs, records)
 
     flat_phase(torch, cs, rng, records, x, y, w4[0].contiguous())
     return floor_ms
@@ -2749,6 +2842,7 @@ def route_calls(cs):
                                     cs.bilinear_scatter_batched,
                                     ec.bilinear_patches_scatter)
     vbat = cs.voxel_scatter_batched
+    pvar = cs.patch_variance_vg
 
     def note(route, shape, inputs, size, launches=1):
         # calls on the card only (the CPU runs the plain versions), and
@@ -2801,6 +2895,14 @@ def route_calls(cs):
              P * C if w.shape[0] else 0)
         return patches(x, y, w, P, C, PH, PW, route=route)
 
+    def pvar_(x, y, t, p, mask, origin_yx, params, taps, roi_size, patch,
+              full_pixels, grad=True):
+        note("patch_variance_vg",
+             (*x.shape, tuple(roi_size), tuple(patch), full_pixels),
+             (x, y, t, p, mask, origin_yx, params, taps), x.numel())
+        return pvar(x, y, t, p, mask, origin_yx, params, taps, roi_size,
+                    patch, full_pixels, grad=grad)
+
     add = cs.add_launch_counts
 
     def add_(counts):
@@ -2814,6 +2916,7 @@ def route_calls(cs):
     cs.bilinear_scatter_batched = bat_
     cs.voxel_scatter_batched = vbat_
     ec.bilinear_patches_scatter = patches_
+    cs.patch_variance_vg = pvar_
     cs.add_launch_counts = add_
     try:
         yield out
@@ -2822,6 +2925,7 @@ def route_calls(cs):
         cs.bilinear_scatter_batched = bat
         cs.voxel_scatter_batched = vbat
         ec.bilinear_patches_scatter = patches
+        cs.patch_variance_vg = pvar
         cs.add_launch_counts = add
 
 
@@ -2834,7 +2938,9 @@ def route_cases(torch, cs, records, seen, label, extra=None):
     cases = []
     for (name, shape), (args, _) in sorted(seen["kept"].items()):
         route = name.split(":")[1] if ":" in name else None
-        if name.startswith("voxel_scatter_batched"):
+        if name == "patch_variance_vg":
+            case = patch_variance_case(torch, cs, label, args, *shape)
+        elif name.startswith("voxel_scatter_batched"):
             case = voxel_batched_case(torch, cs, label, args, *shape, route)
         elif name.startswith("voxel_scatter"):
             Bv, Hv, Wv = shape
@@ -4328,7 +4434,8 @@ def streaming_phase(torch, cs, records, work):
                              f"{seen['calls']}")
     if not launches["flat_scatter:direct"] or not (
             launches["bilinear_patches_scatter"]
-            or launches["bilinear_patches_scatter:direct"]):
+            or launches["bilinear_patches_scatter:direct"]
+            or launches["patch_variance_vg"]):
         raise AssertionError(f"streaming launches {launches}")
 
     # stream_flow: the windows against the ground truth and the CPU port
@@ -5792,7 +5899,8 @@ def main() -> int:
     for name, rec in records.items():
         bound_ms, bound_by = rec["bound"]
         kernels.append({
-            "name": name, "route": "cuda", "source": SRC,
+            "name": name, "route": "cuda",
+            "source": SOURCES.get(name, SRC),
             "replaces": REPLACES[name.split(":")[0]],
             "launches": launches[name],
             "launches_batched": batched_launches[name],

@@ -16,7 +16,10 @@ the sustained throughput (Mev/s ingested and solved, windows/s) and, under
 from the host to the device a window, and ``graph_captures`` and
 ``graph_replays``, the run's CUDA graphs of the ROI refine captured and
 replayed. Spans time the host's issue of the work and never wait for the
-card.
+card. ``patch_variance_vg_share`` is the share of the run's patch-loss
+evaluations on the card that the fused kernel served (its launches over
+those of every route a patch-loss evaluation launches: it and the two
+patch splats of the composed loss), null where none ran on the card.
 ``--render`` writes ``flow_NNNN.png`` HSV renderings with the standard
 library (``utils.util.write_rgb_png``; JAX's CLI uses matplotlib, which
 writes RGBA with the same levels).
@@ -139,6 +142,7 @@ def main(argv=None):
     from .._device import resolve_device, to_numpy
     from ..contrast_max.events_cmax import (GRAPH_CAPTURES, GRAPH_REPLAYS,
                                             H2D_BYTES, grid_cmax_batched)
+    from ..ops import cuda_scatter
     from ..ops.denoise import background_activity_filter
     from ..utils import profiling
     from ..utils.util import flow2bgr_np, write_rgb_png
@@ -152,6 +156,7 @@ def main(argv=None):
     n_windows = 0
     span_s, counts = {}, {}
     spans_were_on = profiling.enable_spans(True)
+    launches_before = cuda_scatter.launch_counts()
     t_start = time.perf_counter()
     try:
         for batch in loader:
@@ -215,10 +220,18 @@ def main(argv=None):
                  counts.get(H2D_BYTES, 0) / n_windows / 1e6, 4),
              "graph_captures": counts.get(GRAPH_CAPTURES, 0),
              "graph_replays": counts.get(GRAPH_REPLAYS, 0)}
+    launched = {k: v - launches_before[k]
+                for k, v in cuda_scatter.launch_counts().items()}
+    evaluations = sum(launched[k] for k in (
+        "patch_variance_vg", "bilinear_patches_scatter",
+        "bilinear_patches_scatter:direct"))
     metrics = {"mevs_sustained": round(n_events / elapsed / 1e6, 3),
                "windows_per_s": round(n_windows / elapsed, 3),
                "num_windows": n_windows, "num_events": int(n_events),
-               "wallclock_s": round(elapsed, 2), "spans": spans}
+               "wallclock_s": round(elapsed, 2), "spans": spans,
+               "patch_variance_vg_share": (
+                   round(launched["patch_variance_vg"] / evaluations, 6)
+                   if evaluations else None)}
     with open(os.path.join(args.output_dir, "metrics.json"), "w") as f:
         json.dump(metrics, f)
     print(f"wrote {n_windows} flow fields to {args.output_dir}: "

@@ -49,14 +49,14 @@ import torch
 import torch.nn.functional as F
 
 from .. import native
-from .._device import as_f32, as_tensor, no_tf32, pick_device, to_numpy
+from .._device import as_f32, as_tensor, pick_device, to_numpy
 from ..errors import ConfigurationError
 from ..models.objectives import (OBJECTIVE_REGISTRY, get_iwe,
                                  objective_function, soe_objective,
                                  variance_objective)
 from ..models.warps import linvel_warp, warp_function, xyztheta_warp
 from ..ops import cuda_scatter
-from ..ops.blur import gaussian_filter, gaussian_kernel1d
+from ..ops.blur import gaussian_filter, gaussian_kernel1d, zero_pad_blur
 from ..ops.cuda_scatter import bilinear_patches_scatter
 from ..utils import profiling
 from ..utils.event_util import infer_resolution, lifespan_mask
@@ -563,17 +563,50 @@ PATCH_OBJECTIVES = ("variance", "sos", "rms", "soe", "sosa", "isoa", "moa",
                     "r1", "zhu")
 
 
-def _zero_pad_blur(img, k):
-    """Separable 'same' blur with zero padding over the last two axes
-    (the JAX patch loss's ``conv_general_dilated`` pair) by the taps ``k``,
-    a float32 tensor on ``img``'s device."""
-    r = k.shape[0] // 2
-    lead, (h, w) = img.shape[:-2], img.shape[-2:]
-    x = img.reshape(-1, 1, h, w)
-    with no_tf32():
-        x = F.conv2d(x, k.view(1, 1, -1, 1), padding=(r, 0))
-        x = F.conv2d(x, k.view(1, 1, 1, -1), padding=(0, r))
-    return x.reshape(*lead, h, w)
+# The device type on which make_patch_loss takes the fused kernel.
+FUSED_DEVICE_TYPE = "cuda"
+
+
+def fused_patch_variance(objective, warpfunc, params_shape, device,
+                         patch, blur_radius: int) -> bool:
+    """Whether an evaluation of ``make_patch_loss`` at parameters of shape
+    ``params_shape`` on ``device`` goes through the fused value-and-gradient
+    kernel (``cuda_scatter.patch_variance_vg``): the variance objective and
+    the linear-velocity warp (their classes), (R, 2) parameters with no
+    sample axis, the card, and two patch planes with the blur's taps in a
+    block's shared memory. Every other evaluation runs the composed body:
+    the other objectives and warps, the grid searches' (R, S, dims)
+    samples, the CPU."""
+    return (type(objective) is variance_objective
+            and type(warpfunc) is linvel_warp
+            and len(params_shape) == 2 and params_shape[-1] == 2
+            and torch.device(device).type == FUSED_DEVICE_TYPE
+            and cuda_scatter.patch_variance_fits(*patch, blur_radius))
+
+
+class _PatchVarianceVG(torch.autograd.Function):
+    """``cuda_scatter.patch_variance_vg`` as a differentiable (R,) loss in
+    ``params``: the forward launches the kernel once, with the gradient
+    where ``with_grad`` (the caller's grad mode and ``params``'s
+    ``requires_grad``) and keeps it; the backward scales it by the
+    cotangent. Nothing is read back to the host, so a CUDA graph captures
+    it."""
+
+    @staticmethod
+    def forward(ctx, params, ex, ey, et, ep, mask, origin_yx, taps, roi_size,
+                patch, full_pixels, with_grad):
+        out, grad = cuda_scatter.patch_variance_vg(
+            ex, ey, et, ep, mask, origin_yx, params.contiguous(), taps,
+            roi_size, patch, full_pixels, grad=with_grad)
+        if with_grad:
+            ctx.save_for_backward(grad)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (grad,) = ctx.saved_tensors
+        return (g[:, None] * grad,) + (None,) * 11
 
 
 def make_patch_loss(warpfunc, roi_size, objective=None, patch=PATCH_DEFAULT,
@@ -608,6 +641,13 @@ def make_patch_loss(warpfunc, roi_size, objective=None, patch=PATCH_DEFAULT,
     fractions. An event with a tap outside its patch has weight 0, as in
     JAX.
 
+    Where ``fused_patch_variance`` says so (the variance objective under
+    the linear-velocity warp at (R, 2) params on the card; the ROI refines
+    and the ROI BFGS), and no event tensor requires grad, an evaluation is
+    one launch of ``cuda_scatter.patch_variance_vg`` instead, which
+    computes the same value and, when ``params`` requires grad, its
+    gradient (``_PatchVarianceVG``).
+
     Returns ``loss(params, ex, ey, et, ep, mask, origin_yx)``. Events are
     (R, C) per-ROI batches with (R, 2) origins; ``params`` (R, dims) gives
     (R,) losses and (R, S, dims) gives (R, S). One ROI as 1-D (C,) events
@@ -627,15 +667,21 @@ def make_patch_loss(warpfunc, roi_size, objective=None, patch=PATCH_DEFAULT,
               if blur_sigma and blur_sigma > 0 else None)
     FP = float(full_pixels if full_pixels is not None else PH * PW)
     Pp = float(PH * PW)
-    taps = {}   # the blur taps on each device, uploaded at their first use
+    # the blur taps on each device, uploaded at their first use (the fused
+    # kernel blurs by one tap of 1 where the body does not blur)
+    fused_k = blur_k if blur_k is not None else np.ones(1)
+    taps = {}
+
+    def taps_on(dev):
+        k = taps.get(dev)
+        if k is None:
+            k = taps[dev] = _upload(fused_k, dev, torch.float32)
+        return k
 
     def blur(img):
         if blur_k is None:
             return img
-        k = taps.get(img.device)
-        if k is None:
-            k = taps[img.device] = _upload(blur_k, img.device, torch.float32)
-        return _zero_pad_blur(img, k)
+        return zero_pad_blur(img, taps_on(img.device))
 
     def loss(params, ex, ey, et, ep, mask, origin_yx):
         dev = ex.device
@@ -647,6 +693,15 @@ def make_patch_loss(warpfunc, roi_size, objective=None, patch=PATCH_DEFAULT,
         if single:
             ex, ey, et, ep, mask = (a[None] for a in (ex, ey, et, ep, mask))
             params, origin_yx = params[None], origin_yx[None]
+        events = (ex, ey, et, ep, mask, origin_yx)
+        if (fused_patch_variance(objective, warpfunc, params.shape, dev,
+                                 patch, len(fused_k) // 2)
+                and not any(a.requires_grad for a in events)):
+            out = _PatchVarianceVG.apply(
+                params, *(a.to(torch.float32).contiguous() for a in events),
+                taps_on(dev), roi_size, patch, FP,
+                torch.is_grad_enabled() and params.requires_grad)
+            return out[0] if single else out
         no_samples = params.dim() == 2
         if no_samples:
             params = params[:, None]

@@ -67,6 +67,19 @@ def _blur_last_axis(x: torch.Tensor, sigma: float,
     return out.reshape(*shape[:-1], out.shape[-1])
 
 
+def zero_pad_blur(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Separable 'same' blur with zero padding over the last two axes (the
+    JAX patch loss's ``conv_general_dilated`` pair) by the taps ``k``, a
+    float32 tensor on ``img``'s device: the columns first, then the rows."""
+    r = k.shape[0] // 2
+    lead, (h, w) = img.shape[:-2], img.shape[-2:]
+    x = img.reshape(-1, 1, h, w)
+    with no_tf32():
+        x = F.conv2d(x, k.view(1, 1, -1, 1), padding=(r, 0))
+        x = F.conv2d(x, k.view(1, 1, 1, -1), padding=(0, r))
+    return x.reshape(*lead, h, w)
+
+
 def gaussian_filter(x: torch.Tensor, sigma: float, *, truncate: float = 4.0,
                     axes: Optional[Sequence[int]] = None,
                     device=None) -> torch.Tensor:

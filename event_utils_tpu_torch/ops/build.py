@@ -38,6 +38,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 SIGNATURES = {
     "scatter_kernels": {
         "voxel_scatter": (_P, _P, _P, _P, _L, _I, _I, _I, _P, _P),
@@ -67,6 +68,10 @@ SIGNATURES = {
                                     _P),
         "bilinear_scatter_batched_vector": (_P, _P, _P, _L, _L, _L, _I, _I,
                                             _I, _I, _P, _P, _P),
+    },
+    "patch_loss_kernels": {
+        "patch_variance_vg": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
+                              _I, _F, _F, _F, _I, _P, _P, _P),
     },
 }
 

@@ -99,6 +99,14 @@ the events are many; below that the direct kernels win.
   ``bilinear_patches_scatter:direct`` — one thread per slot, global atomics
   into the zeroed patches: fewer patches (their output stays in L2), and
   patches too large for shared memory.
+- ``patch_variance_vg`` (``csrc/patch_loss_kernels.cu``; no TPU kernel,
+  the JAX package composes it from ``bilinear_matmul`` and XLA ops) — one
+  whole evaluation of the ROI solvers' patch loss for the variance
+  objective under the linear-velocity warp, its value and its gradient in
+  the velocity: one block per ROI warps its slots, splats them into a
+  patch in shared memory, blurs, sums and, for the gradient, blurs back and
+  gathers. ``events_cmax.make_patch_loss`` takes it where
+  ``fused_patch_variance`` says so.
 
 Private copies summed across a thread-block cluster through distributed
 shared memory, each pixel stored once, lost to these kernels on the card
@@ -149,6 +157,7 @@ import torch
 
 from ..errors import ConfigurationError
 from . import build
+from .blur import zero_pad_blur
 
 PRECISIONS = ("hilo", "bf16", "int8")
 
@@ -195,7 +204,7 @@ ROUTES = ("voxel_scatter:vector", "voxel_scatter:direct",
           "bilinear_scatter_batched:private",
           "bilinear_scatter_batched:direct",
           "bilinear_scatter_batched:vector", "bilinear_patches_scatter",
-          "bilinear_patches_scatter:direct")
+          "bilinear_patches_scatter:direct", "patch_variance_vg")
 _launches = dict.fromkeys(ROUTES, 0)
 
 
@@ -1464,6 +1473,114 @@ def bilinear_patches_scatter(x, y, w, P: int, C: int, PH: int, PW: int,
     return _BilinearPatchesCore.apply(x, y, w, P, C, PH, PW, route)
 
 
+# ---------------------------------------------------------------------------
+# The variance patch loss, value and gradient (csrc/patch_loss_kernels.cu)
+# ---------------------------------------------------------------------------
+
+def patch_variance_shared_bytes(PH: int, PW: int, radius: int) -> int:
+    """Shared memory of one block of ``patch_variance_vg``: two (PH, PW)
+    f32 planes, the blur's 2r + 1 taps padded to a multiple of 4, 64 floats
+    for its reductions and 4 ints (the kernel's ``shared_bytes``)."""
+    return 4 * (2 * PH * PW + -(-(2 * radius + 1) // 4) * 4 + 64 + 4)
+
+
+def patch_variance_fits(PH: int, PW: int, radius: int) -> bool:
+    """Whether ``patch_variance_vg``'s block fits 227 KB of shared memory
+    (two (64, 128) planes take 64 KB; (PH, PW) up to ~29,000 pixels fit)."""
+    return patch_variance_shared_bytes(PH, PW, radius) <= SHARED_MAX_BYTES
+
+
+def patch_variance_vg_plain(x, y, t, p, mask, origin_yx, params, taps,
+                            roi_size, patch, full_pixels, grad=True):
+    """Plain version of ``patch_variance_vg``: the same steps in torch ops,
+    the gradient written out (no autograd)."""
+    (PH, PW), (rh, rw) = patch, roi_size
+    R, C = x.shape
+    FP = float(full_pixels)
+    on = mask != 0
+    t0 = torch.where(on.any(-1), torch.where(on, t, -torch.inf).amax(-1),
+                     0.0)
+    dt = t - t0[:, None]
+    # the patch's corner: the ROI's centre minus half the patch
+    px = (x - dt * params[:, 0, None]) - (origin_yx[:, 1] + rw / 2.0
+                                          - PW / 2.0)[:, None]
+    py = (y - dt * params[:, 1, None]) - (origin_yx[:, 0] + rh / 2.0
+                                          - PH / 2.0)[:, None]
+    x0, y0 = torch.floor(px), torch.floor(py)
+    inpatch = (x0 >= 0) & (x0 + 1 < PW) & (y0 >= 0) & (y0 + 1 < PH)
+    w = ((p * mask) * inpatch.to(_F32)).reshape(1, -1)
+    fx, fy = px.reshape(-1), py.reshape(-1)
+    iwe = zero_pad_blur(bilinear_patches_scatter_plain(fx, fy, w, R, C, PH,
+                                                       PW)[0], taps)
+    S = iwe.sum((-2, -1))
+    loss = -((iwe * iwe).sum((-2, -1)) / FP - (S / FP) ** 2)
+    if not grad:
+        return loss, None
+    g_iwe = -2.0 * iwe / FP + (2.0 * S / FP ** 2)[:, None, None]
+    back = zero_pad_blur(g_iwe, torch.flip(taps, (0,)))
+    dx, dy, tap4 = _patch_taps(fx, fy, R, C, PH, PW)
+    g_x, g_y, _ = _bilinear_vjp(back.reshape(1, -1), dx, dy, tap4, w)
+    return loss, torch.stack([-(g_x.view(R, C) * dt).sum(-1),
+                              -(g_y.view(R, C) * dt).sum(-1)], -1)
+
+
+def patch_variance_vg(x, y, t, p, mask, origin_yx, params, taps, roi_size,
+                      patch, full_pixels, grad=True):
+    """One evaluation of the ROI patch loss of the variance objective under
+    the linear-velocity warp (``events_cmax.make_patch_loss``'s value for
+    (R, 2) params), and its gradient in ``params``: ``(loss (R,), grad (R,
+    2))``, or ``(loss, None)`` with ``grad=False``.
+
+    ``x, y, t, p, mask`` (R, C) f32 slots of R ROIs, ``origin_yx`` (R, 2)
+    f32 ROI corners (y, x), ``params`` (R, 2) f32 velocities (vx, vy),
+    ``taps`` the blur's 2r + 1 f32 taps, all contiguous on one device;
+    ``roi_size`` (rh, rw), ``patch`` (PH, PW), ``full_pixels`` the full
+    frame's pixel count FP. Per ROI: ``t0`` the latest masked-in stamp (0
+    for an empty ROI); slots warped to ``t0`` in patch-local coordinates;
+    weights ``p * mask`` splatted bilinearly where all four taps lie in the
+    patch; the zero-padded blur by ``taps``; loss ``-(Q/FP - (S/FP)^2)``
+    with Q and S the sums of the blurred patch's squares and pixels.
+
+    CUDA tensors launch ``patch_variance_vg_kernel``, one block of 1024
+    threads per ROI with both planes in shared memory
+    (``patch_variance_fits``), and count one launch; CPU tensors run
+    ``patch_variance_vg_plain``. Not differentiable itself: the caller's
+    ``torch.autograd.Function`` applies the gradient it returns.
+    """
+    dev = _check("patch_variance_vg", (x, y, t, p, mask, origin_yx, params,
+                                       taps), (_F32,) * 8)
+    PH, PW = patch
+    R = x.shape[0]
+    if (x.dim() != 2 or any(a.shape != x.shape for a in (y, t, p, mask))
+            or origin_yx.shape != (R, 2) or params.shape != (R, 2)
+            or taps.dim() != 1 or taps.shape[0] % 2 != 1):
+        raise ConfigurationError(
+            f"patch_variance_vg: slots must be (R, C), origin and params "
+            f"(R, 2), taps odd (2r + 1,), got {tuple(x.shape)}, "
+            f"{tuple(origin_yx.shape)}, {tuple(params.shape)}, "
+            f"{tuple(taps.shape)}")
+    radius = taps.shape[0] // 2
+    if not patch_variance_fits(PH, PW, radius):
+        raise ConfigurationError(
+            f"patch_variance_vg: two ({PH}, {PW}) planes and {2 * radius + 1}"
+            f" taps exceed {SHARED_MAX_BYTES} B of shared memory")
+    if dev.type == "cpu":
+        return patch_variance_vg_plain(x, y, t, p, mask, origin_yx, params,
+                                       taps, roi_size, patch, full_pixels,
+                                       grad)
+    loss = torch.empty((R,), dtype=_F32, device=dev)
+    g = torch.empty((R, 2), dtype=_F32, device=dev) if grad else None
+    rc = build.library("patch_loss_kernels").patch_variance_vg(
+        x.data_ptr(), y.data_ptr(), t.data_ptr(), p.data_ptr(),
+        mask.data_ptr(), origin_yx.data_ptr(), params.data_ptr(),
+        taps.data_ptr(), R, x.shape[1], radius, PH, PW, roi_size[0] / 2.0,
+        roi_size[1] / 2.0, float(full_pixels), int(grad), loss.data_ptr(),
+        g.data_ptr() if grad else None, _stream())
+    build.check(rc, "patch_variance_vg")
+    _launches["patch_variance_vg"] += 1
+    return loss, g
+
+
 def bilinear_matmul(x, y, w, shape: Tuple[int, int], mask=None,
                     precision: str = "hilo"):
     """(H, W) or (K, H, W) 4-tap bilinear scatter-add (``bilinear_matmul``,
@@ -1525,4 +1642,5 @@ KERNEL_WRAPPERS = {
     "bilinear_scatter_batched:vector": bilinear_scatter_batched,
     "bilinear_patches_scatter": bilinear_patches_scatter,
     "bilinear_patches_scatter:direct": bilinear_patches_scatter,
+    "patch_variance_vg": patch_variance_vg,
 }

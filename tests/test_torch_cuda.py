@@ -1480,7 +1480,7 @@ def test_refine_graph_agrees_with_eager_over_50_windows(cuda, monkeypatch):
     loss is no worse than eager's by more than 1%, the valid-ROI median
     0.5 px/s), each ROI's loss at the graph's answer no worse than at
     eager's by more than 1% of the window's scale, and the same launches a
-    window."""
+    window: 33 of the fused patch-loss kernel, one an evaluation."""
     from event_utils_tpu_torch.contrast_max import events_cmax as ec
     from event_utils_tpu_torch.utils import profiling
     eager_cache = ec.RefineGraphs(_EagerOnTheCard())
@@ -1519,8 +1519,7 @@ def test_refine_graph_agrees_with_eager_over_50_windows(cuda, monkeypatch):
             assert float(med.max()) <= 0.5, j
             if replayed:        # a key met before: no warm-up, no capture
                 assert launches["graph"] == launches["eager"], j
-                assert launches["eager"] == {
-                    "bilinear_patches_scatter:direct": 33}
+                assert launches["eager"] == {"patch_variance_vg": 33}
             prev = torch.where(ve[:, None], pe, 0.0).numpy()
     finally:
         profiling.enable_spans(was)

@@ -454,7 +454,7 @@ def test_kernel_wrappers_run_plain_on_cpu_and_check_inputs(rng):
     assert {r.split(":")[0] for r in counts} == {
         "voxel_scatter", "voxel_scatter_batched", "voxel_tiles_scatter",
         "flat_scatter", "bilinear_scatter", "bilinear_scatter_batched",
-        "bilinear_patches_scatter"}
+        "bilinear_patches_scatter", "patch_variance_vg"}
     assert not any(counts.values())
     with pytest.raises(P.errors.ConfigurationError):
         cs.flat_scatter(idx.long(), w[None], 100)       # wrong id type

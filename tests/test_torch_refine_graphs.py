@@ -32,6 +32,7 @@ R = 12
 MAXITER = 4
 GD_LR = 4.0
 PATCH_LAUNCH = "bilinear_patches_scatter:direct"
+FUSED_LAUNCH = "patch_variance_vg"
 
 
 def scene(seed=0, n=4000, flow=(10.0, 5.0)):
@@ -273,6 +274,47 @@ def test_first_sighting_eager_second_captures_then_replays(
     assert descents == [1, 1, 1, 1]
 
 
+@pytest.fixture
+def fused_launches(monkeypatch):
+    """The fused patch-loss route engages on the CPU (the wrapper runs its
+    plain version there) and counts a launch, as on the card."""
+    monkeypatch.setattr(pc, "FUSED_DEVICE_TYPE", "cpu")
+    wrapper = cs.patch_variance_vg
+
+    def counting(*args, **kw):
+        out = wrapper(*args, **kw)
+        cs._launches[FUSED_LAUNCH] += 1
+        return out
+
+    monkeypatch.setattr(cs, "patch_variance_vg", counting)
+    return lambda: cs.launch_counts()[FUSED_LAUNCH]
+
+
+@pytest.mark.parametrize("adaptive", [False, True], ids=["plain", "lifespan"])
+def test_the_fused_route_is_captured_and_replayed_as_the_body(
+        graphs, fused_launches, adaptive):
+    """With the fused route, eager, captured and replayed refines equal
+    the written-out loop (which takes the route too) bit for bit, and a
+    replay adds the capture's launches: one fused launch an evaluation,
+    none of the patch splat."""
+    obj = variance_objective(adaptive_lifespan=adaptive, minimum_events=40)
+    ev, trust = batches(), torch.full((R,), torch.inf)
+    evals = MAXITER + 3
+    launches = []
+    patch_launches = cs.launch_counts()[PATCH_LAUNCH]
+    for x0 in [warm_start(s) for s in (1, 2, 3, 4)]:
+        want = loop_refine(obj, ev, x0, trust[:, None])
+        before = fused_launches()
+        got = warm_window(ev, x0, trust, obj=obj)
+        launches.append(fused_launches() - before)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    (entry,) = graphs.entries.values()
+    assert entry.launches == {FUSED_LAUNCH: evals}
+    assert launches == [evals, 2 * evals, evals, evals]
+    assert cs.launch_counts()[PATCH_LAUNCH] == patch_launches
+
+
 def test_a_replay_returns_copies(graphs):
     ev, x0, trust = batches(), warm_start(), torch.full((R,), torch.inf)
     for _ in range(2):
@@ -369,3 +411,51 @@ def test_stream_of_windows_replays_after_the_first_two(graphs):
     # cold window eager (its own key), warm: eager, capture, replay, replay
     assert graphs.backend.captures == 1
     assert graphs.backend.replays == 3
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+class _NeverEngages:
+    """A refine-graph backend that never engages: the eager refine on the
+    card."""
+
+    @staticmethod
+    def engages(device):
+        return False
+
+
+@pytest.mark.cuda
+def test_card_replays_of_the_fused_route_agree_with_eager(monkeypatch):
+    """On the card, over a stream of windows (the small scene's, one shape):
+    each warm refine through the fused route, eager and replayed from its
+    graph, ends with losses within 1% of the window's scale of each other
+    (the route's float atomics order its sums differently from run to
+    run); every refine launches the fused kernel once an evaluation, a
+    replay as many as the eager refine."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    graph_cache, eager_cache = pc.RefineGraphs(), pc.RefineGraphs(
+        _NeverEngages())
+    evals = MAXITER + 3
+    replays = 0
+    for s in range(8):
+        ev = [a.cuda() for a in batches(seed=20 + s, capacity=1024)]
+        x0, trust = warm_start(s).cuda(), torch.full((R,), torch.inf,
+                                                     device="cuda")
+        out, launches = {}, {}
+        for name, cache in (("eager", eager_cache), ("graph", graph_cache)):
+            monkeypatch.setattr(pc, "_REFINE_GRAPHS", cache)
+            before = cs.launch_counts()
+            out[name] = [a.cpu() for a in warm_window(ev, x0, trust)]
+            launches[name] = {k: v - before[k] for k, v in
+                              cs.launch_counts().items() if v != before[k]}
+        assert launches["eager"] == {FUSED_LAUNCH: evals}, s
+        if s >= 2:                      # a replay: what the graph holds
+            assert launches["graph"] == {FUSED_LAUNCH: evals}, s
+            replays += 1
+        (pe, fe), (pg, fg) = out["eager"], out["graph"]
+        scale = torch.maximum(fe.abs(), fe.abs().median())
+        assert float(((fg - fe).abs() / scale).max()) <= 1e-2, s
+    assert replays == 6 and len(graph_cache.entries) == 1

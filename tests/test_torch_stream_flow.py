@@ -30,6 +30,7 @@ from event_utils_tpu_torch.cli import simulate
 from event_utils_tpu_torch.cli import stream_flow
 from event_utils_tpu_torch.contrast_max import events_cmax as pc
 from event_utils_tpu_torch.errors import DeviceUnavailableError
+from event_utils_tpu_torch.ops import cuda_scatter as cs
 from event_utils_tpu_torch.utils import profiling
 
 GT = (25.0, 12.0)
@@ -139,6 +140,29 @@ def test_free_running_streams_reach_the_ground_truth(recs, port_run,
     assert spans["h2d_mb_per_window"] > 0
     assert spans["graph_captures"] == spans["graph_replays"] == 0  # the CPU
     assert not profiling.spans_enabled()
+
+
+def test_metrics_report_the_fused_routes_share(recs, port_run, tmp_path,
+                                               monkeypatch):
+    """``patch_variance_vg_share``: null where no patch-loss evaluation ran
+    on the card (the CPU); else the fused kernel's launches over those of
+    the fused kernel and the two patch splats, here counted as a card's
+    warm window would count them (33 fused, and one grid-search splat)."""
+    with open(os.path.join(port_run[0], "metrics.json")) as f:
+        assert json.load(f)["patch_variance_vg_share"] is None
+    solve = pc.grid_cmax_batched
+
+    def counted(*a, **kw):
+        out = solve(*a, **kw)
+        cs.add_launch_counts({"patch_variance_vg": 33,
+                              "bilinear_patches_scatter": 1})
+        return out
+
+    monkeypatch.setattr(pc, "grid_cmax_batched", counted)
+    metrics = stream_flow.main([recs[0], "--output_dir",
+                                str(tmp_path / "f"), "--device", "cpu"]
+                               + ARGS)
+    assert metrics["patch_variance_vg_share"] == round(33 / 34, 6)
 
 
 def test_hdf5_streams_as_its_memmap_does(recs, port_run, tmp_path):
