@@ -26,10 +26,12 @@
      181x241 on 200k events, the planted scene warped onto its 400 tracks;
      K=4 on the vector route against direct (the planted scene's
      timestamp image and uniform weights, held per pixel within
-     ``splat_limits``); ~2k events of one ROI into 21x21 and 181x241 (the
-     one-block form of the private kernel, which no shape is sent to,
-     against direct); NaN, +-1e30 and all-out-of-frame coordinates on
-     every route, and autograd gradients;
+     ``splat_limits``); one ROI's 1024 events into 21x21 (one private
+     block, which stores its image) and ~2k into 181x241 (two), on the
+     private route against direct, which the dispatch sends them to; NaN,
+     +-1e30 and all-out-of-frame coordinates on every route, and autograd
+     gradients. One image is the batched splat at S = 1, so these cases
+     count under ``bilinear_scatter_batched``'s routes;
    - batched bilinear (``jax.vmap`` of the TPU kernel): one grid level
      (25 velocity samples of the 200k planted scene, per-sample masked
      weights, K=1: the private route, also forced onto the direct one),
@@ -53,8 +55,9 @@
    - batched voxel (``jax.vmap`` of the TPU kernel): the three routes of
      ``voxel_scatter_batched`` (direct, vector, and private: a block per
      (grid, bin) in shared memory, stored once) against the plain version
-     and against S single ``voxel_scatter`` launches (2S with the polarity
-     split; the private route's on ``voxel_route``'s route), within
+     and against S single ``voxel_scatter`` launches (the batched wrapper
+     at S = 1; 2S with the polarity split; the private route's on the
+     route the rule names for one grid), within
      GRID_REL of the grids' scale, timed beside the plain version and one
      ``index_put_``: the 2^21-event stream in 104 windows of 20,000 and in
      8 of 2^18 (DAVIS240, B=5), the trainers' split grids of padded rows
@@ -84,8 +87,10 @@
    px/s; again with ``pyramid="auto"``), one patch loss with (240, 256)
    patches, and the host loop ``grid_cmax`` on one 40x60 corner of it.
    Every call must have launched the route that the dispatch names for
-   its shape (``voxel_route``, ``flat_route``, ``bilinear_route``, ...),
-   and every route of this path must have launched; then the vector
+   its shape (``voxel_batched_route``, ``flat_route``,
+   ``bilinear_batched_route``, ...; one grid and one image count under the
+   batched wrappers' routes), and every route of this path must have
+   launched but the batched voxel kernel's private one; then the vector
    route at the shapes this path sent it, against its plain version per
    pixel and timed beside the direct route on the same inputs.
 4. The batched solves (``batched``), with the launch counts set to 0 again
@@ -95,8 +100,9 @@
    the 20x20 landscape on 15,000 events and on all 200k, and
    ``grid_cmax_batched(solver='bfgs')`` and a full-frame objective's ROI
    solve on the rotating scene. Every grid level and landscape must launch
-   ``bilinear_scatter_batched`` once per chunk of samples and no single
-   splat; the ROI BFGS must be one batched solve; the answers are held to
+   ``bilinear_scatter_batched`` exactly once per chunk of samples, and the
+   ROI solves no splat of one sample; the ROI BFGS must be one batched
+   solve; the answers are held to
    the planted velocity (4 px/s) and the rotation field (4.5 px/s), the
    landscapes card vs CPU and batched vs the per-sample loop (1e-4 of
    their range), the BFGS field card vs CPU (medians within 0.5 px/s).
@@ -108,7 +114,7 @@
    2^18 (8), and ``voxelize_batch`` under ``'pallas'`` at the flow batch's
    and ``fit``'s shapes; each call must launch ``voxel_scatter_batched`` on
    the route its shape is sent to (``voxel_batched_route``), once per
-   chunk of rows, and nothing else (no ``voxel_scatter:*``). Then every
+   chunk of rows, and nothing else. Then every
    grid against the per-window loop of single launches that the port ran
    before (``window_loop_grids``) and the exact 'xla' route, and the walls
    of both in turns (loop, batched, batched, loop), with device busy, idle
@@ -199,12 +205,9 @@
    step, one E2VID batch generation and one segment step with their
    device idle shares, the flow and E2VID batch generations of the
    per-scene loop and the batched simulator in turns (loop, batched,
-   batched, loop; 5 warm walls each, busy, idle share, peak memory), and
-   a flow step and an E2VID batch generation with the trainers' grids as
-   built before the batched voxel kernel (``old_segment_route``:
-   ``scatter_reduce`` per segment) and now, in turns (old, new, new, old; 5 warm walls each,
-   busy, idle share, largest entries, launches; the new route's largest
-   entries may hold no ``_scatter_gather_elementwise_kernel``).
+   batched, loop; 5 warm walls each, busy, idle share, peak memory); the
+   largest device entries of the flow step and of the E2VID batch
+   generation may hold no ``_scatter_gather_elementwise_kernel``.
 9. The streaming path, with the launch counts set to 0 again first,
    everything under ``set_default_impl('pallas')`` (``g++`` built the
    native runtime, ``csrc/evio.cpp``, in step 1): the port's ``simulate``
@@ -242,7 +245,7 @@
    read back (counts and values exact); ``add_correlated_events_torch``
    on the card from the memmap's int16 arrays (config 3's 1 ms jitter,
    one stable sort), then ``events_to_voxel`` (B=5, masked:
-   ``voxel_scatter:vector``) and ``events_to_image``
+   ``voxel_scatter_batched:vector``) and ``events_to_image``
    (``flat_scatter:direct``), exactly one launch each and nothing else.
    After the counts are read: the same draws through the core with float
    coordinates and with ``sort_block=None`` (the inputs of JAX's general
@@ -902,14 +905,14 @@ def bilinear_case(torch, cs, label, x, y, w1, H, W, routes):
         got = cs.bilinear_scatter(x, y, w1, H, W, route=r)
         out[r] = dict(
             shared,
-            max_abs_err=check_close(f"bilinear_scatter:{r} ({shape})", got,
-                                    ref),
+            max_abs_err=check_close(f"bilinear_scatter_batched:{r} "
+                                    f"({shape})", got, ref),
             ms=time_ms(lambda: cs.bilinear_scatter(x, y, w1, H, W, route=r),
                        torch))
         if r == "vector":
             out[r]["max_abs_err"], out[r]["limit_share"] = single_splat_check(
-                torch, cs, f"bilinear_scatter:{r} ({shape})", got, x, y, w1,
-                H, W)
+                torch, cs, f"bilinear_scatter_batched:{r} ({shape})", got, x,
+                y, w1, H, W)
     log("  timed: " + ", ".join(f"{r} {out[r]['ms']:.4f} ms" for r in routes)
         + f", plain {shared['plain_ms']:.4f} ms, index_put_ "
         f"{shared['library_ms']:.4f} ms, bound {shared['bound'][0]:.5f} ms")
@@ -928,6 +931,17 @@ def single_splat_check(torch, cs, name, got, x, y, w, H, W):
         cs.bilinear_scatter_batched_plain(x[None].double(), y[None].double(),
                                           w.double(), H, W),
         splat_limits(torch, x[None], y[None], w, H, W))
+
+
+def put_record(records, name, rec):
+    """``records[name] = rec``; the cases of a record already there (one
+    grid's or one image's, the route at S = 1) follow ``rec``'s own and
+    count in its max |err|."""
+    old = records.get(name)
+    if old is not None:
+        rec["cases"] = rec["cases"] + old["cases"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], old["max_abs_err"])
+    records[name] = rec
 
 
 def as_case(rec, **extra):
@@ -1173,7 +1187,7 @@ def batched_kernel_cases(torch, cs, rng, records):
         rec["cases"] = [as_case(c, limit_share=c["limit_share"])
                         for c in cases]
         rec["max_abs_err"] = max(c["max_abs_err"] for c in cases)
-        records[f"bilinear_scatter_batched:{route}"] = rec
+        put_record(records, f"bilinear_scatter_batched:{route}", rec)
 
 
 def odd_coordinates(torch, cs, rng):
@@ -1195,14 +1209,15 @@ def odd_coordinates(torch, cs, rng):
                         device=dev)
     ref = cs.bilinear_scatter_plain(x, y, w, H, W)
     errs = {}
-    for r in ("direct", "single", "private", "vector"):
-        errs[r] = check_close(f"bilinear_scatter:{r} (odd coordinates)",
+    for r in ("direct", "private", "vector"):
+        errs[r] = check_close(f"bilinear_scatter_batched:{r} (one image, odd "
+                              f"coordinates)",
                               cs.bilinear_scatter(x, y, w, H, W, route=r),
                               ref)
         away = cs.bilinear_scatter(x * 0 - 10.0, y, w, H, W, route=r)
         if float(away.abs().max()) != 0.0:
-            raise AssertionError(f"bilinear_scatter:{r}: out-of-frame events "
-                                 f"left a mark")
+            raise AssertionError(f"bilinear_scatter_batched:{r}: out-of-frame"
+                                 f" events left a mark")
     P, C = 4, n // 4
     pref = cs.bilinear_patches_scatter_plain(x, y, w, P, C, H, W)
     for r in ("patch", "direct"):
@@ -1581,10 +1596,11 @@ def voxel_library(torch, args, B, H, W):
 
 
 def voxel_phase(torch, cs, rng, records):
-    """The voxel kernel's two routes against the plain version: the main
-    path's stream and its variations, odd bin coordinates, other bin
-    counts, a short stream; both routes timed at 2^21 and at N_SMALL
-    events."""
+    """One grid (the batched voxel kernel at S = 1) on the vector and
+    direct routes against the plain version: the main path's stream and
+    its variations, odd bin coordinates, other bin counts, a short stream;
+    both routes timed at 2^21 and at N_SMALL events. Cases of the batched
+    routes' records."""
     dev = torch.device("cuda")
     H, W = SENSOR
     routes = ("vector", "direct")
@@ -1600,8 +1616,9 @@ def voxel_phase(torch, cs, rng, records):
         outs = {}
         for r in routes:
             outs[r] = cs.voxel_scatter(*args, bins, H, W, route=r)
-            errs[r].append(check_close(f"voxel_scatter:{r} ({label})",
-                                       outs[r], ref))
+            errs[r].append(check_close(
+                f"voxel_scatter_batched:{r} (one grid, {label})", outs[r],
+                ref))
         return outs
 
     plain_args = cs.voxel_inputs(xs, ys, ts, ps, B, SENSOR)
@@ -1617,8 +1634,8 @@ def voxel_phase(torch, cs, rng, records):
     for r, out in hold("all masked", cs.voxel_inputs(
             xs, ys, ts, ps, B, SENSOR, mask=torch.zeros_like(keep))).items():
         if float(out.abs().max()) != 0.0:
-            raise AssertionError(f"voxel_scatter:{r}: masked events left a "
-                                 f"mark")
+            raise AssertionError(f"voxel_scatter_batched:{r}: masked events "
+                                 f"left a mark")
     # bin coordinates no wrapper makes: dropped, never wrapped; first bins
     # of -1 keep their second tap
     odd = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30,
@@ -1646,7 +1663,7 @@ def voxel_phase(torch, cs, rng, records):
             f"{r} {out[r]['ms']:.4f} ms" for r in routes)
             + f", plain {shared['plain_ms']:.4f} ms, index_put_ "
             f"{shared['library_ms']:.4f} ms, bound {shared['bound'][0]:.5f} "
-            f"ms; the dispatch takes {cs.voxel_route(n, B, H, W)}")
+            f"ms; the dispatch takes {cs.voxel_batched_route(1, n, B, H, W)}")
         return out
 
     small_args = cs.voxel_inputs(xs[:N_SMALL], ys[:N_SMALL], ts[:N_SMALL],
@@ -1654,10 +1671,10 @@ def voxel_phase(torch, cs, rng, records):
     hold(f"{N_SMALL} events", small_args)
     big, small = timed(plain_args, N_VOXEL), timed(small_args, N_SMALL)
     for r in routes:
-        records[f"voxel_scatter:{r}"] = dict(
+        put_record(records, f"voxel_scatter_batched:{r}", dict(
             big[r], max_abs_err=max(errs[r]), cases=[
                 as_case(dict(c[r], max_abs_err=max(errs[r])))
-                for c in (big, small)])
+                for c in (big, small)]))
 
 
 def padded_rows(torch, rng, S, n, sensor, counts=None):
@@ -1709,8 +1726,9 @@ def voxel_batched_case(torch, cs, label, args, B, H, W, split, route,
     """``voxel_scatter_batched`` on ``route`` at the kernel inputs ``args``
     against its plain version and against S single ``voxel_scatter``
     launches (2S with ``split``: the positive and negative weights; on the
-    same route, or for 'private', which one grid never takes, on
-    ``voxel_route``'s), within GRID_REL of the grid's scale; with ``time``,
+    same route, or for 'private', which one grid never takes, on the route
+    the rule names for one grid), within GRID_REL of the grid's scale; with
+    ``time``,
     the kernel, the plain version and one ``index_put_`` over the live taps
     timed, and the bound (each slot's weight read, the other 12 B of a live
     slot, the grids written once)."""
@@ -1733,8 +1751,8 @@ def voxel_batched_case(torch, cs, label, args, B, H, W, split, route,
                                            route=one)
                           for s in range(S) for w in weights])
     err = max(err, check_close(
-        f"{name} ({label}) vs {S * G} single voxel_scatter:"
-        f"{one or cs.voxel_route(n, B, H, W)} launches", got,
+        f"{name} ({label}) vs {S * G} one-grid launches on "
+        f"{one or cs.voxel_batched_route(1, n, B, H, W)}", got,
         single.view(got.shape), GRID_REL))
     case = dict(shape=f"{shape} ({label})", max_abs_err=err,
                 dispatch=cs.voxel_batched_route(S, n, B, H, W, split))
@@ -1809,9 +1827,9 @@ def voxel_batched_kernel_cases(torch, cs, records):
     # latter's path shape), 8 of 2^18 for vector (its path shape)
     for r, main in (("direct", 0), ("vector", 1), ("private", 0)):
         timed = [c for c in cases[r] if "ms" in c]
-        records[f"voxel_scatter_batched:{r}"] = dict(
+        put_record(records, f"voxel_scatter_batched:{r}", dict(
             timed[main], max_abs_err=max(c["max_abs_err"] for c in cases[r]),
-            cases=[as_case(c) for c in timed])
+            cases=[as_case(c) for c in timed]))
 
 
 def edge_cases(torch, cs, hold, where, rows, mask, sensor):
@@ -2101,7 +2119,7 @@ def kernel_phase(torch, cs, rng, records):
         f"node")
     # K=4 at 181x241 (the timestamp image) exceeds shared memory: the
     # vector route at 200k events (part 11 of the tune script)
-    if cs.bilinear_route(4, HP, WP, n) != "vector":
+    if cs.bilinear_batched_route(4, HP, WP, n) != "vector":
         raise AssertionError("K=4 at 181x241, 200k events: want the vector "
                              "route")
     # autograd: kernel forward + gather backward vs autograd of index_add_
@@ -2130,16 +2148,18 @@ def kernel_phase(torch, cs, rng, records):
     wp = torch.as_tensor(sp, dtype=torch.float32, device=dev)[None]
     sharp = bilinear_case(torch, cs, "planted scene, warped", wx, wy, wp, HP,
                           WP, ("private", "direct"))
-    # few events: one ROI's ~2k events into a small image, and into the
-    # full frame as grid_cmax's per-ROI solves splat them
-    m = 2048
+    # few events: one ROI's events into a small image (1024: one private
+    # block, which stores its image into an uninitialised output), and
+    # ~2k into the full frame as grid_cmax's per-ROI solves splat them;
+    # the private route forced against the direct one they are sent to
+    m1, m = cs.PRIVATE_EVENTS_PER_BLOCK, 2048
     small = bilinear_case(
-        torch, cs, "one ROI", x[:m] % 21, y[:m] % 21, w4[:1, :m].contiguous(),
-        21, 21, ("single", "direct"))
+        torch, cs, "one ROI", x[:m1] % 21, y[:m1] % 21,
+        w4[:1, :m1].contiguous(), 21, 21, ("private", "direct"))
     few = bilinear_case(
         torch, cs, "one ROI of the planted scene", wx[:m].contiguous(),
         wy[:m].contiguous(), wp[:, :m].contiguous(), HP, WP,
-        ("single", "direct"))
+        ("private", "direct"))
     # K = 4 at 200k: the timestamp image's four weights of the planted
     # scene, and uniform weights; the vector route against the direct one
     pos = torch.as_tensor(sp > 0, dtype=torch.float32, device=dev)
@@ -2155,32 +2175,29 @@ def kernel_phase(torch, cs, rng, records):
         log(f"  vector against direct, K=4 ({label}): "
             f"{c['vector']['ms']:.4f} / {c['direct']['ms']:.4f} ms, floor "
             f"{floor_ms:.4f} ms")
-    # the one-block form is no route of the main path (it loses to the
-    # direct kernel at every shape): its times stand with the private
-    # kernel, whose code it shares
+    # one image's cases, in the batched routes' records (batched_kernel_cases
+    # puts its own first)
+    single = {}
     for route, cases in (
-            ("private", [big["private"], sharp["private"]]),
+            ("private", [big["private"], sharp["private"], small["private"],
+                         few["private"]]),
             ("vector", [stamp["vector"], uni4["vector"]]),
             ("direct", [big["direct"], sharp["direct"], small["direct"],
                         few["direct"], stamp["direct"], uni4["direct"]])):
         rec = dict(cases[0])
         rec["cases"] = [as_case(c) for c in cases]
         rec["max_abs_err"] = max(c["max_abs_err"] for c in cases)
-        records[f"bilinear_scatter:{route}"] = rec
-    for c, done in zip(records["bilinear_scatter:vector"]["cases"],
-                       (stamp, uni4)):
+        single[route] = rec
+    for c, done in zip(single["vector"]["cases"], (stamp, uni4)):
         c["direct_ms"] = done["direct"]["ms"]
-    rec = records["bilinear_scatter:private"]
-    rec["cases"] += [as_case(c, blocks=1) for c in (small["single"],
-                                                     few["single"])]
-    rec["max_abs_err"] = max(rec["max_abs_err"], small["single"]["max_abs_err"],
-                             few["single"]["max_abs_err"])
-    records["bilinear_scatter:direct"]["max_abs_err"] = max(
-        [records["bilinear_scatter:direct"]["max_abs_err"]] + err_grad)
+    for c, n_ev in zip(single["private"]["cases"][2:], (m1, m)):
+        c["blocks"] = cs.private_blocks(1, n_ev)
+    single["direct"]["max_abs_err"] = max(
+        [single["direct"]["max_abs_err"]] + err_grad)
     err_odd = odd_coordinates(torch, cs, rng)
-    for route in ("vector", "direct"):
-        rec = records[f"bilinear_scatter:{route}"]
+    for route, rec in single.items():
         rec["max_abs_err"] = max(rec["max_abs_err"], err_odd[route])
+        records[f"bilinear_scatter_batched:{route}"] = rec
 
     batched_kernel_cases(torch, cs, rng, records)
 
@@ -2225,7 +2242,8 @@ def main_path(torch, P, rng):
 
     for n in (N_VOXEL, N_SMALL):  # the vector route, then the direct one
         ev = (xs[:n], ys[:n], ts[:n], ps[:n])
-        vox = routed(f"voxel_scatter:{cs.voxel_route(n, B, H, W)}",
+        vox = routed("voxel_scatter_batched:"
+                     f"{cs.voxel_batched_route(1, n, B, H, W)}",
                      f"events_to_voxel(impl='matmul'), {n} events",
                      lambda: events_to_voxel(*ev, B, sensor_size=SENSOR,
                                              impl="matmul"))
@@ -2828,19 +2846,18 @@ def baf_scene(torch):
 
 @contextlib.contextmanager
 def route_calls(cs):
-    """Inside, every call of the voxel (single and batched), flat, bilinear
-    and patch splat wrappers on card tensors counts one call of the route
-    its shape is
-    dispatched to,
-    and the call with the most inputs of each (route, output shape) keeps a
-    copy of them: yields ``{"calls": {route: n}, "kept": {(route, shape):
-    (inputs, size)}}``. The calls themselves run unchanged."""
+    """Inside, every call of the voxel, flat, bilinear and patch splat
+    wrappers on card tensors counts one call of the route its shape is
+    dispatched to (one grid and one image are the batched wrappers' calls
+    at S = 1), and the call with the most inputs of each (route, output
+    shape) keeps a copy of them: yields ``{"calls": {route: n}, "kept":
+    {(route, shape): (inputs, size)}, "one_sample": n}``, the last the
+    bilinear splats of one sample (one image). The calls themselves run
+    unchanged."""
     from event_utils_tpu_torch.contrast_max import events_cmax as ec
-    out = {"calls": {}, "kept": {}}
-    vox, flat, bil, bat, patches = (cs.voxel_scatter, cs.flat_scatter,
-                                    cs.bilinear_scatter,
-                                    cs.bilinear_scatter_batched,
-                                    ec.bilinear_patches_scatter)
+    out = {"calls": {}, "kept": {}, "one_sample": 0}
+    flat, bat, patches = (cs.flat_scatter, cs.bilinear_scatter_batched,
+                          ec.bilinear_patches_scatter)
     vbat = cs.voxel_scatter_batched
     pvar = cs.patch_variance_vg
 
@@ -2848,17 +2865,12 @@ def route_calls(cs):
         # calls on the card only (the CPU runs the plain versions), and
         # none of an empty input, for which a wrapper launches nothing
         if inputs[0].device.type != "cuda" or size == 0:
-            return
+            return False
         out["calls"][route] = out["calls"].get(route, 0) + launches
         if size > out["kept"].get((route, shape), (None, -1))[1]:
             out["kept"][(route, shape)] = (
                 tuple(a.detach().clone() for a in inputs), size)
-
-    def vox_(xs, ys, t_norm, ps, B, H, W, route=None):
-        n = xs.shape[0]
-        note("voxel_scatter:" + (route or cs.voxel_route(n, B, H, W)),
-             (B, H, W), (xs, ys, t_norm, ps), n if B else 0)
-        return vox(xs, ys, t_norm, ps, B, H, W, route=route)
+        return True
 
     def vbat_(xs, ys, t_norm, ps, B, H, W, split=False, route=None):
         S, n = xs.shape
@@ -2875,17 +2887,12 @@ def route_calls(cs):
              (D, num_buckets), (idx, w), n if D and num_buckets else 0)
         return flat(idx, w, num_buckets, route=route)
 
-    def bil_(x, y, w, H, W, route=None):
-        K, n = w.shape
-        note("bilinear_scatter:" + (route or cs.bilinear_route(K, H, W, n)),
-             (K, H, W), (x, y, w), n if K else 0)
-        return bil(x, y, w, H, W, route=route)
-
     def bat_(x, y, w, H, W, route=None):
         (S, n), K = x.shape, w.shape[-2]
         r = route or cs.bilinear_batched_route(K, H, W, n, S)
-        note("bilinear_scatter_batched:" + r, (S, K, H, W), (x, y, w),
-             S * n * K, -(-S // cs.batched_chunk(r, K, H, W)))
+        if note("bilinear_scatter_batched:" + r, (S, K, H, W), (x, y, w),
+                S * n * K, -(-S // cs.batched_chunk(r, K, H, W))) and S == 1:
+            out["one_sample"] += 1
         return bat(x, y, w, H, W, route=route)
 
     def patches_(x, y, w, P, C, PH, PW, route=None):
@@ -2912,7 +2919,7 @@ def route_calls(cs):
             out["calls"][route] = out["calls"].get(route, 0) + n
         add(counts)
 
-    cs.voxel_scatter, cs.flat_scatter, cs.bilinear_scatter = vox_, flat_, bil_
+    cs.flat_scatter = flat_
     cs.bilinear_scatter_batched = bat_
     cs.voxel_scatter_batched = vbat_
     ec.bilinear_patches_scatter = patches_
@@ -2921,7 +2928,7 @@ def route_calls(cs):
     try:
         yield out
     finally:
-        cs.voxel_scatter, cs.flat_scatter, cs.bilinear_scatter = vox, flat, bil
+        cs.flat_scatter = flat
         cs.bilinear_scatter_batched = bat
         cs.voxel_scatter_batched = vbat
         ec.bilinear_patches_scatter = patches
@@ -2942,21 +2949,6 @@ def route_cases(torch, cs, records, seen, label, extra=None):
             case = patch_variance_case(torch, cs, label, args, *shape)
         elif name.startswith("voxel_scatter_batched"):
             case = voxel_batched_case(torch, cs, label, args, *shape, route)
-        elif name.startswith("voxel_scatter"):
-            Bv, Hv, Wv = shape
-            n = len(args[0])
-            kernel = lambda: cs.voxel_scatter(*args, Bv, Hv, Wv, route=route)
-            case = dict(
-                shape=f"{n} events ({label}) into ({Bv}, {Hv}, {Wv})",
-                max_abs_err=check_close(
-                    f"{name} ({label})", kernel(),
-                    cs.voxel_scatter_plain(*args, Bv, Hv, Wv)),
-                ms=time_ms(kernel, torch),
-                plain_ms=time_ms(lambda: cs.voxel_scatter_plain(
-                    *args, Bv, Hv, Wv), torch),
-                library_ms=time_ms(voxel_library(torch, args, Bv, Hv, Wv),
-                                   torch),
-                bound=bound(n * 16 + Bv * Hv * Wv * 4, n * 8))
         elif name.startswith("flat_scatter"):
             idx, w = args
             case = flat_case(torch, cs, label, idx, w, shape[1],
@@ -2965,31 +2957,11 @@ def route_cases(torch, cs, records, seen, label, extra=None):
             x, y, w = args
             case = batched_case(torch, cs, label, x, y, w, *shape[2:], route,
                                 single=False)
-        elif name.startswith("bilinear_scatter"):
-            x, y, w = args
-            K, H, W = shape
-            bi, bv = live_taps(torch, x, y, w, H, W)
-            ref = cs.bilinear_scatter_plain(x, y, w, H, W)
-            got = cs.bilinear_scatter(x, y, w, H, W, route=route)
-            case = dict(
-                shape=f"K={K}, {len(x)} events ({label}) into {H}x{W}",
-                max_abs_err=check_close(f"{name} ({label})", got, ref),
-                ms=time_ms(lambda: cs.bilinear_scatter(x, y, w, H, W,
-                                                       route=route), torch),
-                plain_ms=time_ms(lambda: cs.bilinear_scatter_plain(
-                    x, y, w, H, W), torch),
-                library_ms=time_ms(lambda: torch.zeros(
-                    K * H * W, device=x.device).index_put_(
-                        (bi,), bv, accumulate=True), torch),
-                bound=bilinear_bound(x, y, K, H, W))
             if route == "vector":
-                # held per pixel; and the route these shapes took before,
-                # on the same inputs
-                case["max_abs_err"], case["limit_share"] = \
-                    single_splat_check(torch, cs, f"{name} ({label})", got,
-                                       x, y, w, H, W)
-                case["direct_ms"] = time_ms(lambda: cs.bilinear_scatter(
-                    x, y, w, H, W, route="direct"), torch)
+                # the route these shapes took before, on the same inputs
+                case["direct_ms"] = time_ms(
+                    lambda: cs.bilinear_scatter_batched(
+                        x, y, w, *shape[2:], route="direct"), torch)
         else:
             x, y, w = args
             K, P, C, PH, PW = shape
@@ -3887,114 +3859,16 @@ def simulator_turns(torch, itl):
     return out
 
 
-@contextlib.contextmanager
-def old_segment_route(torch, itl):
-    """Inside, the trainers' grids are built as the port built them before
-    the batched voxel kernel: ``voxelize_batch`` as one pair of segmented
-    flat scatters over the padded rows, and every segmented scatter takes
-    its windows' first and last stamps with two ``scatter_reduce`` calls a
-    polarity (four a batch), whatever stamps its caller passes."""
-    from event_utils_tpu_torch.representations import voxel_grid as vg
-    real = itl.voxelize_batch, itl.events_to_neg_pos_voxel_segments
-
-    def segments(xs, ys, ts, ps, seg, num, bins, sensor_size=(180, 240),
-                 combined=False, impl=None, t0=None, t1=None):
-        kw = dict(sensor_size=sensor_size, impl=impl)
-        if combined:
-            return vg.events_to_voxel_segments(xs, ys, ts, ps, seg, num, bins,
-                                               **kw)
-        return torch.cat([vg.events_to_voxel_segments(
-            xs, ys, ts, sel.float(), seg, num, bins, **kw)
-            for sel in (ps > 0, ps <= 0)], 1)
-
-    def voxelize(events, mask, num_bins, sensor_size, combined=False):
-        rows = mask.shape[0]
-        seg = torch.where(mask != 0, torch.arange(
-            rows, device=mask.device)[:, None], -1)
-        x, y, t, p = (a.reshape(-1) for a in events.unbind(-1))
-        return segments(x, y, t, p, seg.reshape(-1), rows, num_bins,
-                        sensor_size, combined=combined)
-
-    itl.voxelize_batch, itl.events_to_neg_pos_voxel_segments = (voxelize,
-                                                                segments)
-    try:
-        yield
-    finally:
-        itl.voxelize_batch, itl.events_to_neg_pos_voxel_segments = real
-
-
-def segment_route_turns(torch, cs, itl, flow):
-    """A flow step (its batch simulated, its grids, one Adam step of
-    ``flow``) and an E2VID batch generation, with the trainers' grids as
-    the port built them before (``old_segment_route``: ``scatter_reduce``
-    per segment) and as now (one batched voxel launch; the windows' stamps
-    read off the sorted rows), in turns (old, new, new, old), SIM_WALLS
-    warm synchronised walls a turn, each call on its own step's scenes (the
-    same steps for both); then each one's device busy time, idle share of
-    its median wall, five largest device entries and launches a call. The
-    new route's five largest entries of either must hold no
-    ``_scatter_gather_elementwise_kernel``."""
-    def flow_step(step):
-        ev, mask, gt = itl.simulate_flow_batch(
-            TRAIN_SEED, step, 8, (128, 128), 65536, omega_max=6.0, s_max=0.6,
-            burn_in=1, fresh_prob=0.25, age_max=2.5, device="cuda")
-        return flow.train_batch(itl.voxelize_batch(ev, mask, 5, (128, 128)),
-                                ev, mask, itl.dense_gt(gt, (128, 128)))
-
-    def recon(step):
-        return itl.simulate_recon_batch(TRAIN_SEED, step, 4, (128, 128),
-                                        294912, 24, device="cuda")
-
-    def route(label):
-        return (old_segment_route(torch, itl) if label == "old"
-                else contextlib.nullcontext())
-
-    out = {}
-    for kind, fn in (("flow_step", flow_step),
-                     ("recon_batch_generation", recon)):
-        res = {"old": {"walls_s": []}, "new": {"walls_s": []}}
-        for label in ("old", "new", "new", "old"):
-            with route(label):
-                fn(400)
-                res[label]["walls_s"].append(
-                    [synced(torch, lambda: fn(401 + i))[1]
-                     for i in range(SIM_WALLS)])
-        for label, r in res.items():
-            with route(label):
-                r["wall_s"] = float(np.median(np.concatenate(r["walls_s"])))
-                r["device_busy_s"], r["top_device"] = device_busy(
-                    torch, lambda: fn(401))
-                r["idle_share"] = max(0.0,
-                                      1.0 - r["device_busy_s"] / r["wall_s"])
-                before = cs.launch_counts()
-                synced(torch, lambda: fn(402))
-                r["launches"] = {k: v - before[k] for k, v in
-                                 cs.launch_counts().items() if v != before[k]}
-        out[kind] = res
-    log("  trainers' grids, old segment route vs new (old, new, new, old; "
-        + "; ".join(f"{k} {label} walls {np.round(r['walls_s'], 4).tolist()}"
-                    f" busy {r['device_busy_s']:.4f} s idle "
-                    f"{r['idle_share']:.3f} launches {r['launches']} top "
-                    f"{r['top_device']}"
-                    for k, res in out.items() for label, r in res.items()))
-    for kind, res in out.items():
-        if any("_scatter_gather_elementwise" in e[0]
-               for e in res["new"]["top_device"]):
-            raise AssertionError(f"{kind}: a scatter_gather kernel among the "
-                                 f"largest entries {res['new']['top_device']}")
-    return out
-
-
 def training_timings(torch, cs, itl, FlowTrainer, ReconstructionTrainer,
                      work):
     """Warm timings of the training path on the card: one forward-plus-
     backward pass of each recipe (CUDA events), one full flow step and one
     E2VID batch generation and segment step (host wall, and the device
-    idle share under torch.profiler), the simulator's batch generations
-    through the per-scene loop and batched (``simulator_turns``), and a
-    flow step and an E2VID batch generation with the trainers' grids as
-    they were built before the batched voxel kernel and now
-    (``segment_route_turns``)."""
+    idle share under torch.profiler), and the simulator's batch generations
+    through the per-scene loop and batched (``simulator_turns``). The
+    largest device entries of the flow step and of the batch generation
+    may hold no ``_scatter_gather_elementwise_kernel`` (the trainers'
+    grids are one batched voxel launch)."""
     from event_utils_tpu_torch._device import no_tf32
     from event_utils_tpu_torch.ops import get_default_impl, set_default_impl
     prev = get_default_impl()
@@ -4054,7 +3928,6 @@ def training_timings(torch, cs, itl, FlowTrainer, ReconstructionTrainer,
                              "idle_share": max(0.0, 1.0 - busy / wall),
                              "top_device": top}
             sim = simulator_turns(torch, itl)
-            grid_turns = segment_route_turns(torch, cs, itl, flow)
     finally:
         set_default_impl(prev)
     card = card_line()
@@ -4065,8 +3938,12 @@ def training_timings(torch, cs, itl, FlowTrainer, ReconstructionTrainer,
                     f"{v['device_busy_s']:.4f} s, idle "
                     f"{v['idle_share']:.3f}" for k, v in out.items()
                     if isinstance(v, dict)))
+    for kind in ("flow_step", "recon_batch_generation"):
+        if any("_scatter_gather_elementwise" in e[0]
+               for e in out[kind]["top_device"]):
+            raise AssertionError(f"{kind}: a scatter_gather kernel among the "
+                                 f"largest entries {out[kind]['top_device']}")
     out["simulator"] = sim
-    out["segment_route"] = grid_turns
     out["card"] = card
     return out
 
@@ -4660,13 +4537,14 @@ def augmentation_phase(torch, cs, records, work):
         torch.cuda.synchronize()
     launches = cs.launch_counts()
     got = {k: v for k, v in launches.items() if v}
-    want = {f"voxel_scatter:{cs.voxel_route(2 * AUG_DRAWS, B, H, W)}": 1,
+    want = {"voxel_scatter_batched:"
+            f"{cs.voxel_batched_route(1, 2 * AUG_DRAWS, B, H, W)}": 1,
             f"flat_scatter:{cs.flat_route(1, 2 * AUG_DRAWS, (H + 1) * (W + 1))}":
             1}
     log(f"augmentation launches: {got}; by the dispatch rules "
         f"{seen['calls']}; want {want}")
     if got != seen["calls"] or got != want or set(want) != {
-            "voxel_scatter:vector", "flat_scatter:direct"}:
+            "voxel_scatter_batched:vector", "flat_scatter:direct"}:
         raise AssertionError(f"augmentation launches {got}, dispatch "
                              f"{seen['calls']}, want {want}")
     valid = cm != 0
@@ -5371,8 +5249,8 @@ def visualization_phase(torch, cs, records, work):
     launches = cs.launch_counts()
     got = {k: v for k, v in launches.items() if v}
     # the landscape's 400 samples: one batched launch; cmax_demo's solves
-    # and motion_compensate: single splats
-    n_bil = sum(v for k, v in got.items() if k.startswith("bilinear_scatter:"))
+    # and motion_compensate: splats of one image (S = 1)
+    n_bil = seen["one_sample"]
     log(f"visualization launches: {got}; by the dispatch rules "
         f"{seen['calls']} ({wall:.1f} s)")
     chunks = -(-VIS_GRID ** 2 // ec.batch_chunk(VIS_EVENTS, SENSOR))
@@ -5466,14 +5344,15 @@ def batched_phase(torch, cs, records):
     """The solves that JAX batches, on the batched splat and the batched
     BFGS, counted: ``optimize_contrast_jit(grid_search_init=True)`` and
     ``grid_search_optimisation`` on the 200k planted scene (every grid
-    level one batched launch per chunk, no single splat), one
+    level exactly one batched launch per chunk), one
     ``grid_search_initial`` level of zhu's objective (K = 4: the vector
     route, in its chunks of samples), the 20x20 landscape on the
     visualization phase's 15,000 events (card vs CPU) and on all 200k (5
     chunks; against the per-sample loop on the card),
     ``grid_cmax_batched(solver='bfgs')`` on the rotating scene
     (one batched BFGS over its ROIs; flow error, card vs CPU) and a
-    full-frame objective's ROI solve there. Then warm walls, device busy
+    full-frame objective's ROI solve there (no splat of one image). Then
+    warm walls, device busy
     and idle shares, and each kept shape on its route against its plain
     version. Returns the phase's launch counts and what it measured."""
     from event_utils_tpu_torch.contrast_max import events_cmax as ec
@@ -5488,7 +5367,6 @@ def batched_phase(torch, cs, records):
     vx, vy, vt, vp = (a[:VIS_EVENTS] for a in planted_scene(
         np.random.default_rng(SEED + 20)))
     rx, ry, rt, rp = rotating_scene()
-    single = [r for r in cs.ROUTES if r.startswith("bilinear_scatter:")]
     levels = {}      # grid function: [samples of each level, launches]
 
     def add_level(label, sizes, d):
@@ -5572,16 +5450,17 @@ def batched_phase(torch, cs, records):
             rx, ry, rt, rp, solver="bfgs", device=dev, **rkw),
         "grid_cmax_batched(full-frame objective)": lambda: grid_cmax_batched(
             rx, ry, rt, rp, obj=full_frame_variance(), device=dev, **rkw)}
-    res, launches_of, walls = {}, {}, {}
+    res, launches_of, walls, one_sample_of = {}, {}, {}, {}
     ec.grid_search_refine, ec.grid_search_initial = refine_, initial_
     ec.minimize_bfgs = bfgs_
     cs.reset_launch_counts()
     try:
         with route_calls(cs) as seen:
             for label, fn in drives.items():
-                before = cs.launch_counts()
+                before, ones = cs.launch_counts(), seen["one_sample"]
                 res[label], walls[label] = synced(torch, fn)
                 launches_of[label] = delta(before)
+                one_sample_of[label] = seen["one_sample"] - ones
                 log(f"  {label}: {walls[label]:.3f} s cold, launches "
                     f"{launches_of[label]}")
     finally:
@@ -5595,7 +5474,8 @@ def batched_phase(torch, cs, records):
         raise AssertionError(f"batched launches {got}, dispatch "
                              f"{seen['calls']}")
 
-    # every grid level: one batched launch per chunk, no single splat
+    # every grid level: exactly one batched launch per chunk (a splat of
+    # one image would add one)
     for label, (sizes, d) in levels.items():
         # the loss's chunks of samples, each in its route's launches
         K = 4 if "zhu" in label else 1
@@ -5606,13 +5486,11 @@ def batched_phase(torch, cs, records):
         L = ec.batch_chunk(n, SENSOR)
         want = sum(-(-min(L, S - s0) // inner) for S in sizes
                    for s0 in range(0, S, L))
-        n_single = sum(d.get(r, 0) for r in single)
         n_batched = sum(v for k, v in d.items()
                         if k.startswith("bilinear_scatter_batched"))
         log(f"  {label}: {len(sizes)} levels of {sizes[0]} samples, "
-            f"batched launches {n_batched} (levels x chunks {want}), single "
-            f"{n_single}")
-        if n_single or n_batched != want:
+            f"batched launches {n_batched} (levels x chunks {want})")
+        if n_batched != want:
             raise AssertionError(f"{label}: {d}, want {want} batched")
     for label, S, n_ev in (("landscape", VIS_GRID ** 2, VIS_EVENTS),
                            ("landscape, 200k events", VIS_GRID ** 2, n)):
@@ -5622,10 +5500,9 @@ def batched_phase(torch, cs, records):
         if d != want:
             raise AssertionError(f"{label}: launches {d}, want {want}")
     for label in drives:
-        if "grid_cmax" in label and any(launches_of[label].get(r)
-                                        for r in single):
-            raise AssertionError(f"{label}: single splats "
-                                 f"{launches_of[label]}")
+        if "grid_cmax" in label and one_sample_of[label]:
+            raise AssertionError(f"{label}: {one_sample_of[label]} splats of "
+                                 f"one image, launches {launches_of[label]}")
     # zhu's level: K = 4 past 227 KB, on the route its shape is sent to, in
     # that route's chunks of samples
     zr = cs.bilinear_batched_route(4, SENSOR[0] + 1, SENSOR[1] + 1, n,
@@ -5845,40 +5722,29 @@ def main() -> int:
     got = {k: v for k, v in launches.items() if v}
     log(f"main-path launches: {got}; by the dispatch rules {seen['calls']}")
     # every call launched the route that its shape is sent to, and every
-    # route of this path launched: all but the one-block form of the
-    # private bilinear kernel (sent no shape, see kernel_phase), the
-    # batched vector and direct routes (the batched phase's: zhu's K = 4
-    # stack) and the batched voxel routes (the voxel_batched phase's and
-    # the trainers'). The single direct route takes grid_cmax's per-ROI
-    # splats
-    # and the streaming IWEs here
-    # (route_calls counts no per-tile voxel call: tiles_phase and roi_path
-    # hold those)
+    # route of this path launched but the batched voxel kernel's private
+    # one, which one grid never takes (the voxel_batched phase's). One
+    # image's direct route takes grid_cmax's per-ROI splats and the
+    # streaming IWEs here (route_calls counts no per-tile voxel call:
+    # tiles_phase and roi_path hold those)
     if {k: v for k, v in got.items()
             if not k.startswith("voxel_tiles_scatter")} != seen["calls"]:
         raise AssertionError(f"main-path launches {got}, dispatch "
                              f"{seen['calls']}")
-    off_path = {"bilinear_scatter:single",
-                "bilinear_scatter_batched:vector",
-                "bilinear_scatter_batched:direct",
-                "voxel_scatter_batched:vector",
-                "voxel_scatter_batched:direct",
-                "voxel_scatter_batched:private"}
+    off_path = {"voxel_scatter_batched:private"}
     missing = sorted(set(launches) - off_path - set(got))
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    # every route is held against its plain version (the one-block private
-    # form among the private kernel's cases)
-    held = set(launches) - {"bilinear_scatter:single"}
-    if set(records) != held:
+    # every route is held against its plain version
+    if set(records) != set(launches):
         raise AssertionError(f"routes not held against their plain "
-                             f"version: {held ^ set(records)}")
+                             f"version: {set(launches) ^ set(records)}")
     # the vector route at the shapes this path sent it, against its plain
     # version per pixel, timed beside the direct route on the same inputs
     route_cases(torch, cs, records, {"kept": {
         k: v for k, v in seen["kept"].items()
-        if k[0] == "bilinear_scatter:vector"}}, "main path")
+        if k[0] == "bilinear_scatter_batched:vector"}}, "main path")
     batched_launches, batched = batched_phase(torch, cs, records)
     vb_launches, voxel_batched = voxel_batched_phase(torch, cs, records)
     serving_launches, serving = serving_phase(torch, cs, records)
@@ -5932,76 +5798,6 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-    return 0
-
-
-ROI_WALLS_FLAG = "--roi-bfgs-walls"
-
-
-def roi_bfgs_walls(reps: int = 2) -> int:
-    """``python3 chip_smoke.py --roi-bfgs-walls``: cold and warm walls of
-    ``grid_cmax_batched(solver='bfgs')`` on the rotating scene on the
-    card, with its launches and flow error, for the package beside this
-    file; a copy of this file placed at the root of another checkout times
-    that checkout (compare two in one call: A, B, B, A). Prints one JSON
-    line."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    from event_utils_tpu_torch.contrast_max import grid_cmax_batched
-    from event_utils_tpu_torch.ops import cuda_scatter as cs
-    rx, ry, rt, rp = rotating_scene()
-    dev = torch.device("cuda")
-
-    def solve():
-        return grid_cmax_batched(
-            rx, ry, rt, rp, solver="bfgs", device=dev, roi_size=ROT_ROI,
-            img_size=ROT_SENSOR, maxiter=ROT_MAXITER, capacity=ROT_CAPACITY)
-
-    cs.reset_launch_counts()
-    (params, rois, _, valid), cold = synced(torch, solve)
-    launches = {k: v for k, v in cs.launch_counts().items() if v}
-    warm = [synced(torch, solve)[1] for _ in range(reps)]
-    err, n_valid = flow_error(params, rois, valid)
-    print(json.dumps({"roi_bfgs_walls": {
-        "root": ROOT, "cold_s": cold, "warm_s": warm, "launches": launches,
-        "flow_err": err, "valid": n_valid, "card": card_line()}}))
-    return 0
-
-
-FEW_SPLAT_WALLS_FLAG = "--few-splat-walls"
-
-
-def few_splat_walls(reps: int = 5) -> int:
-    """``python3 chip_smoke.py --few-splat-walls``: cold and warm walls of
-    the main path's host-loop ROI solver, ``grid_cmax`` on the 40x60 corner
-    of the rotating scene (each loss evaluation one single splat of one
-    ROI's ~2k events), with its launches, for the package beside this
-    file; a copy of this file placed at the root of another checkout times
-    that checkout (compare two in one call: A, B, B, A). Prints one JSON
-    line."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    from event_utils_tpu_torch.contrast_max import grid_cmax
-    from event_utils_tpu_torch.ops import cuda_scatter as cs
-    sx, sy, st, sp = rotating_scene()
-    corner = (sx < 60) & (sy < 40)
-
-    def solve():
-        return grid_cmax(sx[corner], sy[corner], st[corner], sp[corner],
-                         roi_size=ROT_ROI, img_size=ROT_SENSOR)
-
-    cs.reset_launch_counts()
-    (params, _, _), cold = synced(torch, solve)
-    launches = {k: v for k, v in cs.launch_counts().items() if v}
-    warm = [synced(torch, solve)[1] for _ in range(reps)]
-    print(json.dumps({"few_splat_walls": {
-        "root": ROOT, "cold_s": cold, "warm_s": warm, "launches": launches,
-        "params": np.round(np.array(params), 3).tolist(),
-        "card": card_line()}}))
     return 0
 
 
@@ -6089,10 +5885,6 @@ def step_parity_runs(reps: int = 5) -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == DP_FLAG:   # a torchrun rank
         sys.exit(dp_rank_main(sys.argv[2:]))
-    if sys.argv[1:] == [ROI_WALLS_FLAG]:
-        sys.exit(roi_bfgs_walls())
-    if sys.argv[1:] == [FEW_SPLAT_WALLS_FLAG]:
-        sys.exit(few_splat_walls())
     if sys.argv[1:] == [TRAIN_WALLS_FLAG]:
         sys.exit(train_walls())
     if sys.argv[1:2] == [STEP_PARITY_FLAG]:

@@ -18,8 +18,8 @@ from the host to the device a window, and ``graph_captures`` and
 replayed. Spans time the host's issue of the work and never wait for the
 card. ``patch_variance_vg_share`` is the share of the run's patch-loss
 evaluations on the card that the fused kernel served (its launches over
-those of every route a patch-loss evaluation launches: it and the two
-patch splats of the composed loss), null where none ran on the card.
+those of every route a patch-loss evaluation launches,
+``events_cmax.PATCH_LOSS_ROUTES``), null where none ran on the card.
 ``--render`` writes ``flow_NNNN.png`` HSV renderings with the standard
 library (``utils.util.write_rgb_png``; JAX's CLI uses matplotlib, which
 writes RGBA with the same levels).
@@ -140,8 +140,10 @@ def main(argv=None):
     import numpy as np
 
     from .._device import resolve_device, to_numpy
-    from ..contrast_max.events_cmax import (GRAPH_CAPTURES, GRAPH_REPLAYS,
-                                            H2D_BYTES, grid_cmax_batched)
+    from ..contrast_max.events_cmax import (FUSED_PATCH_ROUTE,
+                                            GRAPH_CAPTURES, GRAPH_REPLAYS,
+                                            H2D_BYTES, PATCH_LOSS_ROUTES,
+                                            grid_cmax_batched)
     from ..ops import cuda_scatter
     from ..ops.denoise import background_activity_filter
     from ..utils import profiling
@@ -222,15 +224,13 @@ def main(argv=None):
              "graph_replays": counts.get(GRAPH_REPLAYS, 0)}
     launched = {k: v - launches_before[k]
                 for k, v in cuda_scatter.launch_counts().items()}
-    evaluations = sum(launched[k] for k in (
-        "patch_variance_vg", "bilinear_patches_scatter",
-        "bilinear_patches_scatter:direct"))
+    evaluations = sum(launched[k] for k in PATCH_LOSS_ROUTES)
     metrics = {"mevs_sustained": round(n_events / elapsed / 1e6, 3),
                "windows_per_s": round(n_windows / elapsed, 3),
                "num_windows": n_windows, "num_events": int(n_events),
                "wallclock_s": round(elapsed, 2), "spans": spans,
                "patch_variance_vg_share": (
-                   round(launched["patch_variance_vg"] / evaluations, 6)
+                   round(launched[FUSED_PATCH_ROUTE] / evaluations, 6)
                    if evaluations else None)}
     with open(os.path.join(args.output_dir, "metrics.json"), "w") as f:
         json.dump(metrics, f)

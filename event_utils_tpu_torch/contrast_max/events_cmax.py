@@ -565,6 +565,12 @@ PATCH_OBJECTIVES = ("variance", "sos", "rms", "soe", "sosa", "isoa", "moa",
 
 # The device type on which make_patch_loss takes the fused kernel.
 FUSED_DEVICE_TYPE = "cuda"
+# The kernel routes (cuda_scatter's launch counters) of which one evaluation
+# of make_patch_loss on the card launches one: the fused kernel's where
+# fused_patch_variance says so, else one of the composed body's patch splat.
+FUSED_PATCH_ROUTE = "patch_variance_vg"
+PATCH_LOSS_ROUTES = (FUSED_PATCH_ROUTE, "bilinear_patches_scatter",
+                     "bilinear_patches_scatter:direct")
 
 
 def fused_patch_variance(objective, warpfunc, params_shape, device,
@@ -1108,8 +1114,10 @@ def grid_cmax_batched(xs, ys, ts, ps, roi_size=(20, 20), warp=None,
     Events are bucketed by ROI into fixed-capacity batches (subsampled
     above the capacity cap); a velocity-capped coarse-to-fine grid search,
     the adaptive-lifespan mask and a fixed-step refine run for every ROI at
-    once, each loss evaluation one batched patch loss (one bilinear kernel
-    launch for all ROIs and samples).
+    once, each loss evaluation one batched patch loss for all ROIs and
+    samples: one launch of ``patch_variance_vg`` for the variance
+    objective's warm refine on the card (``fused_patch_variance``), else one
+    patch splat (``PATCH_LOSS_ROUTES``).
 
     Options, as in JAX:
 

@@ -983,14 +983,6 @@ int voxel_scatter_batched(const void* xs, const void* ys, const void* t_norm,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One grid: the batched direct kernel at S = 1. out zeroed.
-int voxel_scatter(const void* xs, const void* ys, const void* t_norm,
-                  const void* ps, long long n, int B, int H, int W, void* out,
-                  void* stream) {
-  return voxel_scatter_batched(xs, ys, t_norm, ps, 1, n, B, H, W, 0, out,
-                               stream);
-}
-
 int voxel_tiles_scatter(const void* bx, const void* by, const void* t_norm,
                         const void* bp, long long n, long long cap, int B,
                         int th, int tw, void* out, void* stream) {
@@ -1072,14 +1064,6 @@ int voxel_scatter_batched_vector(const void* xs, const void* ys,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One grid: the batched vector kernels at S = 1. acc (2, H*W, Bp).
-int voxel_scatter_vector(const void* xs, const void* ys, const void* t_norm,
-                         const void* ps, long long n, int B, int H, int W,
-                         int Bp, void* acc, void* out, void* stream) {
-  return voxel_scatter_batched_vector(xs, ys, t_norm, ps, 1, n, B, H, W, 0,
-                                      Bp, acc, out, stream);
-}
-
 int bilinear_patches_scatter(const void* x, const void* y, const void* w,
                              long long P, long long C, int K, int PH, int PW,
                              void* out, void* stream) {
@@ -1129,12 +1113,6 @@ int bilinear_scatter_batched(const void* x, const void* y, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One image: the batched direct kernel at S = 1. out zeroed.
-int bilinear_scatter(const void* x, const void* y, const void* w, long long n,
-                     int K, int H, int W, void* out, void* stream) {
-  return bilinear_scatter_batched(x, y, w, 1, n, 0, K, H, W, out, stream);
-}
-
 // Private: blocks per sample; 1 stores each image (out may hold anything),
 // more add their private images to out, which must be zeroed.
 int bilinear_scatter_batched_private(const void* x, const void* y,
@@ -1155,16 +1133,6 @@ int bilinear_scatter_batched_private(const void* x, const void* y,
         static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// One image: the batched private kernel at S = 1. blocks == 1 stores the
-// image (out may hold anything); blocks > 1 add their private images to
-// out, which must be zeroed.
-int bilinear_scatter_private(const void* x, const void* y, const void* w,
-                             long long n, int K, int H, int W, void* out,
-                             int blocks, void* stream) {
-  return bilinear_scatter_batched_private(x, y, w, 1, n, 0, K, H, W, out,
-                                          blocks, stream);
 }
 
 // scratch: (S, H*W, Kp) zeroed floats, 16-byte aligned; Kp = 2 for K = 2,
@@ -1206,14 +1174,6 @@ int bilinear_scatter_batched_vector(const void* x, const void* y,
     }
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// One image: the vector kernels at S = 1.
-int bilinear_scatter_vector(const void* x, const void* y, const void* w,
-                            long long n, int K, int H, int W, int Kp,
-                            void* scratch, void* out, void* stream) {
-  return bilinear_scatter_batched_vector(x, y, w, 1, n, 0, K, H, W, Kp,
-                                         scratch, out, stream);
 }
 
 int voxel_tiles_scatter_private(const void* bx, const void* by,

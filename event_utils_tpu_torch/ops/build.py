@@ -41,10 +41,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 SIGNATURES = {
     "scatter_kernels": {
-        "voxel_scatter": (_P, _P, _P, _P, _L, _I, _I, _I, _P, _P),
         "voxel_tiles_scatter": (_P, _P, _P, _P, _L, _L, _I, _I, _I, _P, _P),
-        "voxel_scatter_vector": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
-                                 _P),
         "voxel_scatter_batched": (_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P,
                                   _P),
         "voxel_scatter_batched_vector": (_P, _P, _P, _P, _L, _L, _I, _I, _I,
@@ -53,19 +50,15 @@ SIGNATURES = {
                                           _I, _I, _P, _P),
         "flat_scatter": (_P, _P, _L, _I, _L, _P, _P),
         "flat_scatter_vector": (_P, _P, _L, _I, _L, _I, _P, _P, _P),
-        "bilinear_scatter": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
         "bilinear_patches_scatter": (_P, _P, _P, _L, _L, _I, _I, _I, _P, _P),
         "bilinear_patches_scatter_direct": (_P, _P, _P, _L, _L, _I, _I, _I,
                                             _P, _P),
-        "bilinear_scatter_private": (_P, _P, _P, _L, _I, _I, _I, _P, _I, _P),
         "bilinear_scatter_batched": (_P, _P, _P, _L, _L, _L, _I, _I, _I, _P,
                                      _P),
         "bilinear_scatter_batched_private": (_P, _P, _P, _L, _L, _L, _I, _I,
                                              _I, _P, _I, _P),
         "voxel_tiles_scatter_private": (_P, _P, _P, _P, _L, _L, _I, _I, _I,
                                         _P, _P),
-        "bilinear_scatter_vector": (_P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
-                                    _P),
         "bilinear_scatter_batched_vector": (_P, _P, _P, _L, _L, _L, _I, _I,
                                             _I, _I, _P, _P, _P),
     },

@@ -9,25 +9,26 @@ directly:
 ================================  =========================================
 kernel wrapper (this module)      TPU kernel it replaces (pallas_scatter.py)
 ================================  =========================================
-``voxel_scatter``                 ``_voxel_kernel`` via ``voxel_matmul``
-``voxel_scatter_batched``         ``_voxel_kernel`` under ``jax.vmap``
+``voxel_scatter_batched``         ``_voxel_kernel`` via ``voxel_matmul``
+(``voxel_scatter`` at S = 1)      (one grid) and under ``jax.vmap``
                                   (``voxel_grids_fixed_n``, the trainers'
                                   padded rows)
 ``voxel_tiles_scatter``           ``_voxel_kernel`` on the (tile, chunk)
                                   grid via ``voxel_matmul_tiles``
 ``flat_scatter``                  ``_image_kernel`` via ``image_matmul`` and
                                   ``scatter_add_flat_pallas``
-``bilinear_scatter``,             ``_bilinear_kernel`` via
-``bilinear_patches_scatter``      ``bilinear_matmul``
-``bilinear_scatter_batched``      ``_bilinear_kernel`` under ``jax.vmap``
-                                  (the grid searches' samples)
+``bilinear_scatter_batched``      ``_bilinear_kernel`` via
+(``bilinear_scatter`` at S = 1)   ``bilinear_matmul`` (one image) and under
+                                  ``jax.vmap`` (the grid searches' samples)
+``bilinear_patches_scatter``      ``_bilinear_kernel`` via
+                                  ``bilinear_matmul``
 ================================  =========================================
 
 Every wrapper has several kernels, called routes. A route is chosen from
-the call's shape before the launch (``voxel_route``, ``voxel_batched_route``,
-``flat_route``, ``bilinear_route``, ``bilinear_batched_route``,
-``voxel_tiles_route``, ``bilinear_patches_route``),
-never from a failure. The thresholds are measurements on an H100
+the call's shape before the launch, one rule per wrapper
+(``voxel_batched_route``, ``flat_route``, ``bilinear_batched_route``,
+``voxel_tiles_route``, ``bilinear_patches_route``), never from a failure.
+The thresholds are measurements on an H100
 (``scripts/tune_scatter_routes.py``). What they reflect: a float
 ``atomicAdd`` on shared memory is a compare-and-swap loop on this card
 (``ATOMS.CAST.SPIN``), so updates of one pixel form a serial chain, while
@@ -39,59 +40,50 @@ where so many events share a pixel that the L2 serialises them; vector
 reductions win where one event's taps can be made neighbours in memory and
 the events are many; below that the direct kernels win.
 
-- ``voxel_scatter:vector`` — from 262144 events on at 180x240 (later on
-  larger sensors, never at 720p): both temporal taps of an event go as one
-  ``float2`` reduction into a bins-innermost scratch, which a second kernel
-  rearranges into the uninitialised ``(B, H, W)`` grid.
-  ``voxel_scatter:direct`` — fewer events, or a scratch that would crowd
-  the L2: two scalar reductions per event into the zeroed grid.
-- ``voxel_scatter_batched:vector`` / ``:direct`` — the same two kernels
-  with the row as the grid's y axis: S rows of N events into S grids (2S
-  with the polarity split of the trainers' grids) in one launch, the vector
-  route in chunks of rows whose scratch stays in the L2
-  (``voxel_batched_chunk``), by ``voxel_batched_route``: the single
-  grid's rule per row and per launch. The single grid's routes are these
-  kernels at S = 1.
+- ``voxel_scatter_batched:vector`` / ``:direct`` — S rows of N events into
+  S grids (2S with the polarity split of the trainers' grids) in one
+  launch, the row as the grid's y axis; one grid is S = 1. 'vector': both
+  temporal taps of an event go as one ``float2`` reduction into its grid's
+  bins-innermost scratch, which a second kernel rearranges into the
+  uninitialised ``(B, H, W)`` grids, in chunks of rows whose scratch stays
+  in the L2 (``voxel_batched_chunk``): from 262144 events a launch at
+  180x240 (later on larger sensors, never at 720p). 'direct': fewer
+  events, or a scratch that would crowd the L2: two scalar reductions per
+  event into the zeroed grids.
   ``voxel_scatter_batched:private`` — batches that the rule above sends
   'direct' whose grids hold at least ``PRIVATE_MIN_GRID_BYTES`` (32 MB,
   about two thirds of the L2) and whose bin plane fits 227 KB
   (``voxel_grids_fixed_n``'s 104 DAVIS240 windows): one block per (grid,
   bin) owns that plane in shared memory, reads its row's ``t_norm`` and
   keeps the taps of its bin and sign, and stores the plane once into the
-  uninitialised grids: no memset, no global atomic. Fewer rows stay
-  direct, and 'vector' keeps what it takes.
+  uninitialised grids: no memset, no global atomic. Fewer rows, and one
+  grid, stay direct, and 'vector' keeps what it takes.
 - ``flat_scatter:vector`` — two rows or more and enough ids (D = 2: from
   262144): the weights of one id go as one ``float2`` or as ``float4``
   reductions into a rows-innermost scratch, transposed by a second kernel.
   ``flat_scatter:direct`` — one row (the event image), or few ids: one
   thread per id, one scalar reduction per row into the zeroed output.
 
-- ``bilinear_scatter:vector`` — K >= 2 channels past 227 KB with enough
-  events (``vector_pays``: the timestamp image, zhu's grid levels): each
-  tap's K values go as one ``float2``/``float4`` reduction into a zeroed
-  channels-innermost scratch, which a second kernel unpacks into an
-  uninitialised output; samples in chunks of ``vector_chunk``.
-- ``bilinear_scatter:direct`` — one thread per event, global ``atomicAdd``
-  into the zeroed output: what neither of the others wins (few events,
-  one channel past 227 KB, few channels below the vector route's rule).
-  A row-band splat for few events (one launch, no memset) lost to it and
-  stays in ``scripts/tune_scatter_variants.cu``.
-- ``bilinear_scatter:private`` — 98304 events or more into an image that
-  fits: up to 132 blocks each accumulate a private copy in shared memory
-  and add its non-zero pixels to the zeroed output.
-- ``bilinear_scatter:single`` — the same kernel with one block, which
-  stores its image into an uninitialised output. It measured slower than
-  the direct route at every shape tried (one SM zeroing and storing the
-  image costs more than a memset node), so no shape is sent to it; it stays
-  selectable for measurement.
 - ``bilinear_scatter_batched:private`` / ``:vector`` / ``:direct`` — S
   samples of N events each in one launch (up to 65535 samples) with the
   sample as the grid's y axis (Pallas batches ``_bilinear_kernel`` under
-  ``vmap`` by adding a grid axis): the private kernel per sample where
-  ``K*H*W*4`` bytes fit 227 KB, else the vector or direct one by
-  ``bilinear_batched_route``; ``private_blocks`` gives the private blocks
-  a sample by shape. The single image's routes
-  are these kernels at S = 1.
+  ``vmap`` by adding a grid axis); one image is S = 1. 'private' where
+  ``K*H*W*4`` bytes fit 227 KB, for one image only from 98304 events: up
+  to 132 blocks a sample each accumulate a private copy in shared memory
+  (``private_blocks``), one block storing its image into an uninitialised
+  output, more adding their non-zero pixels to a zeroed one. 'vector' for
+  K >= 2 past 227 KB with enough events (``vector_pays``: the timestamp
+  image, zhu's grid levels): each tap's K values go as one
+  ``float2``/``float4`` reduction into a zeroed channels-innermost scratch,
+  which a second kernel unpacks into an uninitialised output; samples in
+  chunks of ``vector_chunk``. 'direct' — one thread per event, global
+  ``atomicAdd`` into the zeroed output: what neither of the others wins
+  (few events into one image, one channel past 227 KB, few channels below
+  the vector route's rule). One private block for one image of few events
+  lost to it at every shape tried (one SM zeroing and storing the image
+  costs more than a memset node), and a row-band splat for few events
+  (one launch, no memset) lost to it too and stays in
+  ``scripts/tune_scatter_variants.cu``. All by ``bilinear_batched_route``.
 - ``bilinear_patches_scatter`` — run ``q`` of ``C`` consecutive slots
   splats into patch ``q`` only (the batched patch loss of the ROI solvers):
   one block owns each patch in shared memory and stores it once into an
@@ -134,11 +126,12 @@ which lies inside each of those precision classes. The VMEM planning of the
 JAX wrappers (``_fit_chunk``, ``SensorLimitError``, the oversized-sensor
 fallbacks) has no counterpart: the card has no such limit.
 
-Gradients: ``voxel_matmul``, ``voxel_matmul_batched``, ``bilinear_matmul``,
-``bilinear_matmul_batched`` and ``bilinear_patches_scatter`` are ``torch.autograd.Function``s whose backward
-is the plain-torch gather of ``_voxel_core_bwd`` / ``_bilinear_core_bwd``
-(plain jnp in the JAX package, so plain torch here); the flat scatter's
-backward is a gather too.
+Gradients: ``voxel_matmul_batched``, ``bilinear_matmul_batched`` (and
+through them ``voxel_matmul`` and ``bilinear_matmul``, their one-row
+cases) and ``bilinear_patches_scatter`` are ``torch.autograd.Function``s
+whose backward is the plain-torch gather of ``_voxel_core_bwd`` /
+``_bilinear_core_bwd`` (plain jnp in the JAX package, so plain torch
+here); the flat scatter's backward is a gather too.
 
 Float atomics accumulate in a run-dependent order, so results agree with
 the plain version to about 1e-6 of the grid scale, not bitwise (see
@@ -193,19 +186,6 @@ def _stream() -> int:
 
 # The most dynamic shared memory one block can have on an H100 (227 KB).
 SHARED_MAX_BYTES = 232448
-
-ROUTES = ("voxel_scatter:vector", "voxel_scatter:direct",
-          "voxel_scatter_batched:vector", "voxel_scatter_batched:direct",
-          "voxel_scatter_batched:private",
-          "voxel_tiles_scatter:private", "voxel_tiles_scatter:direct",
-          "flat_scatter:vector", "flat_scatter:direct",
-          "bilinear_scatter:direct", "bilinear_scatter:private",
-          "bilinear_scatter:single", "bilinear_scatter:vector",
-          "bilinear_scatter_batched:private",
-          "bilinear_scatter_batched:direct",
-          "bilinear_scatter_batched:vector", "bilinear_patches_scatter",
-          "bilinear_patches_scatter:direct", "patch_variance_vg")
-_launches = dict.fromkeys(ROUTES, 0)
 
 
 def _pick(name: str, route, chosen: str, allowed) -> str:
@@ -268,82 +248,24 @@ def _voxel_scratch_bins(B: int) -> int:
     return (B + 2) & ~1
 
 
-def voxel_route(n: int, B: int, H: int, W: int) -> str:
-    """Route of a (B, H, W) voxel grid of n events: 'vector' where one
-    reduction saved per event outweighs the two scratch accumulators (from
-    262144 events on at 180x240, from ~920k at VGA, never at 720p), else
-    'direct'."""
-    scratch = 2 * H * W * _voxel_scratch_bins(B)
-    return "vector" if _vector_pays(n, scratch) else "direct"
-
-
 def voxel_scatter(xs, ys, t_norm, ps, B: int, H: int, W: int, route=None):
-    """(B, H, W) temporally-bilinear voxel grid of preprocessed events.
+    """(B, H, W) temporally-bilinear voxel grid of preprocessed events:
+    ``voxel_scatter_batched`` at S = 1, on the routes its rule gives one
+    grid.
 
     ``xs``/``ys`` int32 in-image coordinates, ``t_norm`` f32 in [0, B-1],
-    ``ps`` f32 weights (0 for dropped events) — what ``voxel_matmul``
-    hands over; events in any order. Launches a CUDA kernel for CUDA
-    tensors; the plain version for CPU tensors.
-
-    Routes, by shape alone (``voxel_route``). 'vector', for many events on
-    a grid whose scratch stays small beside them: each event sends both
-    temporal taps as one ``float2`` reduction into one of two zeroed
-    bins-innermost accumulators ``(H*W, Bp)`` (even and odd first bins, so
-    that every pair is 8-byte aligned), and a second kernel adds the two
-    into an uninitialised ``(B, H, W)`` grid. 'direct' otherwise: two scalar
-    reductions per event into the zeroed grid, one kernel. ``route`` forces
-    either.
-    """
-    dev = _check("voxel_scatter", (xs, ys, t_norm, ps), (_I32, _I32, _F32, _F32))
-    n = xs.shape[0]
-    route = _pick("voxel_scatter", route, voxel_route(n, B, H, W),
-                  {"vector", "direct"})
-    if dev.type == "cpu":
-        return voxel_scatter_plain(xs, ys, t_norm, ps, B, H, W)
-    if n == 0 or B == 0:
-        return torch.zeros((B, H, W), dtype=_F32, device=dev)
-    ptrs = (xs.data_ptr(), ys.data_ptr(), t_norm.data_ptr(), ps.data_ptr())
-    if route == "vector":
-        Bp = _voxel_scratch_bins(B)
-        acc = torch.zeros((2, H * W, Bp), dtype=_F32, device=dev)
-        if acc.data_ptr() % 8:
-            raise ConfigurationError(
-                "voxel_scatter: scratch not aligned for float2 reductions")
-        out = torch.empty((B, H, W), dtype=_F32, device=dev)
-        rc = build.library().voxel_scatter_vector(
-            *ptrs, n, B, H, W, Bp, acc.data_ptr(), out.data_ptr(), _stream())
-    else:
-        out = torch.zeros((B, H, W), dtype=_F32, device=dev)
-        rc = build.library().voxel_scatter(
-            *ptrs, n, B, H, W, out.data_ptr(), _stream())
-    build.check(rc, f"voxel_scatter:{route}")
-    _launches[f"voxel_scatter:{route}"] += 1
-    return out
-
-
-class _VoxelCore(torch.autograd.Function):
-    """Voxel scatter with the gather VJP of ``_voxel_core_bwd``
-    (pallas_scatter.py:469): cotangents reach ``t_norm`` and ``ps``; the
-    integer coordinates get none."""
-
-    @staticmethod
-    def forward(ctx, xs, ys, t_norm, ps, B, H, W):
-        ctx.save_for_backward(xs, ys, t_norm, ps)
-        ctx.dims = (B, H, W)
-        return voxel_scatter(xs, ys, t_norm, ps, B, H, W)
-
-    @staticmethod
-    def backward(ctx, g):
-        xs, ys, t_norm, ps = ctx.saved_tensors
-        g_t, g_ps = _voxel_vjp(g.reshape(1, -1), xs[None], ys[None],
-                               t_norm[None], ps[None], *ctx.dims, False)
-        return None, None, g_t[0], g_ps[0], None, None, None
+    ``ps`` f32 weights (0 for dropped events), all (N,) — what
+    ``voxel_inputs`` hands over; events in any order. ``route`` forces one
+    of the routes the shape allows."""
+    return voxel_scatter_batched(xs[None], ys[None], t_norm[None], ps[None],
+                                 B, H, W, route=route)[0]
 
 
 def voxel_matmul(xs, ys, ts, ps, B: int, sensor_size=(180, 240),
                  precision: str = "hilo", mask=None, t0=None, t1=None):
     """(B, H, W) temporally-bilinear voxel grid (``voxel_matmul``,
-    pallas_scatter.py:236) through the CUDA voxel kernel.
+    pallas_scatter.py:236) through the CUDA voxel kernel: the one-row case
+    of ``voxel_matmul_batched``.
 
     Matches ``events_to_voxel(..., temporal_bilinear=True)`` with integer
     spatial coordinates. Out-of-image events are dropped; masked events
@@ -356,13 +278,11 @@ def voxel_matmul(xs, ys, ts, ps, B: int, sensor_size=(180, 240),
     kernel computes in f32, inside every one of those classes.
     Differentiable in ``ts`` and ``ps``. Inputs are tensors on one device.
     """
-    _check_precision(precision)
-    H, W = sensor_size
-    if xs.shape[0] == 0:
-        return torch.zeros((B, H, W), dtype=_F32, device=xs.device)
-    xs, ys, t_norm, ps = voxel_inputs(xs, ys, ts, ps, B, sensor_size,
-                                      mask=mask, t0=t0, t1=t1)
-    return _VoxelCore.apply(xs, ys, t_norm, ps, B, H, W)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=xs.device)[None]
+    return voxel_matmul_batched(xs[None], ys[None], ts[None], ps[None], B,
+                                sensor_size, precision, mask=mask, t0=t0,
+                                t1=t1)[0]
 
 
 def voxel_inputs(xs, ys, ts, ps, B: int, sensor_size, mask=None, t0=None,
@@ -427,15 +347,17 @@ PRIVATE_MIN_GRID_BYTES = 32 << 20
 
 def voxel_batched_route(S: int, n: int, B: int, H: int, W: int,
                         split: bool = False) -> str:
-    """Route of S rows of n events into S grids (2S with ``split``):
-    ``voxel_route``'s rule per row and per launch, 'vector' where a row's
-    scratch stays within ``VECTOR_MAX_SCRATCH_BYTES`` and within
+    """Route of S rows of n events into S grids (2S with ``split``), one
+    grid being S = 1: 'vector' where one reduction saved per event
+    outweighs the two scratch accumulators, that is where a row's scratch
+    stays within ``VECTOR_MAX_SCRATCH_BYTES`` and within
     ``VECTOR_SCRATCH_PER_SAVED`` floats per event, and one launch's rows
-    hold ``VECTOR_MIN_SAVED`` events. Where that rule says 'direct',
-    'private' if the bin plane fits a block's shared memory
+    hold ``VECTOR_MIN_SAVED`` events (one grid: from 262144 events on at
+    180x240, from ~920k at VGA, never at 720p). Where that rule says
+    'direct', 'private' if the bin plane fits a block's shared memory
     (``voxel_private_fits``) and the grids hold at least
     ``PRIVATE_MIN_GRID_BYTES``; never for one grid (S = 1 without
-    ``split``), which keeps ``voxel_route``."""
+    ``split``)."""
     scratch = _voxel_row_scratch(B, H, W, split)
     rows = min(S, voxel_batched_chunk(B, H, W, split))
     if (scratch * 4 <= VECTOR_MAX_SCRATCH_BYTES
@@ -495,11 +417,12 @@ def voxel_scatter_batched(xs, ys, t_norm, ps, B: int, H: int, W: int,
     block's shared memory: one block per (grid, bin) owns that plane in
     shared memory, keeps the taps of its bin and sign, and stores the
     plane once into the uninitialised grids: no memset, no global atomic,
-    one launch per ``BATCH_MAX_SAMPLES`` rows. The single grid's two with a row offset:
-    'direct', two scalar reductions per event into the zeroed grids, one
-    launch per ``BATCH_MAX_SAMPLES`` rows; 'vector', one ``float2``
-    reduction per event into its grid's two zeroed bins-innermost
-    accumulators and a second kernel that adds them into the uninitialised
+    one launch per ``BATCH_MAX_SAMPLES`` rows. 'direct', two scalar
+    reductions per event into the zeroed grids, one launch per
+    ``BATCH_MAX_SAMPLES`` rows; 'vector', one ``float2`` reduction per
+    event into one of its grid's two zeroed bins-innermost accumulators
+    ``(H*W, Bp)`` (even and odd first bins, so that every pair is 8-byte
+    aligned) and a second kernel that adds the two into the uninitialised
     grids, launched in chunks of ``voxel_batched_chunk`` rows so that the
     scratch stays in the L2. ``route`` forces any of them ('private' only
     where the plane fits; elsewhere it raises ``ConfigurationError``).
@@ -560,8 +483,9 @@ def voxel_scatter_batched(xs, ys, t_norm, ps, B: int, H: int, W: int,
 class _VoxelBatchedCore(torch.autograd.Function):
     """Batched voxel scatter with the gather VJP of ``_voxel_core_bwd``
     (pallas_scatter.py:469) per row: cotangents reach ``t_norm`` and
-    ``ps``, as in ``_VoxelCore``; with ``split`` each event reads its own
-    grid's cotangent, and ``ps``'s carries the sign of its encoding."""
+    ``ps``, the integer coordinates get none; with ``split`` each event
+    reads its own grid's cotangent, and ``ps``'s carries the sign of its
+    encoding."""
 
     @staticmethod
     def forward(ctx, xs, ys, t_norm, ps, B, H, W, split):
@@ -1073,73 +997,14 @@ def _bilinear_allowed(K: int, H: int, W: int) -> set:
     return routes
 
 
-def bilinear_route(K: int, H: int, W: int, n: int) -> str:
-    """Route of a (K, H, W) splat of n events: 'private' where the image
-    fits 227 KB and n is at least 98304; 'vector' for K >= 2 past 227 KB
-    where it pays (``vector_pays``); else 'direct'."""
-    allowed = _bilinear_allowed(K, H, W)
-    if "private" in allowed:
-        return "private" if n >= PRIVATE_MIN_EVENTS else "direct"
-    return "vector" if vector_pays(K, H, W, n) else "direct"
-
-
 def bilinear_scatter(x, y, w, H: int, W: int, route=None):
     """(K, H, W) 4-tap bilinear splat of the K rows of ``w`` (f32 (K, N))
     at the shared f32 coordinates ``x``, ``y`` (N,); out-of-image taps are
-    dropped.
-
-    Routes, by shape alone (``bilinear_route``). 'private', where
-    ``K*H*W*4`` bytes fit 227 KB of shared memory (181x241 at K=1 does, at
-    K=4 it does not) and N >= 98304: one block of 1024 threads per 1024
-    events, at most 132, each with a private image in shared memory whose
-    non-zero pixels it adds to the zeroed output (a bulk reduction of whole
-    images measured slower). 'vector', for K >= 2 past 227 KB (the
-    timestamp image): each tap's K values go as one ``float2``/``float4``
-    reduction into a zeroed channels-innermost scratch, which a second
-    kernel unpacks into an uninitialised output. 'direct' for everything
-    else: one thread per event, global atomics into the zeroed output.
-    'single' (one block, image stored once into an uninitialised output) is
-    slower than 'direct' wherever it was measured and is never chosen;
-    ``route`` forces one of the routes the shape allows.
-    """
-    dev = _check("bilinear_scatter", (x, y, w), (_F32, _F32, _F32))
-    if w.dim() != 2 or w.shape[1] != x.shape[0] or y.shape != x.shape:
-        raise ConfigurationError(
-            f"bilinear_scatter: w must be (K, {x.shape[0]}), got "
-            f"{tuple(w.shape)}")
-    K, n = w.shape
-    allowed = _bilinear_allowed(K, H, W)
-    if "private" in allowed:
-        allowed.add("single")
-    route = _pick("bilinear_scatter", route, bilinear_route(K, H, W, n),
-                  allowed)
-    if dev.type == "cpu":
-        return bilinear_scatter_plain(x, y, w, H, W)
-    if n == 0 or K == 0:
-        return torch.zeros((K, H, W), dtype=_F32, device=dev)
-    ptrs = (x.data_ptr(), y.data_ptr(), w.data_ptr())
-    lib = build.library()
-    if route == "direct":
-        out = torch.zeros((K, H, W), dtype=_F32, device=dev)
-        rc = lib.bilinear_scatter(*ptrs, n, K, H, W, out.data_ptr(),
-                                  _stream())
-    elif route == "vector":
-        Kp = vector_channels(K)
-        scratch = _vector_scratch(1, H, W, Kp, dev)
-        out = torch.empty((K, H, W), dtype=_F32, device=dev)
-        rc = lib.bilinear_scatter_vector(*ptrs, n, K, H, W, Kp,
-                                         scratch.data_ptr(), out.data_ptr(),
-                                         _stream())
-    else:
-        blocks = 1 if route == "single" else max(2, min(
-            PRIVATE_MAX_BLOCKS, -(-n // PRIVATE_EVENTS_PER_BLOCK)))
-        alloc = torch.empty if blocks == 1 else torch.zeros
-        out = alloc((K, H, W), dtype=_F32, device=dev)
-        rc = lib.bilinear_scatter_private(*ptrs, n, K, H, W, out.data_ptr(),
-                                          blocks, _stream())
-    build.check(rc, f"bilinear_scatter:{route}")
-    _launches[f"bilinear_scatter:{route}"] += 1
-    return out
+    dropped: ``bilinear_scatter_batched`` at S = 1, on the routes its rule
+    gives one image. ``route`` forces one of the routes the shape
+    allows."""
+    return bilinear_scatter_batched(x[None], y[None], w, H, W,
+                                    route=route)[0]
 
 
 def _vector_scratch(S: int, H: int, W: int, Kp: int, dev):
@@ -1174,25 +1039,6 @@ def _bilinear_vjp(g, dx, dy, taps, w):
     return g_x, g_y, g_w
 
 
-class _BilinearCore(torch.autograd.Function):
-    """Bilinear splat with the gather VJP of ``_bilinear_core_bwd``
-    (pallas_scatter.py:749): differentiable in x, y and w."""
-
-    @staticmethod
-    def forward(ctx, x, y, w, H, W):
-        ctx.save_for_backward(x, y, w)
-        ctx.dims = (H, W)
-        return bilinear_scatter(x, y, w, H, W)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, y, w = ctx.saved_tensors
-        H, W = ctx.dims
-        dx, dy, taps = _bilinear_taps(x, y, H, W)
-        return (*_bilinear_vjp(g.reshape(g.shape[0], H * W), dx, dy, taps, w),
-                None, None)
-
-
 # ---------------------------------------------------------------------------
 # Batched bilinear splat (replaces _bilinear_kernel under jax.vmap: Pallas
 # adds a grid axis for the batch, pallas_scatter.py:576 / call :732)
@@ -1206,12 +1052,15 @@ BATCH_MAX_SAMPLES = 65535
 
 def bilinear_batched_route(K: int, H: int, W: int, n: int,
                            S: int = 1) -> str:
-    """Route of a batched (S, K, H, W) splat of n events a sample:
-    'private' where one sample's ``K*H*W*4`` bytes fit 227 KB of shared
-    memory (181x241 at K = 1); past that 'vector' for K >= 2 where it pays
-    (zhu's K = 4 stack), else 'direct'."""
+    """Route of a batched (S, K, H, W) splat of n events a sample, one
+    image being S = 1: 'private' where one sample's ``K*H*W*4`` bytes fit
+    227 KB of shared memory (181x241 at K = 1), for one image only from
+    ``PRIVATE_MIN_EVENTS`` on; past 227 KB 'vector' for K >= 2 where it
+    pays (``vector_pays``: zhu's K = 4 stack, the timestamp image); else
+    'direct'."""
     if "private" in _bilinear_allowed(K, H, W):
-        return "private"
+        return ("private" if S > 1 or n >= PRIVATE_MIN_EVENTS
+                else "direct")
     return "vector" if vector_pays(K, H, W, n, S) else "direct"
 
 
@@ -1244,8 +1093,9 @@ def bilinear_scatter_batched_plain(x, y, w, H: int, W: int):
 
 
 def bilinear_scatter_batched(x, y, w, H: int, W: int, route=None):
-    """(S, K, H, W) bilinear splats of S samples: plane ``s`` is
-    ``bilinear_scatter(x[s], y[s], w or w[s], H, W)``.
+    """(S, K, H, W) bilinear splats of S samples: plane ``s`` is the
+    (K, H, W) splat of the K rows of ``w`` (or ``w[s]``) at ``x[s]``,
+    ``y[s]``.
 
     ``x``, ``y`` f32 (S, N), one warped copy of the events per sample;
     ``w`` f32 (K, N), shared by every sample, or (S, K, N); all contiguous.
@@ -1255,16 +1105,20 @@ def bilinear_scatter_batched(x, y, w, H: int, W: int, route=None):
     tensors run ``bilinear_scatter_batched_plain``.
 
     Routes, by shape alone (``bilinear_batched_route``). 'private' where
-    one sample's image fits 227 KB of shared memory: G blocks of 1024
-    threads per sample, each with a private image (``private_blocks``: for
-    few samples what the card's 132 SMs leave per sample, at most one per
-    1024 events; for more, up to 3 in waves where one a sample would leave
-    SMs idle); with G = 1 each block stores its image into an
-    uninitialised output, else the blocks add their non-zero pixels to a
-    zeroed one. Past 227 KB: 'vector' for K >= 2 (zhu's K = 4 stack;
-    launched in chunks of ``vector_chunk`` samples, the measured best),
-    'direct' otherwise: one thread per slot, global atomics into the
-    zeroed output. ``route`` forces one of the routes the shape allows.
+    one sample's image fits 227 KB of shared memory (and for one image
+    from 98304 events): G blocks of 1024 threads per sample, each with a
+    private image (``private_blocks``: for few samples what the card's
+    132 SMs leave per sample, at most one per 1024 events; for more, up to
+    3 in waves where one a sample would leave SMs idle); with G = 1 each
+    block stores its image into an uninitialised output, else the blocks
+    add their non-zero pixels to a zeroed one (a bulk reduction of whole
+    images measured slower). Past 227 KB: 'vector' for K >= 2 (zhu's K = 4
+    stack, the timestamp image; each tap's K values as one
+    ``float2``/``float4`` reduction into a zeroed channels-innermost
+    scratch that a second kernel unpacks, launched in chunks of
+    ``vector_chunk`` samples, the measured best). 'direct' otherwise: one
+    thread per slot, global atomics into the zeroed output. ``route``
+    forces one of the routes the shape allows.
     """
     dev = _check("bilinear_scatter_batched", (x, y, w), (_F32, _F32, _F32))
     if (x.dim() != 2 or y.shape != x.shape or w.dim() not in (2, 3)
@@ -1353,6 +1207,22 @@ def bilinear_matmul_batched(x, y, w, shape: Tuple[int, int], mask=None,
     if mask is not None:
         w = w * torch.as_tensor(mask, device=w.device).to(_F32).unsqueeze(-2)
     return _BilinearBatchedCore.apply(x, y, w.contiguous(), H, W)
+
+
+def bilinear_matmul(x, y, w, shape: Tuple[int, int], mask=None,
+                    precision: str = "hilo"):
+    """(H, W) or (K, H, W) 4-tap bilinear scatter-add (``bilinear_matmul``,
+    pallas_scatter.py:649) through the CUDA bilinear kernel: the one-sample
+    case of ``bilinear_matmul_batched``.
+
+    Float coordinates, K weight channels sharing them (IWE: K=1; timestamp
+    image: K=4; Jacobian stacks: K=D). Out-of-image taps are dropped and
+    ``mask`` multiplies the weights. Differentiable in ``x``, ``y``, ``w``.
+    """
+    single = w.dim() == 1
+    out = bilinear_matmul_batched(x[None], y[None], w[None] if single else w,
+                                  shape, mask=mask, precision=precision)[0]
+    return out[0] if single else out
 
 
 # ---------------------------------------------------------------------------
@@ -1581,28 +1451,6 @@ def patch_variance_vg(x, y, t, p, mask, origin_yx, params, taps, roi_size,
     return loss, g
 
 
-def bilinear_matmul(x, y, w, shape: Tuple[int, int], mask=None,
-                    precision: str = "hilo"):
-    """(H, W) or (K, H, W) 4-tap bilinear scatter-add (``bilinear_matmul``,
-    pallas_scatter.py:649) through the CUDA bilinear kernel.
-
-    Float coordinates, K weight channels sharing them (IWE: K=1; timestamp
-    image: K=4; Jacobian stacks: K=D). Out-of-image taps are dropped and
-    ``mask`` multiplies the weights. Differentiable in ``x``, ``y``, ``w``.
-    """
-    _check_precision(precision)
-    H, W = shape
-    x = x.to(_F32).contiguous()
-    y = y.to(_F32).contiguous()
-    w = w.to(_F32)
-    single = w.dim() == 1
-    w2 = w[None, :] if single else w
-    if mask is not None:
-        w2 = w2 * torch.as_tensor(mask, device=w2.device).to(_F32)[None, :]
-    out = _BilinearCore.apply(x, y, w2.contiguous(), H, W)
-    return out[0] if single else out
-
-
 def reset_launch_counts() -> None:
     """Set every route's launch count to 0."""
     for route in ROUTES:
@@ -1624,8 +1472,6 @@ def add_launch_counts(counts: dict) -> None:
 
 # The wrapper that launches each route.
 KERNEL_WRAPPERS = {
-    "voxel_scatter:vector": voxel_scatter,
-    "voxel_scatter:direct": voxel_scatter,
     "voxel_scatter_batched:vector": voxel_scatter_batched,
     "voxel_scatter_batched:direct": voxel_scatter_batched,
     "voxel_scatter_batched:private": voxel_scatter_batched,
@@ -1633,10 +1479,6 @@ KERNEL_WRAPPERS = {
     "voxel_tiles_scatter:direct": voxel_tiles_scatter,
     "flat_scatter:vector": flat_scatter,
     "flat_scatter:direct": flat_scatter,
-    "bilinear_scatter:direct": bilinear_scatter,
-    "bilinear_scatter:private": bilinear_scatter,
-    "bilinear_scatter:single": bilinear_scatter,
-    "bilinear_scatter:vector": bilinear_scatter,
     "bilinear_scatter_batched:private": bilinear_scatter_batched,
     "bilinear_scatter_batched:direct": bilinear_scatter_batched,
     "bilinear_scatter_batched:vector": bilinear_scatter_batched,
@@ -1644,3 +1486,5 @@ KERNEL_WRAPPERS = {
     "bilinear_patches_scatter:direct": bilinear_patches_scatter,
     "patch_variance_vg": patch_variance_vg,
 }
+ROUTES = tuple(KERNEL_WRAPPERS)
+_launches = dict.fromkeys(ROUTES, 0)

@@ -281,9 +281,9 @@ def run(parts, only=()) -> int:
     }
 
     def direct_raw(x, y, w, h, wd, out):
-        build.check(lib.bilinear_scatter(
-            x.data_ptr(), y.data_ptr(), w.data_ptr(), x.shape[0], w.shape[0],
-            h, wd, out.data_ptr(), stream()), "direct")
+        build.check(lib.bilinear_scatter_batched(
+            x.data_ptr(), y.data_ptr(), w.data_ptr(), 1, x.shape[0], 0,
+            w.shape[0], h, wd, out.data_ptr(), stream()), "direct")
         return out
 
     def private(x, y, w, h, wd, blocks, threads, bulk):
@@ -335,12 +335,9 @@ def run(parts, only=()) -> int:
                     emit(**tag, route="direct", ms=T(
                         lambda: cs.bilinear_scatter(x, y, w, h, wd,
                                                     route="direct")))
-                    for route in ("single", "private"):
-                        if route == "single" and m > 32768:
-                            continue
-                        emit(**tag, route=f"{route}, as shipped", ms=T(
-                            lambda: cs.bilinear_scatter(x, y, w, h, wd,
-                                                        route=route)))
+                    emit(**tag, route="private, as shipped", ms=T(
+                        lambda: cs.bilinear_scatter(x, y, w, h, wd,
+                                                    route="private")))
                     variants = []
                     if m <= 32768:
                         variants += [(1, th, b) for th in (256, 1024)
@@ -354,8 +351,8 @@ def run(parts, only=()) -> int:
                         ok = agrees(f"private G={g} threads={th} bulk={b} "
                                     f"{tag}",
                                     private(x, y, w, h, wd, g, th, b), ref)
-                        emit(**tag, route="single" if g == 1 else "private",
-                             blocks=g, threads=th, bulk=b, ok=ok,
+                        emit(**tag, route="private", blocks=g, threads=th,
+                             bulk=b, ok=ok,
                              ms=T(lambda: private(x, y, w, h, wd, g, th, b)))
 
     # ---- 3. the patch kernel ---------------------------------------------
@@ -463,9 +460,7 @@ def run(parts, only=()) -> int:
         for m in (2048, n):
             x, y, w = (x0[:m].contiguous(), y0[:m].contiguous(),
                        w0[:, :m].contiguous())
-            for route in ("direct", "single", "private"):
-                if route == "single" and m > 32768:
-                    continue
+            for route in ("direct", "private"):
                 reps = []
                 for _ in range(5):
                     torch.cuda.synchronize()
@@ -535,9 +530,9 @@ def run(parts, only=()) -> int:
              ms=T(lambda: cs.voxel_scatter(*vargs, Bn, Hs, Ws,
                                            route="direct")))
         emit(**tag, what="direct kernel alone (no memset)",
-             ms=T(lambda: build.check(lib.voxel_scatter(
-                 *ptrs(*vargs), N, Bn, Hs, Ws, grid.data_ptr(), stream()),
-                 "voxel")))
+             ms=T(lambda: build.check(lib.voxel_scatter_batched(
+                 *ptrs(*vargs), 1, N, Bn, Hs, Ws, 0, grid.data_ptr(),
+                 stream()), "voxel")))
         emit(**tag, what="probe: atomics replaced by a register sum",
              ms=T(lambda: build.check(vlib.voxel_probe(
                  *ptrs(*vargs), N, Bn, Hs, Ws, sums.data_ptr(), stream()),
@@ -613,7 +608,8 @@ def run(parts, only=()) -> int:
                 args = cs.voxel_inputs(*(a[:m] for a in ev), bins, sensor)
                 ref = cs.voxel_scatter_plain(*args, bins, h, wd)
                 tag = dict(part=7, sensor=[h, wd], bins=bins, events=m,
-                           dispatch=cs.voxel_route(m, bins, h, wd))
+                           dispatch=cs.voxel_batched_route(1, m, bins, h,
+                                                           wd))
                 for route in ("direct", "vector"):
                     run = lambda: cs.voxel_scatter(*args, bins, h, wd,
                                                    route=route)

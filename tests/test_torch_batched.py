@@ -164,7 +164,9 @@ def test_batched_splat_gradient_is_per_sample_vjp(rng, shared):
 
 def test_batched_splat_routes_and_checks(rng):
     x, y = coords(rng, 2, 50, 181, 241, odd=False)
-    assert cs.bilinear_batched_route(1, 181, 241, 50) == "private"
+    assert cs.bilinear_batched_route(1, 181, 241, 50, 2) == "private"
+    # one image of few events (S = 1): the direct route, as it measured
+    assert cs.bilinear_batched_route(1, 181, 241, 50) == "direct"
     assert cs.bilinear_batched_route(4, 181, 241, 200_000) == "vector"
     w4 = torch.ones(4, 50)
     with pytest.raises(P.errors.ConfigurationError):   # K=4 past 227 KB

@@ -420,15 +420,17 @@ def test_batched_private_planes_fit_a_block():
 # ---------------------------------------------------------------------------
 
 def test_batched_route_and_chunk_by_shape():
-    """``voxel_route``'s rule per row and per launch, and 'private' where
-    it says 'direct' for grids of at least 32 MB whose plane fits 227 KB;
-    'vector' keeps what it takes; one grid keeps ``voxel_route``'s answer;
-    the scratch of one vector launch stays within 16 MB."""
+    """The vector rule per row and per launch, and 'private' where it says
+    'direct' for grids of at least 32 MB whose plane fits 227 KB; 'vector'
+    keeps what it takes; one grid (S = 1) takes 'vector' where one
+    reduction saved per event outweighs its scratch, else 'direct'; the
+    scratch of one vector launch stays within 16 MB."""
     for n in (4096, 262144, 1 << 21):
         for sensor in ((180, 240), (480, 640), (720, 1280), (128, 128)):
             for B in (5, 9, 200):
-                assert cs.voxel_batched_route(1, n, B, *sensor) == \
-                    cs.voxel_route(n, B, *sensor)
+                scratch = 2 * sensor[0] * sensor[1] * cs._voxel_scratch_bins(B)
+                assert cs.voxel_batched_route(1, n, B, *sensor) == (
+                    "vector" if cs._vector_pays(n, scratch) else "direct")
     assert cs.voxel_batched_chunk(5, 128, 128) == 21
     assert cs.voxel_batched_chunk(5, 180, 240) == 8
     assert cs.voxel_batched_chunk(5, 128, 128, split=True) == 10

@@ -1,6 +1,6 @@
 """The whole-image splat's vector route and its routing, on the CPU.
 
-``bilinear_scatter:vector`` (and its batched form) serves K >= 2 channels
+``bilinear_scatter_batched:vector`` (one image at S = 1) serves K >= 2 channels
 past 227 KB: each tap's K values go as one ``float2``
 (K = 2) or ``float4`` (K = 3, 4) reduction into a channels-innermost scratch
 ``(S, H*W, Kp)``, which a second pass unpacks into ``(S, K, H, W)``.
@@ -232,7 +232,9 @@ ZHU_CHUNK = 30
 
 @pytest.mark.parametrize("shape", sorted(MEASURED))
 def test_routes_at_the_measured_shapes(shape):
-    assert cs.bilinear_route(*shape) == MEASURED[shape]
+    # one image: the batched rule at S = 1
+    assert cs.bilinear_batched_route(*shape) == MEASURED[shape]
+    assert cs.bilinear_batched_route(*shape, 1) == MEASURED[shape]
 
 
 @pytest.mark.parametrize("shape", sorted(MEASURED_BATCHED))
@@ -243,14 +245,16 @@ def test_batched_routes_at_the_measured_shapes(shape):
 def test_route_thresholds():
     """The vector route only for two channels or more past 227 KB and from
     ``VECTOR_MIN_SAVED_BILINEAR`` saved requests; few events stay direct;
-    the private route where the image fits."""
-    assert cs.bilinear_route(1, 181, 241, 1) == "direct"
-    assert cs.bilinear_route(4, 181, 241, 2048) == "direct"
-    assert cs.bilinear_route(4, 181, 241, 16_383) == "direct"
-    assert cs.bilinear_route(4, 181, 241, 16_384) == "vector"
-    assert cs.bilinear_route(1, 181, 241, 10 ** 6) == "private"
-    assert cs.bilinear_route(1, 181, 241, cs.PRIVATE_MIN_EVENTS) == "private"
-    assert cs.bilinear_route(2, 8, 8, 10 ** 6) == "private"
+    the private route where the image fits (one image from
+    ``PRIVATE_MIN_EVENTS`` on)."""
+    assert cs.bilinear_batched_route(1, 181, 241, 1) == "direct"
+    assert cs.bilinear_batched_route(4, 181, 241, 2048) == "direct"
+    assert cs.bilinear_batched_route(4, 181, 241, 16_383) == "direct"
+    assert cs.bilinear_batched_route(4, 181, 241, 16_384) == "vector"
+    assert cs.bilinear_batched_route(1, 181, 241, 10 ** 6) == "private"
+    assert cs.bilinear_batched_route(
+        1, 181, 241, cs.PRIVATE_MIN_EVENTS) == "private"
+    assert cs.bilinear_batched_route(2, 8, 8, 10 ** 6) == "private"
     assert cs.bilinear_batched_route(4, 181, 241, 2048, 25) == "direct"
     assert cs.bilinear_batched_route(4, 181, 241, 8192, 25) == "vector"
     assert cs.bilinear_batched_route(4, 181, 241, 2048, 400) == "direct"
@@ -280,11 +284,12 @@ def test_forced_routes_and_their_limits():
 
 
 def test_new_routes_are_counted_and_have_wrappers():
-    """The two new routes are in ``ROUTES`` and ``KERNEL_WRAPPERS`` and
-    counted by ``launch_counts``; a CPU call launches nothing. The band
-    variant, which lost, is no route."""
-    new = {"bilinear_scatter:vector": cs.bilinear_scatter,
-           "bilinear_scatter_batched:vector": cs.bilinear_scatter_batched}
+    """The vector route is in ``ROUTES`` and ``KERNEL_WRAPPERS`` and
+    counted by ``launch_counts``, one image's launches under the batched
+    name; a CPU call launches nothing. The band variant, which lost, is no
+    route."""
+    new = {"bilinear_scatter_batched:vector": cs.bilinear_scatter_batched}
+    assert "bilinear_scatter:vector" not in cs.ROUTES
     assert not any("band" in r for r in cs.ROUTES)
     assert set(cs.ROUTES) == set(cs.KERNEL_WRAPPERS)
     for name, fn in new.items():
@@ -312,7 +317,7 @@ def test_gradients_do_not_depend_on_the_route(K, H, W, n):
     x, y = torch.as_tensor(x), torch.as_tensor(y)
     w = torch.as_tensor(rng.normal(0, 1, (K, n)).astype(F32))
     tgt = torch.as_tensor(rng.normal(0, 1, (2, K, H, W)).astype(F32))
-    assert cs.bilinear_route(K, H, W, n) in ("direct", "vector")
+    assert cs.bilinear_batched_route(K, H, W, n) in ("direct", "vector")
 
     def grads(fn, *a):
         leaves = [t.clone().requires_grad_(True) for t in a]

@@ -5,8 +5,8 @@ Private copies summed across a thread-block cluster through distributed
 shared memory lost on the card (``scripts/tune_scatter_variants.cu``): for
 whole images to the private kernel with more blocks a sample run in waves,
 for few patches to the direct patch kernel. So
-``bilinear_scatter_batched:private`` (and ``bilinear_scatter:private``, the
-same kernel at S = 1) stays the private kernel: G blocks a sample
+``bilinear_scatter_batched:private`` (one image is its S = 1) stays the
+private kernel: G blocks a sample
 (``private_blocks``, by shape) each splat a contiguous share of the
 sample's events into a private copy in shared memory; one block stores its
 copy, several add theirs to a zeroed output. The kernel runs only on the
@@ -143,13 +143,18 @@ def test_routes_by_shape():
     routes are counted and have wrappers."""
     assert cs.bilinear_batched_route(1, *IMAGE, 200_000) == "private"
     assert cs.bilinear_batched_route(4, *IMAGE, 200_000) == "vector"
-    assert cs.bilinear_route(1, *IMAGE, cs.PRIVATE_MIN_EVENTS) == "private"
-    assert cs.bilinear_route(1, *IMAGE, cs.PRIVATE_MIN_EVENTS - 1) == "direct"
+    assert cs.bilinear_batched_route(
+        1, *IMAGE, cs.PRIVATE_MIN_EVENTS) == "private"
+    assert cs.bilinear_batched_route(
+        1, *IMAGE, cs.PRIVATE_MIN_EVENTS - 1) == "direct"
+    assert cs.bilinear_batched_route(
+        1, *IMAGE, cs.PRIVATE_MIN_EVENTS - 1, 2) == "private"
     assert cs.bilinear_patches_route(108, *PATCH) == "direct"
     assert cs.bilinear_patches_route(767, *PATCH) == "direct"
     assert cs.bilinear_patches_route(768, *PATCH) == "patch"
     assert cs.bilinear_patches_route(2700, 240, 256) == "direct"
     assert set(cs.ROUTES) == set(cs.KERNEL_WRAPPERS)
+    assert "bilinear_scatter:private" not in cs.ROUTES
     assert (cs.KERNEL_WRAPPERS["bilinear_scatter_batched:private"]
             is cs.bilinear_scatter_batched)
     x = torch.zeros(10)

@@ -50,8 +50,9 @@ def test_bilinear_kernel_matches_plain_and_counts(cuda, gen):
                         device=cuda)
     # K=4 at 181x241 exceeds a block's shared memory: at 50,000 events the
     # route that part 11 of the tune script measured fastest
-    route = f"bilinear_scatter:{cs.bilinear_route(4, H, W, n)}"
-    assert route == "bilinear_scatter:vector"
+    route = ("bilinear_scatter_batched:"
+             f"{cs.bilinear_batched_route(4, H, W, n)}")
+    assert route == "bilinear_scatter_batched:vector"
     before = cs.launch_counts()[route]
     assert_rel(cs.bilinear_scatter(x, y, w, H, W),
                cs.bilinear_scatter_plain(x, y, w, H, W))
@@ -181,11 +182,13 @@ def test_tiled_voxel_and_roi_solver_on_the_card(cuda, gen):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route,n", [("single", 777), ("private", 30_001),
+@pytest.mark.parametrize("route,n", [("private", 777), ("private", 30_001),
                                      ("direct", 30_001)])
 def test_bilinear_routes_match_plain(cuda, gen, route, n):
     """Odd sizes: an image of 37x53 pixels (not a multiple of 4 floats, so
-    the bulk copy leaves a tail), K=3, event counts that fill no block."""
+    the bulk copy leaves a tail), K=3, event counts that fill no block; at
+    777 events the private kernel runs one block, which stores its image
+    into an uninitialised output."""
     H, W, K = 37, 53, 3
     x = torch.as_tensor(gen.uniform(-2, W + 1, n), dtype=torch.float32,
                         device=cuda)
@@ -195,19 +198,20 @@ def test_bilinear_routes_match_plain(cuda, gen, route, n):
     y[5::17] = 1e30
     w = torch.as_tensor(gen.normal(size=(K, n)), dtype=torch.float32,
                         device=cuda)
-    before = cs.launch_counts()[f"bilinear_scatter:{route}"]
+    before = cs.launch_counts()[f"bilinear_scatter_batched:{route}"]
     assert_rel(cs.bilinear_scatter(x, y, w, H, W, route=route),
                cs.bilinear_scatter_plain(x, y, w, H, W))
-    assert cs.launch_counts()[f"bilinear_scatter:{route}"] == before + 1
+    assert (cs.launch_counts()[f"bilinear_scatter_batched:{route}"]
+            == before + 1)
 
 
 @pytest.mark.cuda
 def test_bilinear_route_is_chosen_by_shape(cuda, gen):
     from event_utils_tpu_torch.errors import ConfigurationError
-    assert cs.bilinear_route(1, 181, 241, 2000) == "direct"
-    assert cs.bilinear_route(1, 181, 241, 200_000) == "private"
-    assert cs.bilinear_route(1, 41, 61, 32768) == "direct"
-    assert cs.bilinear_route(4, 181, 241, 200_000) == "vector"
+    assert cs.bilinear_batched_route(1, 181, 241, 2000) == "direct"
+    assert cs.bilinear_batched_route(1, 181, 241, 200_000) == "private"
+    assert cs.bilinear_batched_route(1, 41, 61, 32768) == "direct"
+    assert cs.bilinear_batched_route(4, 181, 241, 200_000) == "vector"
     n = 100
     x = torch.rand(n, device=cuda) * 200
     w = torch.ones(4, n, device=cuda)
@@ -317,9 +321,10 @@ def test_voxel_routes_match_plain(cuda, gen, route, B):
     assert int((cases[2][2] == B - 1).sum()) >= n // 3
     cases.append([a[perm].contiguous() for a in cases[0]])
     for args in cases:
-        before = cs.launch_counts()[f"voxel_scatter:{route}"]
+        name = f"voxel_scatter_batched:{route}"
+        before = cs.launch_counts()[name]
         got = cs.voxel_scatter(*args, B, H, W, route=route)
-        assert cs.launch_counts()[f"voxel_scatter:{route}"] == before + 1
+        assert cs.launch_counts()[name] == before + 1
         assert got.shape == (B, H, W) and got.is_contiguous()
         assert_rel(got, cs.voxel_scatter_plain(*args, B, H, W))
     none = cs.voxel_inputs(xs, ys, ts, ps, B, (H, W),
@@ -387,12 +392,14 @@ def test_flat_routes_match_plain(cuda, gen, route, D):
 
 @pytest.mark.cuda
 def test_voxel_and_flat_routes_are_chosen_by_shape(cuda, gen):
-    """Without ``route=`` a call launches the route that ``voxel_route`` /
-    ``flat_route`` name for its shape, on both sides of the thresholds."""
+    """Without ``route=`` a call launches the route that
+    ``voxel_batched_route`` (one grid) / ``flat_route`` name for its shape,
+    on both sides of the thresholds."""
     B, H, W = 5, 180, 240
     for n in (4096, 300_000):
         args = cs.voxel_inputs(*_voxel_stream(cuda, gen, n, H, W), B, (H, W))
-        name = f"voxel_scatter:{cs.voxel_route(n, B, H, W)}"
+        name = ("voxel_scatter_batched:"
+                f"{cs.voxel_batched_route(1, n, B, H, W)}")
         assert name.endswith("vector" if n > 4096 else "direct")
         before = cs.launch_counts()[name]
         assert_rel(cs.voxel_scatter(*args, B, H, W),
@@ -418,7 +425,7 @@ def test_voxel_and_flat_gradients_through_each_route(cuda, gen, route,
     """``voxel_matmul`` and ``scatter_add_flat_cuda`` with the kernel of
     either route as forward: the gradients of autograd through the plain
     versions."""
-    monkeypatch.setattr(cs, "voxel_route", lambda *a: route)
+    monkeypatch.setattr(cs, "voxel_batched_route", lambda *a: route)
     monkeypatch.setattr(cs, "flat_route", lambda *a: route)
     n, B, H, W = 20_000, 5, 40, 60
     xs, ys, ts, ps = _voxel_stream(cuda, gen, n, H, W)
@@ -427,13 +434,13 @@ def test_voxel_and_flat_gradients_through_each_route(cuda, gen, route,
     for plain in (False, True):
         tt = ts.clone().requires_grad_(True)
         pt = ps.clone().requires_grad_(True)
-        before = cs.launch_counts()[f"voxel_scatter:{route}"]
+        before = cs.launch_counts()[f"voxel_scatter_batched:{route}"]
         if plain:
             out = cs.voxel_scatter_plain(*cs.voxel_inputs(
                 xs, ys, tt, pt, B, (H, W), t0=0.1, t1=0.8), B, H, W)
         else:
             out = cs.voxel_matmul(xs, ys, tt, pt, B, (H, W), t0=0.1, t1=0.8)
-            assert (cs.launch_counts()[f"voxel_scatter:{route}"]
+            assert (cs.launch_counts()[f"voxel_scatter_batched:{route}"]
                     == before + 1)
         grads.append(torch.autograd.grad((out * tgt).sum(), (tt, pt)))
     nb = 700
@@ -816,7 +823,7 @@ def test_densify_routes_agree_on_the_card(cuda, gen):
 @pytest.mark.cuda
 def test_densified_grids_launch_their_kernels(cuda, gen):
     """The voxel grid (B=5, masked) and the event image of a densified
-    stream of 2^20 slots launch ``voxel_scatter:vector`` and
+    stream of 2^20 slots launch ``voxel_scatter_batched:vector`` and
     ``flat_scatter:direct`` once each, and match the CPU port's."""
     from event_utils_tpu_torch.augmentation import event_augmentation as ea
     from event_utils_tpu_torch.representations import (events_to_image,
@@ -831,7 +838,8 @@ def test_densified_grids_launch_their_kernels(cuda, gen):
     img = events_to_image(cx, cy, cp, mask=cm, impl="matmul")
     after = cs.launch_counts()
     diff = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    assert diff == {"voxel_scatter:vector": 1, "flat_scatter:direct": 1}
+    assert diff == {"voxel_scatter_batched:vector": 1,
+                    "flat_scatter:direct": 1}
     host = [np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
             for a in (cx, cy, ct, cp, cm)]
     assert_rel(vox.cpu(), events_to_voxel(*host[:4], 5, mask=host[4],
@@ -915,8 +923,8 @@ def test_batched_bilinear_refused_launch_raises(cuda, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# The private kernel (bilinear_scatter_batched:private and
-# bilinear_scatter:private) at the blocks a sample private_blocks picks,
+# The private kernel (bilinear_scatter_batched:private, one image at S = 1)
+# at the blocks a sample private_blocks picks,
 # across a wave and at every blocks count, and the few-patch shapes (the
 # direct route), held per pixel within chip_smoke's splat_limits rule at no
 # more than half of it
@@ -980,7 +988,7 @@ def test_private_splat_matches_plain_per_pixel(cuda, gen, S, n, shared):
     if S == 1:
         one, diff = _batched_counts(
             lambda: cs.bilinear_scatter(x[0], y[0], w, H, W))
-        assert diff == {"bilinear_scatter:private": 1}
+        assert diff == {"bilinear_scatter_batched:private": 1}
         assert _limit_share(one[None], x, y, w, H, W) <= 0.5
 
 
@@ -1163,8 +1171,8 @@ def test_vector_route_stores_every_element(cuda, gen):
     assert reused                         # a NaN block came back
     out = torch.full((K, H, W), float("nan"), device=cuda)
     scratch = torch.zeros((H * W, 4), device=cuda)
-    build.check(build.library().bilinear_scatter_vector(
-        x.data_ptr(), y.data_ptr(), w.data_ptr(), n, K, H, W, 4,
+    build.check(build.library().bilinear_scatter_batched_vector(
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), 1, n, 0, K, H, W, 4,
         scratch.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream().cuda_stream), "vector")
     assert bool(torch.isfinite(out).all())
@@ -1199,7 +1207,7 @@ def test_vector_route_matches_plain_per_pixel(cuda, gen, S, n, K, shared, H,
     w0 = w if shared else w[0]
     one, diff = _batched_counts(lambda: cs.bilinear_scatter(
         x[0], y[0], w0, H, W, route="vector"))
-    assert diff == {"bilinear_scatter:vector": 1}
+    assert diff == {"bilinear_scatter_batched:vector": 1}
     assert _limit_share(one[None], x[:1], y[:1], w0, H, W) <= 0.5
 
 
@@ -1272,7 +1280,7 @@ def test_batched_voxel_matches_plain_and_single_launches(cuda, gen, route, B,
                                                          split):
     """S rows on each route, one launch, against the plain version and
     against S single ``voxel_scatter`` launches (2S with the polarity
-    split; on the same route, for 'private' on ``voxel_route``'s): whole
+    split; on the same route, for 'private' on one grid's rule's): whole
     rows, masks with an all-masked row and a row of one event, per-row
     ``t1`` overrides that pin a third of each row to ``t_norm = B-1``
     exactly, and NaN, +-inf and huge bins."""

@@ -152,10 +152,10 @@ def test_patches_check_inputs_and_counts(rng):
     assert cs.voxel_tiles_route(5, 96, 128) == "private"
     assert cs.voxel_tiles_route(9, 96, 128) == "private"
     assert cs.voxel_tiles_route(5, 240, 256) == "direct"
-    assert cs.bilinear_route(4, 181, 241, 200_000) == "vector"
-    assert cs.bilinear_route(1, 181, 241, 200_000) == "private"
-    assert cs.bilinear_route(1, 181, 241, 2000) == "direct"
-    assert cs.bilinear_route(1, 41, 61, 32768) == "direct"
+    assert cs.bilinear_batched_route(4, 181, 241, 200_000) == "vector"
+    assert cs.bilinear_batched_route(1, 181, 241, 200_000) == "private"
+    assert cs.bilinear_batched_route(1, 181, 241, 2000) == "direct"
+    assert cs.bilinear_batched_route(1, 41, 61, 32768) == "direct"
 
 
 # ---------------------------------------------------------------------------

@@ -451,10 +451,13 @@ def test_kernel_wrappers_run_plain_on_cpu_and_check_inputs(rng):
                                                     w.view(3, 100), 2, 8, 8))
     counts = cs.launch_counts()
     assert set(counts) == set(cs.ROUTES) == set(cs.KERNEL_WRAPPERS)
+    # one counter family per kernel: one grid and one image count under
+    # their batched wrappers
     assert {r.split(":")[0] for r in counts} == {
-        "voxel_scatter", "voxel_scatter_batched", "voxel_tiles_scatter",
-        "flat_scatter", "bilinear_scatter", "bilinear_scatter_batched",
-        "bilinear_patches_scatter", "patch_variance_vg"}
+        "voxel_scatter_batched", "voxel_tiles_scatter", "flat_scatter",
+        "bilinear_scatter_batched", "bilinear_patches_scatter",
+        "patch_variance_vg"}
+    assert len(cs.ROUTES) == 13 and cs.ROUTES == tuple(cs.KERNEL_WRAPPERS)
     assert not any(counts.values())
     with pytest.raises(P.errors.ConfigurationError):
         cs.flat_scatter(idx.long(), w[None], 100)       # wrong id type

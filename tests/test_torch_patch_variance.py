@@ -474,6 +474,20 @@ def test_wrapper_checks_its_inputs():
         cs.KERNEL_WRAPPERS["patch_variance_vg"] is cs.patch_variance_vg
 
 
+def test_patch_loss_routes_are_the_kernel_routes_of_an_evaluation():
+    """The routes of which one patch-loss evaluation launches one, as the
+    stream CLI reads them: the fused kernel's first, then the composed
+    body's two patch splats, each a counted route with its wrapper."""
+    assert pc.FUSED_PATCH_ROUTE == pc.PATCH_LOSS_ROUTES[0] == \
+        "patch_variance_vg"
+    assert pc.PATCH_LOSS_ROUTES[1:] == ("bilinear_patches_scatter",
+                                        "bilinear_patches_scatter:direct")
+    assert cs.KERNEL_WRAPPERS[pc.FUSED_PATCH_ROUTE] is cs.patch_variance_vg
+    for route in pc.PATCH_LOSS_ROUTES[1:]:
+        assert cs.KERNEL_WRAPPERS[route] is cs.bilinear_patches_scatter
+    assert set(pc.PATCH_LOSS_ROUTES) <= set(cs.launch_counts())
+
+
 def test_the_limit_is_two_planes_and_the_taps_in_227kb():
     assert cs.patch_variance_shared_bytes(64, 128, 4) == 4 * (
         2 * 64 * 128 + 12 + 64 + 4)

@@ -253,19 +253,20 @@ def test_events_to_timestamp_image_parity(rng, impl, kw):
 
 def test_timestamp_stack_is_one_bilinear_launch(rng, monkeypatch):
     """The K=4 stack (ts*pos, pos, ts*neg, neg) goes through the bilinear
-    kernel wrapper once, with all four channels."""
+    kernel wrapper once, with all four channels (one image: the batched
+    wrapper at S = 1)."""
     calls = []
-    real = cs.bilinear_scatter
+    real = cs.bilinear_scatter_batched
 
-    def spy(x, y, w, H, W):
-        calls.append(tuple(w.shape))
-        return real(x, y, w, H, W)
+    def spy(x, y, w, H, W, route=None):
+        calls.append((tuple(x.shape), tuple(w.shape)))
+        return real(x, y, w, H, W, route=route)
 
-    monkeypatch.setattr(cs, "bilinear_scatter", spy)
+    monkeypatch.setattr(cs, "bilinear_scatter_batched", spy)
     xs, ys, ts, ps = events(rng, 500, floats=True)
     P.representations.events_to_timestamp_image(xs, ys, ts, ps, SENSOR,
                                                 impl="matmul", device=CPU)
-    assert calls == [(4, 500)]
+    assert calls == [((1, 500), (4, 500))]
 
 
 def test_timestamp_weight_sums_parity(rng):

@@ -9,8 +9,8 @@ the exact XLA route. The scratch layouts of the vector routes (two
 bins-innermost accumulators for the voxel grid, a rows-innermost one for
 the flat scatter) are written out in numpy with the wrappers' own sizes, so
 that their column arithmetic is checked without a card. Then the dispatch:
-``voxel_route`` / ``flat_route`` at the measured thresholds, forced routes,
-and the launch counters' keys.
+``voxel_batched_route`` at one grid / ``flat_route`` at the measured
+thresholds, forced routes, and the launch counters' keys.
 
 Tolerances, relative to the output's max |value|: 1e-5 against exact f32
 sums; 3e-5 against the JAX one-hot-matmul kernels at 'hilo' precision.
@@ -225,17 +225,20 @@ def test_flat_vector_layout(rng, D):
 def test_voxel_route_thresholds():
     """The measured crossovers: 262144 events at 180x240 (131072 lost); at
     VGA the scratch of 3.7M floats needs ~920k events; at 720p the 44 MB of
-    scratch never pay."""
-    assert cs.voxel_route(131072, 5, 180, 240) == "direct"
-    assert cs.voxel_route(262143, 5, 180, 240) == "direct"
-    assert cs.voxel_route(262144, 5, 180, 240) == "vector"
-    assert cs.voxel_route(1 << 21, 5, 180, 240) == "vector"
-    assert cs.voxel_route(1 << 21, 9, 180, 240) == "vector"
-    assert cs.voxel_route(524288, 5, 480, 640) == "direct"
-    assert cs.voxel_route(1 << 21, 5, 480, 640) == "vector"
-    assert cs.voxel_route(1 << 21, 5, 720, 1280) == "direct"
-    assert cs.voxel_route(1 << 24, 5, 720, 1280) == "direct"
-    assert cs.voxel_route(0, 5, 180, 240) == "direct"
+    scratch never pay. One grid is the batched rule's S = 1."""
+    def route(n, B, H, W):
+        return cs.voxel_batched_route(1, n, B, H, W)
+
+    assert route(131072, 5, 180, 240) == "direct"
+    assert route(262143, 5, 180, 240) == "direct"
+    assert route(262144, 5, 180, 240) == "vector"
+    assert route(1 << 21, 5, 180, 240) == "vector"
+    assert route(1 << 21, 9, 180, 240) == "vector"
+    assert route(524288, 5, 480, 640) == "direct"
+    assert route(1 << 21, 5, 480, 640) == "vector"
+    assert route(1 << 21, 5, 720, 1280) == "direct"
+    assert route(1 << 24, 5, 720, 1280) == "direct"
+    assert route(0, 5, 180, 240) == "direct"
     # the scratch: even, and one column past the last pair of either parity
     assert [cs._voxel_scratch_bins(B) for B in (1, 2, 3, 4, 5, 9)] == [
         2, 4, 4, 6, 6, 10]
@@ -260,13 +263,19 @@ def test_flat_route_thresholds():
 def test_forced_routes_and_launch_count_keys(rng):
     """``route=`` takes a route the shape allows (on the CPU the plain
     version answers either way) and raises for any other; the counters are
-    keyed by route and stay at 0 without a card."""
+    keyed by route and stay at 0 without a card. One grid is the batched
+    wrapper at S = 1, so its bin plane of 24x32 allows 'private' too; a
+    plane past 227 KB does not."""
     xs, ys, ts, ps = stream(rng, 200)
     ref = port_voxel(xs, ys, ts, ps, 5)
-    for route in ("vector", "direct"):
+    for route in ("vector", "direct", "private"):
         assert torch.equal(port_voxel(xs, ys, ts, ps, 5, route=route), ref)
     with pytest.raises(P.errors.ConfigurationError):
-        port_voxel(xs, ys, ts, ps, 5, route="private")
+        port_voxel(xs, ys, ts, ps, 5, route="rows")
+    args = cs.voxel_inputs(*(torch.as_tensor(a) for a in (xs, ys, ts, ps)), 5,
+                           SENSOR)
+    with pytest.raises(P.errors.ConfigurationError):
+        cs.voxel_scatter(*args, 5, 300, 300, route="private")
     idx, w, nb = flat_case(rng, 2, n=200)
     idx, w = torch.as_tensor(idx), torch.as_tensor(w)
     for route in ("vector", "direct"):
@@ -281,10 +290,12 @@ def test_forced_routes_and_launch_count_keys(rng):
                     SENSOR)
     cs.scatter_add_flat_cuda(idx, w, nb)
     counts = cs.launch_counts()
-    assert {"voxel_scatter:vector", "voxel_scatter:direct",
+    assert {"voxel_scatter_batched:vector", "voxel_scatter_batched:direct",
             "flat_scatter:vector", "flat_scatter:direct"} <= set(counts)
+    assert not any(k.startswith("voxel_scatter:") for k in counts)
     assert "voxel_scatter" not in counts and "flat_scatter" not in counts
-    assert all(cs.KERNEL_WRAPPERS[f"voxel_scatter:{r}"] is cs.voxel_scatter
+    assert all(cs.KERNEL_WRAPPERS[f"voxel_scatter_batched:{r}"]
+               is cs.voxel_scatter_batched
                and cs.KERNEL_WRAPPERS[f"flat_scatter:{r}"] is cs.flat_scatter
                for r in ("vector", "direct"))
     assert not any(counts.values())
@@ -299,7 +310,7 @@ def test_gradients_do_not_depend_on_the_route(rng, route, monkeypatch):
     xs, ys, ts, ps = stream(rng, 500)
     B = 4
     tgt = rng.normal(size=(B,) + SENSOR).astype(np.float32)
-    monkeypatch.setattr(cs, "voxel_route", lambda *a: route)
+    monkeypatch.setattr(cs, "voxel_batched_route", lambda *a: route)
     monkeypatch.setattr(cs, "flat_route", lambda *a: route)
 
     def jloss(t, p):
