@@ -62,7 +62,9 @@
      ``index_put_``: the 2^21-event stream in 104 windows of 20,000 and in
      8 of 2^18 (DAVIS240, B=5), the trainers' split grids of padded rows
      (``fit``'s 8 x 32,768 at 184x240, the flow batch's 8 x 65,536 and the
-     E2VID batch's 96 windows of 12,288 at 128x128), and on the flow
+     E2VID batch's 96 windows of 12,288 at 128x128), the
+     ``e2vid.reconstruct`` cell's chunk (8 windows of 15,120 into combined
+     5x180x240 grids), and on the flow
      batch's shape B = 1 and 9, every row masked, a row of one event,
      per-row windows that pin events to the last bin, NaN, +-inf and huge
      bins;
@@ -131,14 +133,20 @@
    (``--eval_gt --batch_size 8``) on the card under
    ``set_default_impl('pallas')``, again under ``'xla'``, and on the CPU,
    and ``reconstruct`` with ``runs/recon128v2/params.npz`` on the card
-   (``'pallas'``) and on the CPU. Every 'pallas' run on the card must
-   launch ``flat_scatter:direct`` exactly twice per window (the positive
-   and the negative grid) and nothing else; the card's flows must agree
+   (``'pallas'``) and on the CPU. Every run on the card must launch
+   ``voxel_scatter_batched`` once a chunk of 8 windows (their positive and
+   negative grids in one call, on the route ``voxel_batched_route`` names
+   for the chunk's rows: ``fetch_launches``), whatever the default impl,
+   and nothing else; the card's flows must agree
    with the CPU's to 1e-3 of max|flow|, its frames to 1e-3 after all 20
    recurrent windows, the 'pallas' voxel grids with the 'xla' ones to 1e-5
    of their scale. AEE, PSNR and SSIM are printed, not gated (the scene is
-   not the simulator's). Then ``flat_scatter:direct`` at one window's
-   shape against its plain version (a case of its record), and warm
+   not the simulator's. The chunk fetch (``cli.reconstruct._fetch_chunk``:
+   ragged ``between_frames`` rows, split, padded with x = -1) over every
+   window of the recording on the card must equal the CPU's fetch and the
+   per-item 'xla' grids, padded, to GRID_REL of their scale. Then
+   ``voxel_scatter_batched`` at the densest chunk's shape against its
+   plain version and 16 one-grid launches (a case of its record), and warm
    timings: windows/s of each CLI, the dataset's host ms per window and
    one window's two grids alone (from host arrays and from card tensors),
    each with the flat kernel and with ``index_add_`` in turns, the
@@ -157,8 +165,8 @@
    within 1.0 of JAX's, zero-flow 196.634 +- 0.01); ``reconstruct`` on
    the seed-77 recordings (steady 24.626 +- 0.10 dB / SSIM 0.8561 +-
    0.003 at 8 windows, 25.212 / 0.8818 at 20); each serving CLI must
-   launch ``flat_scatter:direct`` exactly twice per window and nothing
-   else; ``eval_cmax --max_windows 4`` on seed 91 (median AEE within 1% of
+   launch ``voxel_scatter_batched`` once a chunk of 8 windows
+   (``fetch_launches``) and nothing else; ``eval_cmax --max_windows 4`` on seed 91 (median AEE within 1% of
    52.523 px/s), which may launch only the patch routes; the
    background-activity filter on the labelled 48x48 scene of
    ``tests/test_denoise.py`` simulated on the card (signal recall > 0.95,
@@ -166,8 +174,9 @@
    path's own shapes against their plain versions (cases of their
    records): the inputs of the first call of every distinct shape that
    ``eval_cmax`` sent to the patch splat (grid-search evaluations and
-   descent steps, kept during the run), and ``flat_scatter:direct`` on
-   the densest window's positive grid of each served recording.
+   descent steps, kept during the run), and ``voxel_scatter_batched`` on
+   the densest chunk of 8 windows of each served recording, as the chunk
+   fetch sends it.
 8. The training path, with the launch counts set to 0 again first,
    everything under ``set_default_impl('pallas')`` and TF32 off: JAX's
    two pinned eval batches (stage 9 of ``runs/flow128_similarity``,
@@ -342,6 +351,7 @@ CALLS = 10                   # calls captured in each graph
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 FIXED_N = 20_000             # voxel_grids_fixed_n's DAVIS240 windows (104)
 FIXED_N_VECTOR = 1 << 18     # 8 windows of the same stream: :vector
+CELL_K = 15_120              # e2vid.reconstruct's k_events window
 VOXEL_WALLS = 5              # warm walls of each turn of the fixed-n A/B
 F32_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 TILED_SENSORS = {"VGA": (480, 640), "720p": (720, 1280)}
@@ -1780,7 +1790,9 @@ def voxel_batched_kernel_cases(torch, cs, records):
     20,000 (``voxel_grids_fixed_n``) and in 8 of 2^18; the trainers' split
     grids of padded rows, ``fit``'s 8 x 32,768 at 184x240, the flow batch's
     8 x 65,536, and 96 split windows of 12,288 at 128x128, an E2VID
-    batch's size (its own grids go through ``flat_scatter``). Then
+    batch's size (its own grids go through ``flat_scatter``); the
+    ``e2vid.reconstruct`` cell's chunk, 8 windows of 15,120 into combined
+    5x180x240 grids (the CLIs' chunk fetch). Then
     edge cases on the flow batch's shape: B = 1 and 9, every row masked, a
     row of one event, per-row windows that pin half of each row to the
     last bin, NaN, +-inf and huge bin coordinates; the same on 96 E2VID
@@ -1806,6 +1818,11 @@ def voxel_batched_kernel_cases(torch, cs, records):
         win = [a[:S * n].reshape(S, n) for a in (xs, ys, ts, ps)]
         hold(f"DAVIS240, {S} windows of {n}",
              cs.voxel_inputs_batched(*win, B, SENSOR), B, SENSOR, False)
+    # the reconstruct cell's chunk: the serving CLIs' fetch of 8 k_events
+    # windows into combined grids
+    win = [a[:8 * CELL_K].reshape(8, CELL_K) for a in (xs, ys, ts, ps)]
+    hold(f"the reconstruct cell's chunk, 8 windows of {CELL_K}, combined",
+         cs.voxel_inputs_batched(*win, B, SENSOR), B, SENSOR, False)
     edges = {}
     for label, S, n, sensor in (("fit", 8, 32768, (184, 240)),
                                 ("flow batch", 8, 65536, (128, 128)),
@@ -2500,23 +2517,6 @@ def device_busy(torch, fn):
                          f"{PROFILE_TRIES} profiles")
 
 
-def voxel_flat_ids(torch, xs, ys, ts, ws, B, H, W):
-    """The (ids, weights) that ``events_to_voxel`` sends to the flat
-    scatter for one grid: two temporal taps per event, dropped taps -1."""
-    t_norm = (ts - ts[0]) / torch.where(ts[-1] > ts[0], ts[-1] - ts[0],
-                                        1.0) * (B - 1)
-    b0 = torch.floor(t_norm)
-    fb = t_norm - b0
-    px = ys.long() * W + xs.long()
-    ids, wts = [], []
-    for ib, wb in ((b0.long(), 1.0 - fb), (b0.long() + 1, fb)):
-        ok = (ib >= 0) & (ib < B)
-        ids.append(torch.where(ok, ib * (H * W) + px, -1))
-        wts.append(ws * wb)
-    return (torch.cat(ids).to(torch.int32).contiguous(),
-            torch.cat(wts)[None].contiguous())
-
-
 def densest_window(rec):
     """Host events (x, y, t, p) of the densest ``between_frames`` window of
     a memmap recording, as the serving datasets read them."""
@@ -2527,20 +2527,59 @@ def densest_window(rec):
         return ds.get_events(i0, i1)
 
 
-def window_flat_case(torch, cs, records, label, host_events, H, W):
-    """``flat_scatter:direct`` on one window's positive (5, H, W) grid, the
-    ids and weights that ``events_to_neg_pos_voxel`` sends it, against the
-    plain version and timed; added to the route's record as a case, which
-    is returned."""
-    xs, ys, ts, ps = (torch.as_tensor(np.asarray(a, np.float32),
-                                      device="cuda") for a in host_events)
-    idx, wts = voxel_flat_ids(torch, xs, ys, ts, (ps > 0).float(), 5, H, W)
-    case = as_case(flat_case(torch, cs, label, idx, wts, 5 * H * W,
-                             {})["direct"])
-    rec = records["flat_scatter:direct"]
+def densest_chunk(rec):
+    """Host events of the ``GATHER_CHUNK`` ``between_frames`` windows of the
+    densest chunk of a memmap recording, as the serving CLIs' chunk fetch
+    takes them (an empty window is one zero event)."""
+    from event_utils_tpu_torch.cli.reconstruct import GATHER_CHUNK
+    from event_utils_tpu_torch.data_loaders import MemMapDataset
+    with MemMapDataset(rec, device="cpu") as ds:
+        bounds = [ds.get_event_indices(i) for i in range(len(ds))]
+        lo = max(range(0, len(ds), GATHER_CHUNK), key=lambda lo: sum(
+            i1 - i0 for i0, i1 in bounds[lo:lo + GATHER_CHUNK]))
+        return [ds.preprocess_events(*ds.get_events(i0, i1))
+                for i0, i1 in bounds[lo:lo + GATHER_CHUNK]]
+
+
+def window_chunk_case(torch, cs, records, label, windows, H, W):
+    """``voxel_scatter_batched`` on a chunk of windows' split (10, H, W)
+    grids as the chunk fetch sends them (``pack_windows``' ragged rows),
+    on the route the rule names, against the plain version and the
+    one-grid launches, timed; added to the route's record as a case,
+    which is returned."""
+    from event_utils_tpu_torch.data_loaders.base_dataset import pack_windows
+    rows = torch.from_numpy(pack_windows(windows)).to("cuda")
+    S, n = rows.shape[1:]
+    route = cs.voxel_batched_route(S, n, 5, H, W, split=True)
+    case = as_case(voxel_batched_case(
+        torch, cs, label, cs.voxel_inputs_batched(*rows, 5, (H, W),
+                                                  split=True),
+        5, H, W, True, route))
+    rec = records[f"voxel_scatter_batched:{route}"]
     rec["cases"].append(case)
     rec["max_abs_err"] = max(rec["max_abs_err"], case["max_abs_err"])
     return case
+
+
+def fetch_launches(cs, rec, bins=5):
+    """The launches that a serving CLI's chunk fetch makes on the card over
+    the memmap recording ``rec`` (``between_frames`` windows, split
+    grids), by the dispatch rules: one ``voxel_scatter_batched`` launch a
+    chunk of ``GATHER_CHUNK`` windows, on the route ``voxel_batched_route``
+    names for the chunk's rows (an empty window is one row's event)."""
+    from event_utils_tpu_torch.cli.reconstruct import GATHER_CHUNK
+    from event_utils_tpu_torch.data_loaders import MemMapDataset
+    with MemMapDataset(rec, device="cpu") as ds:
+        H, W = ds.sensor_resolution
+        lens = [max(i1 - i0, 1) for i0, i1 in
+                (ds.get_event_indices(i) for i in range(len(ds)))]
+    want = {}
+    for lo in range(0, len(lens), GATHER_CHUNK):
+        rows = lens[lo:lo + GATHER_CHUNK]
+        route = "voxel_scatter_batched:" + cs.voxel_batched_route(
+            len(rows), max(rows), bins, H, W, split=True)
+        want[route] = want.get(route, 0) + 1
+    return want
 
 
 def serving_phase(torch, cs, records):
@@ -2554,7 +2593,6 @@ def serving_phase(torch, cs, records):
     from event_utils_tpu_torch.training import (FlowTrainer,
                                                 ReconstructionTrainer)
     H, W = SERVE_SENSOR
-    direct = "flat_scatter:direct"
     out = {}
     prev_impl = get_default_impl()
     with tempfile.TemporaryDirectory(prefix=".smoke_serving_",
@@ -2586,12 +2624,14 @@ def serving_phase(torch, cs, records):
             if summary["windows"] != SERVE_FRAMES - 1:
                 raise AssertionError(f"{name}: {summary['windows']} windows")
             log(f"  {name}: {summary['windows']} windows in {wall:.3f} s, "
-                f"launches so far {cs.launch_counts()[direct]}")
+                f"launches so far "
+                f"{ {k: v for k, v in cs.launch_counts().items() if v} }")
             return dest, summary, wall
 
         # the serving path: counts set to 0 just before it, read after it
         cs.reset_launch_counts()
-        runs, expect = {}, 0
+        per_run = fetch_launches(cs, rec)
+        runs, expect = {}, {}
         for cli, args, name, impl, device in (
                 (infer_flow, flow_args, "flow_pallas_cuda", "pallas",
                  "cuda"),
@@ -2601,13 +2641,14 @@ def serving_phase(torch, cs, records):
                  "cuda"),
                 (reconstruct, recon_args, "recon_cpu", "xla", "cpu")):
             runs[name] = run(cli, args, name, impl, device)
-            if impl == "pallas" and device == "cuda":
-                # one grid per window, two scatters (positive, negative)
-                expect += 2 * (SERVE_FRAMES - 1)
-            got = cs.launch_counts()
-            if got[direct] != expect or sum(got.values()) != expect:
+            if device == "cuda":
+                # one batched build a chunk, under either default impl
+                for k, v in per_run.items():
+                    expect[k] = expect.get(k, 0) + v
+            got = {k: v for k, v in cs.launch_counts().items() if v}
+            if got != expect:
                 raise AssertionError(f"{name}: launches {got}, expected "
-                                     f"{direct} {expect} and nothing else")
+                                     f"{expect} and nothing else")
         launches = cs.launch_counts()
         log(f"serving-path launches: "
             f"{ {k: v for k, v in launches.items() if v} }")
@@ -2667,12 +2708,30 @@ def serving_phase(torch, cs, records):
             check_close(f"voxel grid {i}, 'pallas' vs 'xla'",
                         torch.as_tensor(a), torch.as_tensor(b))
 
-        # the flat kernel at the serving shape: the densest window's
-        # positive grid
+        # the chunk fetch over the whole recording: the card's batched
+        # builds against the CPU's and against the per-item 'xla' grids
+        fetched = {}
+        for device in ("cuda", "cpu"):
+            with MemMapDataset(rec, device=device) as ds:
+                n = len(ds)
+                fetched[device] = torch.as_tensor(np.concatenate([
+                    reconstruct._fetch_chunk(
+                        ds, lo, min(lo + reconstruct.GATHER_CHUNK, n),
+                        reconstruct._pad_to_multiple_hw)[0]
+                    for lo in range(0, n, reconstruct.GATHER_CHUNK)]))
+        check_close("chunk fetch, card vs CPU", fetched["cuda"],
+                    fetched["cpu"], GRID_REL)
+        check_close("chunk fetch vs the per-item 'xla' grids",
+                    fetched["cuda"], reconstruct._pad_to_multiple_hw(
+                        torch.stack([torch.as_tensor(g)
+                                     for g in grids["xla"]])), GRID_REL)
+
+        # the batched kernel at the serving chunk's shape: the densest
+        # chunk's split grids
+        out["chunk_case"] = window_chunk_case(
+            torch, cs, records, "the densest serving chunk's grids",
+            densest_chunk(rec), H, W)
         host_events = densest_window(rec)
-        out["flat_case"] = window_flat_case(
-            torch, cs, records, "one serving window's positive grid",
-            host_events, H, W)
         xs, ys, ts, ps = (torch.as_tensor(np.asarray(a, np.float32),
                                           device="cuda")
                           for a in host_events)
@@ -3004,7 +3063,6 @@ def simulated_anchors_phase(torch, cs, records, work):
                                                   affine_scene, load_texture,
                                                   simulate_scene,
                                                   texture_path)
-    direct = "flat_scatter:direct"
     out = {"card": card_line()}
     prev_impl = get_default_impl()
     cs.reset_launch_counts()
@@ -3078,11 +3136,11 @@ def simulated_anchors_phase(torch, cs, records, work):
                                        "--no_window_cache"]))
             got = {k: v - before[k] for k, v in cs.launch_counts().items()
                    if v != before[k]}
-            if summary["windows"] != windows or got != {
-                    direct: 2 * windows}:
+            want = fetch_launches(cs, recs[name])
+            if summary["windows"] != windows or got != want:
                 raise AssertionError(
                     f"{name}: {summary['windows']} windows, launches "
-                    f"{got}; expected {direct} {2 * windows} only")
+                    f"{got}; expected {want} only")
             return summary["metrics"], {
                 "wall_s": wall, "windows": windows,
                 "windows_per_s": windows / wall}
@@ -3145,8 +3203,8 @@ def simulated_anchors_phase(torch, cs, records, work):
                             "windows": CMAX_WINDOWS,
                             "windows_per_s": CMAX_WINDOWS / wall,
                             "launches": routes}
-        windows = {name: densest_window(recs[name])
-                   for name in ("flow91", "recon77_20")}
+        chunks = {name: densest_chunk(recs[name])
+                  for name in ("flow91", "recon77_20")}
 
         recall, removal, n, noise = baf_scene(torch)
         log(f"  BAF on the card: {n} events ({noise} noise), signal recall "
@@ -3164,9 +3222,9 @@ def simulated_anchors_phase(torch, cs, records, work):
     # the kernels at this path's shapes, after the counts are read
     out["patch_cases"] = route_cases(torch, cs, records, seen,
                                      "eval_cmax on flow91")
-    out["flat_cases"] = [window_flat_case(
-        torch, cs, records, f"densest {name} window's positive grid", ev,
-        128, 128) for name, ev in windows.items()]
+    out["chunk_cases"] = [window_chunk_case(
+        torch, cs, records, f"densest {name} chunk's grids", windows, 128,
+        128) for name, windows in chunks.items()]
     return launches, out
 
 

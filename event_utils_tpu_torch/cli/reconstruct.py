@@ -82,35 +82,56 @@ def build_parser():
     return parser
 
 
-def _pad_to_multiple_hw(arr, multiple=8):
-    """Zero-pad trailing (H, W) dims to a multiple (UNet stride needs it)."""
-    import numpy as np
+def _pad_to_multiple_hw(grids, multiple=8):
+    """Zero-pad a tensor's trailing (H, W) dims to a multiple (UNet stride
+    needs it), on its device: rows below, columns to the right."""
+    import torch.nn.functional as F
 
-    H, W = arr.shape[-2], arr.shape[-1]
-    ph = (-H) % multiple
-    pw = (-W) % multiple
-    if ph == 0 and pw == 0:
-        return arr
-    pad = [(0, 0)] * (arr.ndim - 2) + [(0, ph), (0, pw)]
-    return np.pad(arr, pad)
+    H, W = grids.shape[-2], grids.shape[-1]
+    return F.pad(grids, (0, (-W) % multiple, 0, (-H) % multiple))
+
+
+# Windows a batched build takes when the whole recording is gathered.
+GATHER_CHUNK = 8
+
+
+def _fetch_chunk(dataset, lo, hi, pad, gt_fn=None):
+    """``(voxels (hi-lo, C, Hp, Wp) float32, gts | None)`` of windows
+    ``lo .. hi-1``: each window's item from ``dataset[i]``, their voxel
+    grids built in one batched call on the dataset's device (the scope
+    ``deferred_grids``), stacked and padded there, and copied back in one
+    copy. Counts the windows under ``reconstruct.batched_windows``.
+    ``gt_fn`` maps ``(dataset, i, item)`` to the ground-truth array for
+    window i."""
+    import numpy as np
+    import torch
+
+    from .._device import to_numpy
+    from ..utils import profiling
+
+    with dataset.deferred_grids():
+        items = [dataset[i] for i in range(lo, hi)]
+    voxels = to_numpy(pad(torch.stack([item["voxel"] for item in items])))
+    profiling.count("reconstruct.batched_windows", hi - lo)
+    gts = None if gt_fn is None else np.stack(
+        [gt_fn(dataset, i, item) for i, item in zip(range(lo, hi), items)])
+    return voxels, gts
 
 
 def _gather_windows(dataset, n, pad, gt_fn=None):
     """(voxels (N, C, Hp, Wp), stamps (N,), gts (N, ...) | None) for the
-    first ``n`` windows — one ``dataset[i]`` fetch per window. ``gt_fn``
-    maps ``(dataset, i, item)`` to the ground-truth array for window i."""
+    first ``n`` windows, built ``GATHER_CHUNK`` at a time by
+    :func:`_fetch_chunk`."""
     import numpy as np
 
-    voxels, stamps, gts = [], [], []
-    for i in range(n):
-        item = dataset[i]
-        voxels.append(pad(np.asarray(item["voxel"], np.float32)))
-        _, idx1 = dataset.get_event_indices(i)
-        stamps.append(float(dataset.ts(max(idx1 - 1, 0))))
-        if gt_fn is not None:
-            gts.append(gt_fn(dataset, i, item))
-    return (np.stack(voxels), np.asarray(stamps, np.float64),
-            np.stack(gts) if gt_fn is not None else None)
+    chunks = [_fetch_chunk(dataset, lo, min(lo + GATHER_CHUNK, n), pad,
+                           gt_fn) for lo in range(0, n, GATHER_CHUNK)]
+    stamps = [float(dataset.ts(max(dataset.get_event_indices(i)[1] - 1, 0)))
+              for i in range(n)]
+    return (np.concatenate([v for v, _ in chunks]),
+            np.asarray(stamps, np.float64),
+            np.concatenate([g for _, g in chunks])
+            if gt_fn is not None else None)
 
 
 def _window_source(dataset, args, n, pad, gt_fn=None, gt_channels=1,
@@ -121,19 +142,21 @@ def _window_source(dataset, args, n, pad, gt_fn=None, gt_channels=1,
     Small recordings are materialized once behind the sidecar cache
     (:func:`_window_arrays`); recordings whose padded windows would exceed
     ``EVENT_UTILS_TPU_WINCACHE_LIMIT_MB`` (default 2048, the JAX package's
-    variable) stream O(chunk) windows per fetch instead. The sizing
-    decision is metadata-only (``gt_channels`` = per-pixel gt channels: 1
-    frame / 2 flow). Each fetch is the span ``reconstruct.fetch``."""
+    variable) stream O(chunk) windows per fetch instead. Both build the
+    grids of a chunk of windows in one batched call
+    (:func:`_fetch_chunk`). The sizing decision is metadata-only
+    (``gt_channels`` = per-pixel gt channels: 1 frame / 2 flow). Each
+    fetch is the span ``reconstruct.fetch``."""
     import os
 
     import numpy as np
+    import torch
 
     from ..utils import profiling
 
     H, W = int(dataset.sensor_resolution[0]), int(dataset.sensor_resolution[1])
     C = args.num_bins if args.combined_channels else 2 * args.num_bins
-    vox0 = pad(np.zeros((C, H, W), np.float32))
-    per_win = vox0.nbytes
+    per_win = pad(torch.zeros((C, H, W))).numel() * 4
     if gt_fn is not None:
         per_win += gt_channels * H * W * 4
     limit = float(os.environ.get("EVENT_UTILS_TPU_WINCACHE_LIMIT_MB",
@@ -150,14 +173,7 @@ def _window_source(dataset, args, n, pad, gt_fn=None, gt_channels=1,
 
         @profiling.spanned("reconstruct.fetch")
         def fetch(lo, hi):
-            voxels, gts = [], []
-            for i in range(lo, hi):
-                item = dataset[i]
-                voxels.append(pad(np.asarray(item["voxel"], np.float32)))
-                if gt_fn is not None:
-                    gts.append(gt_fn(dataset, i, item))
-            return (np.stack(voxels),
-                    np.stack(gts) if gt_fn is not None else None)
+            return _fetch_chunk(dataset, lo, hi, pad, gt_fn)
 
         return fetch, stamps
 

@@ -171,26 +171,20 @@ def _model_kwargs(args):
     return kwargs
 
 
-def _pad_to_multiple_hw(arr, multiple=8):
-    """Zero-pad trailing (H, W) dims to a multiple (UNet stride needs it)."""
-    import numpy as np
-
-    H, W = arr.shape[-2], arr.shape[-1]
-    ph, pw = (-H) % multiple, (-W) % multiple
-    if ph == 0 and pw == 0:
-        return arr
-    return np.pad(arr, [(0, 0)] * (arr.ndim - 2) + [(0, ph), (0, pw)])
-
-
 def _window(item):
-    """(voxel (C, Hp, Wp), frame (1, Hp, Wp)) float32 of a dataset item."""
+    """(voxel (C, Hp, Wp), frame (1, Hp, Wp)) float32 of a dataset item,
+    padded as the serving CLIs pad their grids."""
     import numpy as np
+    import torch
+
+    from .reconstruct import _pad_to_multiple_hw
 
     vox = np.asarray(item["voxel"], np.float32)
     frame = np.asarray(item["frame"], np.float32)
     if frame.ndim == 2:
         frame = frame[None]
-    return _pad_to_multiple_hw(vox), _pad_to_multiple_hw(frame)
+    return tuple(_pad_to_multiple_hw(torch.from_numpy(a)).numpy()
+                 for a in (vox, frame))
 
 
 def iter_sequences(dataset, seq_len, batch_size):

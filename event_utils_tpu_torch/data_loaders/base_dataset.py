@@ -11,16 +11,27 @@ Windowing methods (reference base_dataset.py:385-417):
 - ``between_frames`` all events between consecutive frames
 - ``fixed_frames``   ``num_frames`` equal-duration windows
 
-Each item's voxel grid is built by the port's ``events_to_voxel`` /
-``events_to_neg_pos_voxel`` on the dataset's ``device`` (the card unless
-the caller passes ``device="cpu"``), with the package's default scatter
-route: ``index_add_`` under ``'xla'``, the CUDA flat kernel
-(``flat_scatter``) under ``ops.set_default_impl('pallas')``.
-``return_format="numpy"`` copies the grid back to the host;
-``return_format="torch"`` keeps it on the device (the JAX package's
-``"jax"``). One window is voxelized per ``__getitem__``: a memmap or HDF5
-slice, a host-to-device copy, the scatter and, for ``"numpy"``, a copy
-back.
+Grids are built on the dataset's ``device`` (the card unless the caller
+passes ``device="cpu"``) on one of two routes, and this is the one place
+that says which:
+
+- Outside a ``deferred_grids`` scope (training datasets and loaders,
+  ``dataset[i]`` alone) one window is voxelized per ``__getitem__`` by
+  ``events_to_voxel`` / ``events_to_neg_pos_voxel`` under the package's
+  default scatter route (``index_add_`` under ``'xla'``, the CUDA flat
+  kernel ``flat_scatter`` under ``ops.set_default_impl('pallas')``): a
+  memmap or HDF5 slice, a host-to-device copy, the scatter and, for
+  ``return_format="numpy"``, a copy back (``"torch"`` keeps it on the
+  device: the JAX package's ``"jax"``).
+- Inside one (the serving CLIs' chunk fetch) items record their events
+  and the scope's exit builds every grid in one ``get_voxel_grids`` call:
+  one upload and, for temporally bilinear grids, the batched voxel kernel
+  (``voxel_scatter_batched`` on the card, its plain version on the CPU)
+  whatever the default impl, left on the device for the caller to copy
+  back in one go.
+
+The two agree within f32 summation order; the default impl does not
+govern the second (ROADMAP queue 7 names the fork).
 
 ``collate_padded`` packs ragged per-window events into one fixed-capacity
 ``(B, capacity, 4)`` array + validity mask (capacity bucketed to powers of
@@ -30,6 +41,7 @@ two), the static-shape analogue of the reference's ragged ``collate_fn``
 
 from __future__ import annotations
 
+import contextlib
 import random
 import threading
 from typing import Dict, Optional
@@ -39,11 +51,41 @@ import torch
 
 from .._device import resolve_device, to_numpy
 from ..representations.voxel_grid import (events_to_neg_pos_voxel,
-                                          events_to_voxel)
+                                          events_to_voxel,
+                                          events_to_voxel_rows)
 from .data_augmentation import Compose, build_transform
 from ..errors import ConfigurationError, DatasetInitError
 
 RETURN_FORMATS = ("numpy", "torch")
+
+# Each thread's open deferral scopes: dataset id -> its pending items.
+_deferrals = threading.local()
+
+
+def _scopes() -> dict:
+    try:
+        return _deferrals.scopes
+    except AttributeError:
+        _deferrals.scopes = {}
+        return _deferrals.scopes
+
+
+def pack_windows(windows) -> np.ndarray:
+    """Windows ``(xs, ys, ts, ps)``, none empty, as one ``(4, S, N)``
+    float32 block of rows, N the longest window. A shorter row is padded
+    with events that weigh nothing and keep its time window: x at -1
+    (outside the sensor), the row's last stamp, p 0; so each row's window
+    is its own first and last stamp, as one window's is, and no mask is
+    needed."""
+    S = len(windows)
+    N = max(len(w[0]) for w in windows)
+    rows = np.empty((4, S, N), np.float32)
+    for s, window in enumerate(windows):
+        n = len(window[0])
+        for c, a in enumerate(window):
+            rows[c, s, :n] = a
+        rows[:, s, n:] = ((-1.0,), (0.0,), (rows[2, s, n - 1],), (0.0,))
+    return rows
 
 
 class BaseVoxelDataset:
@@ -309,6 +351,52 @@ class BaseVoxelDataset:
         vp, vn = events_to_neg_pos_voxel(xs, ys, ts, ps, self.num_bins, **kw)
         return torch.cat([vp, vn], 0)
 
+    def get_voxel_grids(self, windows, combined_voxel_channels=True):
+        """Grids of several windows in one call: ``(S, C, H, W)`` on the
+        dataset's device, grid s what ``get_voxel_grid`` gives on
+        ``windows[s]`` (a ``(xs, ys, ts, ps)`` tuple, never empty: see
+        ``preprocess_events``) within f32 summation order. The windows go
+        up as one ``pack_windows`` block in one copy. Temporally bilinear
+        grids take the batched voxel kernel (``impl='matmul'``:
+        ``voxel_scatter_batched`` on the card, its plain version on the
+        CPU), slice-binned ones the flat scatter."""
+        xs, ys, ts, ps = torch.from_numpy(pack_windows(windows)).to(
+            self.device)
+        return events_to_voxel_rows(
+            xs, ys, ts, ps, self.num_bins,
+            sensor_size=self.sensor_resolution,
+            temporal_bilinear=self.temporal_bilinear,
+            split=not combined_voxel_channels,
+            impl="matmul" if self.temporal_bilinear else None)
+
+    @contextlib.contextmanager
+    def deferred_grids(self):
+        """Scope in which ``__getitem__`` builds no voxel grid: each item
+        records its events and its transform seed, and leaving the scope
+        builds every pending grid in one ``get_voxel_grids`` call, applies
+        ``transform_voxel(grid, seed)`` per item as ``__getitem__`` does,
+        and fills ``item["voxel"]``. The grids stay on the dataset's
+        device, as ``return_format="torch"`` leaves them, whatever
+        ``return_format`` says: the caller copies the batch back in one
+        go. The scope belongs to the calling thread (threaded loaders call
+        ``__getitem__`` concurrently), builds nothing if its block raises,
+        and does not nest on one dataset."""
+        scopes = _scopes()
+        if id(self) in scopes:
+            raise RuntimeError("deferred_grids is already open on this "
+                               "dataset in this thread")
+        pending = scopes[id(self)] = []
+        try:
+            yield
+        finally:
+            del scopes[id(self)]
+        if pending:
+            grids = self.get_voxel_grids(
+                [events for _, events, _ in pending],
+                combined_voxel_channels=self.combined_voxel_channels)
+            for (item, _, seed), grid in zip(pending, grids):
+                item["voxel"] = self.transform_voxel(grid, seed)
+
     # Class-level lock: seeded-transform application draws from the shared
     # module-level `random` (as the JAX package does, so one seed gives the
     # same crop in both), and a threaded loader calls __getitem__ from
@@ -363,7 +451,10 @@ class BaseVoxelDataset:
                 "dt_between_frames": dt, "ts_idx0": ts_0, "ts_idx1": ts_k,
                 "idx0": idx0, "idx1": idx1}
 
-        if self.return_voxelgrid:
+        pending = _scopes().get(id(self))
+        if self.return_voxelgrid and pending is not None:
+            pending.append((item, (xs, ys, ts, ps), seed))
+        elif self.return_voxelgrid:
             voxel = self.get_voxel_grid(
                 xs, ys, ts, ps,
                 combined_voxel_channels=self.combined_voxel_channels)

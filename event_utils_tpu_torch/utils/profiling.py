@@ -29,13 +29,16 @@ Names in use: spans ``cmax.solve`` (``grid_cmax_batched``), ``cmax.bucket``
 ``cmax.grad`` (each autograd backward of the refine; absent where the GD
 refine replays a CUDA graph), ``loader.fill`` (``NativeWindowedLoader``'s
 batch fill), ``reconstruct.fetch`` (``cli/reconstruct.py``'s per-chunk
-window fetch: dataset items, voxel grids, padding, stack),
+window fetch: dataset items, one batched build of their voxel grids,
+stack, padding, one copy back),
 ``e2vid.forward`` (each window's forward pass in
 ``ReconstructionTrainer.reconstruct``); counters ``cmax.h2d_bytes`` (bytes
 the solvers copy from host arrays to the device), ``cmax.graph_captures``
 and ``cmax.graph_replays`` (the GD refine's CUDA graphs captured and
-replayed), ``e2vid.windows`` (windows through the reconstruction network)
-and ``reconstruct.h2d_bytes`` (the voxel chunk's bytes copied to the card).
+replayed), ``e2vid.windows`` (windows through the reconstruction network),
+``reconstruct.h2d_bytes`` (the voxel chunk's bytes copied to the card) and
+``reconstruct.batched_windows`` (windows whose grids the chunk fetch built
+in one batched call).
 """
 
 from __future__ import annotations

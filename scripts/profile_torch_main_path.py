@@ -142,7 +142,8 @@ def main() -> int:
 def serving_phases(torch, work):
     """One warm batch of each serving CLI's loop, as (label, fn) pairs."""
     import chip_smoke
-    from event_utils_tpu_torch.cli.reconstruct import _pad_to_multiple_hw
+    from event_utils_tpu_torch.cli.reconstruct import (_fetch_chunk,
+                                                       _pad_to_multiple_hw)
     from event_utils_tpu_torch.data_loaders import MemMapDataset
     from event_utils_tpu_torch.ops import set_default_impl
     from event_utils_tpu_torch.training import (FlowTrainer,
@@ -161,8 +162,7 @@ def serving_phases(torch, work):
     recon.load_params(chip_smoke.RECON_PARAMS)
 
     def windows(lo, hi):
-        return np.stack([_pad_to_multiple_hw(np.asarray(ds[i]["voxel"]))
-                         for i in range(lo, hi)])
+        return _fetch_chunk(ds, lo, hi, _pad_to_multiple_hw)[0]
 
     def flow_batch():
         flow.predict(windows(8, 16)).cpu()

@@ -532,6 +532,48 @@ def test_dataset_grids_on_the_card_launch_the_flat_kernel(cuda, gen,
 
 
 @pytest.mark.cuda
+def test_chunk_fetch_at_the_cells_shapes_is_one_batched_launch(cuda, gen,
+                                                               tmp_path):
+    """The reconstruct CLI's chunk fetch at the benchmark cell's shapes (8
+    windows of 15,120 events, 5 combined bins, 180x240 padded to 184x240):
+    one ``voxel_scatter_batched:direct`` launch and nothing else, its
+    grids within 1e-6 of the per-item 'xla' grids' scale."""
+    from event_utils_tpu_torch.cli import reconstruct as precon
+    from event_utils_tpu_torch.data_formats import memmap_packager
+    from event_utils_tpu_torch.data_loaders import MemMapDataset
+    H, W, k, S = 180, 240, 15_120, 8
+    n = S * k
+    path = str(tmp_path / "rec")
+    with memmap_packager(path) as pk:
+        ps = gen.choice([-1, 1], n)
+        ts = np.sort(gen.uniform(0, 1.0, n))
+        pk.package_events(gen.integers(0, W, n), gen.integers(0, H, n), ts,
+                          ps)
+        pk.add_metadata(n, int((ps > 0).sum()), int((ps <= 0).sum()),
+                        ts[-1] - ts[0], ts[0], ts[-1], 0, 0,
+                        sensor_size=(H, W))
+    assert cs.voxel_batched_route(S, k, 5, H, W) == "direct"
+    with MemMapDataset(path, voxel_method={"method": "k_events", "k": k,
+                                           "sliding_window_w": 0},
+                       combined_voxel_channels=True, return_events=False,
+                       device="cuda") as ds:
+        assert len(ds) == S
+        ref = precon._pad_to_multiple_hw(torch.stack(
+            [torch.as_tensor(ds[i]["voxel"]) for i in range(S)])).numpy()
+        precon._fetch_chunk(ds, 0, S, precon._pad_to_multiple_hw)  # build
+        torch.cuda.synchronize()
+        before = cs.launch_counts()
+        got, _ = precon._fetch_chunk(ds, 0, S, precon._pad_to_multiple_hw)
+        after = cs.launch_counts()
+    delta = {r: v - before.get(r, 0) for r, v in after.items()
+             if v != before.get(r, 0)}
+    assert delta == {"voxel_scatter_batched:direct": 1}, delta
+    assert got.shape == (S, 5, 184, 240) and got.dtype == np.float32
+    err = float(np.abs(got - ref).max())
+    assert err <= 1e-6 * float(np.abs(ref).max()), err
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("scene", ["similarity", "rotate"])
 def test_simulation_on_the_card_matches_the_cpu(cuda, scene):
     """The simulator on the card against the CPU on a committed texture:
