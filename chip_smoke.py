@@ -352,6 +352,8 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 FIXED_N = 20_000             # voxel_grids_fixed_n's DAVIS240 windows (104)
 FIXED_N_VECTOR = 1 << 18     # 8 windows of the same stream: :vector
 CELL_K = 15_120              # e2vid.reconstruct's k_events window
+ERAFT_K = 307_200            # eraft-dsec.flow-pairs' window: one a pixel
+ERAFT_GRID = (15, 480, 640)  # its combined grids: 15 bins of DSEC's VGA
 VOXEL_WALLS = 5              # warm walls of each turn of the fixed-n A/B
 F32_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 TILED_SENSORS = {"VGA": (480, 640), "720p": (720, 1280)}
@@ -663,13 +665,13 @@ def check_close(name, got, ref, rel=1e-5):
     return err
 
 
-def voxel_events(rng, sensor=SENSOR):
-    """N_VOXEL uniform, time-sorted events over ``sensor``."""
+def voxel_events(rng, sensor=SENSOR, n=N_VOXEL):
+    """``n`` uniform, time-sorted events over ``sensor``."""
     H, W = sensor
-    xs = rng.integers(0, W, N_VOXEL).astype(np.int16)
-    ys = rng.integers(0, H, N_VOXEL).astype(np.int16)
-    ts = np.sort(rng.uniform(0.0, 0.5, N_VOXEL))
-    ps = rng.choice(np.array([-1.0, 1.0]), N_VOXEL)
+    xs = rng.integers(0, W, n).astype(np.int16)
+    ys = rng.integers(0, H, n).astype(np.int16)
+    ts = np.sort(rng.uniform(0.0, 0.5, n))
+    ps = rng.choice(np.array([-1.0, 1.0]), n)
     return xs, ys, ts, ps
 
 
@@ -1792,7 +1794,10 @@ def voxel_batched_kernel_cases(torch, cs, records):
     8 x 65,536, and 96 split windows of 12,288 at 128x128, an E2VID
     batch's size (its own grids go through ``flat_scatter``); the
     ``e2vid.reconstruct`` cell's chunk, 8 windows of 15,120 into combined
-    5x180x240 grids (the CLIs' chunk fetch). Then
+    5x180x240 grids, and the ``eraft-dsec.flow-pairs`` cell's, 8 windows
+    of 307,200 of a 480x640 stream into combined 15x480x640 grids, 147 MB
+    (the CLIs' chunk fetch; there on direct and vector alone, since a VGA
+    plane outgrows a block's shared memory). Then
     edge cases on the flow batch's shape: B = 1 and 9, every row masked, a
     row of one event, per-row windows that pin half of each row to the
     last bin, NaN, +-inf and huge bin coordinates; the same on 96 E2VID
@@ -1808,8 +1813,8 @@ def voxel_batched_kernel_cases(torch, cs, records):
     ts, ps = ts.float(), ps.float()
     cases = {"direct": [], "vector": [], "private": []}
 
-    def hold(label, args, bins, sensor, split, time=True):
-        for r in cases:
+    def hold(label, args, bins, sensor, split, time=True, routes=cases):
+        for r in routes:
             cases[r].append(voxel_batched_case(torch, cs, label, args, bins,
                                                *sensor, split, r, time))
 
@@ -1823,6 +1828,16 @@ def voxel_batched_kernel_cases(torch, cs, records):
     win = [a[:8 * CELL_K].reshape(8, CELL_K) for a in (xs, ys, ts, ps)]
     hold(f"the reconstruct cell's chunk, 8 windows of {CELL_K}, combined",
          cs.voxel_inputs_batched(*win, B, SENSOR), B, SENSOR, False)
+    # the E-RAFT cell's chunk: 8 windows of ERAFT_K of a VGA stream into
+    # combined 15-bin grids (events of their own, the other cases' kept)
+    bins, *vga = ERAFT_GRID
+    win = [torch.as_tensor(a, device=dev).reshape(8, ERAFT_K)
+           for a in voxel_events(np.random.default_rng(SEED + 21), vga,
+                                 8 * ERAFT_K)]
+    hold(f"the E-RAFT cell's chunk, 8 windows of {ERAFT_K}, combined",
+         cs.voxel_inputs_batched(*win, bins, vga), bins, vga, False,
+         routes=[r for r in cases
+                 if r != "private" or cs.voxel_private_fits(*vga)])
     edges = {}
     for label, S, n, sensor in (("fit", 8, 32768, (184, 240)),
                                 ("flow batch", 8, 65536, (128, 128)),

@@ -1,4 +1,4 @@
-"""EV-FlowNet inference CLI: dense flow fields from a recording.
+"""Optical-flow inference CLI: dense flow fields from a recording.
 
 Port of ``event_utils_tpu.cli.infer_flow``, with the same arguments and
 outputs: windows a recording, voxelizes, runs EV-FlowNet per batch of
@@ -10,10 +10,24 @@ recording's ground-truth flow, over the informative windows) and
 ``params.npz``); ``--ckpt_dir`` (an orbax checkpoint) raises
 ``ConfigurationError``.
 
+With ``--architecture ERAFT`` (or a ``--params`` file saved for it, whose
+``__model_json__`` names it) the network is E-RAFT (``models.eraft``),
+which predicts from pairs: field ``j`` is E-RAFT(window ``j``, window
+``j + 1``) after ``--iters`` refinements, so ``n`` windows give ``n - 1``
+fields, each stamped and scored (``--eval_gt``) as its later window. Its
+displacement is written in px/s: over the time from the earlier window's
+last event to the later window's last. A chunk of ``--batch_size`` pairs
+fetches only its new windows and takes the previous chunk's last grid along
+(``PairFetch``), so each grid is built once. E-RAFT's DSEC setting is
+``--num_bins 15 --combined_channels``.
+
 Example:
     python -m event_utils_tpu_torch.cli.infer_flow rec_dir \\
         --params runs/flow128_similarity/params.npz \\
         --method between_frames --eval_gt --output_dir out
+    python -m event_utils_tpu_torch.cli.infer_flow dsec_rec --architecture \\
+        ERAFT --iters 12 --num_bins 15 --combined_channels --method \\
+        k_events --k 307200 --output_dir out
 """
 
 from __future__ import annotations
@@ -23,7 +37,8 @@ import argparse
 
 def build_parser():
     parser = argparse.ArgumentParser(
-        description="Predict dense optical flow from events with EV-FlowNet")
+        description="Predict dense optical flow from events with EV-FlowNet "
+                    "or E-RAFT")
     parser.add_argument("path", help="H5 file or memmap dir")
     parser.add_argument("--output_dir", required=True)
     parser.add_argument("--ckpt_dir", default=None,
@@ -42,7 +57,14 @@ def build_parser():
     parser.add_argument("--num_bins", type=int, default=5)
     parser.add_argument("--combined_channels", action="store_true")
     parser.add_argument("--batch_size", type=int, default=8,
-                        help="windows per device call")
+                        help="windows (ERAFT: pairs) per device call")
+    parser.add_argument("--architecture", default=None,
+                        choices=["EVFlowNet", "ERAFT"],
+                        help="the network (default: the --params file's, "
+                             "else EVFlowNet)")
+    parser.add_argument("--iters", type=int, default=None,
+                        help="ERAFT's refinements (default: the --params "
+                             "file's, else 12)")
     parser.add_argument("--max_frames", type=int, default=None)
     parser.add_argument("--render", action="store_true",
                         help="also write flow_NNNN.png HSV renderings "
@@ -68,6 +90,90 @@ def _save_rendering(path, flow):
     plt.imsave(path, rgb)
 
 
+def _model_kwargs(args) -> dict:
+    """The network's ``model_kwargs``: a ``--params`` file's own
+    (``__model_json__``), else what ``--architecture`` and ``--iters``
+    name. Flags that name another network than the file raise
+    ``SystemExit``."""
+    if args.params:
+        from ..convert import read_model_json_npz
+
+        saved = read_model_json_npz(args.params)
+        arch = saved.get("architecture", "EVFlowNet")
+        if (args.architecture not in (None, arch) or args.iters
+                not in (None, saved.get("iters"))):
+            raise SystemExit(f"{args.params} holds {arch} {saved}: "
+                             "--architecture / --iters name another network")
+        return saved
+    if args.architecture != "ERAFT":
+        if args.iters is not None:
+            raise SystemExit("--iters is ERAFT's (--architecture ERAFT)")
+        return {}
+    return {"architecture": "ERAFT",
+            "iters": 12 if args.iters is None else args.iters}
+
+
+class PairFetch:
+    """The grids of windows ``lo .. hi`` on ``device``, for the pairs ``lo
+    .. hi - 1``: ``pairs(lo, hi) -> (grids (hi - lo + 1, C, H, W), gts of
+    windows lo + 1 .. hi | None)``, from ``fetch``
+    (``cli.reconstruct._window_source``'s). A chunk that starts where the
+    last one ended takes that chunk's last grid along and fetches only its
+    new windows, so each grid is built once a pass; any other chunk
+    fetches all of its windows."""
+
+    def __init__(self, fetch, device):
+        self.fetch, self.device = fetch, device
+        self.last = None        # (window index, its grid (1, C, H, W))
+
+    def __call__(self, lo, hi):
+        import torch
+
+        from .._device import as_f32
+
+        if self.last is not None and self.last[0] == lo:
+            new, gts = self.fetch(lo + 1, hi + 1)
+            grids = torch.cat([self.last[1], as_f32(new, self.device)])
+        else:
+            new, gts = self.fetch(lo, hi + 1)
+            grids = as_f32(new, self.device)
+            gts = None if gts is None else gts[1:]
+        self.last = (hi, grids[-1:].clone())
+        return grids, gts
+
+
+def _window_fields(trainer, fetch, n, batch):
+    """EV-FlowNet, field ``i`` from window ``i``: yields ``(windows, flows
+    (B, 2, Hp, Wp) px/s on the host, gts, grids)`` a batch."""
+    from .._device import to_numpy
+
+    for s0 in range(0, n, batch):
+        hi = min(s0 + batch, n)
+        voxels, gts = fetch(s0, hi)
+        yield range(s0, hi), to_numpy(trainer.predict(voxels)), gts, voxels
+
+
+def _pair_fields(trainer, fetch, n, batch, stamps):
+    """ERAFT, field ``j`` from windows ``j`` and ``j + 1``, as
+    :func:`_window_fields` yields them for the later windows; the
+    displacement over ``stamps[j + 1] - stamps[j]`` in px/s (zero where no
+    time passed)."""
+    import numpy as np
+
+    from .._device import to_numpy
+
+    pairs = PairFetch(fetch, trainer.device)
+    for s0 in range(0, n - 1, batch):
+        hi = min(s0 + batch, n - 1)
+        grids, gts = pairs(s0, hi)
+        flow, _ = trainer.predict_pairs(grids[:-1], grids[1:])
+        dt = np.diff(np.asarray(stamps[s0:hi + 1], np.float64))
+        per_s = np.where(dt > 0, 1.0 / np.where(dt > 0, dt, 1.0), 0.0)
+        yield (range(s0 + 1, hi + 1), to_numpy(flow)
+               * per_s.astype(np.float32)[:, None, None, None], gts,
+               grids[1:])
+
+
 def main(argv=None):
     """Run the CLI; returns ``{"windows", "output_dir", "metrics"}``
     (``metrics`` is ``None`` without ``--eval_gt``)."""
@@ -82,7 +188,6 @@ def main(argv=None):
 
     import numpy as np
 
-    from .._device import to_numpy
     from ..data_loaders import DynamicH5Dataset, MemMapDataset
     from ..training.loop import FlowTrainer
 
@@ -105,7 +210,8 @@ def main(argv=None):
     Hp, Wp = H + (-H) % 8, W + (-W) % 8
     trainer = FlowTrainer(sensor_size=(Hp, Wp), num_bins=args.num_bins,
                           combined_channels=args.combined_channels,
-                          device=dataset.device)
+                          device=dataset.device,
+                          model_kwargs=_model_kwargs(args))
     if args.params:
         step = trainer.load_params(args.params)
         print(f"loaded weights snapshot {args.params} (step {step})")
@@ -130,12 +236,13 @@ def main(argv=None):
     base_aees = []
     vox_mass = []
     written = 0
-    for s0 in range(0, n, args.batch_size):
-        hi = min(s0 + args.batch_size, n)
-        idxs = range(s0, hi)
-        voxels, gt_flows = fetch_windows(s0, hi)
-        flows = to_numpy(trainer.predict(voxels))[:, :, :H, :W]
-        for i, flow in zip(idxs, flows):
+    if trainer.takes_pairs:
+        batches = _pair_fields(trainer, fetch_windows, n, args.batch_size,
+                               all_stamps)
+    else:
+        batches = _window_fields(trainer, fetch_windows, n, args.batch_size)
+    for idxs, flows, gt_flows, voxels in batches:
+        for k, (i, flow) in enumerate(zip(idxs, flows[:, :, :H, :W])):
             np.save(os.path.join(args.output_dir, f"flow_{written:04d}.npy"),
                     flow.astype(np.float32))
             stamps.append(float(all_stamps[i]))
@@ -148,8 +255,8 @@ def main(argv=None):
                 # voxel mass ~ event count: flags (near-)empty windows —
                 # e.g. the slice before the recording's first frame —
                 # which carry no motion information to predict from
-                vox_mass.append(float(np.abs(voxels[i - s0]).sum()))
-                gt = gt_flows[i - s0]
+                vox_mass.append(float(abs(voxels[k]).sum()))
+                gt = gt_flows[k]
                 aees.append(float(average_endpoint_error(flow, gt)))
                 base_aees.append(float(average_endpoint_error(
                     np.zeros_like(gt), gt)))

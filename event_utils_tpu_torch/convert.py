@@ -13,7 +13,11 @@
   the port's ``UNetRecurrent``, whose parameter paths (rpg_e2vid's names,
   ``['params']['encoders']['0']['recurrent_block']['Gates']['kernel']``)
   have no flax counterpart; its ``__model_json__`` holds
-  ``"architecture": "UNetRecurrent"``, so a load rebuilds it.
+  ``"architecture": "UNetRecurrent"``, so a load rebuilds it. Batch norms
+  (E-RAFT's context encoder) are stored as flax stores them: scale and
+  shift under ``['params'][...]['scale' | 'bias']``, running statistics
+  under ``['batch_stats'][...]['mean' | 'var']``; the step counter
+  ``num_batches_tracked`` is not stored, and a load keeps the model's own.
 
 Nothing of the JAX package is imported.
 """
@@ -68,18 +72,29 @@ _PATH_PART = re.compile(r"\['([^'\]]+)'\]")
 _META_KEYS = ("__step__", "__model_json__")
 
 
+# (flax collection, flax leaf) -> the port's leaf
+_LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
+           ("params", "scale"): "weight",
+           ("batch_stats", "mean"): "running_mean",
+           ("batch_stats", "var"): "running_var"}
+# a norm's step counter: not a weight, not stored
+_UNSTORED = "num_batches_tracked"
+
+
 def flax_key_to_name(key: str) -> Tuple[str, bool]:
     """``"['params']['_Encoder_0']['Conv_1']['kernel']"`` ->
     ``("_Encoder_0.Conv_1.weight", True)``; the flag says the array is a
     kernel (HWIO, to be transposed). The port's modules register their
     submodules under flax's own auto-names (``models.networks``), so the
-    path carries over part for part; only the leaf is renamed."""
+    path carries over part for part; only the leaf is renamed (a norm's
+    ``scale`` to ``weight``, its ``batch_stats`` ``mean`` and ``var`` to
+    ``running_mean`` and ``running_var``)."""
     parts = _PATH_PART.findall(key)
-    if (len(parts) < 3 or parts[0] != "params"
-            or "".join(f"['{p}']" for p in parts) != key
-            or parts[-1] not in ("kernel", "bias")):
-        raise DataFormatError(f"not a flax conv parameter path: {key!r}")
-    leaf = "weight" if parts[-1] == "kernel" else "bias"
+    if (len(parts) < 3 or "".join(f"['{p}']" for p in parts) != key
+            or (parts[0], parts[-1]) not in _LEAVES):
+        raise DataFormatError(f"not a flax conv or norm parameter path: "
+                              f"{key!r}")
+    leaf = _LEAVES[(parts[0], parts[-1])]
     return ".".join(parts[1:-1] + [leaf]), parts[-1] == "kernel"
 
 
@@ -91,6 +106,8 @@ def convert_flax_params(flat: Mapping[str, np.ndarray]
     out = {}
     for key, arr in flat.items():
         name, is_kernel = flax_key_to_name(key)
+        if name in out:
+            raise DataFormatError(f"{key}: a second array for {name}")
         t = torch.tensor(np.asarray(arr, np.float32))
         if is_kernel:
             if t.dim() != 4:
@@ -107,22 +124,31 @@ def state_to_flax_params(state: Mapping[str, torch.Tensor]
     """The inverse of ``convert_flax_params``: a state dict of the port's
     modules as flat flax parameters (``"_Encoder_0.Conv_1.weight"`` ->
     ``"['params']['_Encoder_0']['Conv_1']['kernel']"``), kernels OIHW ->
-    HWIO, float32 host arrays."""
+    HWIO, float32 host arrays; a norm's 1-D weight is its ``scale``, its
+    running statistics go under ``['batch_stats']`` and its
+    ``num_batches_tracked`` is left out."""
     out = {}
     for name, t in state.items():
         *path, leaf = name.split(".")
-        if leaf not in ("weight", "bias") or not path:
-            raise DataFormatError(f"not a conv parameter name: {name!r}")
+        if leaf == _UNSTORED and path:
+            continue
         arr = t.detach().to("cpu", torch.float32)
-        if leaf == "weight":
-            if arr.dim() != 4:
-                raise DataFormatError(
-                    f"{name}: a conv weight must be 4-D OIHW, got "
-                    f"{tuple(arr.shape)}")
-            arr = arr.permute(2, 3, 1, 0)
-        key = "".join(f"['{p}']" for p in
-                      ["params"] + path + ["kernel" if leaf == "weight"
-                                           else "bias"])
+        if leaf == "weight" and arr.dim() == 4:
+            arr, collection, flax_leaf = (arr.permute(2, 3, 1, 0), "params",
+                                          "kernel")
+        elif leaf == "weight" and arr.dim() == 1:
+            collection, flax_leaf = "params", "scale"
+        elif leaf == "bias":
+            collection, flax_leaf = "params", "bias"
+        elif leaf in ("running_mean", "running_var"):
+            collection, flax_leaf = "batch_stats", leaf[8:]
+        else:
+            raise DataFormatError(
+                f"not a conv or norm parameter: {name!r} of shape "
+                f"{tuple(arr.shape)} (a conv weight is 4-D OIHW)")
+        if not path:
+            raise DataFormatError(f"not a module parameter name: {name!r}")
+        key = "".join(f"['{p}']" for p in [collection] + path + [flax_leaf])
         out[key] = np.ascontiguousarray(arr.numpy())
     return out
 
@@ -136,7 +162,8 @@ def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]
     mismatch — a partial load never happens."""
     state = convert_flax_params(flat)
     have = model.state_dict()
-    missing = sorted(set(have) - set(state))
+    kept = {k: v for k, v in have.items() if k.rsplit(".", 1)[-1] == _UNSTORED}
+    missing = sorted(set(have) - set(state) - set(kept))
     surplus = sorted(set(state) - set(have))
     if missing or surplus:
         raise DataFormatError(
@@ -147,7 +174,7 @@ def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]
             raise DataFormatError(
                 f"{name}: saved shape {tuple(t.shape)} != model "
                 f"{tuple(have[name].shape)}")
-    model.load_state_dict(state)
+    model.load_state_dict({**kept, **state})
     return model
 
 

@@ -1,5 +1,6 @@
 """Motion models (warps), contrast objectives, and the learned networks
-(EV-FlowNet, E2VID, rpg_e2vid's UNetRecurrent)."""
+(EV-FlowNet, E2VID, rpg_e2vid's UNetRecurrent; E-RAFT in ``models.eraft``,
+imported where it is built)."""
 
 from .warps import (  # noqa: F401
     WARP_REGISTRY,
@@ -28,6 +29,7 @@ from .objectives import (  # noqa: F401
 )
 from .networks import (  # noqa: F401
     E2VID,
+    FLOW_MODELS,
     RECONSTRUCTION_MODELS,
     ConvGRU,
     ConvLSTM,

@@ -550,6 +550,19 @@ class UNetRecurrent(nn.Module):
 RECONSTRUCTION_MODELS = {"E2VID": E2VID, "UNetRecurrent": UNetRecurrent}
 
 
+def _build_eraft(**kwargs):
+    """``models.eraft.ERAFT(**kwargs)``, its module imported at the first
+    build, so that paths which build no E-RAFT never import it."""
+    from .eraft import ERAFT
+    return ERAFT(**kwargs)
+
+
+#: the flow networks by ``model_kwargs["architecture"]``
+#: (``training.loop.FlowTrainer``), each a callable that builds it;
+#: absent: ``EVFlowNet``
+FLOW_MODELS = {"EVFlowNet": EVFlowNet, "ERAFT": _build_eraft}
+
+
 # ---------------------------------------------------------------------------
 # Training losses
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@
   ``load_params_npz`` reads it, and ``load_params_npz`` here reads both
   packages' files: this is the format the two share. The sidecar holds
   the trainer's ``model_kwargs``, its ``"architecture"`` key included, so
-  a file of the port's ``UNetRecurrent`` (which the JAX package cannot
-  load) rebuilds that network.
+  a file of the port's ``UNetRecurrent`` or ``ERAFT`` (which the JAX
+  package cannot load) rebuilds that network, ERAFT's batch norms with
+  their running statistics (``convert.state_to_flax_params``).
 - ``save_trainer_checkpoint`` / ``restore_trainer_checkpoint`` replace
   orbax, which the card's machine lacks, with the port's own format: one
   ``step_<N>.pt`` per step under ``ckpt_dir`` (a ``torch.save`` of

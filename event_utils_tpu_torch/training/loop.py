@@ -33,6 +33,14 @@ Only rank 0 writes checkpoints and logs.
 
 The orbax checkpoint is replaced by the port's own ``ckpt_dir`` format
 (``training.checkpointing``).
+
+``model_kwargs["architecture"]`` picks the network
+(``models.networks.FLOW_MODELS``): absent, the port of the JAX package's
+``EVFlowNet``, which predicts from one window (``predict``); ``"ERAFT"``,
+E-RAFT (``models.eraft``), which predicts from a pair of consecutive
+windows (``predict_pairs``) and is inference only here: the training
+methods raise ``ConfigurationError`` for it. The key stays in
+``model_kwargs``, so saved weights rebuild the same network.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ import torch
 from .._device import as_f32, no_tf32, resolve_device
 from ..data_loaders import prefetch
 from ..errors import ConfigurationError
-from ..models.networks import EVFlowNet, contrast_flow_loss
+from ..models.networks import FLOW_MODELS, contrast_flow_loss
 from ..parallel import sharding
 from .in_the_loop import voxelize_batch
 
@@ -130,13 +138,17 @@ class FlowTrainer:
         ranks, on this rank's device (``device`` is then not used)
     @param device Where the model runs: ``None`` means the card and raises
         ``DeviceUnavailableError`` without one; pass ``"cpu"`` for the host.
+    @param model_kwargs The network (``"architecture"``: ``"EVFlowNet"``,
+        the default, or ``"ERAFT"``) and its arguments (ERAFT's ``iters``);
+        recorded in saved weights (``__model_json__``)
     """
 
     def __init__(self, sensor_size=(64, 64), num_bins: int = 5,
                  combined_channels: bool = False,
                  learning_rate: Schedule = 1e-4, seed: int = 0,
                  smoothness_weight: float = 0.5,
-                 supervised_weight: float = 0.0, mesh=None, device=None):
+                 supervised_weight: float = 0.0, mesh=None, device=None,
+                 model_kwargs: Optional[dict] = None):
         self.mesh = mesh
         self.device = (sharding.mesh_device(mesh) if mesh is not None
                        else resolve_device(device))
@@ -145,10 +157,17 @@ class FlowTrainer:
         self.combined_channels = combined_channels
         self.smoothness_weight = float(smoothness_weight)
         self.supervised_weight = float(supervised_weight)
-        self.model_kwargs = {}
+        self.model_kwargs = dict(model_kwargs or {})
         channels = num_bins if combined_channels else 2 * num_bins
-        self.model = EVFlowNet(in_channels=channels, seed=seed).to(
-            self.device).eval()
+        kwargs = dict(self.model_kwargs)
+        arch = kwargs.pop("architecture", "EVFlowNet")
+        if arch not in FLOW_MODELS:
+            raise ConfigurationError(
+                f"unknown architecture {arch!r}; one of {sorted(FLOW_MODELS)}")
+        self.model = FLOW_MODELS[arch](in_channels=channels, seed=seed,
+                                       **kwargs).to(self.device).eval()
+        #: whether the network predicts from pairs of windows (ERAFT)
+        self.takes_pairs = getattr(self.model, "takes_pairs", False)
         self.net = data_parallel(self.model, mesh)
         self.opt = AdamStep(self.model.parameters(), learning_rate)
         self.step = 0
@@ -172,8 +191,15 @@ class FlowTrainer:
         """The deliverable weights (a state dict): what ``predict`` uses."""
         return self.model.state_dict()
 
+    def _single_window(self, what: str):
+        if self.takes_pairs:
+            raise ConfigurationError(
+                f"{type(self.model).__name__} predicts from pairs of windows "
+                f"(predict_pairs); {what} takes single-window networks")
+
     def loss(self, voxel, events, mask, gt_flow):
         """The training loss on one batch (differentiable; no step)."""
+        self._single_window("training")
         flow = self.net(voxel)
         loss = contrast_flow_loss(flow, events, mask, self.sensor_size,
                                   smoothness_weight=self.smoothness_weight)
@@ -221,7 +247,21 @@ class FlowTrainer:
     @torch.no_grad()
     def predict(self, voxel) -> torch.Tensor:
         """``(B, 2, H, W)`` flow in px/s, on the trainer's device."""
+        self._single_window("predict")
         return self.model(as_f32(voxel, self.device))
+
+    @torch.no_grad()
+    def predict_pairs(self, prev, cur):
+        """``(flow (B, 2, H, W), flow8 (B, 2, H/8, W/8))`` on the trainer's
+        device: ERAFT's displacement in pixels over the later window of each
+        pair of ``(B, C, H, W)`` grids ``prev`` (the earlier windows) and
+        ``cur``, upsampled and at 1/8 resolution."""
+        if not self.takes_pairs:
+            raise ConfigurationError(
+                f"{type(self.model).__name__} predicts from single windows "
+                "(predict)")
+        return self.model(as_f32(prev, self.device),
+                          as_f32(cur, self.device))
 
     # ------------------------------------------------------------------
     def load_params(self, path: str) -> int:
@@ -261,6 +301,7 @@ class FlowTrainer:
         losses are the global batches', the rate counts every rank's
         events, and only rank 0 logs and saves.
         """
+        self._single_window("training")
         keys = ("events", "events_mask")
         losses = []
         for epoch in range(epochs):

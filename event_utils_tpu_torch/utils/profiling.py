@@ -32,13 +32,19 @@ batch fill), ``reconstruct.fetch`` (``cli/reconstruct.py``'s per-chunk
 window fetch: dataset items, one batched build of their voxel grids,
 stack, padding, one copy back),
 ``e2vid.forward`` (each window's forward pass in
-``ReconstructionTrainer.reconstruct``); counters ``cmax.h2d_bytes`` (bytes
+``ReconstructionTrainer.reconstruct``), ``eraft.encode`` (E-RAFT's
+feature encoder on both grids and its context encoder),
+``eraft.corr`` (the correlation volume and its pyramid), ``eraft.refine``
+(the refinements: lookups, update block, flow updates) and
+``eraft.upsample`` (the convex x8 upsampling, ``models.eraft.ERAFT``);
+counters ``cmax.h2d_bytes`` (bytes
 the solvers copy from host arrays to the device), ``cmax.graph_captures``
 and ``cmax.graph_replays`` (the GD refine's CUDA graphs captured and
 replayed), ``e2vid.windows`` (windows through the reconstruction network),
-``reconstruct.h2d_bytes`` (the voxel chunk's bytes copied to the card) and
+``reconstruct.h2d_bytes`` (the voxel chunk's bytes copied to the card),
 ``reconstruct.batched_windows`` (windows whose grids the chunk fetch built
-in one batched call).
+in one batched call), ``eraft.pairs`` (pairs of grids through E-RAFT) and
+``eraft.iterations`` (its refinements, ``iters`` a pair).
 """
 
 from __future__ import annotations
