@@ -18,8 +18,9 @@ fields, each stamped and scored (``--eval_gt``) as its later window. Its
 displacement is written in px/s: over the time from the earlier window's
 last event to the later window's last. A chunk of ``--batch_size`` pairs
 fetches only its new windows and takes the previous chunk's last grid along
-(``PairFetch``), so each grid is built once. E-RAFT's DSEC setting is
-``--num_bins 15 --combined_channels``.
+(``PairFetch``), so each grid is built once; a streaming fetch hands
+the chunk it built over on the card, with no copy to the host. E-RAFT's
+DSEC setting is ``--num_bins 15 --combined_channels``.
 
 Example:
     python -m event_utils_tpu_torch.cli.infer_flow rec_dir \\
@@ -120,23 +121,33 @@ class PairFetch:
     (``cli.reconstruct._window_source``'s). A chunk that starts where the
     last one ended takes that chunk's last grid along and fetches only its
     new windows, so each grid is built once a pass; any other chunk
-    fetches all of its windows."""
+    fetches all of its windows. A ``fetch`` with an ``on(device, lo, hi)``
+    method (``cli.reconstruct.ChunkFetch``) is asked for the grids on
+    ``device``, where the streaming fetch keeps the chunk it built; a
+    plain ``fetch(lo, hi)`` gives host arrays, uploaded here."""
 
     def __init__(self, fetch, device):
         self.fetch, self.device = fetch, device
         self.last = None        # (window index, its grid (1, C, H, W))
 
-    def __call__(self, lo, hi):
-        import torch
+    def _take(self, lo, hi):
+        on = getattr(self.fetch, "on", None)
+        if on is not None:
+            return on(self.device, lo, hi)
 
         from .._device import as_f32
 
+        grids, gts = self.fetch(lo, hi)
+        return as_f32(grids, self.device), gts
+
+    def __call__(self, lo, hi):
+        import torch
+
         if self.last is not None and self.last[0] == lo:
-            new, gts = self.fetch(lo + 1, hi + 1)
-            grids = torch.cat([self.last[1], as_f32(new, self.device)])
+            new, gts = self._take(lo + 1, hi + 1)
+            grids = torch.cat([self.last[1], new])
         else:
-            new, gts = self.fetch(lo, hi + 1)
-            grids = as_f32(new, self.device)
+            grids, gts = self._take(lo, hi + 1)
             gts = None if gts is None else gts[1:]
         self.last = (hi, grids[-1:].clone())
         return grids, gts

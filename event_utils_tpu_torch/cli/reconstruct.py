@@ -95,14 +95,17 @@ def _pad_to_multiple_hw(grids, multiple=8):
 GATHER_CHUNK = 8
 
 
-def _fetch_chunk(dataset, lo, hi, pad, gt_fn=None):
+def _fetch_chunk(dataset, lo, hi, pad, gt_fn=None, device=None):
     """``(voxels (hi-lo, C, Hp, Wp) float32, gts | None)`` of windows
     ``lo .. hi-1``: each window's item from ``dataset[i]``, their voxel
     grids built in one batched call on the dataset's device (the scope
     ``deferred_grids``), stacked and padded there, and copied back in one
-    copy. Counts the windows under ``reconstruct.batched_windows``.
-    ``gt_fn`` maps ``(dataset, i, item)`` to the ground-truth array for
-    window i."""
+    copy. With ``device``, the stack is handed over as a float32 tensor
+    on ``device`` instead, with no copy to the host (moved only where the
+    dataset's device is another), and the windows count under
+    ``reconstruct.card_windows`` too. Counts the windows under
+    ``reconstruct.batched_windows``. ``gt_fn`` maps ``(dataset, i,
+    item)`` to the ground-truth array for window i."""
     import numpy as np
     import torch
 
@@ -111,8 +114,13 @@ def _fetch_chunk(dataset, lo, hi, pad, gt_fn=None):
 
     with dataset.deferred_grids():
         items = [dataset[i] for i in range(lo, hi)]
-    voxels = to_numpy(pad(torch.stack([item["voxel"] for item in items])))
+    voxels = pad(torch.stack([item["voxel"] for item in items]))
     profiling.count("reconstruct.batched_windows", hi - lo)
+    if device is None:
+        voxels = to_numpy(voxels)
+    else:
+        voxels = voxels.to(device=device, dtype=torch.float32)
+        profiling.count("reconstruct.card_windows", hi - lo)
     gts = None if gt_fn is None else np.stack(
         [gt_fn(dataset, i, item) for i, item in zip(range(lo, hi), items)])
     return voxels, gts
@@ -134,10 +142,50 @@ def _gather_windows(dataset, n, pad, gt_fn=None):
             if gt_fn is not None else None)
 
 
+class ChunkFetch:
+    """A recording's windows a chunk at a time, from
+    :func:`_window_source`. ``fetch(lo, hi) -> (voxels (hi-lo, C, Hp, Wp)
+    ndarray, gts | None)`` on the host; ``fetch.on(device, lo, hi)`` the
+    same grids as a float32 tensor on ``device``, for a consumer that runs
+    there. Streaming (``gathered`` None), both build the chunk in one
+    batched call (:func:`_fetch_chunk`) and differ in their last step:
+    ``on`` hands over the stack it built, with no copy to the host.
+    Gathered (``(voxels, gts | None)`` of every window), both slice it and
+    ``on`` uploads the slice. Each call is the span
+    ``reconstruct.fetch``."""
+
+    def __init__(self, dataset, pad, gt_fn=None, gathered=None):
+        self.dataset, self.pad, self.gt_fn = dataset, pad, gt_fn
+        self.gathered = gathered
+
+    def __call__(self, lo, hi):
+        from ..utils import profiling
+
+        with profiling.span("reconstruct.fetch"):
+            return self._take(lo, hi, None)
+
+    def on(self, device, lo, hi):
+        from ..utils import profiling
+
+        with profiling.span("reconstruct.fetch"):
+            return self._take(lo, hi, device)
+
+    def _take(self, lo, hi, device):
+        from .._device import as_f32
+
+        if self.gathered is None:
+            return _fetch_chunk(self.dataset, lo, hi, self.pad, self.gt_fn,
+                                device)
+        voxels, gts = self.gathered
+        voxels = voxels[lo:hi]
+        return (voxels if device is None else as_f32(voxels, device),
+                None if gts is None else gts[lo:hi])
+
+
 def _window_source(dataset, args, n, pad, gt_fn=None, gt_channels=1,
                    cache_suffix=".reconcache.npz"):
-    """Chunkable window access: returns ``(fetch, stamps)`` where
-    ``fetch(lo, hi) -> (voxels (hi-lo, C, Hp, Wp), gts | None)``.
+    """Chunkable window access: returns ``(fetch, stamps)``, ``fetch`` a
+    :class:`ChunkFetch`.
 
     Small recordings are materialized once behind the sidecar cache
     (:func:`_window_arrays`); recordings whose padded windows would exceed
@@ -145,14 +193,11 @@ def _window_source(dataset, args, n, pad, gt_fn=None, gt_channels=1,
     variable) stream O(chunk) windows per fetch instead. Both build the
     grids of a chunk of windows in one batched call
     (:func:`_fetch_chunk`). The sizing decision is metadata-only
-    (``gt_channels`` = per-pixel gt channels: 1 frame / 2 flow). Each
-    fetch is the span ``reconstruct.fetch``."""
+    (``gt_channels`` = per-pixel gt channels: 1 frame / 2 flow)."""
     import os
 
     import numpy as np
     import torch
-
-    from ..utils import profiling
 
     H, W = int(dataset.sensor_resolution[0]), int(dataset.sensor_resolution[1])
     C = args.num_bins if args.combined_channels else 2 * args.num_bins
@@ -170,22 +215,11 @@ def _window_source(dataset, args, n, pad, gt_fn=None, gt_channels=1,
         for i in range(n):
             _, idx1 = dataset.get_event_indices(i)
             stamps[i] = float(dataset.ts(max(idx1 - 1, 0)))
-
-        @profiling.spanned("reconstruct.fetch")
-        def fetch(lo, hi):
-            return _fetch_chunk(dataset, lo, hi, pad, gt_fn)
-
-        return fetch, stamps
+        return ChunkFetch(dataset, pad, gt_fn), stamps
 
     all_voxels, stamps, all_gts = _window_arrays(
         dataset, args, n, pad, gt_fn, cache_suffix)
-
-    @profiling.spanned("reconstruct.fetch")
-    def fetch(lo, hi):
-        return (all_voxels[lo:hi],
-                all_gts[lo:hi] if all_gts is not None else None)
-
-    return fetch, stamps
+    return ChunkFetch(dataset, pad, gt_fn, (all_voxels, all_gts)), stamps
 
 
 def _window_arrays(dataset, args, n, pad, gt_fn=None,

@@ -30,7 +30,7 @@ Names in use: spans ``cmax.solve`` (``grid_cmax_batched``), ``cmax.bucket``
 refine replays a CUDA graph), ``loader.fill`` (``NativeWindowedLoader``'s
 batch fill), ``reconstruct.fetch`` (``cli/reconstruct.py``'s per-chunk
 window fetch: dataset items, one batched build of their voxel grids,
-stack, padding, one copy back),
+stack, padding, one copy back, or none where the grids go to the card),
 ``e2vid.forward`` (each window's forward pass in
 ``ReconstructionTrainer.reconstruct``), ``eraft.encode`` (E-RAFT's
 feature encoder on both grids and its context encoder),
@@ -43,7 +43,9 @@ and ``cmax.graph_replays`` (the GD refine's CUDA graphs captured and
 replayed), ``e2vid.windows`` (windows through the reconstruction network),
 ``reconstruct.h2d_bytes`` (the voxel chunk's bytes copied to the card),
 ``reconstruct.batched_windows`` (windows whose grids the chunk fetch built
-in one batched call), ``eraft.pairs`` (pairs of grids through E-RAFT) and
+in one batched call), ``reconstruct.card_windows`` (those of them handed
+over on the card with no copy to the host: ``ChunkFetch.on``'s streaming
+branch), ``eraft.pairs`` (pairs of grids through E-RAFT) and
 ``eraft.iterations`` (its refinements, ``iters`` a pair).
 """
 

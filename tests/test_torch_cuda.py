@@ -574,6 +574,65 @@ def test_chunk_fetch_at_the_cells_shapes_is_one_batched_launch(cuda, gen,
 
 
 @pytest.mark.cuda
+def test_pair_fetch_at_the_flow_cells_shapes_stays_on_the_card(
+        cuda, gen, tmp_path, monkeypatch):
+    """The flow CLI's ``PairFetch`` over its streaming chunk fetch at the
+    E-RAFT cell's shapes (8 windows of 307,200 events into combined 15-bin
+    480x640 grids, 147 MB), one cold chunk under ``torch.profiler``: no
+    device-to-host copy, one ``voxel_scatter_batched:direct`` launch, and
+    the grids within 1e-6 of the host fetch's scale."""
+    from event_utils_tpu_torch.cli import infer_flow
+    from event_utils_tpu_torch.cli import reconstruct as precon
+    from event_utils_tpu_torch.data_formats import memmap_packager
+    from event_utils_tpu_torch.data_loaders import MemMapDataset
+    H, W, k, S = 480, 640, 307_200, 8
+    n = S * k
+    path = str(tmp_path / "rec")
+    with memmap_packager(path) as pk:
+        ps = gen.choice([-1, 1], n)
+        ts = np.sort(gen.uniform(0, 1.0, n))
+        pk.package_events(gen.integers(0, W, n), gen.integers(0, H, n), ts,
+                          ps)
+        pk.add_metadata(n, int((ps > 0).sum()), int((ps <= 0).sum()),
+                        ts[-1] - ts[0], ts[0], ts[-1], 0, 0,
+                        sensor_size=(H, W))
+    assert cs.voxel_batched_route(S, k, 15, H, W) == "direct"
+    args = infer_flow.build_parser().parse_args(
+        [path, "--output_dir", str(tmp_path / "out"), "--method", "k_events",
+         "--k", str(k), "--num_bins", "15", "--combined_channels",
+         "--no_window_cache", "--device", "cuda"])
+    with MemMapDataset(path, voxel_method=precon._voxel_method(args),
+                       num_bins=15, combined_voxel_channels=True,
+                       return_events=False, device="cuda") as ds:
+        assert len(ds) == S
+        monkeypatch.setenv("EVENT_UTILS_TPU_WINCACHE_LIMIT_MB", "0")
+        fetch, _ = precon._window_source(ds, args, S,
+                                         pad=precon._pad_to_multiple_hw)
+        want, _ = fetch(0, S)
+        pairs = infer_flow.PairFetch(fetch, cuda)
+        pairs(0, S - 1)                                     # build
+        torch.cuda.synchronize()
+        before = cs.launch_counts()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            grids, _ = pairs(0, S - 1)
+            torch.cuda.synchronize()
+        after = cs.launch_counts()
+    delta = {r: v - before.get(r, 0) for r, v in after.items()
+             if v != before.get(r, 0)}
+    assert delta == {"voxel_scatter_batched:direct": 1}, delta
+    names = [e.name for e in prof.events()]
+    assert any("HtoD" in m for m in names), "the trace holds no copies"
+    assert not [m for m in names if "DtoH" in m], sorted(set(names))
+    assert grids.device.type == "cuda" and grids.dtype == torch.float32
+    assert grids.shape == (S, 15, H, W)
+    ref = torch.from_numpy(want)
+    err = float((grids.cpu() - ref).abs().max())
+    assert err <= 1e-6 * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("scene", ["similarity", "rotate"])
 def test_simulation_on_the_card_matches_the_cpu(cuda, scene):
     """The simulator on the card against the CPU on a committed texture:

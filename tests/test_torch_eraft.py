@@ -412,6 +412,98 @@ def test_infer_flow_pairs_are_chunk_invariant_and_the_references(
     assert names.count("reconstruct.fetch") == 2
 
 
+def pair_source(recording, k, streamed, monkeypatch):
+    """The flow CLI's chunk fetch over ``recording`` in windows of ``k``,
+    its streaming branch (window-cache limit 0) or its gathered one;
+    returns ``(dataset, fetch)``."""
+    from event_utils_tpu_torch.cli import infer_flow
+    from event_utils_tpu_torch.cli import reconstruct as cli
+    from event_utils_tpu_torch.data_loaders import MemMapDataset
+    args = infer_flow.build_parser().parse_args(
+        [recording, "--output_dir", "unused", "--method", "k_events", "--k",
+         str(k), "--num_bins", "15", "--combined_channels",
+         "--no_window_cache", "--device", "cpu"])
+    ds = MemMapDataset(recording, voxel_method=cli._voxel_method(args),
+                       num_bins=15, combined_voxel_channels=True,
+                       return_events=False, return_format="numpy",
+                       device="cpu")
+    with monkeypatch.context() as m:
+        if streamed:
+            m.setenv("EVENT_UTILS_TPU_WINCACHE_LIMIT_MB", "0")
+        fetch, _ = cli._window_source(ds, args, len(ds),
+                                      pad=cli._pad_to_multiple_hw)
+    return ds, fetch
+
+
+def pass_of_pairs(pairs, n, chunk):
+    """Every chunk of ``chunk`` pairs of a pass over ``n`` windows: the
+    grids and the grid carried after each."""
+    out = []
+    for lo in range(0, n - 1, chunk):
+        grids, gts = pairs(lo, min(lo + chunk, n - 1))
+        assert gts is None
+        out.append((grids, pairs.last[1]))
+    return out
+
+
+def test_pair_fetch_takes_the_streamed_chunk_on_the_device(recording,
+                                                           monkeypatch):
+    """``PairFetch`` over the streaming fetch, chunks of 3 pairs over 8
+    windows (two chunk boundaries, a short last chunk): the grids and the
+    carried last grid equal the host path's (a plain ``fetch(lo, hi)``,
+    uploaded) bit for bit and the windows' own; each window is built once,
+    and only the device path counts card windows. The carried grid holds
+    no view of the chunk."""
+    from event_utils_tpu_torch.cli import infer_flow
+    ds, fetch = pair_source(recording, 3500, True, monkeypatch)
+    with ds:
+        n = len(ds)
+        assert n == 8
+        want = torch.from_numpy(fetch(0, n)[0])
+        was = profiling.enable_spans(True)
+        profiling.take()
+        try:
+            card = pass_of_pairs(infer_flow.PairFetch(fetch, "cpu"), n, 3)
+            card_counts = profiling.take().counts
+            host = pass_of_pairs(infer_flow.PairFetch(
+                lambda lo, hi: fetch(lo, hi), "cpu"), n, 3)
+            host_counts = profiling.take().counts
+        finally:
+            profiling.enable_spans(was)
+    assert card_counts == {"reconstruct.batched_windows": n,
+                           "reconstruct.card_windows": n}
+    assert host_counts == {"reconstruct.batched_windows": n}
+    for lo, (grids, last), (host_grids, host_last) in zip(
+            range(0, n - 1, 3), card, host):
+        hi = min(lo + 3, n - 1)
+        assert grids.shape == (hi - lo + 1, 15, 128, 128)
+        torch.testing.assert_close(grids, host_grids, rtol=0, atol=0)
+        torch.testing.assert_close(grids, want[lo:hi + 1], rtol=0, atol=0)
+        torch.testing.assert_close(last, host_last, rtol=0, atol=0)
+        torch.testing.assert_close(last, want[hi:hi + 1], rtol=0, atol=0)
+        assert last.untyped_storage().data_ptr() \
+            != grids.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("streamed", [True, False],
+                         ids=["streamed", "gathered"])
+def test_a_plain_fetch_callable_still_works_through_pair_fetch(
+        recording, streamed, monkeypatch):
+    """A wrapper that is only a ``fetch(lo, hi)`` callable gives the same
+    grids through ``PairFetch`` as the chunk fetch itself, cold chunks
+    (a jump back) included."""
+    from event_utils_tpu_torch.cli import infer_flow
+    ds, fetch = pair_source(recording, K, streamed, monkeypatch)
+    with ds:
+        own = infer_flow.PairFetch(fetch, "cpu")
+        plain = infer_flow.PairFetch(lambda lo, hi: fetch(lo, hi), "cpu")
+        for lo, hi in ((0, 2), (2, 4), (1, 3), (3, 6), (0, 6)):
+            a, _ = own(lo, hi)
+            b, _ = plain(lo, hi)
+            assert a.dtype == b.dtype == torch.float32
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_params_round_trip_keeps_the_architecture(weights_file, tmp_path):
     path, weights = weights_file
     back = FlowTrainer((128, 128), num_bins=15, combined_channels=True,

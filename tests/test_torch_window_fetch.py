@@ -9,7 +9,10 @@ combined and split channels, chunks of 1, 3 and 8 with a short last one,
 a sensor that is no multiple of 8 and events outside it. Seeded voxel
 transforms, the counter ``reconstruct.batched_windows`` and the item path
 outside the scope are pinned too, and the block packing
-``pack_windows`` does.
+``pack_windows`` does. ``ChunkFetch.on``, the fetch for a consumer on the
+card, gives the host fetch's grids bit for bit in both branches; streaming,
+it hands over the stack it built with no copy to the host and counts
+``reconstruct.card_windows``.
 """
 
 import os
@@ -181,6 +184,93 @@ def test_batched_windows_counts_the_windows_fetched(recording, monkeypatch):
     assert taken.counts == {"reconstruct.batched_windows": n}
     assert len([s for s in taken.spans
                 if s.name == "reconstruct.fetch"]) == -(-n // 4)
+
+
+def frame_gt(ds, i, item):
+    return np.asarray(item["frame"], np.float32).squeeze()
+
+
+def window_source(ds, recording, chunk=3):
+    args = precon.build_parser().parse_args(
+        [recording, "--output_dir", "unused", "--method", "between_frames",
+         "--chunk", str(chunk), "--combined_channels", "--no_window_cache",
+         "--device", "cpu"])
+    return precon._window_source(ds, args, len(ds),
+                                 pad=precon._pad_to_multiple_hw,
+                                 gt_fn=frame_gt)[0]
+
+
+@pytest.mark.parametrize("streamed", [True, False],
+                         ids=["streamed", "gathered"])
+def test_the_card_fetch_gives_the_host_fetchs_grids(recording, streamed,
+                                                    monkeypatch):
+    """``fetch.on(device, lo, hi)`` against ``fetch(lo, hi)``, chunk by
+    chunk: the same grids bit for bit, as a float32 tensor on the device,
+    and the same ground truth; the host fetch still gives an ndarray and
+    counts no card windows. Streaming, both build the chunk once a call;
+    gathered, neither builds."""
+    if streamed:
+        monkeypatch.setenv("EVENT_UTILS_TPU_WINCACHE_LIMIT_MB", "0")
+    was = profiling.enable_spans(True)
+    try:
+        with dataset(recording, "between_frames", True) as ds:
+            n = len(ds)
+            fetch = window_source(ds, recording)
+            profiling.take()
+            host, card = [], []
+            for lo in range(0, n, 3):
+                hi = min(lo + 3, n)
+                host.append(fetch(lo, hi))
+                host_counts = profiling.take().counts
+                card.append(fetch.on("cpu", lo, hi))
+                card_counts = profiling.take().counts
+                assert host_counts == ({"reconstruct.batched_windows":
+                                        hi - lo} if streamed else {})
+                assert card_counts == ({"reconstruct.batched_windows":
+                                        hi - lo,
+                                        "reconstruct.card_windows": hi - lo}
+                                       if streamed else {})
+    finally:
+        profiling.enable_spans(was)
+    for (voxels, gts), (grids, card_gts) in zip(host, card):
+        assert isinstance(voxels, np.ndarray) and voxels.dtype == np.float32
+        assert np.array(voxels).shape == (len(voxels), 5, 32, 40)
+        assert isinstance(grids, torch.Tensor)
+        assert grids.dtype == torch.float32 and grids.device.type == "cpu"
+        np.testing.assert_array_equal(grids.numpy(), voxels)
+        np.testing.assert_array_equal(card_gts, gts)
+
+
+def test_the_streaming_card_fetch_makes_no_host_copy(recording,
+                                                     monkeypatch):
+    """Streaming, ``on`` never copies the grids to the host: it counts its
+    windows under both counters, one ``reconstruct.fetch`` span a call,
+    and gives the item grids."""
+    from event_utils_tpu_torch import _device
+    from event_utils_tpu_torch.data_loaders import base_dataset
+
+    def no_copy(a):
+        raise AssertionError("a copy to the host in the card fetch")
+
+    monkeypatch.setenv("EVENT_UTILS_TPU_WINCACHE_LIMIT_MB", "0")
+    was = profiling.enable_spans(True)
+    try:
+        with dataset(recording, "between_frames", True) as ds:
+            n = len(ds)
+            ref = item_grids(ds)
+            fetch = window_source(ds, recording)
+            profiling.take()
+            monkeypatch.setattr(_device, "to_numpy", no_copy)
+            monkeypatch.setattr(base_dataset, "to_numpy", no_copy)
+            got = [fetch.on(torch.device("cpu"), lo, min(lo + 4, n))[0]
+                   for lo in range(0, n, 4)]
+            taken = profiling.take()
+    finally:
+        profiling.enable_spans(was)
+    assert taken.counts == {"reconstruct.batched_windows": n,
+                            "reconstruct.card_windows": n}
+    assert [s.name for s in taken.spans] == ["reconstruct.fetch"] * len(got)
+    assert_rel(torch.cat(got).numpy(), ref)
 
 
 def test_outside_the_scope_an_item_builds_its_own_grid(recording,
