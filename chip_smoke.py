@@ -354,6 +354,8 @@ FIXED_N_VECTOR = 1 << 18     # 8 windows of the same stream: :vector
 CELL_K = 15_120              # e2vid.reconstruct's k_events window
 ERAFT_K = 307_200            # eraft-dsec.flow-pairs' window: one a pixel
 ERAFT_GRID = (15, 480, 640)  # its combined grids: 15 bins of DSEC's VGA
+RVT_T = 230_400              # rvt-gen4.detect-stream's median 50 ms window
+RVT_SENSOR = (720, 1280)     # Gen4 1 Mpx, halved into 10-bin histograms
 VOXEL_WALLS = 5              # warm walls of each turn of the fixed-n A/B
 F32_FLOPS = 67e12            # H100 SXM, f32 outside the tensor cores
 TILED_SENSORS = {"VGA": (480, 640), "720p": (720, 1280)}
@@ -2078,8 +2080,9 @@ def flat_case(torch, cs, label, idx, wts, buckets, errs, time=True):
 def flat_phase(torch, cs, rng, records, x, y, w):
     """The flat kernel's two routes against the plain version: the D=2
     derivative stack of the events (x, y, w) into 181x241, the same with
-    dropped ids and all-zero columns, D = 3, 4, 5, and the D=1 event image
-    of 2^21 events (direct route only); each timed."""
+    dropped ids and all-zero columns, D = 3, 4, 5, the D=1 event image
+    of 2^21 events and the RVT cell's chunk of 8 histograms (direct route
+    only); each timed."""
     dev = torch.device("cuda")
     H, W = SENSOR
     nb = (H + 1) * (W + 1)
@@ -2115,6 +2118,7 @@ def flat_phase(torch, cs, rng, records, x, y, w):
                           device=dev)
     ew = torch.as_tensor(ep, dtype=torch.float32, device=dev)[None]
     image = case("event image", eid, ew, H * W)
+    chunk = histogram_chunk_case(torch, cs, case)
 
     vec = dict(stack["vector"])
     vec["cases"] = [as_case(c["vector"]) for c in [stack] + rows]
@@ -2122,9 +2126,67 @@ def flat_phase(torch, cs, rng, records, x, y, w):
     records["flat_scatter:vector"] = vec
     # the direct route's own shape on the main path is the event image
     direct = dict(image["direct"])
-    direct["cases"] = [as_case(c["direct"]) for c in [image, stack] + rows]
+    direct["cases"] = [as_case(c["direct"])
+                       for c in [image, stack] + rows + [chunk]]
     direct["max_abs_err"] = max(errs["direct"])
     records["flat_scatter:direct"] = direct
+
+
+def histogram_chunk_case(torch, cs, case):
+    """The ``rvt-gen4.detect-stream`` cell's chunk: 8 windows of RVT_T
+    events of a 720x1280 stream (1% of them on one pixel, so that counts
+    pass the cutoff) into 8 stacked histograms of 20x360x640, built as the
+    detection CLI's fetch builds them (``stacked_histogram_rows``: one
+    ``flat_scatter`` of ones over the row-offset ids, then a clamp). The
+    flat launch at the ids it makes is ``case``'s (held against the plain
+    version and timed); then it must be exact, as counts are integers, and
+    the whole chunk, one ``flat_scatter:direct`` launch, must equal the
+    CPU's histograms count for count."""
+    from event_utils_tpu_torch.representations import histogram as hist
+
+    dev = torch.device("cuda")
+    S, n = 8, RVT_T
+    rng = np.random.default_rng(SEED + 27)
+    xs, ys, ts, ps = voxel_events(rng, RVT_SENSOR, S * n)
+    hot = rng.random(S * n) < 0.01
+    xs[hot], ys[hot] = RVT_SENSOR[1] // 2, RVT_SENSOR[0] // 2
+    rows = [torch.as_tensor(a.reshape(S, n)) for a in
+            (xs, ys, ts.astype(np.float32), ps.astype(np.float32))]
+    shape = dict(bins=10, sensor_size=RVT_SENSOR, downsample=2)
+    seen = []
+    flat = hist.scatter_add_flat
+
+    def capture(idx, w, buckets, **kw):
+        seen.append((idx, w, buckets))
+        return flat(idx, w, buckets, **kw)
+
+    card = [a.to(dev) for a in rows]
+    hist.scatter_add_flat = capture
+    try:
+        before = cs.launch_counts()
+        got = hist.stacked_histogram_rows(*card, **shape)
+        torch.cuda.synchronize()
+        after = cs.launch_counts()
+    finally:
+        hist.scatter_add_flat = flat
+    launched = {r: v - before.get(r, 0) for r, v in after.items()
+                if v != before.get(r, 0)}
+    if launched != {"flat_scatter:direct": 1}:
+        raise AssertionError(f"the RVT chunk's histograms took {launched}")
+    idx, w, buckets = seen[0]
+    out = case(f"the RVT cell's chunk, {S} windows of {n}",
+               idx.to(torch.int32).contiguous(), w[None].contiguous(),
+               buckets)
+    if out["direct"]["max_abs_err"] != 0.0:
+        raise AssertionError("flat_scatter:direct: the RVT chunk's counts "
+                             f"are off by {out['direct']['max_abs_err']}")
+    want = hist.stacked_histogram_rows(*rows, **shape)
+    if not torch.equal(got.cpu(), want) or float(want.max()) != 10.0:
+        raise AssertionError("the RVT chunk's histograms differ from the "
+                             "CPU's (or never reach the cutoff)")
+    log(f"  the RVT chunk's {tuple(got.shape)} histograms equal the CPU's; "
+        f"{int(want.eq(10).sum())} cells at the cutoff")
+    return out
 
 
 def kernel_phase(torch, cs, rng, records):

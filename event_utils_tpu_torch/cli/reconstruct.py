@@ -192,16 +192,19 @@ def _window_source(dataset, args, n, pad, gt_fn=None, gt_channels=1,
     ``EVENT_UTILS_TPU_WINCACHE_LIMIT_MB`` (default 2048, the JAX package's
     variable) stream O(chunk) windows per fetch instead. Both build the
     grids of a chunk of windows in one batched call
-    (:func:`_fetch_chunk`). The sizing decision is metadata-only
-    (``gt_channels`` = per-pixel gt channels: 1 frame / 2 flow)."""
+    (:func:`_fetch_chunk`). The sizing decision is metadata-only: a
+    window's padded grid of the dataset's representation
+    (``dataset.grid_shape()``: a voxel grid's channels at the sensor's
+    size, or a stacked histogram's at its downsampled size), plus the
+    ground truth at the sensor's size (``gt_channels`` = per-pixel gt
+    channels: 1 frame / 2 flow)."""
     import os
 
     import numpy as np
     import torch
 
     H, W = int(dataset.sensor_resolution[0]), int(dataset.sensor_resolution[1])
-    C = args.num_bins if args.combined_channels else 2 * args.num_bins
-    per_win = pad(torch.zeros((C, H, W))).numel() * 4
+    per_win = pad(torch.zeros(dataset.grid_shape())).numel() * 4
     if gt_fn is not None:
         per_win += gt_channels * H * W * 4
     limit = float(os.environ.get("EVENT_UTILS_TPU_WINCACHE_LIMIT_MB",
@@ -245,6 +248,11 @@ def _window_arrays(dataset, args, n, pad, gt_fn=None,
            "num_bins": args.num_bins,
            "combined": bool(args.combined_channels),
            "src_mtime_ns": st.st_mtime_ns, "src_size": st.st_size}
+    if dataset.representation != "voxel":
+        # another representation's windows under a key of its own (a
+        # voxel grid's key stays the JAX package's)
+        key.update(representation=dataset.representation,
+                   downsample=dataset.downsample)
     cache_path = args.path + cache_suffix
     need_gt = gt_fn is not None
     try:

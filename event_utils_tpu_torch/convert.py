@@ -18,6 +18,10 @@
   shift under ``['params'][...]['scale' | 'bias']``, running statistics
   under ``['batch_stats'][...]['mean' | 'var']``; the step counter
   ``num_batches_tracked`` is not stored, and a load keeps the model's own.
+  The RVT detector's linear layers are stored as flax's ``Dense``
+  (``kernel`` ``(in, out)``, the transpose of ``nn.Linear``'s weight),
+  its LayerNorms as norms (``scale``, ``bias``) and its LayerScales under
+  their own leaf, ``gamma``.
 
 Nothing of the JAX package is imported.
 """
@@ -74,7 +78,7 @@ _META_KEYS = ("__step__", "__model_json__")
 
 # (flax collection, flax leaf) -> the port's leaf
 _LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
-           ("params", "scale"): "weight",
+           ("params", "scale"): "weight", ("params", "gamma"): "gamma",
            ("batch_stats", "mean"): "running_mean",
            ("batch_stats", "var"): "running_var"}
 # a norm's step counter: not a weight, not stored
@@ -84,11 +88,12 @@ _UNSTORED = "num_batches_tracked"
 def flax_key_to_name(key: str) -> Tuple[str, bool]:
     """``"['params']['_Encoder_0']['Conv_1']['kernel']"`` ->
     ``("_Encoder_0.Conv_1.weight", True)``; the flag says the array is a
-    kernel (HWIO, to be transposed). The port's modules register their
-    submodules under flax's own auto-names (``models.networks``), so the
-    path carries over part for part; only the leaf is renamed (a norm's
-    ``scale`` to ``weight``, its ``batch_stats`` ``mean`` and ``var`` to
-    ``running_mean`` and ``running_var``)."""
+    kernel (HWIO or a dense ``(in, out)``, to be transposed). The port's
+    modules register their submodules under flax's own auto-names
+    (``models.networks``), so the path carries over part for part; only
+    the leaf is renamed (a norm's ``scale`` to ``weight``, its
+    ``batch_stats`` ``mean`` and ``var`` to ``running_mean`` and
+    ``running_var``)."""
     parts = _PATH_PART.findall(key)
     if (len(parts) < 3 or "".join(f"['{p}']" for p in parts) != key
             or (parts[0], parts[-1]) not in _LEAVES):
@@ -102,7 +107,8 @@ def convert_flax_params(flat: Mapping[str, np.ndarray]
                         ) -> Dict[str, torch.Tensor]:
     """Flat flax parameters (``jax.tree_util.keystr`` path -> array) as a
     state dict of the port's modules: kernels HWIO -> OIHW
-    (``permute(3, 2, 0, 1)``), biases unchanged, float32."""
+    (``permute(3, 2, 0, 1)``), dense kernels ``(in, out)`` -> ``(out,
+    in)``, biases unchanged, float32."""
     out = {}
     for key, arr in flat.items():
         name, is_kernel = flax_key_to_name(key)
@@ -110,11 +116,11 @@ def convert_flax_params(flat: Mapping[str, np.ndarray]
             raise DataFormatError(f"{key}: a second array for {name}")
         t = torch.tensor(np.asarray(arr, np.float32))
         if is_kernel:
-            if t.dim() != 4:
+            if t.dim() not in (2, 4):
                 raise DataFormatError(
-                    f"{key}: a conv kernel must be 4-D HWIO, got "
-                    f"{tuple(t.shape)}")
-            t = t.permute(3, 2, 0, 1)
+                    f"{key}: a kernel must be 4-D HWIO or a 2-D dense "
+                    f"(in, out), got {tuple(t.shape)}")
+            t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()
         out[name] = t.contiguous()
     return out
 
@@ -124,7 +130,8 @@ def state_to_flax_params(state: Mapping[str, torch.Tensor]
     """The inverse of ``convert_flax_params``: a state dict of the port's
     modules as flat flax parameters (``"_Encoder_0.Conv_1.weight"`` ->
     ``"['params']['_Encoder_0']['Conv_1']['kernel']"``), kernels OIHW ->
-    HWIO, float32 host arrays; a norm's 1-D weight is its ``scale``, its
+    HWIO, linear weights ``(out, in)`` -> dense kernels ``(in, out)``,
+    float32 host arrays; a norm's 1-D weight is its ``scale``, its
     running statistics go under ``['batch_stats']`` and its
     ``num_batches_tracked`` is left out."""
     out = {}
@@ -136,16 +143,19 @@ def state_to_flax_params(state: Mapping[str, torch.Tensor]
         if leaf == "weight" and arr.dim() == 4:
             arr, collection, flax_leaf = (arr.permute(2, 3, 1, 0), "params",
                                           "kernel")
+        elif leaf == "weight" and arr.dim() == 2:
+            arr, collection, flax_leaf = arr.t(), "params", "kernel"
         elif leaf == "weight" and arr.dim() == 1:
             collection, flax_leaf = "params", "scale"
-        elif leaf == "bias":
-            collection, flax_leaf = "params", "bias"
+        elif leaf in ("bias", "gamma"):
+            collection, flax_leaf = "params", leaf
         elif leaf in ("running_mean", "running_var"):
             collection, flax_leaf = "batch_stats", leaf[8:]
         else:
             raise DataFormatError(
-                f"not a conv or norm parameter: {name!r} of shape "
-                f"{tuple(arr.shape)} (a conv weight is 4-D OIHW)")
+                f"not a conv, linear or norm parameter: {name!r} of shape "
+                f"{tuple(arr.shape)} (a conv weight is 4-D OIHW, a linear "
+                f"one 2-D)")
         if not path:
             raise DataFormatError(f"not a module parameter name: {name!r}")
         key = "".join(f"['{p}']" for p in [collection] + path + [flax_leaf])

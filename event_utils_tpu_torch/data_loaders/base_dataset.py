@@ -33,6 +33,15 @@ that says which:
 The two agree within f32 summation order; the default impl does not
 govern the second (ROADMAP queue 7 names the fork).
 
+``representation="stacked_histogram"`` builds RVT's stacked histogram in
+place of the voxel grid (``representations.histogram``: ``2 num_bins``
+polarity-major channels of counts clipped at 10, coordinates divided by
+``downsample``), on the same two routes: one window's
+``stacked_histogram``, or a scope's windows in one
+``stacked_histogram_rows`` call (the flat kernel on the card). It is still
+the item's ``"voxel"``, the network's input; ``grid_shape`` gives its
+shape.
+
 ``collate_padded`` packs ragged per-window events into one fixed-capacity
 ``(B, capacity, 4)`` array + validity mask (capacity bucketed to powers of
 two), the static-shape analogue of the reference's ragged ``collate_fn``
@@ -50,6 +59,9 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, to_numpy
+from ..representations.histogram import (histogram_shape,
+                                         stacked_histogram,
+                                         stacked_histogram_rows)
 from ..representations.voxel_grid import (events_to_neg_pos_voxel,
                                           events_to_voxel,
                                           events_to_voxel_rows)
@@ -57,6 +69,7 @@ from .data_augmentation import Compose, build_transform
 from ..errors import ConfigurationError, DatasetInitError
 
 RETURN_FORMATS = ("numpy", "torch")
+REPRESENTATIONS = ("voxel", "stacked_histogram")
 
 # Each thread's open deferral scopes: dataset id -> its pending items.
 _deferrals = threading.local()
@@ -99,7 +112,10 @@ class BaseVoxelDataset:
 
     ``device`` is where the voxel grids are built: ``None`` means the card
     and raises ``DeviceUnavailableError`` without one; pass ``"cpu"`` for
-    the plain scatter on the host.
+    the plain scatter on the host. ``representation`` is ``"voxel"`` (the
+    temporally bilinear or sliced grid) or ``"stacked_histogram"`` (RVT's,
+    with ``downsample``; ``combined_voxel_channels`` and
+    ``temporal_bilinear`` are the voxel grid's).
     """
 
     def get_frame(self, index):
@@ -145,11 +161,23 @@ class BaseVoxelDataset:
                  return_frame: bool = True, return_prev_frame: bool = False,
                  return_flow: bool = True, return_prev_flow: bool = False,
                  return_format: str = "numpy",
-                 temporal_bilinear: bool = True, device=None):
+                 temporal_bilinear: bool = True, device=None,
+                 representation: str = "voxel", downsample: int = 1):
         if return_format not in RETURN_FORMATS:
             raise ConfigurationError(
                 f"return_format must be one of {RETURN_FORMATS}, got "
                 f"{return_format!r}")
+        if representation not in REPRESENTATIONS:
+            raise ConfigurationError(
+                f"representation must be one of {REPRESENTATIONS}, got "
+                f"{representation!r}")
+        if downsample < 1 or (downsample != 1
+                              and representation == "voxel"):
+            raise ConfigurationError(
+                f"downsample {downsample}: a stacked histogram's divisor of "
+                "the coordinates (>= 1); voxel grids take 1")
+        self.representation = representation
+        self.downsample = int(downsample)
         self.device = resolve_device(device)
         transforms = {} if transforms is None else dict(transforms)
         voxel_method = ({"method": "between_frames"} if voxel_method is None
@@ -339,10 +367,32 @@ class BaseVoxelDataset:
             return z, z, z, z
         return xs, ys, ts, ps
 
+    def grid_shape(self):
+        """``(C, H, W)`` of one window's grid, before any padding: the voxel
+        grid's ``num_bins`` (combined) or ``2 num_bins`` channels at the
+        sensor's size, or the stacked histogram's ``2 num_bins`` at the
+        sensor's size divided by ``downsample``, rounded up."""
+        if self.representation == "stacked_histogram":
+            return histogram_shape(self.num_bins, self.sensor_resolution,
+                                   self.downsample)
+        C = self.num_bins if self.combined_voxel_channels \
+            else 2 * self.num_bins
+        return (C,) + tuple(self.sensor_resolution)
+
+    def _histogram_kw(self):
+        return dict(bins=self.num_bins, sensor_size=self.sensor_resolution,
+                    downsample=self.downsample)
+
     def get_voxel_grid(self, xs, ys, ts, ps, combined_voxel_channels=True):
         """On-the-fly voxelization (reference base_dataset.py:433-455):
         ``num_bins x H x W`` combined or ``2*num_bins x H x W`` split, a
-        tensor on the dataset's device."""
+        tensor on the dataset's device; the stacked histogram instead
+        where the dataset's ``representation`` says so."""
+        if self.representation == "stacked_histogram":
+            dev = self.device
+            return stacked_histogram(
+                *(torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                  for a in (xs, ys, ts, ps)), **self._histogram_kw())
         kw = dict(sensor_size=self.sensor_resolution,
                   temporal_bilinear=self.temporal_bilinear,
                   device=self.device)
@@ -359,9 +409,13 @@ class BaseVoxelDataset:
         up as one ``pack_windows`` block in one copy. Temporally bilinear
         grids take the batched voxel kernel (``impl='matmul'``:
         ``voxel_scatter_batched`` on the card, its plain version on the
-        CPU), slice-binned ones the flat scatter."""
+        CPU), slice-binned ones and stacked histograms the flat
+        scatter."""
         xs, ys, ts, ps = torch.from_numpy(pack_windows(windows)).to(
             self.device)
+        if self.representation == "stacked_histogram":
+            return stacked_histogram_rows(xs, ys, ts, ps,
+                                          **self._histogram_kw())
         return events_to_voxel_rows(
             xs, ys, ts, ps, self.num_bins,
             sensor_size=self.sensor_resolution,

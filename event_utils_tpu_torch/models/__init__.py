@@ -1,6 +1,7 @@
 """Motion models (warps), contrast objectives, and the learned networks
-(EV-FlowNet, E2VID, rpg_e2vid's UNetRecurrent; E-RAFT in ``models.eraft``,
-imported where it is built)."""
+(EV-FlowNet, E2VID, rpg_e2vid's UNetRecurrent; E-RAFT in ``models.eraft``
+and the RVT detector in ``models.rvt``, each imported where it is
+built)."""
 
 from .warps import (  # noqa: F401
     WARP_REGISTRY,
@@ -28,6 +29,7 @@ from .objectives import (  # noqa: F401
     zhu_timestamp_objective,
 )
 from .networks import (  # noqa: F401
+    DETECTION_MODELS,
     E2VID,
     FLOW_MODELS,
     RECONSTRUCTION_MODELS,
@@ -37,6 +39,7 @@ from .networks import (  # noqa: F401
     PadConv,
     SameConv,
     UNetRecurrent,
+    build_detector,
     contrast_flow_loss,
     init_lecun_normal,
     perceptual_distance,

@@ -385,17 +385,19 @@ class _ConvLayer(nn.Module):
 
 
 class ConvLSTM(nn.Module):
-    """Convolutional LSTM cell (rpg_e2vid's ``ConvLSTM``, kernel 3).
+    """Convolutional LSTM cell (rpg_e2vid's ``ConvLSTM``, kernel 3; RVT's
+    stages take it at kernel 1).
 
     ``gates = Gates(cat(x, h))`` split into ``i, f, o, g`` in that order;
     ``c' = sigmoid(f) c + sigmoid(i) tanh(g)``, ``h' = sigmoid(o)
     tanh(c')``. ``forward(x, state) -> (h', c')``; ``state=None`` starts
     from zeros."""
 
-    def __init__(self, input_size: int, hidden_size: int):
+    def __init__(self, input_size: int, hidden_size: int, kernel: int = 3):
         super().__init__()
         self.hidden_size = hidden_size
-        self.Gates = PadConv(input_size + hidden_size, 4 * hidden_size, 3)
+        self.Gates = PadConv(input_size + hidden_size, 4 * hidden_size,
+                             kernel)
 
     def forward(self, x, state=None):
         if state is None:
@@ -561,6 +563,31 @@ def _build_eraft(**kwargs):
 #: (``training.loop.FlowTrainer``), each a callable that builds it;
 #: absent: ``EVFlowNet``
 FLOW_MODELS = {"EVFlowNet": EVFlowNet, "ERAFT": _build_eraft}
+
+
+def _build_rvt(**kwargs):
+    """``models.rvt.RVT(**kwargs)``, its module imported at the first
+    build."""
+    from .rvt import RVT
+    return RVT(**kwargs)
+
+
+#: the detection networks by ``model_kwargs["architecture"]``
+#: (``build_detector``, ``cli/detect.py``), each a callable that builds it
+DETECTION_MODELS = {"RVT": _build_rvt}
+
+
+def build_detector(model_kwargs: dict, in_channels: int):
+    """The detection network ``model_kwargs`` names (``"architecture"``,
+    a key of ``DETECTION_MODELS``, and the network's own arguments) over
+    ``in_channels`` input channels, in eval mode on the CPU."""
+    kwargs = dict(model_kwargs)
+    arch = kwargs.pop("architecture", None)
+    if arch not in DETECTION_MODELS:
+        raise ConfigurationError(
+            f"unknown detection architecture {arch!r}; one of "
+            f"{sorted(DETECTION_MODELS)}")
+    return DETECTION_MODELS[arch](in_channels=in_channels, **kwargs).eval()
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,11 @@
-"""Dense event representations: event images, timestamp images, voxel grids."""
+"""Dense event representations: event images, timestamp images, voxel grids,
+RVT's stacked histograms."""
 
+from .histogram import (  # noqa: F401
+    histogram_shape,
+    stacked_histogram,
+    stacked_histogram_rows,
+)
 from .image import (  # noqa: F401
     EventImage,
     TimestampImage,

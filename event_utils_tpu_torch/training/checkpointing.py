@@ -36,7 +36,7 @@ from ..errors import DataFormatError, DataNotFoundError
 
 __all__ = ["load_params_npz", "read_model_config", "read_model_json_npz",
            "restore_trainer_checkpoint", "save_params_npz",
-           "save_trainer_checkpoint"]
+           "save_trainer_checkpoint", "write_params_npz"]
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
@@ -46,10 +46,18 @@ def save_params_npz(trainer, path: str) -> None:
     EMA when enabled) as a flat ``.npz`` keyed by flax tree path, with
     ``__step__`` and ``__model_json__``; atomic (temp file, then
     ``os.replace``)."""
-    arrays = state_to_flax_params(trainer.inference_params)
-    arrays["__step__"] = np.asarray(int(trainer.step), np.int64)
+    write_params_npz(trainer.inference_params, path, trainer.model_kwargs,
+                     trainer.step)
+
+
+def write_params_npz(state, path: str, model_kwargs=None,
+                     step: int = 0) -> None:
+    """``save_params_npz`` of a state dict: a network with no trainer (the
+    detectors of ``cli/detect.py``) writes its weights this way."""
+    arrays = state_to_flax_params(state)
+    arrays["__step__"] = np.asarray(int(step), np.int64)
     arrays["__model_json__"] = np.frombuffer(
-        json.dumps(trainer.model_kwargs or {}).encode(), np.uint8)
+        json.dumps(model_kwargs or {}).encode(), np.uint8)
     tmp = path + ".tmp.npz"
     np.savez_compressed(tmp, **arrays)
     os.replace(tmp, path)

@@ -36,7 +36,12 @@ stack, padding, one copy back, or none where the grids go to the card),
 feature encoder on both grids and its context encoder),
 ``eraft.corr`` (the correlation volume and its pyramid), ``eraft.refine``
 (the refinements: lookups, update block, flow updates) and
-``eraft.upsample`` (the convex x8 upsampling, ``models.eraft.ERAFT``);
+``eraft.upsample`` (the convex x8 upsampling, ``models.eraft.ERAFT``),
+``rvt.attn`` (RVT's block- and grid-SA: each partition's norm, attention
+and residual, every stage), ``rvt.mlp`` (their MLPs), ``rvt.lstm`` (the
+stages' ConvLSTMs), ``rvt.neck`` (the PAFPN) and ``rvt.head`` (the YOLOX
+head, ``models.rvt.RVT``: its eager forward pass), ``rvt.replay`` (a window
+replayed from ``RVT.step``'s CUDA graph);
 counters ``cmax.h2d_bytes`` (bytes
 the solvers copy from host arrays to the device), ``cmax.graph_captures``
 and ``cmax.graph_replays`` (the GD refine's CUDA graphs captured and
@@ -45,8 +50,11 @@ replayed), ``e2vid.windows`` (windows through the reconstruction network),
 ``reconstruct.batched_windows`` (windows whose grids the chunk fetch built
 in one batched call), ``reconstruct.card_windows`` (those of them handed
 over on the card with no copy to the host: ``ChunkFetch.on``'s streaming
-branch), ``eraft.pairs`` (pairs of grids through E-RAFT) and
-``eraft.iterations`` (its refinements, ``iters`` a pair).
+branch), ``eraft.pairs`` (pairs of grids through E-RAFT),
+``eraft.iterations`` (its refinements, ``iters`` a pair), ``rvt.windows``
+(windows through RVT), ``rvt.resets`` (those that started from the
+zero state) and ``rvt.graph_captures`` (RVT steps captured as CUDA
+graphs).
 """
 
 from __future__ import annotations

@@ -574,6 +574,115 @@ def test_chunk_fetch_at_the_cells_shapes_is_one_batched_launch(cuda, gen,
 
 
 @pytest.mark.cuda
+def test_histogram_chunk_at_the_rvt_cells_shapes_is_one_flat_launch(
+        cuda, gen, tmp_path):
+    """The detection CLI's chunk fetch at the RVT cell's shapes (8 windows
+    of 50 ms, ~230,000 events each, on 720x1280 halved and padded to
+    384x640, 20 channels): one ``flat_scatter:direct`` launch, the
+    stack handed over on the card, equal to the CPU's histograms count
+    for count."""
+    from event_utils_tpu_torch.cli import detect
+    from event_utils_tpu_torch.cli import reconstruct as precon
+    from event_utils_tpu_torch.data_formats import memmap_packager
+    from event_utils_tpu_torch.data_loaders import MemMapDataset
+    H, W, S = 720, 1280, 8
+    n = S * 230_400
+    path = str(tmp_path / "rec")
+    with memmap_packager(path) as pk:
+        ps = gen.choice([-1, 1], n)
+        ts = np.sort(gen.uniform(0, 0.4001, n))
+        # one pixel hit often, so that counts reach the cutoff
+        hot = gen.random(n) < 0.01
+        pk.package_events(np.where(hot, 640, gen.integers(0, W, n)),
+                          np.where(hot, 360, gen.integers(0, H, n)), ts, ps)
+        pk.add_metadata(n, int((ps > 0).sum()), int((ps <= 0).sum()),
+                        ts[-1] - ts[0], ts[0], ts[-1], 0, 0,
+                        sensor_size=(H, W))
+
+    def chunk(device):
+        with MemMapDataset(path, voxel_method={"method": "t_seconds",
+                                               "t": 0.05,
+                                               "sliding_window_t": 0},
+                           num_bins=10, return_events=False, device=device,
+                           representation="stacked_histogram",
+                           downsample=2) as ds:
+            assert len(ds) == S
+            fetch = precon.ChunkFetch(ds, detect.padder(64))
+            fetch.on(cuda, 0, S)                                  # build
+            torch.cuda.synchronize()
+            before = cs.launch_counts()
+            got, _ = fetch.on(cuda, 0, S)
+            after = cs.launch_counts()
+        return got, {r: v - before.get(r, 0) for r, v in after.items()
+                     if v != before.get(r, 0)}
+
+    got, delta = chunk("cuda")
+    want, _ = chunk("cpu")
+    assert delta == {"flat_scatter:direct": 1}, delta
+    assert got.device.type == "cuda" and got.shape == (S, 20, 384, 640)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert float(got.max()) == 10.0
+
+
+@pytest.mark.cuda
+def test_rvt_step_replays_match_the_eager_windows_at_the_cells_shapes(
+        cuda):
+    """RVT-B at the detection cell's input (20 x 384 x 640, batch 1) over
+    6 windows from the zero state: the steps replayed from one captured
+    CUDA graph give the eager windows' raw predictions and every stage's
+    ``(h, c)`` within the cell's limits (1e-4 of their scale). Prints
+    each side's milliseconds a window, host clock, after a warm-up."""
+    import time
+
+    from event_utils_tpu_torch.models.networks import build_detector
+    from event_utils_tpu_torch.utils import profiling
+
+    class Eager:
+        @staticmethod
+        def engages(x):
+            return False
+
+    torch.manual_seed(0)
+    m = build_detector({"architecture": "RVT", "num_classes": 3},
+                       20).to(cuda)
+    x = torch.randint(0, 4, (6, 20, 384, 640), device=cuda).float()
+    was = profiling.enable_spans(True)
+    profiling.take()
+    try:
+        _, raw, state = m.detect(x)
+        counts = profiling.take().counts
+    finally:
+        profiling.enable_spans(was)
+    assert counts == {"rvt.windows": 6, "rvt.resets": 1,
+                      "rvt.graph_captures": 1}, counts
+    eager = build_detector({"architecture": "RVT", "num_classes": 3},
+                           20).to(cuda)
+    eager.load_state_dict(m.state_dict())
+    eager.step_graphs = Eager
+    _, raw_want, state_want = eager.detect(x)
+
+    def close(got, want):
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+
+    close(raw, raw_want)
+    for (h, c), (hw, cw) in zip(state, state_want):
+        close(h, hw)
+        close(c, cw)
+    times = {}
+    for name, net in (("replayed", m), ("eager", eager)):
+        net.detect(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            net.detect(x)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3 / (3 * len(x))
+    print(f"RVT step, ms a window: {times}")
+    assert len(m._steps) == 1
+
+
+@pytest.mark.cuda
 def test_pair_fetch_at_the_flow_cells_shapes_stays_on_the_card(
         cuda, gen, tmp_path, monkeypatch):
     """The flow CLI's ``PairFetch`` over its streaming chunk fetch at the

@@ -291,7 +291,8 @@ def test_converter_mains(rng, tmp_path, capsys):
 def test_console_scripts_name_the_ports_mains():
     """Every ``event-utils-tpu-torch-*`` console script of pyproject.toml
     resolves to a ``main`` of the port, one for each CLI and converter:
-    one beside each of the JAX package's."""
+    one beside each of the JAX package's, and the port's own detection
+    CLI (``detect``, RVT), which the JAX package does not have."""
     import importlib
     import tomllib
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -299,10 +300,11 @@ def test_console_scripts_name_the_ports_mains():
         scripts = tomllib.load(f)["project"]["scripts"]
     ours = {k: v for k, v in scripts.items()
             if k.startswith("event-utils-tpu-torch-")}
-    assert len(ours) == 18
+    assert len(ours) == 19
     jax_names = {k[len("event-utils-tpu-"):] for k in scripts
                  if not k.startswith("event-utils-tpu-torch-")}
-    assert {k[len("event-utils-tpu-torch-"):] for k in ours} == jax_names
+    assert {k[len("event-utils-tpu-torch-"):] for k in ours} == \
+        jax_names | {"detect"}
     for target in ours.values():
         mod, fn = target.split(":")
         assert mod.startswith("event_utils_tpu_torch.")
